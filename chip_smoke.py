@@ -10,14 +10,20 @@ is printed only when all of them pass):
      every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
      source, all at once) and its time;
   2. each kernel against its plain PyTorch version on the card, at the
-     serving path's shapes, in bf16 and f32, with NaN-poisoned dead
-     pool blocks / dead weight stripes;
+     serving paths' shapes, in bf16 and f32, with NaN-poisoned dead
+     pool blocks, dead weight stripes and gated tiles, bits exactly;
   3. one f32 full-width ``serving_decode_step`` of smollm-135m with the
-     kernels (CUDA) against the same step with the plain versions (CPU);
-  4. the full-width bf16 engine, ``Server.generate`` on a seeded mixed
-     trace, with every kernel's launch count read around the run; then
-     each kernel's time at the path's shapes beside its plain version,
-     a library yardstick and its bound.
+     kernels (CUDA) against the same step with the plain versions (CPU):
+     the gated-GLU MLP, and the relu MLP (``--sparce``) in
+     ``mode="fused"`` and ``mode="kernel"``;
+  4. the full-width bf16 gated-GLU engine, ``Server.generate`` on a
+     seeded mixed trace, with the launch counts of its kernels read
+     around the run;
+  5. the full-width bf16 relu engine (the launcher's ``--sparce``:
+     per-slot tiles, block_m 1, block_k 128) on the same trace, once in
+     ``mode="fused"`` and once in ``mode="kernel"``, each with its
+     kernels' launch counts; then every kernel's time at the decode
+     shapes beside its plain version, a library yardstick and its bound.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -47,11 +53,20 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 ARCH = "smollm-135m"
 ENGINE = dict(requests=16, prompt_lo=16, prompt_hi=256, max_new=32,
               slots=8, max_len=512, block_size=16, seed=0)
+# The launcher's --sparce tiling: per-slot rows, 128-wide f stripes.
+SPARCE_BLOCKS = dict(block_m=1, block_k=128)
 
 
 def arch_config():
     from repro_torch.configs import get_config
     return get_config(ARCH)
+
+
+def relu_config():
+    """The arch with the launcher's --sparce swap: a relu MLP (w_in,
+    w_out; no w_gate)."""
+    import dataclasses
+    return dataclasses.replace(arch_config(), mlp_act="relu")
 
 
 def log(msg: str) -> None:
@@ -246,8 +261,178 @@ def check_glu(torch, dev):
             raise AssertionError("padded wrapper: bits differ from the CPU")
         log(f"  ops.sparce_glu_mlp_fused {str(dtype)[6:]} (M=8 padded to "
             f"{bm}): bits equal to the CPU plain version's -> ok")
+        # Per-slot gate tiles (block_m 1), the launcher's --sparce tiling
+        # for a GLU arch: the zero rows are dead in every stripe.
+        x, wg, wi, wo = glu_case(torch, dev, dtype, seed=4, M=8)
+        y, bits = sgm.sparce_glu_mlp_fused(x, wg, wi, wo, block_m=1,
+                                           block_f=bf)
+        y0, bits0 = sgm.sparce_glu_mlp_fused_plain(x, wg, wi, wo, block_m=1,
+                                                   block_f=bf)
+        torch.cuda.synchronize()
+        name = f"sparce_glu_mlp_fused {str(dtype)[6:]} M=8 block_m=1"
+        if not (torch.equal(bits, bits0) and bool(bits[4:].all())):
+            raise AssertionError(f"{name}: bits differ or rows not dead")
+        check_close(f"{name} ({int(bits.sum())} dead tiles)", y, y0,
+                    atol=atol, rtol=rtol, why=why)
     log("  sparce_glu_mlp_fused: NaN-poisoned dead w_in/w_out stripes "
         "never read (every case above) -> ok")
+    return err_main
+
+
+# --------------------------------------------------- relu-family kernels
+# (M, block_m) of the checks: a decode tick of 8 slots and a 256-row
+# prefill bucket at the launcher's per-slot tiles, and 64-row tiles.
+RELU_CASES = ((8, 1), (256, 1), (256, 64))
+RELU_TOLS = {
+    "float32": (1e-4, 1e-4, "f32 sums over K (and F) in another order"),
+    "bfloat16": (2e-2, 2e-2, "bf16 output rounding after f32 sums in "
+                 "another order"),
+}
+
+
+def mlp_case(torch, dev, dtype, seed, *, M, bm, K=576, F=1536, N=576,
+             bf=128):
+    """Nonnegative x with one dead row tile; w_in's stripe 2 negative so
+    it is dead in every row tile; init-scale weights."""
+    rng = np.random.default_rng(seed)
+    x = np.abs(rng.standard_normal((M, K), dtype=np.float32))
+    x[M // 2: M // 2 + bm] = 0.0
+    wi = rng.standard_normal((K, F), dtype=np.float32) / np.sqrt(K)
+    wi[:, 2 * bf: 3 * bf] = -np.abs(wi[:, 2 * bf: 3 * bf])
+    wo = rng.standard_normal((F, N), dtype=np.float32) / np.sqrt(F)
+    t = lambda a: torch.from_numpy(a).to(dev, dtype)  # noqa: E731
+    return t(x), t(wi), t(wo)
+
+
+def check_relu_bitmap(torch, dev):
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import relu_bitmap as rb
+    for dtype in (torch.float32, torch.bfloat16):
+        for M, bm in RELU_CASES:
+            rng = np.random.default_rng(M + bm)
+            h = rng.standard_normal((M, 1536), dtype=np.float32)
+            h[: bm, :128] = -1.0  # no element > 0
+            h[M // 2: M // 2 + bm] = 0.0
+            ht = torch.from_numpy(h).to(dev, dtype)
+            y, bits = rb.relu_bitmap(ht, block_r=bm, block_c=128)
+            y0, bits0 = rb.relu_bitmap_plain(ht, block_r=bm, block_c=128)
+            torch.cuda.synchronize()
+            name = f"relu_bitmap {str(dtype)[6:]} M={M} block=({bm},128)"
+            if not (torch.equal(y, y0) and torch.equal(bits, bits0)):
+                raise AssertionError(f"{name}: y or bits differ")
+            if not (bool(bits[0, 0]) and bool(bits[M // 2 // bm].all())):
+                raise AssertionError(f"{name}: dead tiles not flagged")
+            log(f"  {name}: y and bits equal the plain version's "
+                f"({int(bits.sum())} dead tiles) -> ok")
+        # The padded wrapper: 8 rows over 64-row tiles.
+        ht = torch.from_numpy(np.random.default_rng(9).standard_normal(
+            (8, 1536), dtype=np.float32)).to(dev, dtype)
+        y, bmp = kops.relu_with_bitmap(ht, (64, 128))
+        y0, bmp0 = kops.relu_with_bitmap(ht.cpu(), (64, 128))
+        if not (torch.equal(y.cpu(), y0) and torch.equal(bmp.bits.cpu(),
+                                                         bmp0.bits)):
+            raise AssertionError("ops.relu_with_bitmap differs from the CPU")
+    return 0.0  # relu is exact: y equals the plain version bit for bit
+
+
+def check_gemm(torch, dev):
+    from repro_torch.kernels import sparce_gemm as sg
+    K, N, bk, bn = 1536, 576, 128, 128
+    err_main = None
+    for dtype in (torch.float32, torch.bfloat16):
+        atol, rtol, why = RELU_TOLS[str(dtype)[6:]]
+        # (8, 64): M ragged over the row tile, masked in the kernel.
+        for M, bm in RELU_CASES + ((8, 64),):
+            for gate in ("lhs", "rhs"):
+                rng = np.random.default_rng(M + bm + (gate == "rhs"))
+                x = rng.standard_normal((M, K), dtype=np.float32)
+                w = rng.standard_normal((K, N), dtype=np.float32) / np.sqrt(K)
+                grid = sg.bit_grid(M, K, N, block_m=bm, block_k=bk,
+                                   block_n=bn, gate=gate)
+                bits = (rng.random(grid) < 0.3).astype(np.int32)
+                bits[:, 3] = 1  # gated in every row tile / column tile
+                xt = torch.from_numpy(x).to(dev, dtype)
+                wt = torch.from_numpy(w).to(dev, dtype)
+                bt = torch.from_numpy(bits).to(dev)
+                kw = dict(block_m=bm, block_k=bk, block_n=bn, gate=gate)
+                y = sg.sparce_gemm_gated(xt, wt, bt, **kw)
+                y0 = sg.sparce_gemm_gated_plain(xt, wt, bt, **kw)
+                torch.cuda.synchronize()
+                name = (f"sparce_gemm_gated {str(dtype)[6:]} gate={gate} "
+                        f"M={M} block_m={bm} (N={N} ragged over {bn})")
+                err = check_close(name, y, y0, atol=atol, rtol=rtol, why=why)
+                if (dtype == torch.bfloat16 and (M, bm) == (8, 1)
+                        and gate == "lhs"):
+                    err_main = err
+                # NaN poison: gated operand tiles, and (lhs) w's k-stripe
+                # gated in every row tile.
+                x2, w2 = xt.clone(), wt.clone()
+                for i, j in zip(*np.nonzero(bits)):
+                    if gate == "lhs":
+                        x2[i * bm:(i + 1) * bm, j * bk:(j + 1) * bk] = np.nan
+                    else:
+                        w2[i * bk:(i + 1) * bk, j * bn:(j + 1) * bn] = np.nan
+                if gate == "lhs":
+                    w2[3 * bk: 4 * bk] = float("nan")
+                y2 = sg.sparce_gemm_gated(x2, w2, bt, **kw)
+                torch.cuda.synchronize()
+                if not (torch.isfinite(y2).all() and torch.equal(y2, y)):
+                    raise AssertionError(
+                        f"{name}: NaN-poisoned gated tiles reached y")
+    log("  sparce_gemm_gated: NaN-poisoned gated tiles never read (every "
+        "case above) -> ok")
+    return err_main
+
+
+def check_mlp(torch, dev):
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import sparce_mlp as sm
+    bf = 128
+    err_main = None
+    for dtype in (torch.float32, torch.bfloat16):
+        atol, rtol, why = RELU_TOLS[str(dtype)[6:]]
+        for M, bm in RELU_CASES:
+            for act in ("relu", "relu2"):
+                x, wi, wo = mlp_case(torch, dev, dtype, seed=M + bm, M=M,
+                                     bm=bm)
+                kw = dict(block_m=bm, block_f=bf, act=act)
+                y, bits = sm.sparce_mlp_fused(x, wi, wo, **kw)
+                y0, bits0 = sm.sparce_mlp_fused_plain(x, wi, wo, **kw)
+                torch.cuda.synchronize()
+                name = (f"sparce_mlp_fused {str(dtype)[6:]} {act} M={M} "
+                        f"block_m={bm}")
+                if not torch.equal(bits, bits0):
+                    raise AssertionError(f"{name}: bits differ")
+                if not (bool(bits[:, 2].all())
+                        and bool(bits[M // 2 // bm].all())):
+                    raise AssertionError(f"{name}: dead tiles not flagged")
+                err = check_close(f"{name} ({int(bits.sum())} dead tiles)",
+                                  y, y0, atol=atol, rtol=rtol, why=why)
+                if dtype == torch.bfloat16 and M == 8 and act == "relu":
+                    err_main = err
+                # NaN poison the w_out rows of the stripes dead in every
+                # row tile.
+                dead_f = bits.bool().all(dim=0).nonzero().flatten().tolist()
+                wo2 = wo.clone()
+                for f in dead_f:
+                    wo2[f * bf:(f + 1) * bf] = float("nan")
+                y2, bits2 = sm.sparce_mlp_fused(x, wi, wo2, **kw)
+                torch.cuda.synchronize()
+                if not (torch.isfinite(y2).all() and torch.equal(y2, y)
+                        and torch.equal(bits2, bits)):
+                    raise AssertionError(
+                        f"{name}: NaN-poisoned dead stripes reached y")
+        # The padded wrapper the model calls: 8 rows over 64-row tiles.
+        x, wi, wo = mlp_case(torch, dev, dtype, seed=5, M=8, bm=1)
+        y, bmp = kops.sparce_mlp_fused(x, wi, wo, block_m=64, block_f=bf)
+        y0, bmp0 = kops.sparce_mlp_fused(x.cpu(), wi.cpu(), wo.cpu(),
+                                         block_m=64, block_f=bf)
+        if not torch.equal(bmp.bits.cpu(), bmp0.bits):
+            raise AssertionError("padded wrapper: bits differ from the CPU")
+        log(f"  ops.sparce_mlp_fused {str(dtype)[6:]} (M=8 padded to 64): "
+            "bits equal to the CPU plain version's -> ok")
+    log("  sparce_mlp_fused: NaN-poisoned dead w_out stripes never read "
+        "(every case above) -> ok")
     return err_main
 
 
@@ -289,14 +474,12 @@ def to_device(tree, dev):
     return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
 
 
-def check_decode_step(torch, dev):
+def check_decode_step(torch, dev, base_cfg, sparsity, label):
+    """One f32 full-width decode step of ``base_cfg`` under ``sparsity``:
+    kernels on the card against plain versions on the CPU."""
     import dataclasses
-    from repro_torch.core.sparse_ops import SparsityConfig
     from repro_torch.models import model as model_lib
-    cfg = dataclasses.replace(
-        arch_config(), dtype="float32",
-        sparsity=SparsityConfig(enabled=True, mode="fused",
-                                gate_threshold=0.0, autotune=False))
+    cfg = dataclasses.replace(base_cfg, dtype="float32", sparsity=sparsity)
     params = model_lib.init_params(cfg, seed=0, device=dev)
     caches, tables, active, toks = decode_state(torch, cfg, dev, seed=4)
     cpu = torch.device("cpu")
@@ -314,71 +497,88 @@ def check_decode_step(torch, dev):
     (lg, sk), (lc, skc) = outs
     live = torch.from_numpy(active).bool()
     atol = rtol = 1e-3
-    check_close("f32 serving_decode_step logits (live slots), kernels on "
-                "the GPU vs plain versions on the CPU", lg[live], lc[live],
-                atol=atol, rtol=rtol,
+    check_close(f"{label}: f32 serving_decode_step logits (live slots), "
+                "kernels on the GPU vs plain versions on the CPU", lg[live],
+                lc[live], atol=atol, rtol=rtol,
                 why="30 layers of f32 sums in another order")
     if not torch.equal(sk, skc):
-        raise AssertionError(f"skip stats differ: {sk} vs {skc}")
+        raise AssertionError(f"{label}: skip stats differ: {sk} vs {skc}")
     top2 = lc[live].topk(2, dim=-1).values
     clear = (top2[:, 0] - top2[:, 1]) > 2 * atol
     same = lg[live].argmax(-1) == lc[live].argmax(-1)
     if not bool(same[clear].all()):
         raise AssertionError("argmax differs where the top-2 gap is clear")
-    log(f"  argmax equal on {int(clear.sum())}/{int(live.sum())} live slots "
-        f"with a clear top-2 gap; skip stats {sk.tolist()} equal -> ok")
+    log(f"  {label}: argmax equal on {int(clear.sum())}/{int(live.sum())} "
+        f"live slots with a clear top-2 gap; skip stats {sk.tolist()} "
+        "equal -> ok")
 
 
 # ------------------------------------------------------------ the engine
-def engine_requests(cfg, n, seed):
+def engine_requests(cfg, n, seed, *, mixed=False):
+    """The seeded trace: prompts of ENGINE's lengths, ENGINE["max_new"]
+    tokens each; with ``mixed`` each budget is drawn from
+    [max_new // 4, max_new] (the launcher's --mixed rule), so slots free
+    at different ticks and the tail runs with dead slots."""
     from repro_torch.runtime.server import Request
     rng = np.random.default_rng(seed)
+    budgets = [ENGINE["max_new"]] * n
+    if mixed:
+        budgets = np.random.default_rng(seed + 1).integers(
+            ENGINE["max_new"] // 4, ENGINE["max_new"] + 1, n).tolist()
     return [Request(uid=i, prompt=rng.integers(
         0, cfg.vocab_size, int(rng.integers(ENGINE["prompt_lo"],
                                             ENGINE["prompt_hi"] + 1))),
-        max_new=ENGINE["max_new"]) for i in range(n)]
+        max_new=int(budgets[i])) for i in range(n)]
 
 
-def run_engine(torch, dev):
-    from repro_torch.core.sparse_ops import SparsityConfig
+def counters():
+    """{kernel name: its wrapper}; each wrapper counts its launches."""
     from repro_torch.kernels import paged_decode_attn as pda
+    from repro_torch.kernels import relu_bitmap as rb
+    from repro_torch.kernels import sparce_gemm as sg
     from repro_torch.kernels import sparce_glu_mlp as sgm
-    from repro_torch.models import model as model_lib
+    from repro_torch.kernels import sparce_mlp as sm
+    return {"paged_gqa_decode_attn": pda.paged_gqa_decode_attn,
+            "sparce_glu_mlp_fused": sgm.sparce_glu_mlp_fused,
+            "sparce_mlp_fused": sm.sparce_mlp_fused,
+            "relu_bitmap": rb.relu_bitmap,
+            "sparce_gemm_gated": sg.sparce_gemm_gated}
+
+
+def run_engine(torch, dev, cfg, params, sparsity, label, expect, *,
+               mixed=False):
+    """Serve the seeded trace once on the full-width bf16 engine; every
+    kernel in ``expect`` must have launched during the run. Returns
+    (metrics, {kernel: launches in the run})."""
     from repro_torch.runtime.server import ServeConfig, Server
-    cfg = arch_config()
-    t0 = time.perf_counter()
-    params = model_lib.init_params(cfg, seed=ENGINE["seed"], device=dev)
-    torch.cuda.synchronize()
-    log(f"  full-width bf16 params ({sum(p.numel() for p in _leaves(params))}"
-        f" values) in {time.perf_counter() - t0:.2f}s")
     sc = ServeConfig(
         batch_slots=ENGINE["slots"], max_len=ENGINE["max_len"],
         kv_block_size=ENGINE["block_size"], attn_kernel="paged",
-        sparsity=SparsityConfig(enabled=True, mode="fused",
-                                gate_threshold=0.0, autotune=False))
+        sparsity=sparsity)
     # Warm-up run (library loads, allocator, cuBLAS handles).
     Server(cfg, params, sc, device=dev).generate(
         engine_requests(cfg, 2, seed=99))
     srv = Server(cfg, params, sc, device=dev)
-    reqs = engine_requests(cfg, ENGINE["requests"], seed=ENGINE["seed"])
-    pda.paged_gqa_decode_attn.launches = 0
-    sgm.sparce_glu_mlp_fused.launches = 0
+    reqs = engine_requests(cfg, ENGINE["requests"], seed=ENGINE["seed"],
+                           mixed=mixed)
+    wrappers = counters()
+    for fn in wrappers.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     done = srv.generate(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"paged_gqa_decode_attn": pda.paged_gqa_decode_attn.launches,
-                "sparce_glu_mlp_fused": sgm.sparce_glu_mlp_fused.launches}
+    launches = {name: fn.launches for name, fn in wrappers.items()}
     m = srv.metrics
     if len(done) != len(reqs):
         raise AssertionError(f"{len(done)}/{len(reqs)} requests completed")
     for r in done:
-        if len(r.out) != r.max_new:
+        if len(r.out) != r.max_new:  # no EOS: every budget runs out
             raise AssertionError(f"uid={r.uid}: {len(r.out)} tokens")
         if not np.all((r.out >= 0) & (r.out < cfg.vocab_size)):
             raise AssertionError(f"uid={r.uid}: token out of range")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in expect:
+        if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
     if not m.attn_block_skip_fraction > 0:
         raise AssertionError("no attention block was skipped")
@@ -387,21 +587,80 @@ def run_engine(torch, dev):
     if srv._st.alloc.in_use or srv._st.alloc.reserved:
         raise AssertionError("KV pool did not drain")
     decode_tps = m.decode_tokens / m.decode_s
-    log(f"  served {len(done)} requests: {int(m.decode_tokens)} decode "
-        f"tokens in {int(m.ticks)} ticks; wall {wall:.3f}s; prefill "
+    log(f"  {label}: served {len(done)} requests: {int(m.decode_tokens)} "
+        f"decode tokens in {int(m.ticks)} ticks; wall {wall:.3f}s; prefill "
         f"{int(m.prefill_tokens)} tokens in {m.prefill_s:.3f}s")
-    log(f"  decode {decode_tps:.1f} tokens/s, "
+    log(f"  {label}: decode {decode_tps:.1f} tokens/s, "
         f"{1e3 * m.decode_s / m.ticks:.3f} ms per decode tick")
-    log(f"  mlp_skip_fraction={m.mlp_skip_fraction:.4f} "
-        f"({m.skipped_tile_dots:.0f}/{m.total_tile_dots:.0f}); "
-        f"attn_block_skip_fraction={m.attn_block_skip_fraction:.4f} "
+    log(f"  {label}: mlp_skip_fraction={m.mlp_skip_fraction:.4f} "
+        f"({m.skipped_tile_dots:.0f}/{m.total_tile_dots:.0f}; prefill "
+        f"{m.prefill_skipped_tile_dots:.0f}/{m.prefill_total_tile_dots:.0f})"
+        f"; attn_block_skip_fraction={m.attn_block_skip_fraction:.4f} "
         f"({int(m.attn_blocks_fetched)}/{int(m.attn_blocks_total)} blocks)")
-    log(f"  launches on the main path: {launches}")
-    profile_engine(torch, cfg, params, sc, dev)
-    return params, launches
+    log(f"  {label}: launches on the main path: "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    profile_engine(torch, cfg, params, sc, dev, label)
+    return m, launches
 
 
-def profile_engine(torch, cfg, params, sc, dev):
+def full_width_params(torch, cfg, dev):
+    from repro_torch.models import model as model_lib
+    t0 = time.perf_counter()
+    params = model_lib.init_params(cfg, seed=ENGINE["seed"], device=dev)
+    torch.cuda.synchronize()
+    log(f"  full-width bf16 {cfg.mlp_act} params "
+        f"({sum(p.numel() for p in _leaves(params))} values) in "
+        f"{time.perf_counter() - t0:.2f}s")
+    return params
+
+
+def run_glu_engine(torch, dev):
+    from repro_torch.core.sparse_ops import SparsityConfig
+    cfg = arch_config()
+    params = full_width_params(torch, cfg, dev)
+    _, launches = run_engine(
+        torch, dev, cfg, params,
+        SparsityConfig(enabled=True, mode="fused", gate_threshold=0.0,
+                       autotune=False),
+        "glu fused", ("paged_gqa_decode_attn", "sparce_glu_mlp_fused"))
+    return launches
+
+
+SKIP_COUNTERS = ("skipped_tile_dots", "total_tile_dots",
+                 "prefill_skipped_tile_dots", "prefill_total_tile_dots",
+                 "ticks", "decode_tokens", "prefill_tokens")
+
+
+def run_relu_engines(torch, dev):
+    """The launcher's --sparce engine in both kernel modes on the mixed
+    budgets (with the fixed ones every slot is live on every tick, so no
+    MLP tile is ever dead); returns {mode: launches}. The integer skip
+    counters must be equal: there is no EOS, so the slot schedule does
+    not depend on the tokens."""
+    from repro_torch.core.sparse_ops import SparsityConfig
+    cfg = relu_config()
+    params = full_width_params(torch, cfg, dev)
+    expect = {"fused": ("paged_gqa_decode_attn", "sparce_mlp_fused"),
+              "kernel": ("paged_gqa_decode_attn", "relu_bitmap",
+                         "sparce_gemm_gated")}
+    metrics, launches = {}, {}
+    for mode in ("fused", "kernel"):
+        sp = SparsityConfig(enabled=True, mode=mode, autotune=False,
+                            **SPARCE_BLOCKS)
+        metrics[mode], launches[mode] = run_engine(
+            torch, dev, cfg, params, sp, f"relu {mode}", expect[mode],
+            mixed=True)
+        if not metrics[mode].mlp_skip_fraction > 0:
+            raise AssertionError(f"relu {mode}: no MLP tile skipped")
+    for name in SKIP_COUNTERS:
+        a, b = (getattr(metrics[m], name) for m in ("fused", "kernel"))
+        if a != b:
+            raise AssertionError(f"{name}: fused {a} != kernel {b}")
+    log(f"  relu fused vs kernel: {', '.join(SKIP_COUNTERS)} equal -> ok")
+    return launches
+
+
+def profile_engine(torch, cfg, params, sc, dev, label):
     """Device time by kernel over a short engine run under the profiler
     (its own overhead lengthens the wall time, so the busy share printed
     is a lower bound)."""
@@ -431,7 +690,7 @@ def profile_engine(torch, cfg, params, sc, dev):
     if not events:
         log("  profiler: no device time recorded")
         return
-    log(f"  profiler ({int(srv.metrics.ticks)} ticks, "
+    log(f"  {label} profiler ({int(srv.metrics.ticks)} ticks, "
         f"{int(srv.metrics.admitted)} prefills): device busy "
         f"{total_us / 1e3:.3f} ms of {wall * 1e3:.3f} ms wall "
         f"({total_us / 1e4 / wall:.1f}%)")
@@ -535,9 +794,109 @@ def time_glu(torch, dev, err):
                 bound_by=by, library_ms=lib_ms)
 
 
+def relu_decode_operands(torch, dev):
+    """The relu MLP's decode-tick operands at full width in bf16: one row
+    per slot, of which two are dead (zero rows, as the engine feeds
+    them), init-scale weights; h = x @ w_in and a = relu(h) as the
+    kernel mode computes them."""
+    cfg = relu_config()
+    rng = np.random.default_rng(10)
+    M, K, F_, N = ENGINE["slots"], cfg.d_model, cfg.d_ff, cfg.d_model
+    x = rng.standard_normal((M, K), dtype=np.float32)
+    x[[0, M - 2]] = 0.0
+    wi = rng.standard_normal((K, F_), dtype=np.float32) / np.sqrt(K)
+    wo = rng.standard_normal((F_, N), dtype=np.float32) / np.sqrt(F_)
+    x, wi, wo = (torch.from_numpy(a).to(dev, torch.bfloat16)
+                 for a in (x, wi, wo))
+    h = x @ wi
+    return x, wi, wo, h, torch.relu(h)
+
+
+def kernel_row(name, cu, replaces, err, ms, plain_ms, lib_ms, nbytes, ops,
+               what):
+    bound_ms, by = bound(nbytes, ops, "bfloat16")
+    log(f"  {name} bf16 {what}: {ms:.4f} ms; plain {plain_ms:.4f} ms; "
+        f"library {lib_ms:.4f} ms; bound {bound_ms:.5f} ms ({by}; "
+        f"{nbytes} bytes, {ops} operations)")
+    return dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{cu}",
+                replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
+
+
+def time_mlp(torch, dev, err):
+    from repro_torch.kernels import sparce_mlp as sm
+    x, wi, wo, _, _ = relu_decode_operands(torch, dev)
+    bf = SPARCE_BLOCKS["block_k"]
+    kw = dict(block_m=1, block_f=bf)
+    ms = cuda_time_ms(lambda: sm.sparce_mlp_fused(x, wi, wo, **kw), 200)
+    plain_ms = cuda_time_ms(
+        lambda: sm.sparce_mlp_fused_plain(x, wi, wo, **kw), 20)
+    lib_ms = cuda_time_ms(lambda: torch.relu(x @ wi) @ wo, 200)
+    _, bits = sm.sparce_mlp_fused(x, wi, wo, **kw)
+    live = int((bits == 0).sum())
+    live_stripes = int((bits == 0).any(dim=0).sum())
+    M, K = x.shape
+    F_, N = wo.shape
+    nbytes = 2 * (x.numel() + wi.numel() + live_stripes * bf * N + M * N) \
+        + 4 * bits.numel()
+    ops = 2 * M * K * F_ + live * 2 * bf * N
+    return kernel_row(
+        "sparce_mlp_fused", "sparce_mlp.cu",
+        "src/repro/kernels/sparce_mlp.py:111", err, ms, plain_ms, lib_ms,
+        nbytes, ops, f"x={tuple(x.shape)} K={K} F={F_} N={N} block (1,{bf}),"
+        f" {live} live tiles (relu(x@w_in)@w_out as the library call)")
+
+
+def time_relu_bitmap(torch, dev, err):
+    from repro_torch.kernels import relu_bitmap as rb
+    _, _, _, h, _ = relu_decode_operands(torch, dev)
+    bc = SPARCE_BLOCKS["block_k"]
+    M, F_ = h.shape
+    ms = cuda_time_ms(lambda: rb.relu_bitmap(h, block_r=1, block_c=bc), 200)
+    plain_ms = cuda_time_ms(
+        lambda: rb.relu_bitmap_plain(h, block_r=1, block_c=bc), 200)
+
+    def library():
+        y = torch.relu(h)
+        return y, ~(y > 0).view(M, 1, F_ // bc, bc).any(3).any(1)
+
+    lib_ms = cuda_time_ms(library, 200)
+    nbytes = 2 * 2 * h.numel() + 4 * M * (F_ // bc)
+    return kernel_row(
+        "relu_bitmap", "relu_bitmap.cu", "src/repro/kernels/relu_bitmap.py:41",
+        err, ms, plain_ms, lib_ms, nbytes, h.numel(),
+        f"h={tuple(h.shape)} tile (1,{bc}) (torch.relu + tile-any as the "
+        "library call)")
+
+
+def time_gemm(torch, dev, err):
+    from repro_torch.kernels import relu_bitmap as rb
+    from repro_torch.kernels import sparce_gemm as sg
+    _, _, wo, h, _ = relu_decode_operands(torch, dev)
+    bk, bn = SPARCE_BLOCKS["block_k"], 128
+    a, bits = rb.relu_bitmap(h, block_r=1, block_c=bk)
+    kw = dict(block_m=1, block_k=bk, block_n=bn)
+    ms = cuda_time_ms(lambda: sg.sparce_gemm_gated(a, wo, bits, **kw), 200)
+    plain_ms = cuda_time_ms(
+        lambda: sg.sparce_gemm_gated_plain(a, wo, bits, **kw), 20)
+    lib_ms = cuda_time_ms(lambda: a @ wo, 200)
+    M, K = a.shape
+    N = wo.shape[1]
+    live = int((bits == 0).sum())
+    live_stripes = int((bits == 0).any(dim=0).sum())
+    nbytes = 2 * (live * bk + live_stripes * bk * N + M * N) \
+        + 4 * bits.numel()
+    ops = live * 2 * bk * N
+    return kernel_row(
+        "sparce_gemm_gated", "sparce_gemm.cu",
+        "src/repro/kernels/sparce_gemm.py:123", err, ms, plain_ms, lib_ms,
+        nbytes, ops, f"a={tuple(a.shape)} @ w_out {tuple(wo.shape)}, lhs "
+        f"tiles (1,{bk}), {live} live tiles (a@w_out as the library call)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4",
+    ap.add_argument("--phases", default="1,2,3,4,5",
                     help="comma-separated subset of phases to run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -568,19 +927,41 @@ def main(argv=None) -> int:
         errs = {}
         if 2 in phases:
             log("phase 2: kernels vs plain versions on the card")
-            errs["attn"] = check_attention(torch, dev)
-            errs["glu"] = check_glu(torch, dev)
+            errs["paged_gqa_decode_attn"] = check_attention(torch, dev)
+            errs["sparce_glu_mlp_fused"] = check_glu(torch, dev)
+            errs["relu_bitmap"] = check_relu_bitmap(torch, dev)
+            errs["sparce_gemm_gated"] = check_gemm(torch, dev)
+            errs["sparce_mlp_fused"] = check_mlp(torch, dev)
         if 3 in phases:
+            from repro_torch.core.sparse_ops import SparsityConfig
             log("phase 3: f32 full-width decode step, kernels vs plain")
-            check_decode_step(torch, dev)
+            check_decode_step(torch, dev, arch_config(), SparsityConfig(
+                enabled=True, mode="fused", gate_threshold=0.0,
+                autotune=False), "glu fused")
+            for mode in ("fused", "kernel"):
+                check_decode_step(torch, dev, relu_config(), SparsityConfig(
+                    enabled=True, mode=mode, autotune=False,
+                    **SPARCE_BLOCKS), f"relu {mode}")
         rows = []
         if 4 in phases:
-            log("phase 4: full-width bf16 engine")
-            _, launches = run_engine(torch, dev)
-            rows = [time_attention(torch, dev, errs.get("attn")),
-                    time_glu(torch, dev, errs.get("glu"))]
+            log("phase 4: full-width bf16 gated-GLU engine")
+            launches = run_glu_engine(torch, dev)
+            rows += [time_attention(torch, dev,
+                                    errs.get("paged_gqa_decode_attn")),
+                     time_glu(torch, dev, errs.get("sparce_glu_mlp_fused"))]
             for row in rows:
                 row["launches"] = launches[row["name"]]
+        if 5 in phases:
+            log("phase 5: full-width bf16 relu engine (--sparce), fused and "
+                "kernel modes")
+            launches = run_relu_engines(torch, dev)
+            timers = (("sparce_mlp_fused", time_mlp, "fused"),
+                      ("relu_bitmap", time_relu_bitmap, "kernel"),
+                      ("sparce_gemm_gated", time_gemm, "kernel"))
+            for name, timer, mode in timers:
+                row = timer(torch, dev, errs.get(name))
+                row["launches"] = launches[mode][name]
+                rows.append(row)
         torch.cuda.synchronize()
     except Exception:  # noqa: BLE001 - report and fail the run
         traceback.print_exc()

@@ -39,6 +39,14 @@ class SkipPlan:
     expected_block_sparsity: float = 0.0
     table_entries: int = 0  # grid positions carrying a skip condition
 
+    @property
+    def block_lhs(self) -> Tuple[int, int]:
+        return (self.block_m, self.block_k)
+
+    @property
+    def block_rhs(self) -> Tuple[int, int]:
+        return (self.block_k, self.block_n)
+
 
 def _round_block(dim: int, target: int, quantum: int) -> int:
     """Largest multiple of ``quantum`` <= target that is sensible for dim."""

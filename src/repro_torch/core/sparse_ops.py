@@ -1,18 +1,23 @@
 """High-level SparCE ops used by the model layers (forward only).
 
 Port of the forward paths of the reference ``repro/core/sparse_ops.py``
-that the serving slice runs:
+that serving runs:
 
   * :class:`SparsityConfig` -- the technique's config, field for field,
     including the snap of ``expected_sparsity`` to the 1/8 EMA grid;
-  * :func:`sparce_glu_mlp` -- the gated-GLU MLP under the planner's
-    plan: ``fused`` runs the gated-GLU kernel, ``dense`` plain matmuls;
-  * :func:`glu_act_with_bitmap`, :func:`gemm_skip_stats` and
-    :func:`sparce_matmul` in ``mode="reference"`` (masked dense).
+  * :func:`sparce_matmul` -- a matmul dropping gated tiles:
+    ``mode="kernel"`` runs the gated GEMM kernel, ``"reference"`` the
+    masked dense oracle, ``"off"`` the plain product;
+  * :func:`sparce_mlp` -- the relu-family MLP under the planner's plan:
+    ``fused`` runs the fused MLP kernel, ``two_kernel`` the relu-bitmap
+    kernel and the gated GEMM kernel, ``dense`` plain matmuls;
+  * :func:`sparce_glu_mlp` -- the gated-GLU MLP: ``fused`` runs the
+    gated-GLU kernel, ``unfused`` dense gate and up GEMMs then the gated
+    GEMM kernel, ``dense`` plain matmuls;
+  * :func:`relu_with_bitmap`, :func:`relu2_with_bitmap`,
+    :func:`glu_act_with_bitmap` and :func:`gemm_skip_stats`.
 
-Not yet ported: the ``sparce_gemm`` kernels (``mode="kernel"``, the
-``unfused`` GLU variant), the relu-family fused MLP and every backward.
-Those paths raise ``NotImplementedError`` naming what is missing.
+The backwards (the reference's ``custom_vjp`` rules) are not ported.
 """
 from __future__ import annotations
 
@@ -75,6 +80,27 @@ class SparsityConfig:
         return (self.block_m, self.block_k)
 
 
+def _run_matmul(x, w, lbits, rbits, plan: sasa.SkipPlan, mode: str,
+                out_dtype) -> torch.Tensor:
+    if mode == "off" or plan.gate == "none":
+        return (x.float() @ w.float()).to(out_dtype)
+    if mode == "kernel":
+        lb = (sprf.TileBitmap(lbits, plan.block_lhs, tuple(x.shape))
+              if lbits is not None else None)
+        rb = (sprf.TileBitmap(rbits, plan.block_rhs, tuple(w.shape))
+              if rbits is not None else None)
+        return kops.sparce_gemm(x, w, plan, lhs_bitmap=lb, rhs_bitmap=rb,
+                                out_dtype=out_dtype)
+    # reference: masked dense (the kernel contract's oracle)
+    return kref.sparce_gemm_ref(
+        x, w,
+        bits_lhs=lbits if plan.gate in ("lhs", "both") else None,
+        bits_rhs=rbits if plan.gate in ("rhs", "both") else None,
+        block_m=plan.block_m, block_k=plan.block_k, block_n=plan.block_n,
+        out_dtype=out_dtype,
+    )
+
+
 def sparce_matmul(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -84,14 +110,12 @@ def sparce_matmul(
     lhs_bitmap: Optional[sprf.TileBitmap] = None,
     rhs_bitmap: Optional[sprf.TileBitmap] = None,
 ) -> torch.Tensor:
-    """y = x @ w with SparCE tile skipping per ``cfg``/``plan``
-    (forward; ``mode="reference"`` masked dense, ``"off"`` dense)."""
+    """y = x @ w with SparCE tile skipping per ``cfg``/``plan`` (forward).
+
+    x: (M, K) activations (M = flattened batch*seq), w: (K, N) weights.
+    """
     if not cfg.enabled or cfg.mode == "off":
         return x @ w
-    if cfg.mode == "kernel":
-        raise NotImplementedError(
-            "sparce_matmul mode='kernel' needs the sparce_gemm kernels, "
-            "which are not ported yet; use mode='reference'")
     if plan is None:
         gate = "lhs" if lhs_bitmap is not None else (
             "rhs" if rhs_bitmap is not None else "none")
@@ -107,17 +131,88 @@ def sparce_matmul(
                 gate=gate, variant="gated",
                 block_m=cfg.block_m, block_k=cfg.block_k, block_n=cfg.block_n,
             )
-    if plan.gate == "none":
-        return (x.float() @ w.float()).to(x.dtype)
     lbits = lhs_bitmap.bits if lhs_bitmap is not None else None
     rbits = rhs_bitmap.bits if rhs_bitmap is not None else None
-    return kref.sparce_gemm_ref(
-        x, w,
-        bits_lhs=lbits if plan.gate in ("lhs", "both") else None,
-        bits_rhs=rbits if plan.gate in ("rhs", "both") else None,
-        block_m=plan.block_m, block_k=plan.block_k, block_n=plan.block_n,
-        out_dtype=x.dtype,
+    return _run_matmul(x, w, lbits, rbits, plan, cfg.mode, x.dtype)
+
+
+# ------------------------------------------------------------- relu MLP
+def two_kernel_mlp(x, w_in, w_out, plan: sasa.MlpPlan, act: str = "relu"
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pipeline the planner falls back to: dense up-projection, the
+    relu-bitmap kernel, the bitmap-gated down-projection kernel (the
+    intermediate makes round trips through device memory that the fused
+    kernel avoids). Returns (y, bits)."""
+    h = x @ w_in
+    a, bmp = kops.relu_with_bitmap(h, (plan.block_m, plan.block_f))
+    if act == "relu2":
+        a = a * a  # same zero pattern: the bitmap stays valid
+    gplan = sasa.bitmap_gated_plan(
+        x.shape[0], w_in.shape[1], w_out.shape[1],
+        block_m=plan.block_m, block_k=plan.block_f, block_n=plan.block_n,
     )
+    y = kops.sparce_gemm(a, w_out, gplan, lhs_bitmap=bmp, out_dtype=x.dtype)
+    return y, bmp.bits
+
+
+def sparce_mlp(
+    x: torch.Tensor,
+    w_in: torch.Tensor,
+    w_out: torch.Tensor,
+    act: str,
+    cfg: SparsityConfig,
+) -> Tuple[torch.Tensor, torch.Tensor, sasa.MlpPlan]:
+    """Relu-family MLP forward under the planner's MlpPlan.
+
+    Returns (y, bits, plan); the plan rides along so callers report
+    honest skip accounting (the ``dense`` variant computes every tile).
+    cfg.block_* pin the tile geometry; the planner chooses the variant.
+    """
+    m, k = x.shape
+    f = w_in.shape[1]
+    n = w_out.shape[1]
+    plan = sasa.plan_mlp_cached(
+        m, k, f, n,
+        measured_block_sparsity=cfg.expected_sparsity,
+        dtype=dtype_name(x.dtype),
+        block_m=cfg.block_m, block_f=cfg.block_k, block_n=cfg.block_n,
+    )
+    if plan.variant == "fused":
+        y, bmp = kops.sparce_mlp_fused(
+            x, w_in, w_out, block_m=plan.block_m, block_f=plan.block_f,
+            act=act)
+        return y, bmp.bits, plan
+    if plan.variant == "two_kernel":
+        y, bits = two_kernel_mlp(x, w_in, w_out, plan, act)
+        return y, bits, plan
+    a = torch.clamp_min(x @ w_in, 0.0)
+    if act == "relu2":
+        a = a * a
+    bits = sprf.compute_bitmap(a, (plan.block_m, plan.block_f)).bits
+    return a @ w_out, bits, plan
+
+
+# ------------------------------------------------------------- GLU MLP
+def unfused_glu_mlp(x, w_gate, w_in, w_out, plan: sasa.MlpPlan, act: str,
+                    tau: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The GLU pipeline the planner falls back to: dense gate and up
+    GEMMs, the threshold bitmap at the gate's writeback, then the
+    bitmap-gated down-projection kernel (compute skip only: the
+    intermediate makes the round trips the fused kernel avoids).
+    Returns (y, bits)."""
+    g = x @ w_gate
+    ga = kref.glu_act_ref(g, act)
+    bits = kref.gate_bitmap_ref(ga, (plan.block_m, plan.block_f), tau)
+    h = x @ w_in
+    a = (ga.float() * h.float()).to(x.dtype)
+    bmp = sprf.TileBitmap(bits=bits, block=(plan.block_m, plan.block_f),
+                          shape=tuple(a.shape))
+    gplan = sasa.bitmap_gated_plan(
+        x.shape[0], w_in.shape[1], w_out.shape[1],
+        block_m=plan.block_m, block_k=plan.block_f, block_n=plan.block_n,
+    )
+    y = kops.sparce_gemm(a, w_out, gplan, lhs_bitmap=bmp, out_dtype=x.dtype)
+    return y, bits
 
 
 def sparce_glu_mlp(
@@ -152,10 +247,8 @@ def sparce_glu_mlp(
         )
         return y, bmp.bits, plan
     if plan.variant == "unfused":
-        raise NotImplementedError(
-            "the planner chose the 'unfused' GLU variant, which needs the "
-            "sparce_gemm kernels (not ported yet); serve with "
-            "autotune=False and an expected_sparsity the fused variant wins")
+        y, bits = unfused_glu_mlp(x, w_gate, w_in, w_out, plan, act, tau)
+        return y, bits, plan
     # dense fallback: plain GLU; the bitmap rides along (report only).
     g = x @ w_gate
     ga = kref.glu_act_ref(g, act)
@@ -191,3 +284,29 @@ def gemm_skip_stats(bitmap: Optional[sprf.TileBitmap], n: int,
     total = bitmap.bits.numel() * grid_n
     skipped = bitmap.bits.sum().to(torch.float32) * grid_n
     return torch.stack([skipped, torch.full_like(skipped, float(total))])
+
+
+def relu_with_bitmap(
+    x: torch.Tensor, cfg: SparsityConfig
+) -> Tuple[torch.Tensor, Optional[sprf.TileBitmap]]:
+    """relu + SpRF tile bitmap in one pass (the relu-bitmap kernel with
+    ``mode="kernel"``). Accepts (..., features); the bitmap is over the
+    flattened-2D view, the layout the consuming matmul sees."""
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1])
+    if not cfg.enabled or cfg.mode == "off":
+        return torch.clamp_min(x, 0), None
+    if cfg.mode == "kernel":
+        y2, bmp = kops.relu_with_bitmap(x2, (cfg.block_m, cfg.block_k))
+        return y2.reshape(shape), bmp
+    y2 = torch.clamp_min(x2, 0)
+    return y2.reshape(shape), sprf.compute_bitmap(
+        y2, (cfg.block_m, cfg.block_k))
+
+
+def relu2_with_bitmap(
+    x: torch.Tensor, cfg: SparsityConfig
+) -> Tuple[torch.Tensor, Optional[sprf.TileBitmap]]:
+    """Squared relu: the same zero pattern, so the same bitmap."""
+    y, bmp = relu_with_bitmap(x, cfg)
+    return y * y, bmp

@@ -32,33 +32,19 @@
 // memory (each of 256 threads owns a 4x8 patch). Tensor cores (wgmma),
 // TMA and splitting K across more blocks (the decode grid has only
 // F/bf x M/bm blocks) are later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tile_gemm.cuh"
 
 namespace {
 
-constexpr int TM = 64;    // sub-tile rows
-constexpr int TN = 128;   // sub-tile columns
-constexpr int KC = 32;    // depth staged per shared-memory round
-constexpr int NT = 256;   // threads: 16 x 16, each a 4 x 8 patch
-constexpr int XS_LD = KC + 1;
+using sparce::NT;
+using sparce::TN;
+using sparce::KC;
+using sparce::XS_LD;
+using sparce::to_f;
+using sparce::round_t;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even
-}
-template <typename T> __device__ __forceinline__ float round_t(float v) {
-  return to_f(from_f<T>(v));
-}
+constexpr int RM = 4;        // rows per thread: 4 x 8 patches
+constexpr int TM = 16 * RM;  // sub-tile rows
 
 // The reference's f32 gate activations; gelu is the tanh approximation.
 __device__ __forceinline__ float gate_act(float g, int act) {
@@ -77,45 +63,6 @@ __device__ __forceinline__ float gate_act(float g, int act) {
   }
 }
 
-// acc[4][8] = A (TM x depth) @ B (depth x TN) for this thread's patch:
-// rows ty*4 + i, columns tx + 16*j. load_a(r, k) / load_b(k, c) return
-// 0 outside the operands; staging goes through xs (TM x KC) and
-// ws (KC x TN) in shared memory.
-template <typename LoadA, typename LoadB>
-__device__ __forceinline__ void gemm_patch(float (&acc)[4][8], int depth,
-                                           LoadA load_a, LoadB load_b,
-                                           float* xs, float* ws) {
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < depth; k0 += KC) {
-    for (int e = tid; e < TM * KC; e += NT) {
-      const int r = e / KC, kk = e - r * KC;
-      xs[r * XS_LD + kk] = (k0 + kk < depth) ? load_a(r, k0 + kk) : 0.f;
-    }
-    for (int e = tid; e < KC * TN; e += NT) {
-      const int kk = e / TN, c = e - kk * TN;
-      ws[e] = (k0 + kk < depth) ? load_b(k0 + kk, c) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < KC; ++kk) {
-      float a[4], b[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = xs[(ty * 4 + i) * XS_LD + kk];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = ws[kk * TN + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
 template <typename T>
 __global__ void __launch_bounds__(NT) glu_tile_kernel(
     const T* __restrict__ x, const T* __restrict__ w_gate,
@@ -129,7 +76,7 @@ __global__ void __launch_bounds__(NT) glu_tile_kernel(
   float* xs = a_s + bm * bf;        // TM*XS_LD
   float* ws = xs + TM * XS_LD;      // KC*TN
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  float acc[4][8];
+  float acc[RM][8];
 
   // -- 1. gate first: the predictor runs before the work it may cancel.
   int live = 0;
@@ -137,7 +84,7 @@ __global__ void __launch_bounds__(NT) glu_tile_kernel(
     const int rlim = min(TM, bm - r0);
     for (int c0 = 0; c0 < bf; c0 += TN) {
       const int clim = min(TN, bf - c0);
-      gemm_patch(
+      sparce::gemm_patch<RM>(
           acc, K,
           [&](int r, int k) {
             return r < rlim ? to_f(x[(size_t)(row0 + r0 + r) * K + k]) : 0.f;
@@ -148,10 +95,10 @@ __global__ void __launch_bounds__(NT) glu_tile_kernel(
           },
           xs, ws);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RM; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-          const int r = ty * 4 + i, c = tx + 16 * j;
+          const int r = ty * RM + i, c = tx + 16 * j;
           if (r < rlim && c < clim) {
             const float g = round_t<T>(acc[i][j]);
             const float ga = round_t<T>(gate_act(g, act));
@@ -173,7 +120,7 @@ __global__ void __launch_bounds__(NT) glu_tile_kernel(
     const int rlim = min(TM, bm - r0);
     for (int c0 = 0; c0 < bf; c0 += TN) {
       const int clim = min(TN, bf - c0);
-      gemm_patch(
+      sparce::gemm_patch<RM>(
           acc, K,
           [&](int r, int k) {
             return r < rlim ? to_f(x[(size_t)(row0 + r0 + r) * K + k]) : 0.f;
@@ -183,10 +130,10 @@ __global__ void __launch_bounds__(NT) glu_tile_kernel(
           },
           xs, ws);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RM; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-          const int r = ty * 4 + i, c = tx + 16 * j;
+          const int r = ty * RM + i, c = tx + 16 * j;
           if (r < rlim && c < clim) {
             float* slot = &a_s[(r0 + r) * bf + c0 + c];
             *slot = round_t<T>(*slot * round_t<T>(acc[i][j]));
@@ -202,7 +149,7 @@ __global__ void __launch_bounds__(NT) glu_tile_kernel(
   for (int n0 = 0; n0 < N; n0 += TN) {
     for (int r0 = 0; r0 < bm; r0 += TM) {
       const int rlim = min(TM, bm - r0);
-      gemm_patch(
+      sparce::gemm_patch<RM>(
           acc, bf,
           [&](int r, int k) {
             return r < rlim ? a_s[(r0 + r) * bf + k] : 0.f;
@@ -213,31 +160,14 @@ __global__ void __launch_bounds__(NT) glu_tile_kernel(
           },
           xs, ws);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RM; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-          const int r = ty * 4 + i, c = n0 + tx + 16 * j;
+          const int r = ty * RM + i, c = n0 + tx + 16 * j;
           if (r < rlim && c < N) out[(size_t)(r0 + r) * N + c] = acc[i][j];
         }
     }
   }
-}
-
-// y[m, n] = sum over live stripes f (fixed order) of partial[m/bm, f].
-template <typename T>
-__global__ void glu_reduce_kernel(const float* __restrict__ partial,
-                                  const int32_t* __restrict__ bits,
-                                  T* __restrict__ y, int M, int N, int bm,
-                                  int nf) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)M * N) return;
-  const int m = (int)(idx / N), n = (int)(idx - (size_t)m * N);
-  const int ti = m / bm, rr = m - ti * bm;
-  float s = 0.f;
-  for (int f = 0; f < nf; ++f)
-    if (bits[ti * nf + f] == 0)
-      s += partial[(((size_t)ti * nf + f) * bm + rr) * N + n];
-  y[idx] = from_f<T>(s);
 }
 
 template <typename T>
@@ -248,26 +178,18 @@ int launch(const void* x, const void* w_gate, const void* w_in,
   const int nm = M / bm, nf = F / bf;
   const size_t smem =
       (size_t)(bm * bf + TM * XS_LD + KC * TN) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        glu_tile_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  cudaError_t e = sparce::allow_smem(glu_tile_kernel<T>, smem);
+  if (e != cudaSuccess) return (int)e;
   glu_tile_kernel<T><<<dim3(nf, nm), NT, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w_gate),
       static_cast<const T*>(w_in), static_cast<const T*>(w_out),
       static_cast<int32_t*>(bits), static_cast<float*>(partial), K, F, N,
       bm, bf, act, tau);
-  cudaError_t e = cudaGetLastError();
+  e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const size_t total = (size_t)M * N;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  glu_reduce_kernel<T><<<blocks, threads, 0, stream>>>(
-      static_cast<const float*>(partial),
-      static_cast<const int32_t*>(bits), static_cast<T*>(y), M, N, bm, nf);
-  return (int)cudaGetLastError();
+  return (int)sparce::launch_live_partial_reduce<T>(
+      static_cast<const float*>(partial), static_cast<const int32_t*>(bits),
+      static_cast<T*>(y), M, N, bm, nf, stream);
 }
 
 }  // namespace

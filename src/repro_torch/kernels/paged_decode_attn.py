@@ -27,8 +27,6 @@ import torch
 
 from repro_torch.kernels import _build
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
 
 # ------------------------------------------------------- host-side contract
 def clamped_block_ids(block_tables: np.ndarray, lengths: np.ndarray,
@@ -113,21 +111,6 @@ def paged_gqa_decode_attn_plain(
 
 
 # ------------------------------------------------------------- CUDA kernel
-_fn = None
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.load("paged_decode_attn").paged_gqa_decode_attn
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
-                       ctypes.c_float, i, p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
-
-
 def paged_gqa_decode_attn(
     q: torch.Tensor,  # (B, KV, g, D) grouped query heads
     k_pool: torch.Tensor,  # (nb, bs, KV, D)
@@ -152,7 +135,7 @@ def paged_gqa_decode_attn(
                     ("block_tables", block_tables), ("lengths", lengths)):
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
-    if q.dtype not in _DTYPES or k_pool.dtype != q.dtype \
+    if q.dtype not in _build.DTYPE_IDS or k_pool.dtype != q.dtype \
             or v_pool.dtype != q.dtype:
         raise TypeError(
             f"q/k_pool/v_pool must share float32 or bfloat16, got "
@@ -173,11 +156,16 @@ def paged_gqa_decode_attn(
             raise ValueError(f"{name} must be contiguous")
     scale = scale if scale is not None else D ** -0.5
     out = torch.empty_like(q)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = _build.function("paged_decode_attn", "paged_gqa_decode_attn",
+                         [p, p, p, p, p, p, i, i, i, i, i, i,
+                          ctypes.c_float, i, p])
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _kernel()(
+    err = fn(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, KV, g, D, bs, max_blocks, float(scale), _DTYPES[q.dtype], stream)
+        B, KV, g, D, bs, max_blocks, float(scale),
+        _build.DTYPE_IDS[q.dtype], stream)
     paged_gqa_decode_attn.launches += 1
     if err != 0:
         raise RuntimeError(

@@ -5,6 +5,7 @@ path needs). These are the contracts the CUDA kernels are held to:
 
   * ``sparce_gemm_ref``: y = x @ w with every gated tile's contribution
     dropped (mask, then dense product in f32).
+  * ``relu_bitmap_ref``: relu plus the per-tile "no element > 0" bit.
   * ``glu_act_ref`` / ``gate_bitmap_ref`` / ``glu_mlp_ref``: the gated
     GLU with the dead-tile bitmap at the gate's writeback.
   * ``gather_pool_view`` / ``paged_gqa_decode_attn_ref``: decode
@@ -64,6 +65,19 @@ def sparce_gemm_ref(
         w = mask_tiles(w, bits_rhs, (block_k, block_n))
     out_dtype = out_dtype or x.dtype
     return (x.float() @ w.float()).to(out_dtype)
+
+
+def relu_bitmap_ref(x: torch.Tensor, block: Tuple[int, int]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Oracle for the relu-bitmap kernel: (relu(x), bits) with bit 1 iff
+    no element of the zero-padded tile is > 0."""
+    y = torch.clamp_min(x, 0).to(x.dtype)
+    br, bc = block
+    yp = _pad2(y, br, bc)
+    pr, pc = yp.shape
+    t = yp.reshape(pr // br, br, pc // bc, bc)
+    bits = (~(t > 0).any(dim=3).any(dim=1)).to(torch.int32)
+    return y, bits
 
 
 def act_f32(gf: torch.Tensor, act: str) -> torch.Tensor:

@@ -28,7 +28,6 @@ from repro_torch.kernels.ref import act_f32
 
 _GLU_ACTS = ("silu", "gelu", "relu", "relu2")
 _ACT_IDS = {a: i for i, a in enumerate(_GLU_ACTS)}
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Shared memory the CUDA kernel stages besides the (bm, bf) f32 tile.
 _STAGE_FLOATS = 64 * 33 + 32 * 128
 _SMEM_LIMIT = 227 * 1024
@@ -94,21 +93,6 @@ def sparce_glu_mlp_fused_plain(
 
 
 # ------------------------------------------------------------- CUDA kernel
-_fn = None
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.load("sparce_glu_mlp").sparce_glu_mlp
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
-                       ctypes.c_float, i, p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
-
-
 def sparce_glu_mlp_fused(
     x: torch.Tensor,
     w_gate: torch.Tensor,
@@ -135,19 +119,10 @@ def sparce_glu_mlp_fused(
     if x.device.type != "cuda":
         raise ValueError(f"sparce_glu_mlp_fused: unsupported device {x.device}")
     _check(x, w_gate, w_in, w_out, block_m, block_f, act, tau)
-    for name, t in (("w_gate", w_gate), ("w_in", w_in), ("w_out", w_out)):
-        if t.device != x.device:
-            raise ValueError(f"{name} on {t.device}, x on {x.device}")
-        if t.dtype != x.dtype:
-            raise TypeError(f"{name} is {t.dtype}, x is {x.dtype}")
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    dtype_id = _build.check_operands("sparce_glu_mlp_fused", x=x,
+                                     w_gate=w_gate, w_in=w_in, w_out=w_out)
     if out_dtype not in (None, x.dtype):
         raise TypeError("the kernel writes y in x's dtype")
-    for name, t in (("x", x), ("w_gate", w_gate), ("w_in", w_in),
-                    ("w_out", w_out)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     smem = 4 * (block_m * block_f + _STAGE_FLOATS)
     if smem > _SMEM_LIMIT:
         raise ValueError(
@@ -161,12 +136,16 @@ def sparce_glu_mlp_fused(
     bits = torch.empty((nm, nf), dtype=torch.int32, device=x.device)
     partial = torch.empty((nm, nf, block_m, n), dtype=torch.float32,
                           device=x.device)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = _build.function("sparce_glu_mlp", "sparce_glu_mlp",
+                         [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                          ctypes.c_float, i, p])
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _kernel()(
+    err = fn(
         x.data_ptr(), w_gate.data_ptr(), w_in.data_ptr(), w_out.data_ptr(),
         y.data_ptr(), bits.data_ptr(), partial.data_ptr(),
         m, k, fdim, n, block_m, block_f, _ACT_IDS[act], float(tau),
-        _DTYPES[x.dtype], stream)
+        dtype_id, stream)
     sparce_glu_mlp_fused.launches += 1
     if err != 0:
         raise RuntimeError(f"sparce_glu_mlp_fused launch failed: cudaError {err}")

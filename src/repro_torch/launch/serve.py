@@ -2,15 +2,23 @@
 
     python -m repro_torch.launch.serve --arch smollm-135m [--reduced] \
         --requests 16 --mixed --batch-slots 8 --max-len 512 \
-        --max-new 32 [--prompt-len 256] [--device cuda]
+        --max-new 32 [--prompt-len 256] [--device cuda] \
+        [--sparce] [--sparce-mode reference|kernel|fused] \
+        [--sparce-autotune] [--sparce-gate-threshold TAU]
 
-The subset of ``repro/launch/serve.py``'s flags that the port supports,
-with the serving slice's fixed path: paged KV pool, the paged decode
-kernel (``--attn-kernel paged``, default) and the SparCE gated-GLU
-kernel (``SparsityConfig(enabled=True, mode="fused")``, gate threshold
-``--sparce-gate-threshold``, default 0 = exact). Weights are random,
-seeded by ``--seed``. ``--mixed`` draws per-request prompt lengths from
-``[prompt_len // 2, prompt_len]`` and budgets from
+The subset of ``repro/launch/serve.py``'s flags that the port supports
+(no ``--mesh``, prefix cache, SLO or open-loop flags), over the paged KV
+pool with the paged decode kernel by default (``--attn-kernel paged``).
+The SparCE flags mean what the reference launcher's mean: ``--sparce``
+swaps the MLP activation to relu before init (the paper's sparsity
+source: a 2-matrix MLP without ``w_gate``); ``--sparce-gate-threshold``
+keeps a gated-GLU arch's activation and skips gate tiles with every
+``|act(g)| <= tau``; either one serves with per-slot tiles
+(``block_m=1``, ``block_k=128``) in ``--sparce-mode`` (``fused``: the
+fused MLP kernel, ``kernel``: the relu-bitmap and gated GEMM kernels,
+``reference``: masked dense). Without either flag sparsity is off.
+Weights are random, seeded by ``--seed``. ``--mixed`` draws per-request
+prompt lengths from ``[prompt_len // 2, prompt_len]`` and budgets from
 ``[max_new // 4, max_new]``, as the reference launcher does. Prints the
 metrics the reference launcher prints for these flags, plus the wall
 clock decode rate on the device it ran on.
@@ -18,6 +26,7 @@ clock decode rate on the device it ran on.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -37,9 +46,22 @@ def main(argv=None):
     ap.add_argument("--mixed", action="store_true",
                     help="mixed-length workload: prompt lengths and "
                          "max_new budgets drawn per request")
-    ap.add_argument("--sparce-gate-threshold", type=float, default=0.0,
-                    help="gated-GLU dead-tile threshold tau (0 = exact "
-                         "all-zero test, lossless)")
+    ap.add_argument("--sparce", action="store_true",
+                    help="enable the SparCE path in serving MLPs (relu "
+                         "MLP, skip-fraction metrics)")
+    ap.add_argument("--sparce-mode", default="reference",
+                    choices=("reference", "kernel", "fused"),
+                    help="SparCE implementation: 'fused' = the fused MLP "
+                         "kernel, 'kernel' = relu-bitmap + gated GEMM "
+                         "kernels, 'reference' = masked dense")
+    ap.add_argument("--sparce-autotune", action="store_true",
+                    help="let the engine replan the MLP variant from the "
+                         "measured (EMA) block sparsity")
+    ap.add_argument("--sparce-gate-threshold", type=float, default=None,
+                    help="gated-GLU dead-tile threshold tau: keep the "
+                         "arch's GLU activation and skip gate tiles with "
+                         "every |act(g)| <= tau (0 = exact all-zero test). "
+                         "Implies --sparce.")
     ap.add_argument("--eos-id", type=int, default=None)
     ap.add_argument("--kv-block-size", type=int, default=16)
     ap.add_argument("--kv-pool-blocks", type=int, default=None)
@@ -57,9 +79,21 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    sparsity = SparsityConfig(
-        enabled=True, mode="fused", gate_threshold=args.sparce_gate_threshold,
-        autotune=False)
+    sparsity = None
+    if args.sparce or args.sparce_gate_threshold is not None:
+        if (cfg.mlp_act in ("silu", "gelu")
+                and args.sparce_gate_threshold is not None):
+            tau = args.sparce_gate_threshold  # keep the gated GLU
+        else:
+            # The paper's sparsity source is a relu MLP; swap the act
+            # before init (relu MLPs are 2-matrix, no w_gate).
+            cfg = dataclasses.replace(cfg, mlp_act="relu")
+            tau = 0.0
+        # block_m=1: decode rows are slots, so each freed slot's MLP work
+        # is individually skippable.
+        sparsity = SparsityConfig(
+            enabled=True, mode=args.sparce_mode, block_m=1, block_k=128,
+            autotune=args.sparce_autotune, gate_threshold=tau)
     params = model_lib.init_params(cfg, seed=args.seed, device=args.device)
     serve_cfg = ServeConfig(
         batch_slots=args.batch_slots, max_len=args.max_len,

@@ -1,13 +1,15 @@
 """Shared layers: RMSNorm, RoPE, MLP (with first-class SparCE gating).
 
-Port of ``repro/models/layers.py``. The gated-GLU MLP emits its dead-tile
-bitmap at the gate's writeback and reports ``[skipped, total]`` tile-dot
-stats of the down-projection, exactly like the reference, so the serving
-engine's skip counters equal it.
+Port of ``repro/models/layers.py``. The MLP is where the paper's
+technique lands: a relu-family MLP emits its tile bitmap at the
+activation that creates the zeros, a gated-GLU MLP at the gate's
+writeback, and either reports ``[skipped, total]`` tile-dot stats of the
+down-projection exactly like the reference, so the serving engine's
+skip counters equal it.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -60,6 +62,15 @@ def mlp_init(rng, d: int, ff: int, act: str, dtype, device):
     return p
 
 
+def _activate(h: torch.Tensor, act: str, scfg: sparse_ops.SparsityConfig
+              ) -> Tuple[torch.Tensor, Optional[sprf.TileBitmap]]:
+    if act == "relu":
+        return sparse_ops.relu_with_bitmap(h, scfg)
+    if act == "relu2":
+        return sparse_ops.relu2_with_bitmap(h, scfg)
+    raise ValueError(f"unknown MLP activation {act!r}")
+
+
 def mlp_fwd(params, x: torch.Tensor, act: str,
             scfg: sparse_ops.SparsityConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -69,16 +80,19 @@ def mlp_fwd(params, x: torch.Tensor, act: str,
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
     no_stats = torch.zeros((2,), dtype=torch.float32, device=x.device)
-    if act not in ("silu", "gelu"):
-        raise NotImplementedError(
-            f"mlp_act={act!r}: the relu-family MLP paths wait on the "
-            "sparce_mlp_fused kernel, which is not ported yet")
+    glu = act in ("silu", "gelu")
     n = params["w_out"].shape[-1]
     if scfg.enabled and scfg.mode == "fused" and scfg.gate_activations:
-        # Gated-GLU kernel path: gate, threshold, gated up-projection and
-        # gated down-projection stripe loads in one kernel.
-        y, bits, plan = sparse_ops.sparce_glu_mlp(
-            x2, params["w_gate"], params["w_in"], params["w_out"], act, scfg)
+        # Kernel path: the bitmap at the producer's writeback and the
+        # gated down-projection in one kernel (gated GLU: the gate
+        # runs first and a dead tile skips its w_in stripe too).
+        if glu:
+            y, bits, plan = sparse_ops.sparce_glu_mlp(
+                x2, params["w_gate"], params["w_in"], params["w_out"], act,
+                scfg)
+        else:
+            y, bits, plan = sparse_ops.sparce_mlp(
+                x2, params["w_in"], params["w_out"], act, scfg)
         if plan.variant == "dense":
             # The fallback computes every tile: no realized skips.
             return y.reshape(shape), no_stats
@@ -87,12 +101,16 @@ def mlp_fwd(params, x: torch.Tensor, act: str,
             shape=(x2.shape[0], params["w_in"].shape[-1]))
         stats = sparse_ops.gemm_skip_stats(bmp, n, scfg.block_n)
         return y.reshape(shape), stats
-    # Reference path: gate first, bitmap at its writeback, then the
-    # bitmap-gated down-projection (masked dense).
-    g = x2 @ params["w_gate"]
-    ga, bmp = sparse_ops.glu_act_with_bitmap(g, act, scfg)
-    a = ga * (x2 @ params["w_in"])
-    if scfg.enabled and bmp is not None:
+    if glu:
+        # Gate first, bitmap at its writeback.
+        g = x2 @ params["w_gate"]
+        ga, bmp = sparse_ops.glu_act_with_bitmap(g, act, scfg)
+        a = ga * (x2 @ params["w_in"])
+    else:
+        a, bmp = _activate(x2 @ params["w_in"], act, scfg)
+    if scfg.enabled and bmp is not None and scfg.gate_activations:
+        # The bitmap-gated down-projection (masked dense, or the gated
+        # GEMM kernel with mode="kernel").
         y = sparse_ops.sparce_matmul(a, params["w_out"], scfg,
                                      lhs_bitmap=bmp)
         stats = sparse_ops.gemm_skip_stats(bmp, n, scfg.block_n)

@@ -639,19 +639,24 @@ class Server:
             m.modeled_attn_bytes_saved = float(by["gather"] - by["paged"])
 
     def _account_modeled_bytes(self) -> None:
-        """Modeled HBM bytes the fused GLU MLP saves vs the unfused
+        """Modeled HBM bytes the fused MLP kernel saves vs the unfused
         pipeline at the realized skip fraction, over all decode-tick MLPs
-        (the reference's explainability metric, not a measurement)."""
+        (the reference's explainability metric, not a measurement):
+        relu-family MLPs compare fused vs two_kernel, gated-GLU MLPs the
+        GLU kernel vs the unfused three-GEMM pipeline."""
         sp, cfg = self.cfg.sparsity, self.cfg
         if (sp is None or not sp.enabled or cfg.family != "dense"
-                or cfg.mlp_act not in ("silu", "gelu")):
+                or cfg.mlp_act not in ("relu", "relu2", "silu", "gelu")):
             return
         dtype_bytes = 2 if cfg.dtype == "bfloat16" else 4
-        by = cost_model.glu_mlp_hbm_bytes(
+        glu = cfg.mlp_act in ("silu", "gelu")
+        model = (cost_model.glu_mlp_hbm_bytes if glu
+                 else cost_model.mlp_hbm_bytes)
+        by = model(
             self.sc.batch_slots, cfg.d_model, cfg.d_ff, cfg.d_model,
             block_sparsity=self.metrics.mlp_skip_fraction,
             dtype_bytes=dtype_bytes, block_m=sp.block_m,
         )
-        saved = by["unfused"] - by["fused"]
+        saved = (by["unfused"] if glu else by["two_kernel"]) - by["fused"]
         self.metrics.modeled_hbm_bytes_saved = float(
             saved * cfg.num_layers * self.metrics.ticks)

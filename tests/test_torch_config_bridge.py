@@ -68,10 +68,23 @@ def test_registry_knows_only_ported_archs():
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_bridged_leaves_exact_with_shapes_and_dtypes(dtype):
+    _check_bridged_tree(dtype=dtype)
+
+
+def test_bridged_relu_tree_exact_in_bf16():
+    """The relu MLP's tree (``--sparce`` swaps it in) has no w_gate and
+    crosses the bridge bit for bit."""
+    port = _check_bridged_tree(dtype="bfloat16", mlp_act="relu")
+    mlp = port["stack"][0]["mlp"]
+    assert sorted(mlp) == ["w_in", "w_out"]
+    assert mlp["w_in"].dtype == torch.bfloat16
+
+
+def _check_bridged_tree(**cfg_fields):
     ref_cfg = dataclasses.replace(ref_get_config("smollm-135m").reduced(),
-                                  dtype=dtype)
+                                  **cfg_fields)
     cfg = dataclasses.replace(get_config("smollm-135m").reduced(),
-                              dtype=dtype)
+                              **cfg_fields)
     ref_params = jax.tree_util.tree_map(
         np.asarray, ref_model.init_params(ref_cfg, jax.random.PRNGKey(0)))
     port = bridge.params_from_reference(ref_params, device="cpu")
@@ -103,6 +116,7 @@ def test_bridged_leaves_exact_with_shapes_and_dtypes(dtype):
             check(leaf[i], b, o)
     n_ref = sum(a.size for a in jax.tree_util.tree_leaves(ref_params))
     assert modules.param_count(port) == modules.param_count(own) == n_ref
+    return port
 
 
 def test_own_init_params_has_reference_scales():

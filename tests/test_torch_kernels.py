@@ -12,17 +12,33 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.sasa import SkipPlan as RefSkipPlan
+from repro.core.sprf import TileBitmap as RefTileBitmap
 from repro.kernels import ops as ref_ops
 from repro.kernels import paged_decode_attn as ref_pda
 from repro.kernels import ref as ref_kref
+from repro.kernels import relu_bitmap as ref_rb
+from repro.kernels import sparce_gemm as ref_sg
 from repro.kernels import sparce_glu_mlp as ref_sgm
+from repro.kernels import sparce_mlp as ref_sm
+from repro_torch.core.sasa import SkipPlan
+from repro_torch.core.sprf import TileBitmap
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import paged_decode_attn as pda
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels import relu_bitmap as rb
+from repro_torch.kernels import sparce_gemm as sg
 from repro_torch.kernels import sparce_glu_mlp as sgm
+from repro_torch.kernels import sparce_mlp as sm
 
 BS = 4  # pool rows per block in the attention tests
 F32_TOL = dict(rtol=1e-5, atol=1e-5)  # f32, sums in another order
+# f32 products over a few hundred terms of values up to ~1e2, summed in
+# another order (the reference's own kernel tests use the same bound).
+GEMM_TOL = dict(rtol=1e-4, atol=1e-4)
+# bf16 products: both sides accumulate in f32 in another order and round
+# the output to bf16 (8 bits of mantissa), so one ulp of values ~1-4.
+BF16_TOL = dict(rtol=3e-2, atol=3e-2)
 
 
 def _tables(rng, lengths, max_blocks, nb, bs=BS, dead_fill=0):
@@ -198,8 +214,25 @@ def test_wrappers_take_plain_versions_only_for_cpu_tensors():
         pda.paged_gqa_decode_attn(*meta)
     x = torch.zeros((4, 8), device="meta")
     w = torch.zeros((8, 8), device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        sgm.sparce_glu_mlp_fused(x, w, w, w, block_m=4, block_f=8)
+    bits = torch.zeros((4, 1), dtype=torch.int32, device="meta")
+    for call in (
+        lambda: sgm.sparce_glu_mlp_fused(x, w, w, w, block_m=4, block_f=8),
+        lambda: sm.sparce_mlp_fused(x, w, w, block_m=4, block_f=8),
+        lambda: rb.relu_bitmap(x, block_r=1, block_c=8),
+        lambda: sg.sparce_gemm_gated(x, w, bits, block_m=1, block_k=8,
+                                     block_n=8),
+    ):
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()
+    counters = (sm.sparce_mlp_fused, rb.relu_bitmap, sg.sparce_gemm_gated)
+    before = [f.launches for f in counters]
+    xc = torch.ones((4, 8))
+    sm.sparce_mlp_fused(xc, xc.T.contiguous(), xc, block_m=4, block_f=4)
+    rb.relu_bitmap(xc, block_r=1, block_c=8)
+    sg.sparce_gemm_gated(xc, xc.T.contiguous(),
+                         torch.zeros((4, 1), dtype=torch.int32), block_m=1,
+                         block_k=8, block_n=8)
+    assert [f.launches for f in counters] == before  # nothing launched
 
 
 # ------------------------------------------------------------ gated GLU
@@ -328,3 +361,306 @@ def test_compute_bitmap_matches_reference(shape, block):
     want = ref_sprf.compute_bitmap(jnp.asarray(x), block)
     np.testing.assert_array_equal(got.bits.numpy(), np.asarray(want.bits))
     assert (got.block, got.shape) == (want.block, want.shape)
+
+
+# ------------------------------------------------------------ relu bitmap
+@pytest.mark.parametrize("shape,block", [
+    ((128, 256), (8, 128)), ((64, 512), (16, 128)), ((8, 128), (1, 32)),
+])
+def test_relu_bitmap_plain_matches_reference_kernel(shape, block):
+    rng = np.random.default_rng(20)
+    x = rng.standard_normal(shape).astype(np.float32)
+    x[: block[0], : block[1]] = -np.abs(x[: block[0], : block[1]])  # dead
+    x[-block[0]:, -block[1]:] = 0.0  # dead (zeros)
+    want_y, want_bits = ref_rb.relu_bitmap(
+        jnp.asarray(x), block_r=block[0], block_c=block[1], interpret=True)
+    y, bits = rb.relu_bitmap(torch.from_numpy(x), block_r=block[0],
+                             block_c=block[1])
+    np.testing.assert_array_equal(y.numpy(), np.asarray(want_y))
+    np.testing.assert_array_equal(bits.numpy(), np.asarray(want_bits))
+    assert bits[0, 0] == 1 and bits[-1, -1] == 1 and bits.sum() < bits.numel()
+    oy, obits = kref.relu_bitmap_ref(torch.from_numpy(x), block)
+    ry, rbits = ref_kref.relu_bitmap_ref(jnp.asarray(x), block)
+    np.testing.assert_array_equal(oy.numpy(), np.asarray(ry))
+    np.testing.assert_array_equal(obits.numpy(), np.asarray(rbits))
+
+
+def test_relu_with_bitmap_pads_like_reference():
+    rng = np.random.default_rng(21)
+    x = rng.standard_normal((10, 200)).astype(np.float32)
+    x[:4] = -1.0
+    y, bmp = kops.relu_with_bitmap(torch.from_numpy(x), (4, 128))
+    ry, rbmp = ref_ops.relu_with_bitmap(jnp.asarray(x), (4, 128))
+    np.testing.assert_array_equal(y.numpy(), np.asarray(ry))
+    np.testing.assert_array_equal(bmp.bits.numpy(), np.asarray(rbmp.bits))
+    assert (bmp.block, bmp.shape) == (rbmp.block, rbmp.shape)
+    # bf16 keeps its dtype; the bits are exact
+    xb = torch.from_numpy(x).bfloat16()
+    yb, bmpb = kops.relu_with_bitmap(xb, (1, 32))
+    assert yb.dtype == torch.bfloat16
+    assert torch.equal(yb, torch.clamp_min(xb, 0))
+    assert bmpb.bits[:4].all() and not bmpb.bits[4:].all()
+
+
+# ------------------------------------------------------------- gated GEMM
+def _gemm_case(seed, M, K, N, bm, bk, sparsity, dtype=np.float32):
+    """x with whole (bm, bk) tiles zeroed at random; w dense."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    gm, gk = -(-M // bm), -(-K // bk)
+    dead = rng.random((gm, gk)) < sparsity
+    for i, j in zip(*np.nonzero(dead)):
+        x[i * bm:(i + 1) * bm, j * bk:(j + 1) * bk] = 0.0
+    w = rng.standard_normal((K, N)).astype(np.float32)
+    return x.astype(dtype), w.astype(dtype)
+
+
+@pytest.mark.parametrize("M,K,N,bm,bk,bn", [
+    (128, 256, 128, 64, 128, 128),
+    (64, 128, 256, 8, 128, 128),
+    (8, 128, 128, 1, 32, 128),
+])
+@pytest.mark.parametrize("sparsity", [0.0, 0.5, 0.95])
+def test_gated_gemm_plain_matches_reference_kernel(M, K, N, bm, bk, bn,
+                                                   sparsity):
+    x, w = _gemm_case(30, M, K, N, bm, bk, sparsity)
+    bits = (~(x.reshape(M // bm, bm, K // bk, bk) != 0).any(axis=(1, 3))
+            ).astype(np.int32)
+    want = ref_sg.sparce_gemm_gated(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(bits), block_m=bm,
+        block_k=bk, block_n=bn, interpret=True)
+    got = sg.sparce_gemm_gated(*_t(x, w, bits), block_m=bm, block_k=bk,
+                               block_n=bn)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **GEMM_TOL)
+    oracle = kref.sparce_gemm_ref(*_t(x, w), bits_lhs=torch.from_numpy(bits),
+                                  block_m=bm, block_k=bk, block_n=bn)
+    np.testing.assert_allclose(got.numpy(), oracle.numpy(), **GEMM_TOL)
+
+
+@pytest.mark.parametrize("gate", ["lhs", "rhs"])
+def test_gated_gemm_dishonest_bits_match_reference(gate):
+    """Bits set on nonzero tiles: the product follows the bits, not the
+    values (the masked oracle, not the dense product)."""
+    M, K, N, bm, bk, bn = 32, 128, 128, 8, 32, 64
+    x, w = _gemm_case(31, M, K, N, bm, bk, 0.0)
+    shape = (M // bm, K // bk) if gate == "lhs" else (K // bk, N // bn)
+    bits = np.zeros(shape, np.int32)
+    bits[0, 1] = bits[1, 0] = 1
+    want = ref_sg.sparce_gemm_gated(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(bits), gate=gate,
+        block_m=bm, block_k=bk, block_n=bn, interpret=True)
+    got = sg.sparce_gemm_gated(*_t(x, w, bits), gate=gate, block_m=bm,
+                               block_k=bk, block_n=bn)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **GEMM_TOL)
+    assert np.abs(got.numpy() - x @ w).max() > 1e-3  # gating took effect
+
+
+def test_gated_gemm_bf16_matches_reference_kernel():
+    M, K, N, bm, bk, bn = 16, 256, 128, 1, 128, 128
+    x, w = _gemm_case(32, M, K, N, bm, bk, 0.5)
+    x16 = jnp.asarray(x, jnp.bfloat16)
+    w16 = jnp.asarray(w, jnp.bfloat16)
+    bits = (~(x.reshape(M, 1, K // bk, bk) != 0).any(axis=(1, 3))
+            ).astype(np.int32)
+    want = ref_sg.sparce_gemm_gated(x16, w16, jnp.asarray(bits), block_m=bm,
+                                    block_k=bk, block_n=bn, interpret=True)
+    got = sg.sparce_gemm_gated(
+        torch.from_numpy(x).bfloat16(), torch.from_numpy(w).bfloat16(),
+        torch.from_numpy(bits), block_m=bm, block_k=bk, block_n=bn)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **BF16_TOL)
+
+
+@pytest.mark.parametrize("gate", ["lhs", "rhs"])
+def test_sparce_gemm_wrapper_ragged_dims_match_reference(gate):
+    """Ragged M, K and N: the port pads only the bit grid (padding tiles
+    vote 1), the reference pads the operands too; same values."""
+    M, K, N = 20, 300, 200
+    bm, bk, bn = 8, 128, 128
+    x, w = _gemm_case(33, M, K, N, bm, bk, 0.4)
+    plan = SkipPlan(gate=gate, variant="gated", block_m=bm, block_k=bk,
+                    block_n=bn)
+    ref_plan = RefSkipPlan(gate=gate, variant="gated", block_m=bm,
+                           block_k=bk, block_n=bn)
+    rng = np.random.default_rng(34)
+    if gate == "lhs":
+        bits = (rng.random((3, 2)) < 0.4).astype(np.int32)  # short of 3x3
+        kw = dict(lhs_bitmap=TileBitmap(torch.from_numpy(bits), (bm, bk),
+                                        (M, K)))
+        rkw = dict(lhs_bitmap=RefTileBitmap(jnp.asarray(bits), (bm, bk),
+                                            (M, K)))
+    else:
+        bits = (rng.random((2, 2)) < 0.4).astype(np.int32)  # short of 3x2
+        kw = dict(rhs_bitmap=TileBitmap(torch.from_numpy(bits), (bk, bn),
+                                        (K, N)))
+        rkw = dict(rhs_bitmap=RefTileBitmap(jnp.asarray(bits), (bk, bn),
+                                            (K, N)))
+    got = kops.sparce_gemm(*_t(x, w), plan, **kw)
+    want = ref_ops.sparce_gemm(jnp.asarray(x), jnp.asarray(w), ref_plan,
+                               **rkw)
+    assert tuple(got.shape) == (M, N)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **GEMM_TOL)
+    dense = kops.sparce_gemm(*_t(x, w), SkipPlan(
+        gate="none", variant="dense", block_m=bm, block_k=bk, block_n=bn))
+    np.testing.assert_allclose(dense.numpy(), x @ w, rtol=1e-4, atol=1e-4)
+
+
+def test_gated_gemm_nan_poisoned_gated_tiles_never_read():
+    """Gated x tiles, and the w k-stripes gated in every row tile, are
+    NaN: y is bit-identical. Poisoning an ungated tile does reach y."""
+    M, K, N, bm, bk, bn = 8, 128, 96, 1, 32, 128
+    x, w = _gemm_case(35, M, K, N, bm, bk, 0.0)
+    bits = np.zeros((M, K // bk), np.int32)
+    bits[:, 2] = 1  # k-stripe 2 gated in every row
+    bits[3] = 1  # row 3 gated across K
+    bits[5, 0] = 1
+    y = sg.sparce_gemm_gated(*_t(x, w, bits), block_m=bm, block_k=bk,
+                             block_n=bn)
+    x2, w2 = x.copy(), w.copy()
+    for i, j in zip(*np.nonzero(bits)):
+        x2[i * bm:(i + 1) * bm, j * bk:(j + 1) * bk] = np.nan
+    w2[2 * bk:3 * bk] = np.nan
+    y2 = sg.sparce_gemm_gated(*_t(x2, w2, bits), block_m=bm, block_k=bk,
+                              block_n=bn)
+    assert torch.isfinite(y2).all() and torch.equal(y2, y)
+    assert (y[3] == 0).all()
+    x3 = x.copy()
+    x3[5, bk] = np.nan  # tile (5, 1) is live
+    y3 = sg.sparce_gemm_gated(*_t(x3, w, bits), block_m=bm, block_k=bk,
+                              block_n=bn)
+    assert torch.isnan(y3[5]).all() and torch.isfinite(y3[:5]).all()
+    # rhs: gated w tiles are never read either
+    rbits = np.zeros((K // bk, 1), np.int32)
+    rbits[1, 0] = 1
+    yr = sg.sparce_gemm_gated(*_t(x, w, rbits), gate="rhs", block_m=bm,
+                              block_k=bk, block_n=bn)
+    w4 = w.copy()
+    w4[bk:2 * bk] = np.nan
+    yr2 = sg.sparce_gemm_gated(*_t(x, w4, rbits), gate="rhs", block_m=bm,
+                               block_k=bk, block_n=bn)
+    assert torch.isfinite(yr2).all() and torch.equal(yr2, yr)
+
+
+def test_gated_gemm_rejects_bad_arguments():
+    x, w = _t(*_gemm_case(36, 8, 64, 32, 1, 32, 0.0))
+    with pytest.raises(ValueError, match="gate"):
+        sg.sparce_gemm_gated(x, w, torch.zeros((8, 2), dtype=torch.int32),
+                             block_m=1, block_k=32, block_n=32, gate="both")
+    with pytest.raises(ValueError, match="bits must be"):
+        sg.sparce_gemm_gated(x, w, torch.zeros((8, 3), dtype=torch.int32),
+                             block_m=1, block_k=32, block_n=32)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        sg.sparce_gemm_gated(x, w.T, torch.zeros((8, 2), dtype=torch.int32),
+                             block_m=1, block_k=32, block_n=32)
+
+
+# -------------------------------------------------------------- fused MLP
+def _mlp_case(seed, M, K, F, N, bm, sparsity, dtype=np.float32):
+    """Nonnegative x with whole zero row tiles (dead in every stripe),
+    positive-biased w_in, signed w_out."""
+    rng = np.random.default_rng(seed)
+    x = np.abs(rng.standard_normal((M, K))).astype(np.float32)
+    dead = rng.random(M // bm) < sparsity
+    if sparsity >= 1.0:
+        dead[:] = True
+    for i in np.nonzero(dead)[0]:
+        x[i * bm:(i + 1) * bm] = 0.0
+    w_in = (np.abs(rng.standard_normal((K, F))) * 0.1).astype(np.float32)
+    w_in[:, : F // 4] -= 0.2  # some negative pre-activations
+    w_out = (rng.standard_normal((F, N)) * 0.1).astype(np.float32)
+    return [a.astype(dtype) for a in (x, w_in, w_out)]
+
+
+@pytest.mark.parametrize("sparsity", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("act", ["relu", "relu2"])
+def test_fused_mlp_plain_matches_reference_kernel(sparsity, act):
+    M, K, F, N, bm, bf = 64, 128, 256, 128, 16, 128
+    x, wi, wo = _mlp_case(40, M, K, F, N, bm, sparsity)
+    y_ref, bits_ref = ref_sm.sparce_mlp_fused(
+        *map(jnp.asarray, (x, wi, wo)), block_m=bm, block_f=bf, act=act,
+        interpret=True)
+    y, bits = sm.sparce_mlp_fused(*_t(x, wi, wo), block_m=bm, block_f=bf,
+                                  act=act)
+    np.testing.assert_array_equal(bits.numpy(), np.asarray(bits_ref))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), **GEMM_TOL)
+    if sparsity == 1.0:
+        assert bits.numpy().all() and (y == 0).all()
+
+
+def test_fused_mlp_bf16_matches_reference_kernel():
+    M, K, F, N, bm, bf = 32, 128, 256, 128, 1, 128
+    x, wi, wo = _mlp_case(41, M, K, F, N, bm, 0.5)
+    j16 = [jnp.asarray(a, jnp.bfloat16) for a in (x, wi, wo)]
+    t16 = [t.bfloat16() for t in _t(x, wi, wo)]
+    for act in ("relu", "relu2"):
+        y_ref, bits_ref = ref_sm.sparce_mlp_fused(
+            *j16, block_m=bm, block_f=bf, act=act, interpret=True)
+        y, bits = sm.sparce_mlp_fused(*t16, block_m=bm, block_f=bf, act=act)
+        assert y.dtype == torch.bfloat16
+        np.testing.assert_array_equal(bits.numpy(), np.asarray(bits_ref))
+        np.testing.assert_allclose(y.float().numpy(),
+                                   np.asarray(y_ref, np.float32), **BF16_TOL)
+
+
+def test_fused_mlp_odd_patterns():
+    """All-zero row tile, fully dense, a single nonzero element."""
+    M, K, F, N, bm, bf = 48, 64, 256, 64, 16, 128
+    _, wi, wo = _mlp_case(42, M, K, F, N, bm, 0.0)
+    wi = np.abs(wi)
+    rng = np.random.default_rng(43)
+    xs = {
+        "dead-middle": np.abs(rng.standard_normal((M, K))).astype(np.float32),
+        "dense": np.abs(rng.standard_normal((M, K))).astype(np.float32) + .1,
+        "single": np.zeros((M, K), np.float32),
+    }
+    xs["dead-middle"][16:32] = 0.0
+    xs["single"][3, 5] = 2.0
+    for name, x in xs.items():
+        y_ref, bits_ref = ref_sm.sparce_mlp_fused(
+            *map(jnp.asarray, (x, wi, wo)), block_m=bm, block_f=bf,
+            interpret=True)
+        y, bits = sm.sparce_mlp_fused(*_t(x, wi, wo), block_m=bm, block_f=bf)
+        np.testing.assert_array_equal(bits.numpy(), np.asarray(bits_ref),
+                                      err_msg=name)
+        np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), **GEMM_TOL)
+    assert int(bits.sum()) == bits.numel() - bits.shape[1]  # "single"
+
+
+def test_fused_mlp_wrapper_ragged_dims_match_reference():
+    """The wrapper pads M and F; padding never leaks into y or bits."""
+    M, K, F, N, bm, bf = 40, 64, 200, 64, 16, 128
+    x, wi, wo = _mlp_case(44, M, K, F, N, 8, 0.3)
+    y_ref, bmp_ref = ref_ops.sparce_mlp_fused(
+        *map(jnp.asarray, (x, wi, wo)), block_m=bm, block_f=bf,
+        interpret=True)
+    y, bmp = kops.sparce_mlp_fused(*_t(x, wi, wo), block_m=bm, block_f=bf)
+    assert tuple(y.shape) == (M, N) and bmp.shape == (M, F)
+    np.testing.assert_array_equal(bmp.bits.numpy(), np.asarray(bmp_ref.bits))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), **GEMM_TOL)
+
+
+@pytest.mark.parametrize("act", ["relu", "relu2"])
+def test_fused_mlp_nan_poisoned_dead_stripes_never_read(act):
+    """w_out rows of stripes dead in every row tile are NaN: y and bits
+    are bit-identical. Poisoning a live stripe does reach y."""
+    M, K, F, N, bm, bf = 8, 64, 128, 64, 1, 32
+    x, wi, wo = _mlp_case(45, M, K, F, N, bm, 0.0)
+    wi[:, bf:2 * bf] = -1.0  # stripe 1 dead: negative pre-activation
+    x[6] = 0.0  # row 6 dead in every stripe
+    y, bits = sm.sparce_mlp_fused(*_t(x, wi, wo), block_m=bm, block_f=bf,
+                                  act=act)
+    assert bits[:, 1].all() and bits[6].all() and not bits.all()
+    wo2 = wo.copy()
+    wo2[bf:2 * bf] = np.nan
+    y2, bits2 = sm.sparce_mlp_fused(*_t(x, wi, wo2), block_m=bm, block_f=bf,
+                                    act=act)
+    assert torch.isfinite(y2).all()
+    assert torch.equal(y2, y) and torch.equal(bits2, bits)
+    assert (y[6] == 0).all()
+    assert bits[0, 2] == 0
+    wo3 = wo.copy()
+    wo3[2 * bf, 0] = np.nan  # stripe 2 is live in row 0
+    y3, _ = sm.sparce_mlp_fused(*_t(x, wi, wo3), block_m=bm, block_f=bf,
+                                act=act)
+    assert torch.isnan(y3[0, 0]) and torch.isfinite(y3[6]).all()

@@ -19,19 +19,38 @@ from repro.models import layers as ref_layers
 from repro.models import model as ref_model
 from repro_torch.bridge import params_from_reference
 from repro_torch.configs import get_config
-from repro_torch.core import sparse_ops
+from repro_torch.core import sasa, sparse_ops
+from repro_torch.core.sprf import TileBitmap
+from repro_torch.kernels import ops as kops
 from repro_torch.models import layers
 from repro_torch.models import model as model_lib
 
 ATOL = 1e-4  # logits / activations at f32
 
 
-def _params(seed=0):
+def _params(seed=0, act=None):
+    """Reference params of the reduced config (its GLU MLP, or ``act``),
+    and the same tree bridged into the port."""
     ref_cfg = ref_get_config("smollm-135m").reduced()
+    if act is not None:
+        ref_cfg = dataclasses.replace(ref_cfg, mlp_act=act)
     ref_params = ref_model.init_params(ref_cfg, jax.random.PRNGKey(seed))
     np_params = jax.tree_util.tree_map(np.asarray, ref_params)
     return ref_cfg, ref_params, params_from_reference(np_params,
                                                       device="cpu")
+
+
+def _mlp_fwd_both(params, ref_params, x, act, sp):
+    y, stats = layers.mlp_fwd(params["stack"][0]["mlp"], torch.from_numpy(x),
+                              act, sparse_ops.SparsityConfig(**sp))
+    ref_mlp = jax.tree_util.tree_map(lambda a: a[0],
+                                     ref_params["stack"]["mlp"])
+    y_ref, stats_ref = ref_layers.mlp_fwd(
+        ref_mlp, jnp.asarray(x), act, ref_sparse_ops.SparsityConfig(**sp))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), rtol=ATOL,
+                               atol=ATOL)
+    np.testing.assert_array_equal(stats.numpy(), np.asarray(stats_ref))
+    return stats
 
 
 def test_rmsnorm_and_rope_match_reference():
@@ -56,47 +75,105 @@ def test_rmsnorm_and_rope_match_reference():
     dict(enabled=True, mode="fused", block_m=1, expected_sparsity=0.5),
     dict(enabled=True, mode="fused", block_m=8, gate_threshold=0.05,
          expected_sparsity=0.5),
+    # 16 rows, per-row tiles, measured sparsity 1/8: the planner picks
+    # the 'unfused' variant (dense gate and up GEMMs, gated GEMM kernel).
+    dict(enabled=True, mode="fused", block_m=1, expected_sparsity=0.125),
+    dict(enabled=True, mode="kernel", block_m=1),
     dict(enabled=True, mode="reference", block_m=4),
     dict(enabled=False),
-], ids=["fused-bm64", "fused-bm1", "fused-tau", "reference", "off"])
+], ids=["fused-bm64", "fused-bm1", "fused-tau", "unfused-bm1", "kernel-bm1",
+        "reference", "off"])
 @pytest.mark.parametrize("act", ["silu", "gelu"])
 def test_mlp_fwd_values_and_skip_stats_match_reference(sp, act):
     _, ref_params, params = _params()
     rng = np.random.default_rng(1)
     x = rng.standard_normal((2, 8, 64)).astype(np.float32)
     x[1, 2:6] = 0.0  # dead rows
-    y, stats = layers.mlp_fwd(params["stack"][0]["mlp"], torch.from_numpy(x),
-                              act, sparse_ops.SparsityConfig(**sp))
+    if sp.get("expected_sparsity") == 0.125:
+        assert sasa.plan_glu_mlp_cached(
+            16, 64, 128, 64, measured_block_sparsity=0.125,
+            dtype="float32", block_m=1, block_f=128,
+            block_n=128).variant == "unfused"
+    stats = _mlp_fwd_both(params, ref_params, x, act, sp)
+    if sp.get("block_m") == 1:
+        assert stats[0] > 0  # the dead rows' tiles skip
+
+
+@pytest.mark.parametrize("sp", [
+    dict(enabled=True, mode="fused", block_m=1, block_k=32),
+    dict(enabled=True, mode="fused", block_m=8, block_k=32,
+         expected_sparsity=0.5),
+    dict(enabled=True, mode="kernel", block_m=1, block_k=32),
+    dict(enabled=True, mode="reference", block_m=1, block_k=32),
+    dict(enabled=False),
+], ids=["fused-bm1", "fused-bm8", "kernel-bm1", "reference-bm1", "off"])
+@pytest.mark.parametrize("act", ["relu", "relu2"])
+def test_relu_mlp_fwd_values_and_skip_stats_match_reference(sp, act):
+    """The relu family's MLP (no w_gate), d_ff 128 in four 32-wide
+    stripes: values within f32 tolerance, skip stats exactly."""
+    _, ref_params, params = _params(act=act)
+    assert "w_gate" not in params["stack"][0]["mlp"]
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, 8, 64)).astype(np.float32)
+    x[0, 3] = 0.0  # a dead slot
+    x[1] = 0.0  # a dead row tile at block_m 8
+    stats = _mlp_fwd_both(params, ref_params, x, act, sp)
+    if sp.get("enabled"):
+        assert 0 < stats[0] < stats[1]
+
+
+@pytest.mark.parametrize("act", ["relu", "relu2"])
+def test_two_kernel_mlp_matches_reference(act):
+    """The planner's fallback pipeline: dense up-projection, relu-bitmap
+    kernel, gated down-projection kernel."""
+    _, ref_params, params = _params(act=act)
+    mlp = params["stack"][0]["mlp"]
     ref_mlp = jax.tree_util.tree_map(lambda a: a[0],
                                      ref_params["stack"]["mlp"])
-    y_ref, stats_ref = ref_layers.mlp_fwd(
-        ref_mlp, jnp.asarray(x), act, ref_sparse_ops.SparsityConfig(**sp))
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((12, 64)).astype(np.float32)
+    x[5:9] = 0.0
+    plan = sasa.MlpPlan(variant="two_kernel", block_m=1, block_f=32,
+                        block_n=128)
+    ref_plan = ref_sparse_ops.sasa.MlpPlan(variant="two_kernel", block_m=1,
+                                           block_f=32, block_n=128)
+    y, bits = sparse_ops.two_kernel_mlp(torch.from_numpy(x), mlp["w_in"],
+                                        mlp["w_out"], plan, act)
+    y_ref, bits_ref = ref_sparse_ops.two_kernel_mlp(
+        jnp.asarray(x), ref_mlp["w_in"], ref_mlp["w_out"], ref_plan, act)
+    np.testing.assert_array_equal(bits.numpy(), np.asarray(bits_ref))
     np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), rtol=ATOL,
                                atol=ATOL)
-    np.testing.assert_array_equal(stats.numpy(), np.asarray(stats_ref))
+    assert bits.numpy()[5:9].all()
 
 
 def test_mlp_fwd_raises_for_unported_paths():
-    _, _, params = _params()
-    x = torch.zeros((4, 64))
-    mlp = params["stack"][0]["mlp"]
-    with pytest.raises(NotImplementedError, match="sparce_mlp_fused"):
-        layers.mlp_fwd(mlp, x, "relu", sparse_ops.SparsityConfig())
-    with pytest.raises(NotImplementedError, match="sparce_gemm"):
-        layers.mlp_fwd(mlp, x, "silu", sparse_ops.SparsityConfig(
-            enabled=True, mode="kernel", block_m=1))
-    # block_m=1 over 64 rows at measured sparsity 1/8: the planner picks
-    # the 'unfused' variant (as the reference's does), whose gemm kernels
-    # are not ported.
-    sp = sparse_ops.SparsityConfig(enabled=True, mode="fused", block_m=1,
-                                   expected_sparsity=0.125)
-    assert ref_sparse_ops.sasa.plan_glu_mlp(
-        64, 64, 128, 64, measured_block_sparsity=0.125, dtype="float32",
-        block_m=1, block_f=128, block_n=128).variant == "unfused"
-    with pytest.raises(NotImplementedError, match="unfused"):
-        sparse_ops.sparce_glu_mlp(
-            torch.zeros((64, 64)), torch.zeros((64, 128)),
-            torch.zeros((64, 128)), torch.zeros((128, 64)), "silu", sp)
+    """What the port still leaves out raises, naming the missing kernel:
+    the compacted GEMM variant and two-sided gating (``gate="both"``) in
+    ``ops.sparce_gemm``, also when the layer's matmul asks for them; an
+    activation the MLP does not know raises too."""
+    x = torch.ones((4, 64))
+    w = torch.ones((64, 32))
+    lhs = TileBitmap(torch.zeros((4, 2), dtype=torch.int32), (1, 32),
+                     (4, 64))
+    rhs = TileBitmap(torch.zeros((2, 1), dtype=torch.int32), (32, 128),
+                     (64, 32))
+    blocks = dict(block_m=1, block_k=32, block_n=128)
+    with pytest.raises(NotImplementedError, match="sparce_gemm_compacted"):
+        kops.sparce_gemm(x, w, sasa.SkipPlan(gate="lhs", variant="compacted",
+                                             **blocks), lhs_bitmap=lhs)
+    with pytest.raises(NotImplementedError, match="sparce_gemm_gated_both"):
+        kops.sparce_gemm(x, w, sasa.SkipPlan(gate="both", variant="gated",
+                                             **blocks),
+                         lhs_bitmap=lhs, rhs_bitmap=rhs)
+    scfg = sparse_ops.SparsityConfig(enabled=True, mode="kernel", block_m=1,
+                                     block_k=32)
+    with pytest.raises(NotImplementedError, match="sparce_gemm_gated_both"):
+        sparse_ops.sparce_matmul(x, w, scfg, lhs_bitmap=lhs, rhs_bitmap=rhs)
+    _, _, params = _params(act="relu")
+    with pytest.raises(ValueError, match="activation"):
+        layers.mlp_fwd(params["stack"][0]["mlp"], x, "tanh",
+                       sparse_ops.SparsityConfig())
 
 
 def test_forward_logits_match_reference():
@@ -137,13 +214,25 @@ def _paged_state(cfg, seed, B=4, max_blocks=4, bs=8):
 
 @pytest.mark.parametrize("attn_kernel", ["gather", "paged"])
 def test_paged_decode_step_matches_reference(attn_kernel):
+    _decode_step_parity(attn_kernel, "silu", dict(
+        enabled=True, mode="fused", block_m=1, expected_sparsity=0.5))
+
+
+@pytest.mark.parametrize("mode", ["fused", "kernel"])
+@pytest.mark.parametrize("attn_kernel", ["gather", "paged"])
+def test_relu_paged_decode_step_matches_reference(attn_kernel, mode):
+    _decode_step_parity(attn_kernel, "relu", dict(
+        enabled=True, mode=mode, block_m=1, block_k=32))
+
+
+def _decode_step_parity(attn_kernel, act, sp):
     from repro.models.attention import PagedKVCache as RefPaged
     from repro_torch.models.attention import PagedKVCache
-    ref_cfg, ref_params, params = _params(1)
-    sp = dict(enabled=True, mode="fused", block_m=1, expected_sparsity=0.5)
+    ref_cfg, ref_params, params = _params(1, act=act)
     ref_cfg = dataclasses.replace(
         ref_cfg, sparsity=ref_sparse_ops.SparsityConfig(**sp))
     cfg = dataclasses.replace(get_config("smollm-135m").reduced(),
+                              mlp_act=act,
                               sparsity=sparse_ops.SparsityConfig(**sp))
     k, v, length, tables, active, toks = _paged_state(cfg, 3)
     ref_caches = {"stack": RefPaged(jnp.asarray(k), jnp.asarray(v),

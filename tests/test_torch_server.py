@@ -2,13 +2,16 @@
 
 Same config, same weights (carried over by the bridge), same seeded
 harness traffic: the port's drain-mode ``Server.generate`` over the
-paged pool, with the paged decode kernel and the fused gated-GLU kernel
-(their plain versions on the CPU), must reproduce the reference's token
-streams exactly and its integer and skip metrics exactly; the pool must
-drain. The reference runs its Pallas kernels in interpret mode, as its
-own tests do.
+paged pool, with the paged decode kernel and the SparCE MLP kernels
+(their plain versions on the CPU) -- the fused gated-GLU kernel, the
+fused relu MLP kernel, the relu-bitmap and gated GEMM kernels -- must
+reproduce the reference's token streams exactly and its integer and
+skip metrics exactly; the pool must drain. The reference runs its Pallas
+kernels in interpret mode, as its own tests do. The port's launcher is
+held against the reference launcher on the same flags.
 """
 import dataclasses
+import re
 
 import jax
 import numpy as np
@@ -45,8 +48,12 @@ EXACT_FIELDS = (
 
 
 def _serve_both(sp_kwargs, traffic, *, slots=3, max_len=32,
-                attn_kernel="paged"):
+                attn_kernel="paged", mode="fused", act=None):
     ref_cfg = ref_get_config("smollm-135m").reduced()
+    cfg = get_config("smollm-135m").reduced()
+    if act is not None:
+        ref_cfg = dataclasses.replace(ref_cfg, mlp_act=act)
+        cfg = dataclasses.replace(cfg, mlp_act=act)
     params = ref_model.init_params(ref_cfg, jax.random.PRNGKey(0))
     np_params = jax.tree_util.tree_map(np.asarray, params)
     reqs = make_traffic(ref_cfg, traffic)
@@ -54,7 +61,7 @@ def _serve_both(sp_kwargs, traffic, *, slots=3, max_len=32,
     ref_sc = ref_server.ServeConfig(
         batch_slots=slots, max_len=max_len, kv_block_size=16,
         attn_kernel=attn_kernel,
-        sparsity=RefSparsityConfig(enabled=True, mode="fused", **sp_kwargs))
+        sparsity=RefSparsityConfig(enabled=True, mode=mode, **sp_kwargs))
     ref_srv = ref_server.Server(ref_cfg, params, ref_sc)
     ref_done = ref_srv.generate(
         [dataclasses.replace(r, out=None, stats={}) for r in reqs])
@@ -62,16 +69,36 @@ def _serve_both(sp_kwargs, traffic, *, slots=3, max_len=32,
     port_sc = port_server.ServeConfig(
         batch_slots=slots, max_len=max_len, kv_block_size=16,
         attn_kernel=attn_kernel,
-        sparsity=SparsityConfig(enabled=True, mode="fused", **sp_kwargs))
+        sparsity=SparsityConfig(enabled=True, mode=mode, **sp_kwargs))
     port_srv = port_server.Server(
-        get_config("smollm-135m").reduced(),
-        params_from_reference(np_params, device="cpu"), port_sc,
+        cfg, params_from_reference(np_params, device="cpu"), port_sc,
         device="cpu")
     port_done = port_srv.generate([
         port_server.Request(uid=r.uid, prompt=np.asarray(r.prompt),
                             max_new=r.max_new, eos_id=r.eos_id)
         for r in reqs])
     return ref_srv, ref_done, port_srv, port_done
+
+
+def _assert_engines_equal(ref_srv, ref_done, port_srv, port_done):
+    """Tokens, completion and admission order, every exact metric; the
+    pool drains and every request finished its budget (or its EOS)."""
+    ref_out = {r.uid: np.asarray(r.out) for r in ref_done}
+    port_out = {r.uid: np.asarray(r.out) for r in port_done}
+    assert sorted(port_out) == sorted(ref_out)
+    for uid, want in ref_out.items():
+        np.testing.assert_array_equal(port_out[uid], want,
+                                      err_msg=f"uid={uid}")
+    assert [r.uid for r in port_done] == [r.uid for r in ref_done]
+    assert list(port_srv.admitted_uids) == list(ref_srv.admitted_uids)
+    for name in EXACT_FIELDS:
+        assert getattr(port_srv.metrics, name) == getattr(
+            ref_srv.metrics, name), name
+    alloc = port_srv._st.alloc
+    assert alloc.in_use == 0 and alloc.reserved == 0
+    alloc.check(expect_reserved=0)
+    for r in port_done:
+        assert r.stats["tokens"] == len(r.out) >= 1
 
 
 @pytest.mark.parametrize("case", [
@@ -88,26 +115,82 @@ def _serve_both(sp_kwargs, traffic, *, slots=3, max_len=32,
 def test_generate_matches_reference_engine(case):
     ref_srv, ref_done, port_srv, port_done = _serve_both(
         case["sp"], case["traffic"])
-    ref_out = {r.uid: np.asarray(r.out) for r in ref_done}
-    port_out = {r.uid: np.asarray(r.out) for r in port_done}
-    assert sorted(port_out) == sorted(ref_out)
-    for uid, want in ref_out.items():
-        np.testing.assert_array_equal(port_out[uid], want,
-                                      err_msg=f"uid={uid}")
-    assert [r.uid for r in port_done] == [r.uid for r in ref_done]
-    assert list(port_srv.admitted_uids) == list(ref_srv.admitted_uids)
-    for name in EXACT_FIELDS:
-        assert getattr(port_srv.metrics, name) == getattr(
-            ref_srv.metrics, name), name
+    _assert_engines_equal(ref_srv, ref_done, port_srv, port_done)
     if case["sp"].get("block_m") == 1:
         assert port_srv.metrics.skipped_tile_dots > 0  # dead slots skip
     assert port_srv.metrics.attn_block_skip_fraction > 0
-    # Every request finished its budget (or its EOS) and the pool drained.
-    alloc = port_srv._st.alloc
-    assert alloc.in_use == 0 and alloc.reserved == 0
-    alloc.check(expect_reserved=0)
-    for r in port_done:
-        assert r.stats["tokens"] == len(r.out) >= 1
+
+
+@pytest.mark.parametrize("case", [
+    # The paper's relu MLP through the fused kernel, replanned from the
+    # measured sparsity as the engine serves.
+    dict(act="relu", mode="fused",
+         sp=dict(block_m=1, block_k=32, autotune=True)),
+    # The relu-bitmap kernel, then the gated GEMM kernel.
+    dict(act="relu", mode="kernel", sp=dict(block_m=1, block_k=32)),
+    # The gated GLU's bitmap, then the gated GEMM kernel.
+    dict(act=None, mode="kernel", sp=dict(block_m=1)),
+], ids=["relu-fused-autotune", "relu-kernel", "glu-kernel-bm1"])
+def test_sparce_modes_match_reference_engine(case):
+    traffic = Traffic(n_requests=5, prompt_lens=(2, 12), max_new=(2, 8),
+                      seed=5)
+    ref_srv, ref_done, port_srv, port_done = _serve_both(
+        case["sp"], traffic, mode=case["mode"], act=case["act"])
+    _assert_engines_equal(ref_srv, ref_done, port_srv, port_done)
+    m = port_srv.metrics
+    assert 0 < m.skipped_tile_dots < m.total_tile_dots  # dead slots skip
+    if case["sp"].get("autotune"):
+        assert m.replans >= 1  # the EMA crossed a bucket and replanned
+    if case["act"] == "relu":
+        assert m.modeled_hbm_bytes_saved > 0
+
+
+def _launch_lines(main, argv, capsys):
+    main(argv)
+    return capsys.readouterr().out.splitlines()
+
+
+def test_launcher_sparce_flags_match_reference_launcher(capsys,
+                                                        monkeypatch):
+    """``--sparce --sparce-mode fused`` on the reduced config: the port's
+    launcher (on the CPU, with the reference's weights through the
+    bridge) prints the same tokens and skip counters as the reference
+    launcher, and serves the relu MLP the flag swaps in."""
+    from repro.launch import serve as ref_serve
+    from repro_torch.launch import serve as port_serve
+    from repro_torch.models import model as port_model
+    built = []
+
+    def bridged_init(cfg, seed=0, device="cuda"):
+        ref_cfg = dataclasses.replace(
+            ref_get_config(cfg.name).reduced(), mlp_act=cfg.mlp_act)
+        assert dataclasses.asdict(ref_cfg) == dataclasses.asdict(cfg)
+        built.append(cfg.mlp_act)
+        ref_params = ref_model.init_params(ref_cfg, jax.random.PRNGKey(seed))
+        return params_from_reference(
+            jax.tree_util.tree_map(np.asarray, ref_params), device=device)
+
+    monkeypatch.setattr(port_model, "init_params", bridged_init)
+    argv = ["--arch", "smollm-135m", "--reduced", "--requests", "3",
+            "--prompt-len", "8", "--max-new", "4", "--batch-slots", "2",
+            "--max-len", "32", "--attn-kernel", "gather", "--sparce",
+            "--sparce-mode", "fused"]
+    ref_lines = _launch_lines(ref_serve.main, argv, capsys)
+    port_lines = _launch_lines(port_serve.main, argv + ["--device", "cpu"],
+                               capsys)
+    assert built == ["relu"]
+
+    def picked(lines):
+        skip = [ln for ln in lines if "mlp_skip_fraction" in ln]
+        outs = [re.search(r"tokens=.*", ln).group(0) for ln in lines
+                if "out=" in ln]
+        return skip, outs
+
+    ref_skip, ref_outs = picked(ref_lines)
+    port_skip, port_outs = picked(port_lines)
+    assert len(ref_skip) == 1 and len(ref_outs) == 3
+    assert port_skip == ref_skip
+    assert port_outs == ref_outs
 
 
 def test_gather_and_paged_attention_serve_identically():
