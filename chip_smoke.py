@@ -11,7 +11,8 @@ is printed only when all of them pass):
      source, all at once) and its time;
   2. each kernel against its plain PyTorch version on the card, at the
      serving paths' shapes, in bf16 and f32, with NaN-poisoned dead
-     pool blocks, dead weight stripes and gated tiles, bits exactly;
+     pool blocks (the null block among them), dead weight stripes and
+     gated tiles, bits exactly;
   3. one f32 full-width ``serving_decode_step`` of smollm-135m with the
      kernels (CUDA) against the same step with the plain versions (CPU):
      the gated-GLU MLP, and the relu MLP (``--sparce``) in
@@ -22,8 +23,15 @@ is printed only when all of them pass):
   5. the full-width bf16 relu engine (the launcher's ``--sparce``:
      per-slot tiles, block_m 1, block_k 128) on the same trace, once in
      ``mode="fused"`` and once in ``mode="kernel"``, each with its
-     kernels' launch counts; then every kernel's time at the decode
-     shapes beside its plain version, a library yardstick and its bound.
+     kernels' launch counts;
+  6. the full-width bf16 DeepSeek-V3 engine (MLA absorbed decode out of
+     the paged latent pool, MoE), 4 layers deep, on the same trace with
+     the mixed budgets and its paged MLA kernel's launch count; then one
+     f32 2-layer decode step (1 dense + 1 MoE layer) made from those
+     weights, kernels on the card against plain versions on the CPU.
+
+After phases 4-6, every kernel's time at the decode shapes beside its
+plain version, a library yardstick and its bound.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -51,6 +59,9 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 
 ARCH = "smollm-135m"
+# DeepSeek-V3 serving (MLA + MoE) at its published widths, depth cut.
+DEEPSEEK = "deepseek-v3-671b"
+DEEPSEEK_DEPTH = dict(num_layers=4)
 ENGINE = dict(requests=16, prompt_lo=16, prompt_hi=256, max_new=32,
               slots=8, max_len=512, block_size=16, seed=0)
 # The launcher's --sparce tiling: per-slot rows, 128-wide f stripes.
@@ -180,6 +191,99 @@ def check_attention(torch, dev):
             raise AssertionError("NaN-poisoned dead blocks reached the output")
         log(f"  {name}: NaN-poisoned dead blocks never read -> ok")
     return errs[torch.bfloat16]
+
+
+# ------------------------------------------------------------------ MLA
+# DeepSeek-V3's absorbed-decode widths: 128 heads, a 512-wide latent and
+# 64-wide rope keys per row; scores scale by (nope + rope) ** -0.5.
+MLA_DIMS = dict(h=128, r=512, rope=64)
+MLA_SCALE = (128 + 64) ** -0.5
+
+
+def mla_case(torch, dev, dtype, seed, *, B=8, h=128, r=512, rope=64, bs=16,
+             max_blocks=32, lengths=None):
+    """Latent pools, tables and ragged lengths (0, a block edge, one
+    past the table's reach); dead table entries name spare blocks."""
+    rng = np.random.default_rng(seed)
+    reach = max_blocks * bs
+    if lengths is None:
+        lengths = [0, 1, bs, bs + 1, 100, reach - 1, reach, reach + 40][:B]
+    live = [min(-(-n // bs), max_blocks) for n in lengths]
+    nb = sum(live) + 1 + 16  # null block, live blocks, 16 spare blocks
+    ids = rng.permutation(np.arange(1, nb))
+    tables = np.zeros((B, max_blocks), np.int32)
+    nxt = 0
+    for b in range(B):
+        tables[b, : live[b]] = ids[nxt: nxt + live[b]]
+        nxt += live[b]
+    spare = ids[nxt:]
+    for b in range(B):
+        tables[b, live[b]:] = rng.choice(spare, max_blocks - live[b])
+    mk = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s, dtype=np.float32)).to(dev, dtype)
+    return dict(q_lat=mk(B, h, r), q_rope=mk(B, h, rope), ckv=mk(nb, bs, r),
+                kr=mk(nb, bs, rope), tables=torch.from_numpy(tables).to(dev),
+                lengths=torch.tensor(lengths, dtype=torch.int32, device=dev),
+                live_ids=set(ids[:nxt].tolist()), nb=nb)
+
+
+def check_mla(torch, dev):
+    """The MLA kernel against its plain version and the gathered-view
+    oracle, at the full decode width and a small ragged shape (heads not
+    a multiple of the kernel's 8 per block, a latent narrower than a
+    warp), in f32 and bf16; zeros for a length-0 slot; NaN poison in the
+    null block and in every block past a slot's live count."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import paged_decode_attn as pda
+    from repro_torch.kernels import ref as kref
+    tols = {
+        torch.float32: (1e-4, 1e-4, "f32 sums over 576-term dots and the "
+                        "rows in another order"),
+        torch.bfloat16: (2e-2, 2e-2, "bf16 p rounded against a running "
+                         "max in the kernel, against the final max in the "
+                         "plain version; bf16 output rounding"),
+    }
+    shapes = {"full width": dict(MLA_DIMS),
+              "small": dict(B=5, h=12, r=16, rope=8, bs=4, max_blocks=6,
+                            lengths=[0, 4, 7, 24, 30])}
+    err_main = None
+    for dtype, (atol, rtol, why) in tols.items():
+        for label, kw in shapes.items():
+            c = mla_case(torch, dev, dtype, seed=11, **kw)
+            args = (c["q_lat"], c["q_rope"], c["ckv"], c["kr"], c["tables"],
+                    c["lengths"])
+            got = pda.paged_mla_decode_attn(*args, scale=MLA_SCALE)
+            want = pda.paged_mla_decode_attn_plain(*args, scale=MLA_SCALE)
+            torch.cuda.synchronize()
+            name = f"paged_mla_decode_attn {str(dtype)[6:]} {label}"
+            err = check_close(name, got, want, atol=atol, rtol=rtol, why=why)
+            if dtype == torch.bfloat16 and label == "full width":
+                err_main = err
+            live = c["lengths"] > 0
+            oracle = kref.paged_mla_decode_attn_ref(*args, scale=MLA_SCALE)
+            check_close(name + " vs gather oracle (live slots)", got[live],
+                        oracle[live], atol=atol, rtol=rtol, why=why)
+            wrapped = kops.paged_mla_decode_attn(*args, scale=MLA_SCALE)
+            if not torch.equal(wrapped, got):
+                raise AssertionError(
+                    f"{name}: the clamping wrapper differs from the kernel")
+            if not bool((got[~live] == 0).all()):
+                raise AssertionError("a length-0 slot did not produce zeros")
+            dead = [i for i in range(c["nb"]) if i not in c["live_ids"]]
+            ckv, kr = c["ckv"].clone(), c["kr"].clone()
+            ckv[dead] = float("nan")
+            kr[dead] = float("nan")
+            poisoned = pda.paged_mla_decode_attn(
+                c["q_lat"], c["q_rope"], ckv, kr, c["tables"], c["lengths"],
+                scale=MLA_SCALE)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(poisoned).all()
+                    and torch.equal(poisoned, got)):
+                raise AssertionError(
+                    f"{name}: NaN-poisoned dead blocks reached the output")
+            log(f"  {name}: {len(dead)} NaN-poisoned blocks (null block "
+                "and every block past the live counts) never read -> ok")
+    return err_main
 
 
 # ------------------------------------------------------------------ GLU
@@ -444,13 +548,13 @@ def decode_state(torch, cfg, dev, seed, *, B=8, max_blocks=8, bs=16):
     lengths = [0, 3, 16, 31, 64, 100, 0, 127]
     nb = B * max_blocks + 1
     caches = model_lib.init_paged_caches(cfg, B, nb, bs, device=dev)
-    c = caches["stack"]
-    c.k.copy_(torch.from_numpy(rng.standard_normal(
-        tuple(c.k.shape), dtype=np.float32)))
-    c.v.copy_(torch.from_numpy(rng.standard_normal(
-        tuple(c.v.shape), dtype=np.float32)))
-    c.length.copy_(torch.tensor(lengths, dtype=torch.int32)[None, :].expand(
-        cfg.num_layers, B))
+    for c in caches.values():  # every stack: "stack" (and "dense_stack")
+        c.k.copy_(torch.from_numpy(rng.standard_normal(
+            tuple(c.k.shape), dtype=np.float32)))
+        c.v.copy_(torch.from_numpy(rng.standard_normal(
+            tuple(c.v.shape), dtype=np.float32)))
+        c.length.copy_(torch.tensor(lengths, dtype=torch.int32)[
+            None, :].expand(c.length.shape[0], B))
     tables = np.zeros((B, max_blocks), np.int32)
     ids = rng.permutation(np.arange(1, nb))
     nxt = 0
@@ -481,6 +585,14 @@ def check_decode_step(torch, dev, base_cfg, sparsity, label):
     from repro_torch.models import model as model_lib
     cfg = dataclasses.replace(base_cfg, dtype="float32", sparsity=sparsity)
     params = model_lib.init_params(cfg, seed=0, device=dev)
+    compare_decode_step(torch, dev, cfg, params, label,
+                        why="30 layers of f32 sums in another order")
+
+
+def compare_decode_step(torch, dev, cfg, params, label, *, why):
+    """``serving_decode_step`` with ``params`` (on the card: the kernels)
+    against the same step on a CPU copy (the plain versions)."""
+    from repro_torch.models import model as model_lib
     caches, tables, active, toks = decode_state(torch, cfg, dev, seed=4)
     cpu = torch.device("cpu")
     params_cpu = to_device(params, cpu)
@@ -499,8 +611,7 @@ def check_decode_step(torch, dev, base_cfg, sparsity, label):
     atol = rtol = 1e-3
     check_close(f"{label}: f32 serving_decode_step logits (live slots), "
                 "kernels on the GPU vs plain versions on the CPU", lg[live],
-                lc[live], atol=atol, rtol=rtol,
-                why="30 layers of f32 sums in another order")
+                lc[live], atol=atol, rtol=rtol, why=why)
     if not torch.equal(sk, skc):
         raise AssertionError(f"{label}: skip stats differ: {sk} vs {skc}")
     top2 = lc[live].topk(2, dim=-1).values
@@ -539,6 +650,7 @@ def counters():
     from repro_torch.kernels import sparce_glu_mlp as sgm
     from repro_torch.kernels import sparce_mlp as sm
     return {"paged_gqa_decode_attn": pda.paged_gqa_decode_attn,
+            "paged_mla_decode_attn": pda.paged_mla_decode_attn,
             "sparce_glu_mlp_fused": sgm.sparce_glu_mlp_fused,
             "sparce_mlp_fused": sm.sparce_mlp_fused,
             "relu_bitmap": rb.relu_bitmap,
@@ -660,6 +772,68 @@ def run_relu_engines(torch, dev):
     return launches
 
 
+def deepseek_config():
+    """DeepSeek-V3 at its published widths, cut to 4 layers: the 3 dense
+    MLA + GLU layers (first_k_dense as published) and 1 MLA + MoE layer."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(DEEPSEEK), **DEEPSEEK_DEPTH)
+
+
+def run_deepseek(torch, dev):
+    """The full-width bf16 DeepSeek-V3 engine (paged MLA decode, MoE) on
+    the mixed-budget trace, then an f32 2-layer decode step (1 dense +
+    1 MoE layer, made from the engine's weights) with the kernels on the
+    card against the plain versions on the CPU. Returns the engine's
+    launches."""
+    from repro_torch.core import sasa
+    from repro_torch.core.sparse_ops import SparsityConfig
+    cfg = deepseek_config()
+    plan = sasa.plan_glu_mlp_cached(
+        ENGINE["slots"], cfg.d_model, cfg.d_ff, cfg.d_model,
+        dtype="bfloat16", block_m=64, block_f=128, block_n=128)
+    log(f"  dense-layer GLU at d_model {cfg.d_model}, d_ff {cfg.d_ff}: the "
+        f"planner picks {plan.variant!r} for a decode tick of "
+        f"{ENGINE['slots']} rows")
+    torch.cuda.reset_peak_memory_stats()
+    params = full_width_params(torch, cfg, dev)
+    sp = SparsityConfig(enabled=True, mode="fused", gate_threshold=0.0,
+                        autotune=False)
+    _, launches = run_engine(torch, dev, cfg, params, sp, "deepseek",
+                             ("paged_mla_decode_attn",), mixed=True)
+    log(f"  deepseek: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # The f32 step's weights: the engine's first dense and first MoE
+    # layer, upcast on the card one leaf at a time (the rest is freed
+    # first, so the card never holds both copies of a leaf for long).
+    import dataclasses
+    cfg2 = dataclasses.replace(cfg, num_layers=2, first_k_dense=1,
+                               dtype="float32", sparsity=sp)
+    params["dense_stack"] = params["dense_stack"][:1]
+    params["stack"] = params["stack"][:1]
+    upcast_in_place(torch, params)
+    log(f"  deepseek f32 2-layer step: "
+        f"{sum(p.numel() for p in _leaves(params))} f32 values on the card")
+    compare_decode_step(torch, dev, cfg2, params, "deepseek 2-layer",
+                        why="2 layers of f32 sums in another order; the "
+                        "MoE layer's 256 experts at 8 rows each")
+    params.clear()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def upcast_in_place(torch, tree):
+    """Every tensor of a param tree to f32, leaf by leaf, releasing each
+    low-precision leaf's memory before the next upcast."""
+    keys = list(tree) if isinstance(tree, dict) else range(len(tree))
+    for k in keys:
+        if isinstance(tree[k], (dict, list)):
+            upcast_in_place(torch, tree[k])
+        else:
+            tree[k] = tree[k].float()  # drops the only other reference
+            torch.cuda.empty_cache()
+
+
 def profile_engine(torch, cfg, params, sc, dev, label):
     """Device time by kernel over a short engine run under the profiler
     (its own overhead lengthens the wall time, so the busy share printed
@@ -748,6 +922,59 @@ def time_attention(torch, dev, err):
     return dict(name="paged_gqa_decode_attn", route="cuda",
                 source="src/repro_torch/csrc/paged_decode_attn.cu",
                 replaces="src/repro/kernels/paged_decode_attn.py:139",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=by, library_ms=lib_ms)
+
+
+def time_mla(torch, dev, err):
+    """The MLA kernel at the DeepSeek engine's decode shapes: 8 slots of
+    the trace's lengths, 128 heads, 512-wide latents, 64-wide rope keys,
+    16-row blocks, bf16."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_decode_attn as pda
+    from repro_torch.kernels import ref as kref
+    rng = np.random.default_rng(12)
+    B, bs = ENGINE["slots"], ENGINE["block_size"]
+    h, r, rope = MLA_DIMS["h"], MLA_DIMS["r"], MLA_DIMS["rope"]
+    max_blocks = ENGINE["max_len"] // bs
+    lengths = rng.integers(ENGINE["prompt_lo"],
+                           ENGINE["prompt_hi"] + ENGINE["max_new"], B)
+    c = mla_case(torch, dev, torch.bfloat16, seed=12, B=B, bs=bs,
+                 max_blocks=max_blocks, lengths=lengths.tolist(), **MLA_DIMS)
+    args = (c["q_lat"], c["q_rope"], c["ckv"], c["kr"], c["tables"],
+            c["lengths"])
+    ms = cuda_time_ms(
+        lambda: pda.paged_mla_decode_attn(*args, scale=MLA_SCALE), 200)
+    plain_ms = cuda_time_ms(
+        lambda: pda.paged_mla_decode_attn_plain(*args, scale=MLA_SCALE), 10,
+        warmup=1)
+    # Yardstick: SDPA with one KV head over the gathered full view (the
+    # gather and concatenations done outside): the h query heads are the
+    # query rows, keys are [ckv, kr], values ckv.
+    cc = kref.gather_pool_view(c["ckv"], c["tables"])
+    cr = kref.gather_pool_view(c["kr"], c["tables"])
+    qk = torch.cat([c["q_lat"], c["q_rope"]], -1)[:, None].contiguous()
+    kk = torch.cat([cc, cr], -1)[:, None].contiguous()
+    vv = cc[:, None].contiguous()
+    L = cc.shape[1]
+    mask = (torch.arange(L, device=dev)[None, :]
+            < c["lengths"][:, None])[:, None, None, :]
+    lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        qk, kk, vv, attn_mask=mask, scale=MLA_SCALE), 200)
+    live_blocks = int(sum(-(-int(n) // bs) for n in lengths))
+    item = 2
+    nbytes = (B * h * (2 * r + rope) * item  # q_lat, q_rope in; out
+              + live_blocks * bs * (r + rope) * item  # live latent blocks
+              + live_blocks * 4 + B * 4)  # live table entries, lengths
+    ops = int(lengths.sum()) * (2 * h * (r + rope) + 2 * h * r)
+    bound_ms, by = bound(nbytes, ops, "bfloat16")
+    log(f"  paged_mla_decode_attn bf16 B={B} h={h} r={r} rope={rope} "
+        f"lengths={lengths.tolist()}: {ms:.4f} ms; plain {plain_ms:.4f} ms; "
+        f"SDPA(gathered view, one KV head) {lib_ms:.4f} ms; bound "
+        f"{bound_ms:.5f} ms ({by}; {nbytes} bytes, {ops} operations)")
+    return dict(name="paged_mla_decode_attn", route="cuda",
+                source="src/repro_torch/csrc/paged_mla_decode_attn.cu",
+                replaces="src/repro/kernels/paged_decode_attn.py:247",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=by, library_ms=lib_ms)
 
@@ -896,7 +1123,7 @@ def time_gemm(torch, dev, err):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5",
+    ap.add_argument("--phases", default="1,2,3,4,5,6",
                     help="comma-separated subset of phases to run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -932,6 +1159,7 @@ def main(argv=None) -> int:
             errs["relu_bitmap"] = check_relu_bitmap(torch, dev)
             errs["sparce_gemm_gated"] = check_gemm(torch, dev)
             errs["sparce_mlp_fused"] = check_mlp(torch, dev)
+            errs["paged_mla_decode_attn"] = check_mla(torch, dev)
         if 3 in phases:
             from repro_torch.core.sparse_ops import SparsityConfig
             log("phase 3: f32 full-width decode step, kernels vs plain")
@@ -962,6 +1190,14 @@ def main(argv=None) -> int:
                 row = timer(torch, dev, errs.get(name))
                 row["launches"] = launches[mode][name]
                 rows.append(row)
+        if 6 in phases:
+            log("phase 6: full-width bf16 DeepSeek-V3 engine (MLA + MoE, "
+                f"{DEEPSEEK_DEPTH['num_layers']} layers), then an f32 "
+                "2-layer decode step, kernels vs plain")
+            launches = run_deepseek(torch, dev)
+            row = time_mla(torch, dev, errs.get("paged_mla_decode_attn"))
+            row["launches"] = launches["paged_mla_decode_attn"]
+            rows.append(row)
         torch.cuda.synchronize()
     except Exception:  # noqa: BLE001 - report and fail the run
         traceback.print_exc()

@@ -3,7 +3,9 @@
 :func:`params_from_reference` takes the reference ``init_params`` tree
 as plain numpy arrays (the caller converts the framework arrays, e.g.
 with ``np.asarray``) and returns the port's tree: the same dicts, with
-the layer-stacked ``"stack"`` leaves unstacked into one dict per layer.
+the layer-stacked ``"stack"`` and ``"dense_stack"`` leaves (MoE layers'
+router, ``(E, d, de)`` expert tensors and shared expert included)
+unstacked into one dict per layer.
 bfloat16 arrays (numpy dtype name ``"bfloat16"``) are carried over bit
 for bit through their 16-bit patterns. This module imports neither the
 reference package nor its framework.
@@ -46,6 +48,10 @@ def _layer(tree, i: int, device):
     return to_tensor(np.asarray(tree)[i], device)
 
 
+# Layer-stacked subtrees of the reference's tree.
+STACKS = ("stack", "dense_stack")
+
+
 def unstack_layers(stacked: Dict[str, Any], device) -> List[Dict[str, Any]]:
     """{leaf: (L, ...)} -> [{leaf: (...)}] * L."""
     return [_layer(stacked, i, device) for i in range(_n_layers(stacked))]
@@ -53,11 +59,11 @@ def unstack_layers(stacked: Dict[str, Any], device) -> List[Dict[str, Any]]:
 
 def params_from_reference(tree: Dict[str, Any], device="cuda"
                           ) -> Dict[str, Any]:
-    """The reference's dense-family param tree (numpy leaves) as the
-    port's param tree on ``device``."""
+    """The reference's dense- or moe-family param tree (numpy leaves) as
+    the port's param tree on ``device``."""
     dev = resolve_device(device)
     out: Dict[str, Any] = {}
     for key, val in tree.items():
-        out[key] = (unstack_layers(val, dev) if key == "stack"
+        out[key] = (unstack_layers(val, dev) if key in STACKS
                     else _convert(val, dev))
     return out

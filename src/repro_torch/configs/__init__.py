@@ -13,6 +13,7 @@ from repro_torch.configs.base import (  # noqa: F401
 
 _ARCH_MODULES: Dict[str, str] = {
     "smollm-135m": "repro_torch.configs.smollm_135m",
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
 }
 
 ARCH_NAMES = tuple(_ARCH_MODULES)

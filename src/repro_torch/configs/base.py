@@ -129,6 +129,15 @@ class ArchConfig:
             total += (self.num_codebooks - 1) * v * d
         return int(total)
 
+    def n_params_active(self) -> int:
+        """Active params per token (MoE: only routed top-k + shared)."""
+        if self.moe is None:
+            return self.n_params()
+        m = self.moe
+        de = m.d_expert or self.d_ff
+        inactive = (m.num_experts - m.top_k) * 3 * self.d_model * de
+        return int(self.n_params() - self.num_layers * inactive)
+
     def reduced(self) -> "ArchConfig":
         """Small same-family variant for CPU smoke tests."""
         kw: dict = dict(

@@ -184,3 +184,26 @@ def paged_decode_attn(
         torch.clamp_max(lengths, reach).to(torch.int32).contiguous(),
         scale=scale,
     )
+
+
+def paged_mla_decode_attn(
+    q_lat: torch.Tensor,
+    q_rope: torch.Tensor,
+    ckv_pool: torch.Tensor,
+    kr_pool: torch.Tensor,
+    block_tables: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    scale: float,
+) -> torch.Tensor:
+    """Ragged-shape wrapper over the paged MLA absorbed-decode kernel:
+    nothing is padded (the kernel takes any latent and rope width up to
+    its register budget); lengths clamp to the table's reach. Returns
+    (B, h, r) latent-space context."""
+    reach = block_tables.shape[1] * ckv_pool.shape[1]
+    return _pda.paged_mla_decode_attn(
+        q_lat.contiguous(), q_rope.contiguous(), ckv_pool.contiguous(),
+        kr_pool.contiguous(), block_tables.to(torch.int32).contiguous(),
+        torch.clamp_max(lengths, reach).to(torch.int32).contiguous(),
+        scale=scale,
+    )

@@ -1,17 +1,19 @@
-"""Paged GQA decode attention straight out of the shared KV pool.
+"""Paged decode attention straight out of the shared KV pool.
 
-Port of the TPU kernel ``repro/kernels/paged_decode_attn.py:
-paged_gqa_decode_attn``. The CUDA kernel (``csrc/paged_decode_attn.cu``)
-runs one thread block per (slot, KV head) and loops over the slot's
+Ports of the TPU kernels ``repro/kernels/paged_decode_attn.py:
+paged_gqa_decode_attn`` and ``paged_mla_decode_attn``. The GQA kernel
+(``csrc/paged_decode_attn.cu``) runs one thread block per (slot, KV
+head); the MLA kernel (``csrc/paged_mla_decode_attn.cu``) one per
+(slot, group of 8 heads). Both loop over the slot's
 ``ceil(len / block_size)`` live blocks only -- the loop bound replaces
 the TPU kernel's index-map clamp, so a table entry past the live prefix,
 and the block it names, is never read (the paper's skip-before-fetch).
 
-:func:`paged_gqa_decode_attn` is the one entry point: a CUDA tensor
-launches the kernel (and counts the launch in its ``launches``
-attribute); a CPU tensor runs :func:`paged_gqa_decode_attn_plain`, the
-plain PyTorch version, which also gathers only each slot's live blocks
-so the NaN-poison skip-contract tests hold for it on the CPU.
+:func:`paged_gqa_decode_attn` and :func:`paged_mla_decode_attn` are the
+entry points: a CUDA tensor launches the kernel (and counts the launch
+in the function's ``launches`` attribute); a CPU tensor runs the plain
+PyTorch version (``*_plain``), which also gathers only each slot's live
+blocks so the NaN-poison skip-contract tests hold for it on the CPU.
 
 The host-side accounting (:func:`clamped_block_ids`,
 :func:`decode_attn_block_counts`, :func:`decode_attn_savings`) is the
@@ -74,6 +76,13 @@ def decode_attn_savings(lengths, max_blocks: int, block_size: int) -> float:
     return 1.0 - fetched / total
 
 
+def live_block_count(length: int, block_size: int, max_blocks: int) -> int:
+    """Pool blocks the kernels (and plain versions) read for one slot:
+    ``ceil(length / block_size)``, 0 for a dead slot, capped at the
+    table width."""
+    return min(-(-max(int(length), 0) // block_size), max_blocks)
+
+
 # ----------------------------------------------------------- plain version
 def paged_gqa_decode_attn_plain(
     q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
@@ -93,7 +102,7 @@ def paged_gqa_decode_attn_plain(
     max_blocks = block_tables.shape[1]
     for b in range(B):
         n = int(lens[b])
-        nblk = min(-(-max(n, 0) // bs), max_blocks)  # the kernel's cap
+        nblk = live_block_count(n, bs, max_blocks)
         if nblk == 0:
             continue
         ids = block_tables[b, :nblk].to(torch.long)
@@ -174,3 +183,116 @@ def paged_gqa_decode_attn(
 
 
 paged_gqa_decode_attn.launches = 0
+
+
+# ------------------------------------------------------------------- MLA
+# Widths the MLA kernel's per-lane registers hold (16 latent and 4 rope
+# values per lane of a 32-lane warp).
+MLA_MAX_LATENT = 512
+MLA_MAX_ROPE = 128
+
+
+def paged_mla_decode_attn_plain(
+    q_lat: torch.Tensor, q_rope: torch.Tensor, ckv_pool: torch.Tensor,
+    kr_pool: torch.Tensor, block_tables: torch.Tensor,
+    lengths: torch.Tensor, *, scale: float,
+) -> torch.Tensor:
+    """What the MLA kernel computes, in plain PyTorch, reading only live
+    blocks: per slot, gather ``table[b, :ceil(len/bs)]`` (capped at the
+    table width) of both latent pools, scores ``(q_lat . ckv + q_rope .
+    kr) * scale`` in f32, positions at or past the length masked, p
+    rounded to the pool dtype before the context product (the
+    normaliser sums the unrounded p, floored at 1e-30); zeros for a
+    dead slot."""
+    B, h, r = q_lat.shape
+    bs = ckv_pool.shape[1]
+    rope = kr_pool.shape[-1]
+    out = torch.zeros_like(q_lat)
+    lens = lengths.tolist()
+    max_blocks = block_tables.shape[1]
+    for b in range(B):
+        n = int(lens[b])
+        nblk = live_block_count(n, bs, max_blocks)
+        if nblk == 0:
+            continue
+        ids = block_tables[b, :nblk].to(torch.long)
+        ckv = ckv_pool[ids].reshape(nblk * bs, r)
+        kr = kr_pool[ids].reshape(nblk * bs, rope)
+        s = (q_lat[b].float() @ ckv.float().T
+             + q_rope[b].float() @ kr.float().T) * scale  # (h, L)
+        pos = torch.arange(nblk * bs, device=q_lat.device)
+        s = torch.where(pos < n, s, torch.full_like(s, -1e30))
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+        ctx = p.to(ckv.dtype).float() @ ckv.float()
+        out[b] = (ctx / denom).to(q_lat.dtype)
+    return out
+
+
+def paged_mla_decode_attn(
+    q_lat: torch.Tensor,  # (B, h, r) wuk-absorbed queries, pool dtype
+    q_rope: torch.Tensor,  # (B, h, rope)
+    ckv_pool: torch.Tensor,  # (nb, bs, r) compressed-latent pool
+    kr_pool: torch.Tensor,  # (nb, bs, rope) shared rope-key pool
+    block_tables: torch.Tensor,  # int32 (B, max_blocks), 0 = null block
+    lengths: torch.Tensor,  # int32 (B,) live rows incl. this tick's write
+    *,
+    scale: float,
+) -> torch.Tensor:
+    """(B, h, r) latent-space context over each slot's live pool blocks
+    (the caller decompresses with ``wuv``); zeros for a slot with
+    ``lengths[b] == 0``. CUDA tensors launch the kernel, CPU tensors run
+    the plain version; anything else raises."""
+    if q_lat.device.type == "cpu":
+        return paged_mla_decode_attn_plain(
+            q_lat, q_rope, ckv_pool, kr_pool, block_tables, lengths,
+            scale=scale)
+    if q_lat.device.type != "cuda":
+        raise ValueError(
+            f"paged_mla_decode_attn: unsupported device {q_lat.device}")
+    B, h, r = q_lat.shape
+    rope = q_rope.shape[-1]
+    nb, bs = ckv_pool.shape[0], ckv_pool.shape[1]
+    max_blocks = block_tables.shape[1]
+    dtype_id = _build.check_operands(
+        "paged_mla_decode_attn", q_lat=q_lat, q_rope=q_rope,
+        ckv_pool=ckv_pool, kr_pool=kr_pool)
+    for name, t in (("block_tables", block_tables), ("lengths", lengths)):
+        if t.device != q_lat.device:
+            raise ValueError(f"{name} on {t.device}, q_lat on {q_lat.device}")
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise TypeError(f"{name} must be contiguous int32")
+    if tuple(q_rope.shape) != (B, h, rope) \
+            or tuple(ckv_pool.shape) != (nb, bs, r) \
+            or tuple(kr_pool.shape) != (nb, bs, rope) \
+            or tuple(block_tables.shape) != (B, max_blocks) \
+            or tuple(lengths.shape) != (B,):
+        raise ValueError(
+            f"shape mismatch: q_lat {tuple(q_lat.shape)}, q_rope "
+            f"{tuple(q_rope.shape)}, pools {tuple(ckv_pool.shape)}/"
+            f"{tuple(kr_pool.shape)}, tables {tuple(block_tables.shape)}, "
+            f"lengths {tuple(lengths.shape)}")
+    if r > MLA_MAX_LATENT or rope > MLA_MAX_ROPE:
+        raise ValueError(
+            f"paged_mla_decode_attn: latent width {r} (max "
+            f"{MLA_MAX_LATENT}) or rope width {rope} (max {MLA_MAX_ROPE}) "
+            "too wide for the kernel's per-lane registers")
+    out = torch.empty_like(q_lat)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = _build.function("paged_mla_decode_attn", "paged_mla_decode_attn",
+                         [p, p, p, p, p, p, p, i, i, i, i, i, i,
+                          ctypes.c_float, i, p])
+    stream = torch.cuda.current_stream(q_lat.device).cuda_stream
+    err = fn(
+        q_lat.data_ptr(), q_rope.data_ptr(), ckv_pool.data_ptr(),
+        kr_pool.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), B, h, r, rope, bs, max_blocks, float(scale),
+        dtype_id, stream)
+    paged_mla_decode_attn.launches += 1
+    if err != 0:
+        raise RuntimeError(
+            f"paged_mla_decode_attn launch failed: cudaError {err}")
+    return out
+
+
+paged_mla_decode_attn.launches = 0

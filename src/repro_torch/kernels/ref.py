@@ -8,8 +8,10 @@ path needs). These are the contracts the CUDA kernels are held to:
   * ``relu_bitmap_ref``: relu plus the per-tile "no element > 0" bit.
   * ``glu_act_ref`` / ``gate_bitmap_ref`` / ``glu_mlp_ref``: the gated
     GLU with the dead-tile bitmap at the gate's writeback.
-  * ``gather_pool_view`` / ``paged_gqa_decode_attn_ref``: decode
-    attention over the full gathered view of the paged pool.
+  * ``gather_pool_view`` / ``paged_gqa_decode_attn_ref`` /
+    ``paged_mla_decode_attn_ref``: decode attention (GQA, and MLA's
+    absorbed decode in the latent space) over the full gathered view of
+    the paged pool.
 
 Each takes and returns tensors in the reference's layouts and runs on
 whatever device its inputs are on.
@@ -178,3 +180,22 @@ def paged_gqa_decode_attn_ref(q, k_pool, v_pool, block_tables, lengths,
     k = gather_pool_view(k_pool, block_tables)
     v = gather_pool_view(v_pool, block_tables)
     return decode_attn_ref(q, k, v, lengths, scale=scale)
+
+
+def paged_mla_decode_attn_ref(q_lat, q_rope, ckv_pool, kr_pool,
+                              block_tables, lengths, *,
+                              scale: float) -> torch.Tensor:
+    """Oracle for paged MLA decode: absorbed decode over the gathered
+    latent view. q_lat: (B, h, r); q_rope: (B, h, rope); pools
+    (nb, bs, r) and (nb, bs, rope). Returns (B, h, r) in q_lat's
+    dtype."""
+    cc = gather_pool_view(ckv_pool, block_tables).float()  # (B, L, r)
+    cr = gather_pool_view(kr_pool, block_tables).float()  # (B, L, rope)
+    L = cc.shape[1]
+    s = (torch.einsum("bhr,blr->bhl", q_lat.float(), cc)
+         + torch.einsum("bhr,blr->bhl", q_rope.float(), cr)) * scale
+    pos = torch.arange(L, device=cc.device)
+    valid = pos[None, :] < lengths.to(cc.device)[:, None]  # (B, L)
+    s = torch.where(valid[:, None, :], s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhl,blr->bhr", p, cc).to(q_lat.dtype)

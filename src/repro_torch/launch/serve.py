@@ -6,8 +6,11 @@
         [--sparce] [--sparce-mode reference|kernel|fused] \
         [--sparce-autotune] [--sparce-gate-threshold TAU]
 
-The subset of ``repro/launch/serve.py``'s flags that the port supports
-(no ``--mesh``, prefix cache, SLO or open-loop flags), over the paged KV
+``--arch`` names any arch of the port's registry: ``smollm-135m``
+(dense, GQA) or ``deepseek-v3-671b`` (moe, MLA; its full config holds
+671 B parameters, so run it ``--reduced``). The subset of
+``repro/launch/serve.py``'s flags that the port supports (no
+``--mesh``, prefix cache, SLO or open-loop flags), over the paged KV
 pool with the paged decode kernel by default (``--attn-kernel paged``).
 The SparCE flags mean what the reference launcher's mean: ``--sparce``
 swaps the MLP activation to relu before init (the paper's sparsity

@@ -1,11 +1,13 @@
-"""GQA attention with contiguous and paged KV caches.
+"""Attention: GQA and DeepSeek MLA, with contiguous and paged KV caches.
 
-Port of the GQA parts of ``repro/models/attention.py``. Prefill runs the
-chunked online-softmax attention (plain PyTorch, as it is plain jnp in
-the reference); decode writes one row per slot into its cache and
-attends over the slot's live prefix, either over the gathered full pool
-view (``attn_kernel="gather"``, the parity oracle) or straight out of
-the pool with the paged decode kernel (``attn_kernel="paged"``).
+Port of ``repro/models/attention.py``. Prefill runs the chunked
+online-softmax attention (plain PyTorch, as it is plain jnp in the
+reference); decode writes one row per slot into its cache and attends
+over the slot's live prefix, either over the gathered full pool view
+(``attn_kernel="gather"``, the parity oracle) or straight out of the
+pool with a paged decode kernel (``attn_kernel="paged"``). MLA decode
+uses the absorbed-matmul trick: attention runs in the compressed latent
+space, so its cache rows stay (kv_lora + rope) wide.
 
 In-place updates: the reference's caches are immutable pytrees. Here a
 layer's cache tensors are views into the layer-stacked buffers
@@ -19,18 +21,19 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import modules as nn
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_rope, rmsnorm, rmsnorm_init
 
 _NEG_INF = -1e30
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor  # (B, L, KV, hd)
-    v: torch.Tensor  # (B, L, KV, hd)
+    k: torch.Tensor  # (B, L, KV, hd) [GQA] or ckv (B, L, kv_lora) [MLA]
+    v: torch.Tensor  # (B, L, KV, hd) [GQA] or k_rope (B, L, rope) [MLA]
     length: torch.Tensor  # int32 (B,): tokens already in cache, per slot
 
 
@@ -40,8 +43,8 @@ class PagedKVCache(NamedTuple):
     writes land harmlessly. The block table is not part of the cache;
     the server owns it and passes it into each decode step."""
 
-    k: torch.Tensor  # (num_blocks, block_size, KV, hd)
-    v: torch.Tensor  # (num_blocks, block_size, KV, hd)
+    k: torch.Tensor  # (num_blocks, block_size, KV, hd) or (nb, bs, kv_lora)
+    v: torch.Tensor  # (num_blocks, block_size, KV, hd) or (nb, bs, rope)
     length: torch.Tensor  # int32 (B,)
 
     @property
@@ -302,5 +305,170 @@ def gqa_init_paged_cache(cfg: ArchConfig, batch: int, num_blocks: int,
     return PagedKVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
+        length=torch.zeros((layers, batch), dtype=torch.int32, device=device),
+    )
+
+
+# ===================================================================== MLA
+def mla_init(rng, cfg: ArchConfig, dtype, device):
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    return {
+        "wdq": nn.dense_init(rng, d, m.q_lora_rank, dtype, device),
+        "q_norm": rmsnorm_init(m.q_lora_rank, dtype, device),
+        "wuq": nn.dense_init(rng, m.q_lora_rank,
+                             h * (m.qk_nope_dim + m.qk_rope_dim), dtype,
+                             device),
+        "wdkv": nn.dense_init(rng, d, m.kv_lora_rank, dtype, device),
+        "kv_norm": rmsnorm_init(m.kv_lora_rank, dtype, device),
+        "wkr": nn.dense_init(rng, d, m.qk_rope_dim, dtype, device),
+        "wuk": nn.dense_init(rng, m.kv_lora_rank, h * m.qk_nope_dim, dtype,
+                             device),
+        "wuv": nn.dense_init(rng, m.kv_lora_rank, h * m.v_head_dim, dtype,
+                             device),
+        "wo": nn.dense_init(rng, h * m.v_head_dim, d, dtype, device),
+    }
+
+
+def mla_forward(
+    params,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    cfg: ArchConfig,
+    *,
+    cache=None,
+    block_tables: Optional[torch.Tensor] = None,
+    advance: Optional[torch.Tensor] = None,
+    attn_kernel: str = "gather",
+    active: Optional[torch.Tensor] = None,
+    continuation: bool = False,
+    chunk_q: Optional[int] = None,
+    chunk_k: Optional[int] = None,
+):
+    """x: (B, S, d). Prefill (or no cache) decompresses the latents
+    through ``wuk``/``wuv`` and runs the chunked attention with KV = H;
+    a decode step (cache and S == 1) runs the absorbed decode in the
+    latent space, over the gathered pool view (``attn_kernel="gather"``)
+    or out of the pool with the paged MLA kernel (``"paged"``). The
+    cache's ``k`` holds the latents ckv, its ``v`` the shared rope keys.
+    """
+    m = cfg.mla
+    if continuation:
+        # Suffix prefill needs bucketed (masked-tail) prefill to be
+        # exact, which excludes every MLA family (moe capacity routing is
+        # batch-shape dependent).
+        raise NotImplementedError(
+            "continuation prefill is not supported for MLA attention")
+    B, S, _ = x.shape
+    dq_, dk_ = _default_chunks(S)
+    chunk_q = chunk_q or dq_
+    chunk_k = chunk_k or dk_
+    h = cfg.num_heads
+    nope, rope_d, vd = m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim
+    scale = (nope + rope_d) ** -0.5
+
+    cq = rmsnorm(params["q_norm"], x @ params["wdq"], cfg.norm_eps)
+    q = (cq @ params["wuq"]).reshape(B, S, h, nope + rope_d)
+    q_nope = q[..., :nope]
+    q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
+    ckv = rmsnorm(params["kv_norm"], x @ params["wdkv"], cfg.norm_eps)
+    kr = apply_rope((x @ params["wkr"])[:, :, None, :], positions,
+                    cfg.rope_theta)[:, :, 0, :]  # (B, S, rope), all heads
+
+    if cache is None or S > 1:
+        # Train/prefill: decompress and run the chunked attention, KV=H.
+        k_nope = (ckv @ params["wuk"]).reshape(B, S, h, nope)
+        v = (ckv @ params["wuv"]).reshape(B, S, h, vd)
+        k = torch.cat([k_nope, kr[:, :, None, :].expand(B, S, h, rope_d)],
+                      dim=-1)
+        qq = torch.cat([q_nope, q_rope], dim=-1)
+        # Pad v to the qk head dim for the shared attention, slice after.
+        v_pad = F.pad(v, (0, nope + rope_d - vd))
+        out = _flash_chunked(qq, k, v_pad, q_offset=0,
+                             chunk_q=min(chunk_q, S),
+                             chunk_k=min(chunk_k, S))[..., :vd]
+        new_cache = None
+        if cache is not None:
+            if isinstance(cache, PagedKVCache):
+                raise NotImplementedError(
+                    "prefill targets a small contiguous cache; admission "
+                    "scatters it into the pool (model.insert_slot_paged)")
+            idx = _slot_lengths(cache, B)
+            cc = _scatter_rows(cache.k, ckv, idx)
+            cr = _scatter_rows(cache.v, kr, idx)
+            new_cache = KVCache(cc, cr, _advance_by(idx, S, advance))
+    else:
+        # Absorbed decode: q_lat[b,h,r] = sum_n q_nope[b,h,n] wuk[r,h,n].
+        # The reference keeps q_lat in f32 and casts it to the cache
+        # dtype before every use; a product in the model dtype rounds
+        # the f32 sum once, to the same dtype.
+        wuk = params["wuk"].reshape(m.kv_lora_rank, h, nope)
+        cc = cr = None
+        if isinstance(cache, PagedKVCache):
+            if block_tables is None:
+                raise ValueError("paged decode needs block_tables")
+            new_cache, idx = _paged_append(cache, block_tables, ckv[:, 0],
+                                           kr[:, 0])
+            if attn_kernel != "paged":
+                cc, cr = _paged_view(new_cache, block_tables)
+        else:
+            idx = _slot_lengths(cache, B)
+            cc = _scatter_rows(cache.k, ckv, idx)
+            cr = _scatter_rows(cache.v, kr, idx)
+            new_cache = KVCache(cc, cr, idx + 1)
+        q_lat = torch.einsum("bhn,rhn->bhr", q_nope[:, 0], wuk).to(
+            new_cache.k.dtype)
+        if cc is None:
+            # Straight out of the latent pool: only live table blocks of
+            # live slots are read; scores and context stay in the
+            # (kv_lora + rope)-wide latent space.
+            ctx_lat = kops.paged_mla_decode_attn(
+                q_lat, q_rope[:, 0], new_cache.k, new_cache.v,
+                block_tables, _paged_eff_lengths(idx, active), scale=scale)
+        else:
+            L = cc.shape[1]
+            s = (torch.einsum("bhr,blr->bhl", q_lat.float(), cc.float())
+                 + torch.einsum("bhr,blr->bhl", q_rope[:, 0].float(),
+                                cr.float())) * scale
+            valid = (torch.arange(L, device=x.device)[None, :]
+                     <= idx[:, None])  # (B, L)
+            s = torch.where(valid[:, None, :], s,
+                            torch.full_like(s, _NEG_INF))
+            p = torch.softmax(s, dim=-1)
+            ctx_lat = torch.einsum("bhl,blr->bhr", p.to(cc.dtype).float(),
+                                   cc.float())
+        wuv = params["wuv"].reshape(m.kv_lora_rank, h, vd)
+        out = torch.einsum("bhr,rhv->bhv", ctx_lat.to(wuv.dtype), wuv)
+        out = out[:, None].to(x.dtype)  # (B, 1, h, vd)
+
+    y = out.reshape(B, S, h * vd).to(x.dtype) @ params["wo"]
+    return y, new_cache
+
+
+def mla_init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
+                   device, layers: int = 1) -> KVCache:
+    """Layer-stacked contiguous latent cache: ckv (layers, batch,
+    max_len, kv_lora) and rope keys (layers, batch, max_len, rope)."""
+    m = cfg.mla
+    return KVCache(
+        k=torch.zeros((layers, batch, max_len, m.kv_lora_rank), dtype=dtype,
+                      device=device),
+        v=torch.zeros((layers, batch, max_len, m.qk_rope_dim), dtype=dtype,
+                      device=device),
+        length=torch.zeros((layers, batch), dtype=torch.int32, device=device),
+    )
+
+
+def mla_init_paged_cache(cfg: ArchConfig, batch: int, num_blocks: int,
+                         block_size: int, dtype, device,
+                         layers: int = 1) -> PagedKVCache:
+    """Layer-stacked latent pools: (layers, num_blocks, block_size,
+    kv_lora) and (layers, num_blocks, block_size, rope)."""
+    m = cfg.mla
+    return PagedKVCache(
+        k=torch.zeros((layers, num_blocks, block_size, m.kv_lora_rank),
+                      dtype=dtype, device=device),
+        v=torch.zeros((layers, num_blocks, block_size, m.qk_rope_dim),
+                      dtype=dtype, device=device),
         length=torch.zeros((layers, batch), dtype=torch.int32, device=device),
     )

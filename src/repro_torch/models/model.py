@@ -1,17 +1,20 @@
-"""Top-level language model, dense family: init / forward / serving ops.
+"""Top-level language model, dense and moe families: init / forward /
+serving ops.
 
-Port of the dense-family parts of ``repro/models/model.py``.
+Port of the dense- and moe-family parts of ``repro/models/model.py``.
 
 Param tree: ``{"embed": (V, d), "final_norm": {"scale": (d,) f32},
-"stack": [layer dicts]}`` (plus ``"head"`` when embeddings are untied)
--- the reference's tree with the layer-stacked leaves unstacked into a
-list, one dict per layer. Batch convention: ``tokens`` int (B, S);
+"stack": [layer dicts]}`` (plus ``"head"`` when embeddings are untied,
+and for the moe family ``"dense_stack"``, the first_k_dense dense
+layers before the moe ``"stack"``) -- the reference's tree with the
+layer-stacked leaves unstacked into a list, one dict per layer. Caches
+are dicts keyed like the stacks. Batch convention: ``tokens`` int (B, S);
 ``active`` f32 (B,) live-slot mask; ``block_tables`` int32
 (B, max_blocks); ``advance`` int32 (B,) bucketed-prefill true lengths.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,17 +24,32 @@ from repro_torch.device import resolve_device
 from repro_torch.models import modules as nn
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import (
-    gqa_init_cache, gqa_init_paged_cache,
+    gqa_init_cache, gqa_init_paged_cache, mla_init_cache,
+    mla_init_paged_cache,
 )
 from repro_torch.models.layers import rmsnorm, rmsnorm_init
 
+# Values of the f32 head product computed per slice of vocab columns:
+# bounds the f32 copy of a bf16 head (the whole of DeepSeek-V3's would be
+# 3.7 GB) to 128 MB.
+HEAD_SLICE_VALUES = 1 << 25
+
+
+def _stacks(cfg: ArchConfig) -> List[Tuple[str, str, int]]:
+    """(param/cache key, block kind, layers) of the model's stacks, in
+    forward order."""
+    if cfg.family == "moe":
+        dense = ([("dense_stack", "dense", cfg.first_k_dense)]
+                 if cfg.first_k_dense else [])
+        return dense + [("stack", "moe", cfg.num_layers - cfg.first_k_dense)]
+    return [("stack", "dense", cfg.num_layers)]
+
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family != "dense" or cfg.mla is not None or cfg.frontend:
+    if cfg.family not in ("dense", "moe") or cfg.frontend:
         raise NotImplementedError(
-            f"family {cfg.family!r} (mla={cfg.mla is not None}, "
-            f"frontend={cfg.frontend!r}) is not ported yet; the port "
-            "serves the dense GQA family")
+            f"family {cfg.family!r} (frontend={cfg.frontend!r}) is not "
+            "ported yet; the port serves the dense and moe families")
 
 
 # -------------------------------------------------------------------- init
@@ -50,7 +68,8 @@ def init_params(cfg: ArchConfig, seed: int = 0,
     if not cfg.tie_embeddings:
         params["head"] = nn.dense_init(rng, cfg.d_model, cfg.vocab_size,
                                        dtype, dev)
-    params["stack"] = tfm.stack_init(rng, cfg, cfg.num_layers, dtype, dev)
+    for key, kind, n in _stacks(cfg):
+        params[key] = tfm.stack_init(rng, cfg, n, kind, dtype, dev)
     return params
 
 
@@ -60,12 +79,40 @@ def params_device(params) -> torch.device:
 
 # ----------------------------------------------------------------- forward
 def _logits(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """f32 logits ``x @ head`` with the head upcast to f32, as in the
+    reference, one slice of vocab columns at a time so the f32 copy of a
+    low-precision head never exists whole."""
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
-    return x.float() @ head.float()
+    xf = x.float()
+    if head.dtype == torch.float32:
+        return xf @ head
+    d, V = head.shape
+    step = max(1, HEAD_SLICE_VALUES // d)
+    out = torch.empty(x.shape[:-1] + (V,), dtype=torch.float32,
+                      device=x.device)
+    for c in range(0, V, step):
+        out[..., c:c + step] = xf @ head[:, c:c + step].float()
+    return out
 
 
 def _cache_length(caches) -> torch.Tensor:
     return caches["stack"].length[0]  # stacked over layers -> layer 0: (B,)
+
+
+def _backbone(params, cfg: ArchConfig, x, positions, caches, active=None,
+              block_tables=None, advance=None, attn_kernel="gather"):
+    """The layer stacks; returns (x, new_caches dict or None, aux)."""
+    kw = dict(active=active, block_tables=block_tables, advance=advance,
+              attn_kernel=attn_kernel)
+    aux = tfm.aux_zero(x.device)
+    new_caches = {}
+    for key, kind, _ in _stacks(cfg):
+        x, nc, a = tfm.stack_fwd(params[key], x, positions, cfg, kind,
+                                 None if caches is None else caches[key],
+                                 **kw)
+        aux = {k: aux[k] + a[k] for k in aux}
+        new_caches[key] = nc
+    return x, (None if caches is None else new_caches), aux
 
 
 def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
@@ -90,12 +137,16 @@ def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     positions = offset[:, None] + torch.arange(S, device=x.device,
                                                dtype=torch.int32)[None, :]
     advance = batch.get("advance")
-    x, new_stack, aux = tfm.stack_fwd(
-        params["stack"], x, positions, cfg,
-        None if caches is None else caches["stack"], active=active,
+    if advance is not None and cfg.family not in bucketable_families():
+        # Masked-tail prefill is exact only for position-causal stacks;
+        # MoE capacity routing is batch-shape dependent.
+        raise ValueError(
+            f"batch['advance'] (bucketed prefill) is not supported for "
+            f"family {cfg.family!r}; prefill at exact length instead")
+    x, new_caches, aux = _backbone(
+        params, cfg, x, positions, caches, active=active,
         block_tables=batch.get("block_tables"), advance=advance,
-        attn_kernel=attn_kernel,
-    )
+        attn_kernel=attn_kernel)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if last_only:
         if advance is not None:
@@ -105,7 +156,6 @@ def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
         else:
             x = x[:, -1:]
     logits = _logits(params, cfg, x)
-    new_caches = None if new_stack is None else {"stack": new_stack}
     return logits, new_caches, aux
 
 
@@ -125,7 +175,7 @@ def serving_decode_step(params, cfg: ArchConfig, last_tokens, caches,
 # ---------------------------------------------------------------- caches
 def paged_families() -> Tuple[str, ...]:
     """Families whose serving caches can be paged (the port's subset)."""
-    return ("dense",)
+    return ("dense", "moe")
 
 
 def bucketable_families() -> Tuple[str, ...]:
@@ -136,22 +186,28 @@ def bucketable_families() -> Tuple[str, ...]:
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
                 device="cuda") -> Dict[str, Any]:
-    """Layer-stacked contiguous caches (prefill scratch)."""
+    """Layer-stacked contiguous caches (prefill scratch): GQA k/v, or
+    MLA latents and rope keys."""
     _check_family(cfg)
-    return {"stack": gqa_init_cache(
-        cfg, batch, max_len, nn.torch_dtype(cfg.dtype),
-        resolve_device(device), layers=cfg.num_layers)}
+    init = mla_init_cache if cfg.mla is not None else gqa_init_cache
+    dtype, dev = nn.torch_dtype(cfg.dtype), resolve_device(device)
+    return {key: init(cfg, batch, max_len, dtype, dev, layers=n)
+            for key, _, n in _stacks(cfg)}
 
 
 def init_paged_caches(cfg: ArchConfig, batch: int, num_blocks: int,
                       block_size: int, device="cuda") -> Dict[str, Any]:
     """Pool-backed serving caches: ``num_blocks`` INCLUDES the reserved
-    null block 0 (allocatable ids are 1..num_blocks-1)."""
+    null block 0 (allocatable ids are 1..num_blocks-1). Every layer owns
+    its pool; the block tables are shared across layers and stacks."""
     if cfg.family not in paged_families():
         raise ValueError(f"family {cfg.family!r} has no paged KV layout")
-    return {"stack": gqa_init_paged_cache(
-        cfg, batch, num_blocks, block_size, nn.torch_dtype(cfg.dtype),
-        resolve_device(device), layers=cfg.num_layers)}
+    init = (mla_init_paged_cache if cfg.mla is not None
+            else gqa_init_paged_cache)
+    dtype, dev = nn.torch_dtype(cfg.dtype), resolve_device(device)
+    return {key: init(cfg, batch, num_blocks, block_size, dtype, dev,
+                      layers=n)
+            for key, _, n in _stacks(cfg)}
 
 
 def insert_slot_paged(big, small, slot: int, block_ids: torch.Tensor,

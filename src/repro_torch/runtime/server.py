@@ -7,8 +7,9 @@ One ``step()`` is:
      worst-case KV-block commitment fits the pool
      (:meth:`BlockAllocator.try_reserve`), prefill the head alone
      (batch=1, prompt padded up to a power-of-two bucket, logits taken
-     at the last REAL position) and scatter its rows into pool blocks;
-     its first token comes from the prefill logits.
+     at the last REAL position; the moe family, whose capacity routing
+     depends on the batch shape, at exact length) and scatter its rows
+     into pool blocks; its first token comes from the prefill logits.
   2. **decode tick** -- one :func:`model.serving_decode_step` for all
      slots with the live-slot mask. Dead slots' embeddings are zeroed,
      so their MLP gate tiles are all-zero (dead) tiles; with
@@ -180,15 +181,18 @@ class Server:
         if cfg.family not in model_lib.paged_families():
             raise NotImplementedError(
                 f"family {cfg.family!r}: the port serves the paged dense "
-                "family only")
+                "and moe families only")
         self._max_rows = serve_cfg.max_len
         self._max_blocks = blocks_needed(self._max_rows,
                                          serve_cfg.kv_block_size)
         self._pool_usable = (
             serve_cfg.kv_pool_blocks if serve_cfg.kv_pool_blocks is not None
             else serve_cfg.batch_slots * self._max_blocks)
-        self._buckets = resolve_buckets(serve_cfg.prefill_buckets,
-                                        serve_cfg.max_len)
+        # Padded (bucketed) prefill is exact only for bucketable
+        # families; the rest (moe) prefill at exact length.
+        self._buckets = (
+            resolve_buckets(serve_cfg.prefill_buckets, serve_cfg.max_len)
+            if cfg.family in model_lib.bucketable_families() else ())
         self._ema = sasa.SparsityEMA()
         self._rng = np.random.default_rng(serve_cfg.seed)
         # Distinct prefill shapes served: the port runs eagerly, so this
@@ -254,9 +258,10 @@ class Server:
 
     def _prefill_one(self, r: Request, slot: int, caches,
                      block_ids: List[int]):
-        """Prefill one request alone (padded to its bucket, masked tail,
-        length advanced by the TRUE length) and scatter it into the pool
-        blocks of ``slot``."""
+        """Prefill one request alone and scatter it into the pool blocks
+        of ``slot``: padded to its bucket (masked tail, length advanced
+        by the TRUE length) for bucketable families, at exact length for
+        the rest."""
         cfg = self.cfg
         prompt = np.asarray(r.prompt).reshape(-1)
         S = int(prompt.shape[0])
@@ -264,10 +269,12 @@ class Server:
         toks = np.zeros((1, S_pad), np.int64)
         toks[0, :S] = prompt
         dev = self.device
-        batch = {
-            "tokens": torch.from_numpy(toks).to(dev),
-            "advance": torch.tensor([S], dtype=torch.int32, device=dev),
-        }
+        batch = {"tokens": torch.from_numpy(toks).to(dev)}
+        if cfg.family in model_lib.bucketable_families():
+            # Exact-length families never pad: their prefill advances by
+            # S implicitly, and forward rejects 'advance' for them.
+            batch["advance"] = torch.tensor([S], dtype=torch.int32,
+                                            device=dev)
         t0 = time.perf_counter()
         small = model_lib.init_caches(cfg, 1, S_pad, device=dev)
         with torch.no_grad():
@@ -645,7 +652,8 @@ class Server:
         relu-family MLPs compare fused vs two_kernel, gated-GLU MLPs the
         GLU kernel vs the unfused three-GEMM pipeline."""
         sp, cfg = self.cfg.sparsity, self.cfg
-        if (sp is None or not sp.enabled or cfg.family != "dense"
+        if (sp is None or not sp.enabled
+                or cfg.family not in ("dense", "vlm", "audio")
                 or cfg.mlp_act not in ("relu", "relu2", "silu", "gelu")):
             return
         dtype_bytes = 2 if cfg.dtype == "bfloat16" else 4

@@ -324,3 +324,106 @@ def test_ops_wrappers_on_gpu_equal_cpu(cuda):
     g = kops.sparce_gemm(a, wi.to(cuda), plan, lhs_bitmap=abmp)
     g0 = kops.sparce_gemm(a0, wi, plan, lhs_bitmap=abmp0)
     torch.testing.assert_close(g.cpu(), g0, rtol=1e-4, atol=1e-4)
+
+
+def _mla_case(dev, dtype, seed=0, lengths=(0, 1, 4, 5, 17, 24, 40), BS=4,
+              max_blocks=6, h=12, r=512, rope=64):
+    """Latent pools with dead table entries naming spare blocks; one
+    length on a block edge, one past the table's reach (24)."""
+    rng = np.random.default_rng(seed)
+    B = len(lengths)
+    live = [min(-(-n // BS), max_blocks) for n in lengths]
+    nb = sum(live) + 1 + 4
+    ids = rng.permutation(np.arange(1, nb))
+    tables = np.zeros((B, max_blocks), np.int32)
+    nxt = 0
+    for b in range(B):
+        tables[b, :live[b]] = ids[nxt:nxt + live[b]]
+        nxt += live[b]
+    spare = ids[nxt:]
+    for b in range(B):
+        tables[b, live[b]:] = spare[b % len(spare)]
+    t = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(dev, dtype)
+    return (t(B, h, r), t(B, h, rope), t(nb, BS, r), t(nb, BS, rope),
+            torch.from_numpy(tables).to(dev),
+            torch.tensor(lengths, dtype=torch.int32, device=dev),
+            set(ids[:nxt].tolist()))
+
+
+@pytest.mark.parametrize("dtype,tol", [
+    (torch.float32, 1e-4),   # f32 sums over 576-term dots in another order
+    (torch.bfloat16, 2e-2),  # p rounded vs a running max; bf16 output
+])
+@pytest.mark.parametrize("r,rope", [(512, 64), (16, 8)])
+def test_mla_kernel_matches_plain(cuda, dtype, tol, r, rope):
+    """The paged MLA kernel against its plain version; a length-0 slot
+    gives exact zeros; NaN in the null block and in every block past the
+    live counts never reaches the output; one launch is counted."""
+    from repro_torch.kernels import ops as kops
+    ql, qr, ckv, kr, tables, lengths, live_ids = _mla_case(
+        cuda, dtype, r=r, rope=rope)
+    scale = 192 ** -0.5
+    before = pda.paged_mla_decode_attn.launches
+    got = pda.paged_mla_decode_attn(ql, qr, ckv, kr, tables, lengths,
+                                    scale=scale)
+    assert pda.paged_mla_decode_attn.launches == before + 1
+    want = pda.paged_mla_decode_attn_plain(ql, qr, ckv, kr, tables, lengths,
+                                           scale=scale)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert bool((got[0] == 0).all())  # the length-0 slot
+    wrapped = kops.paged_mla_decode_attn(ql, qr, ckv, kr, tables, lengths,
+                                         scale=scale)
+    assert torch.equal(wrapped, got)  # lengths past the reach clamp
+    dead = [i for i in range(ckv.shape[0]) if i not in live_ids]
+    assert 0 in dead
+    ckv2, kr2 = ckv.clone(), kr.clone()
+    ckv2[dead] = float("nan")
+    kr2[dead] = float("nan")
+    poisoned = pda.paged_mla_decode_attn(ql, qr, ckv2, kr2, tables, lengths,
+                                         scale=scale)
+    assert bool(torch.isfinite(poisoned).all())
+    assert torch.equal(poisoned, got)
+
+
+def test_mla_kernel_checks_its_inputs(cuda):
+    ql, qr, ckv, kr, tables, lengths, _ = _mla_case(cuda, torch.bfloat16)
+    with pytest.raises(TypeError, match="q_rope"):
+        pda.paged_mla_decode_attn(ql, qr.float(), ckv, kr, tables, lengths,
+                                  scale=0.1)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        pda.paged_mla_decode_attn(ql, qr[:, :, :8].contiguous(), ckv, kr,
+                                  tables, lengths, scale=0.1)
+    with pytest.raises(TypeError, match="int32"):
+        pda.paged_mla_decode_attn(ql, qr, ckv, kr, tables.long(), lengths,
+                                  scale=0.1)
+
+
+def test_reduced_deepseek_engine_is_deterministic_in_bf16(cuda):
+    """The bf16 reduced DeepSeek-V3 engine (paged MLA kernel, MoE with a
+    fixed-order combine) gives the same token streams and counters twice
+    in a row, with the MLA kernel launched on every decode tick's
+    layers."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b").reduced(),
+                              dtype="bfloat16")
+    params = model_lib.init_params(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(9)
+    reqs = [(i, rng.integers(0, cfg.vocab_size, int(rng.integers(3, 20))),
+             int(rng.integers(2, 9))) for i in range(6)]
+    outs, metrics = [], []
+    for _ in range(2):
+        srv = Server(cfg, params, ServeConfig(
+            batch_slots=3, max_len=32, attn_kernel="paged"), device=cuda)
+        before = pda.paged_mla_decode_attn.launches
+        done = srv.generate([Request(uid=u, prompt=p, max_new=n)
+                             for u, p, n in reqs])
+        launched = pda.paged_mla_decode_attn.launches - before
+        assert launched == srv.metrics.ticks * cfg.num_layers
+        outs.append({r.uid: r.out.tolist() for r in done})
+        metrics.append(srv.metrics)
+    assert outs[0] == outs[1]
+    for name in ("decode_tokens", "ticks", "attn_blocks_fetched",
+                 "kv_blocks_peak_in_use"):
+        assert getattr(metrics[0], name) == getattr(metrics[1], name)
+    assert metrics[0].attn_block_skip_fraction > 0
