@@ -28,10 +28,18 @@ is printed only when all of them pass):
      the paged latent pool, MoE), 4 layers deep, on the same trace with
      the mixed budgets and its paged MLA kernel's launch count; then one
      f32 2-layer decode step (1 dense + 1 MoE layer) made from those
-     weights, kernels on the card against plain versions on the CPU.
+     weights, kernels on the card against plain versions on the CPU;
+  7. the paper's evaluation path: the AlexNet GEMM table at its
+     published shapes (batch 1, f32) for alexnet, deepcomp-alexnet and
+     cifar10 under the plans the paper's Fig. 14 makes, each layer
+     through ``ops.sparce_gemm`` (dense, lhs gated, lhs compacted, rhs
+     gated and two-sided kernels) and the relu backward of its output,
+     then ``launch.figures --figs 17,18,demo``, with the launch counts
+     read around them; then each layer against its plain version and
+     the masked oracle, with its time beside ``x @ w``'s.
 
-After phases 4-6, every kernel's time at the decode shapes beside its
-plain version, a library yardstick and its bound.
+After phases 4-7, each of the nine kernels' time at its path's shapes
+beside its plain version, a library yardstick and its bound.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -540,6 +548,188 @@ def check_mlp(torch, dev):
     return err_main
 
 
+# ------------------------------------- the evaluation path's GEMM kernels
+# (M, K, N, bm, bk, bn): AlexNet's conv4 and fc6 under alexnet's compacted
+# plans and deepcomp's two-sided fc6 and conv5 plans, 168- and 256-row
+# tiles with ragged M, K and N, and a per-row tile.
+EVAL_GEMM_CASES = (
+    (169, 3456, 384, 8, 128, 256), (1, 9216, 4096, 8, 128, 256),
+    (1, 9216, 4096, 8, 128, 128), (169, 3456, 256, 8, 128, 256),
+    (169, 2304, 384, 168, 128, 128), (300, 1000, 250, 256, 128, 128),
+    (37, 640, 200, 1, 128, 128))
+EVAL_TOLS = {
+    "float32": (1e-4, 1e-4, "f32 sums over up to 9216 terms of init-scale "
+                "products in another order"),
+    "bfloat16": (2e-2, 2e-2, "bf16 output rounding after f32 sums in "
+                 "another order"),
+}
+
+
+def eval_case(torch, dev, dtype, M, K, N, bm, bk, bn, seed):
+    """x, init-scale w and random lhs and rhs bit grids (k tile 1 dead for
+    every row tile; with several row tiles the last has nnz == 0)."""
+    from repro_torch.kernels import sparce_gemm as sg
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((M, K), dtype=np.float32)
+    w = rng.standard_normal((K, N), dtype=np.float32) / np.sqrt(K)
+    kw = dict(block_m=bm, block_k=bk, block_n=bn)
+    lbits = (rng.random(sg.bit_grid(M, K, N, gate="lhs", **kw)) < 0.6
+             ).astype(np.int32)
+    rbits = (rng.random(sg.bit_grid(M, K, N, gate="rhs", **kw)) < 0.5
+             ).astype(np.int32)
+    lbits[:, 1] = 1
+    if lbits.shape[0] > 1:
+        lbits[-1] = 1
+        lbits[0, 0] = 0
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return t(x).to(dtype), t(w).to(dtype), t(lbits), t(rbits), lbits, rbits
+
+
+def poison(torch, x, w, lbits, rbits, bm, bk, bn, *, both):
+    """NaN in every x tile with lhs bit 1, in every w k-stripe dropped for
+    all row tiles, and (two-sided) in every w tile with rhs bit 1."""
+    x2, w2 = x.clone(), w.clone()
+    for i, j in zip(*np.nonzero(lbits)):
+        x2[i * bm:(i + 1) * bm, j * bk:(j + 1) * bk] = float("nan")
+    for k in np.nonzero(lbits.all(axis=0))[0]:
+        w2[k * bk:(k + 1) * bk] = float("nan")
+    if both:
+        for i, j in zip(*np.nonzero(rbits)):
+            w2[i * bk:(i + 1) * bk, j * bn:(j + 1) * bn] = float("nan")
+    return x2, w2
+
+
+def same_bits(torch, a, b):
+    view = torch.int32 if a.dtype == torch.float32 else torch.int16
+    return torch.equal(a.view(view), b.view(view))
+
+
+def check_compacted(torch, dev):
+    """The compacted kernel against its plain version and, bit for bit,
+    the gated kernel on the same bits; nnz == 0 row tiles give exact
+    zeros; NaN-poisoned dead tiles and unlisted stripes never read."""
+    from repro_torch.kernels import sparce_gemm as sg
+    err_main = None
+    for dtype in (torch.float32, torch.bfloat16):
+        atol, rtol, why = EVAL_TOLS[str(dtype)[6:]]
+        for case in EVAL_GEMM_CASES:
+            M, K, N, bm, bk, bn = case
+            x, w, lb, _, lbits, rbits = eval_case(torch, dev, dtype, *case,
+                                                  seed=M + K)
+            kw = dict(block_m=bm, block_k=bk, block_n=bn)
+            y = sg.sparce_gemm_compacted(x, w, lb, **kw)
+            yg = sg.sparce_gemm_gated(x, w, lb, **kw)
+            y0 = sg.sparce_gemm_compacted_plain(x, w, lb, **kw)
+            torch.cuda.synchronize()
+            name = (f"sparce_gemm_compacted {str(dtype)[6:]} {M}x{K}x{N} "
+                    f"blocks ({bm},{bk},{bn})")
+            err = check_close(name, y, y0, atol=atol, rtol=rtol, why=why)
+            if dtype == torch.float32 and case == EVAL_GEMM_CASES[0]:
+                err_main = err
+            if not same_bits(torch, y, yg):
+                raise AssertionError(f"{name}: differs from the gated "
+                                     "kernel on the same bits")
+            if lbits.shape[0] > 1 and not bool(
+                    (y[(lbits.shape[0] - 1) * bm:] == 0).all()):
+                raise AssertionError(f"{name}: nnz == 0 tile not zero")
+            x2, w2 = poison(torch, x, w, lbits, rbits, bm, bk, bn,
+                            both=False)
+            y2 = sg.sparce_gemm_compacted(x2, w2, lb, **kw)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(y2).all() and torch.equal(y2, y)):
+                raise AssertionError(f"{name}: NaN-poisoned dead tiles "
+                                     "reached y")
+    log("  sparce_gemm_compacted: equal to the gated kernel bit for bit, "
+        "nnz == 0 row tiles exact zeros, NaN-poisoned dead x tiles and "
+        "unlisted w stripes never read (every case above) -> ok")
+    return err_main
+
+
+def check_both(torch, dev):
+    """The two-sided kernel against its plain version and the masked
+    oracle with both masks; NaN-poisoned dropped tiles never read."""
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import sparce_gemm as sg
+    err_main = None
+    for dtype in (torch.float32, torch.bfloat16):
+        atol, rtol, why = EVAL_TOLS[str(dtype)[6:]]
+        for case in EVAL_GEMM_CASES:
+            M, K, N, bm, bk, bn = case
+            x, w, lb, rb_, lbits, rbits = eval_case(torch, dev, dtype, *case,
+                                                    seed=M + K + 1)
+            kw = dict(block_m=bm, block_k=bk, block_n=bn)
+            y = sg.sparce_gemm_gated_both(x, w, lb, rb_, **kw)
+            y0 = sg.sparce_gemm_gated_both_plain(x, w, lb, rb_, **kw)
+            ref = kref.sparce_gemm_ref(x, w, bits_lhs=lb, bits_rhs=rb_, **kw)
+            torch.cuda.synchronize()
+            name = (f"sparce_gemm_gated_both {str(dtype)[6:]} {M}x{K}x{N} "
+                    f"blocks ({bm},{bk},{bn})")
+            err = check_close(name, y, y0, atol=atol, rtol=rtol, why=why)
+            check_close(name + " vs sparce_gemm_ref (both masks)", y, ref,
+                        atol=atol, rtol=rtol, why=why)
+            if dtype == torch.float32 and case == EVAL_GEMM_CASES[2]:
+                err_main = err
+            x2, w2 = poison(torch, x, w, lbits, rbits, bm, bk, bn, both=True)
+            y2 = sg.sparce_gemm_gated_both(x2, w2, lb, rb_, **kw)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(y2).all() and torch.equal(y2, y)):
+                raise AssertionError(f"{name}: NaN-poisoned dropped tiles "
+                                     "reached y")
+    log("  sparce_gemm_gated_both: NaN-poisoned dropped x and w tiles "
+        "never read (every case above) -> ok")
+    return err_main
+
+
+def check_relu_bwd(torch, dev):
+    """gx and bits equal the plain version's exactly, at the relu decode
+    tick's shape and two more: NaN in g where x <= 0 never reaches gx, a
+    NaN where x > 0 passes (bit 0), -0.0 counts as zero. Returns the
+    largest |gx - plain| over the non-NaN positions of every case."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import relu_bitmap as rb
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, (br, bc) in (((8, 1536), (1, 128)),
+                                ((256, 1536), (1, 128)),
+                                ((128, 256), (64, 128))):
+            rng = np.random.default_rng(shape[0] + br)
+            x = rng.standard_normal(shape, dtype=np.float32)
+            g = rng.standard_normal(shape, dtype=np.float32)
+            x[:br, :bc] = -1.0
+            g[:br, :bc] = np.nan
+            g[:br, bc:2 * bc] = -0.0
+            x[-br:, -bc:], g[-br:, -bc:] = 1.0, 0.0
+            g[-1, -1] = np.nan
+            xt, gt = (torch.from_numpy(a).to(dev, dtype) for a in (x, g))
+            gx, bits = rb.relu_bwd_bitmap(xt, gt, block_r=br, block_c=bc)
+            gx0, bits0 = rb.relu_bwd_bitmap_plain(xt, gt, block_r=br,
+                                                  block_c=bc)
+            torch.cuda.synchronize()
+            name = (f"relu_bwd_bitmap {str(dtype)[6:]} {shape} tile "
+                    f"({br},{bc})")
+            if not (torch.equal(bits, bits0) and torch.equal(
+                    torch.nan_to_num(gx, 7.0), torch.nan_to_num(gx0, 7.0))):
+                raise AssertionError(f"{name}: gx or bits differ")
+            if not (bits[0, 0] == 1 and bits[0, 1] == 1
+                    and bits[-1, -1] == 0
+                    and int(torch.isnan(gx).sum()) == 1):
+                raise AssertionError(f"{name}: NaN or -0.0 mishandled")
+            ok = ~torch.isnan(gx0)
+            err = max(err, float((gx[ok].float() - gx0[ok].float()).abs()
+                                 .max()))
+            log(f"  {name}: gx and bits equal the plain version's "
+                f"({int(bits.sum())} dead tiles) -> ok")
+        xt = torch.from_numpy(np.random.default_rng(3).standard_normal(
+            (10, 300), dtype=np.float32)).to(dev, dtype)
+        gx, bmp = kops.relu_bwd_with_bitmap(xt, xt, (8, 128))
+        gx0, bmp0 = kops.relu_bwd_with_bitmap(xt.cpu(), xt.cpu(), (8, 128))
+        if not (torch.equal(gx.cpu(), gx0)
+                and torch.equal(bmp.bits.cpu(), bmp0.bits)):
+            raise AssertionError("ops.relu_bwd_with_bitmap differs from the "
+                                 "CPU")
+    return err
+
+
 # ------------------------------------------------------- decode-step parity
 def decode_state(torch, cfg, dev, seed, *, B=8, max_blocks=8, bs=16):
     """Random pools, ragged live lengths, dead slots, block tables."""
@@ -654,7 +844,10 @@ def counters():
             "sparce_glu_mlp_fused": sgm.sparce_glu_mlp_fused,
             "sparce_mlp_fused": sm.sparce_mlp_fused,
             "relu_bitmap": rb.relu_bitmap,
-            "sparce_gemm_gated": sg.sparce_gemm_gated}
+            "sparce_gemm_gated": sg.sparce_gemm_gated,
+            "sparce_gemm_compacted": sg.sparce_gemm_compacted,
+            "sparce_gemm_gated_both": sg.sparce_gemm_gated_both,
+            "relu_bwd_bitmap": rb.relu_bwd_bitmap}
 
 
 def run_engine(torch, dev, cfg, params, sparsity, label, expect, *,
@@ -1040,9 +1233,10 @@ def relu_decode_operands(torch, dev):
 
 
 def kernel_row(name, cu, replaces, err, ms, plain_ms, lib_ms, nbytes, ops,
-               what):
-    bound_ms, by = bound(nbytes, ops, "bfloat16")
-    log(f"  {name} bf16 {what}: {ms:.4f} ms; plain {plain_ms:.4f} ms; "
+               what, dtype="bfloat16"):
+    bound_ms, by = bound(nbytes, ops, dtype)
+    tag = {"bfloat16": "bf16", "float32": "f32"}[dtype]
+    log(f"  {name} {tag} {what}: {ms:.4f} ms; plain {plain_ms:.4f} ms; "
         f"library {lib_ms:.4f} ms; bound {bound_ms:.5f} ms ({by}; "
         f"{nbytes} bytes, {ops} operations)")
     return dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{cu}",
@@ -1121,9 +1315,279 @@ def time_gemm(torch, dev, err):
         f"tiles (1,{bk}), {live} live tiles (a@w_out as the library call)")
 
 
+# ------------------------------------------- phase 7: the paper's figures
+EVAL_BENCHES = ("alexnet", "deepcomp-alexnet", "cifar10")
+
+
+def eval_layers(torch, dev, bench, seed):
+    """The AlexNet layer table at its published shapes (batch 1, f32) for
+    ``bench``: features from ``random_sparse`` in 8 x 128 clusters at the
+    layer's scaled sparsity, normal weights block-pruned (the plan's rhs
+    tiles) at the deep-compression sparsity, the plan fig14 makes, and
+    the bitmaps. Yields (layer, plan, x, w, lhs bitmap, rhs bitmap)."""
+    from repro_torch.core import sprf
+    from repro_torch.launch import figures
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for layer, act, ws in figures.bench_layers(bench):
+        plan = figures.bench_plan(layer, act, ws)
+        x = sprf.random_sparse(gen, (layer.m, layer.k), act, cluster=(8, 128))
+        w = torch.randn((layer.k, layer.n), generator=gen, device=dev)
+        if ws:
+            w = sprf.prune_weights(w, ws, block=plan.block_rhs)
+        yield (layer, plan, x, w, sprf.compute_bitmap(x, plan.block_lhs),
+               sprf.compute_bitmap(w, plan.block_rhs))
+
+
+def gemm_plain(torch, plan, x, w, lb, rbm):
+    """The plain version of the kernel ``ops.sparce_gemm`` runs for
+    ``plan`` (the bit grids are already at the kernels' shapes)."""
+    from repro_torch.kernels import sparce_gemm as sg
+    kw = dict(block_m=plan.block_m, block_k=plan.block_k,
+              block_n=plan.block_n)
+    if plan.gate == "none" or plan.variant == "dense":
+        return x.float() @ w.float()
+    if plan.gate == "both":
+        return sg.sparce_gemm_gated_both_plain(x, w, lb.bits, rbm.bits, **kw)
+    if plan.gate == "lhs" and plan.variant == "compacted":
+        return sg.sparce_gemm_compacted_plain(x, w, lb.bits, **kw)
+    bits = lb.bits if plan.gate == "lhs" else rbm.bits
+    return sg.sparce_gemm_gated_plain(x, w, bits, gate=plan.gate, **kw)
+
+
+def run_eval_path(torch, dev):
+    """Phase 7's main path: every layer of the three benchmarks through
+    ``ops.sparce_gemm`` under its plan, the relu backward of each
+    layer's output through ``ops.relu_bwd_with_bitmap`` (the error bitmap
+    the backward GEMMs gate on), then ``launch.figures --figs
+    17,18,demo`` on the card (which holds each of its GEMM outputs
+    against the masked oracle and stops on a disagreement). Returns
+    ({kernel: launches in the run}, {(bench, layer): output}, {(bench,
+    layer): (y, g, block, gx, error bitmap)})."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import figures
+    wrappers = counters()
+    for fn in wrappers.values():
+        fn.launches = 0
+    outs, bwd = {}, {}
+    gen = torch.Generator(device=dev).manual_seed(99)
+    for i, bench in enumerate(EVAL_BENCHES):
+        for layer, plan, x, w, lb, rbm in eval_layers(torch, dev, bench, i):
+            y = kops.sparce_gemm(x, w, plan, lhs_bitmap=lb, rhs_bitmap=rbm)
+            outs[bench, layer.name] = y
+            g = torch.randn(y.shape, generator=gen, device=dev)
+            block = (plan.block_m, 128)
+            gx, ebits = kops.relu_bwd_with_bitmap(y, g, block)
+            bwd[bench, layer.name] = (y, g, block, gx, ebits)
+    rows = figures.run(["17", "18", "demo"], device=dev, seed=0)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    log("  launches on the path: "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    for name in ("sparce_gemm_compacted", "sparce_gemm_gated_both",
+                 "sparce_gemm_gated", "relu_bwd_bitmap"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the path")
+    for name, us, derived in rows:
+        if not np.isfinite(us) or not derived:
+            raise AssertionError(f"figure row {name}: {us} {derived!r}")
+        if "max_err_vs_dense=" in derived:
+            err = float(derived.split("max_err_vs_dense=")[1].split(";")[0])
+            if not err < 1e-3:
+                raise AssertionError(f"figure row {name}: {derived}")
+    log("  launch.figures: every GEMM output of figs 17, 18 and demo held "
+        "against ref.sparce_gemm_ref with the same bits -> ok")
+    return launches, outs, bwd
+
+
+def check_relu_bwd_path(torch, bwd):
+    """Each main-path relu backward against its plain version on the card,
+    on the same inputs padded as ``ops.relu_bwd_with_bitmap`` pads them:
+    bits equal, gx equal (NaN in the same places). Returns the largest
+    |gx - plain| over the non-NaN positions."""
+    from repro_torch.kernels import relu_bitmap as rb
+    pad = torch.nn.functional.pad
+    err, dead = 0.0, {}
+    for (bench, name), (y, g, (br, bc), gx, ebits) in bwd.items():
+        r, c = y.shape
+        pr, pc = -(-r // br) * br, -(-c // bc) * bc
+        gx0, bits0 = rb.relu_bwd_bitmap_plain(
+            pad(y, (0, pc - c, 0, pr - r)).contiguous(),
+            pad(g, (0, pc - c, 0, pr - r)).contiguous(), block_r=br,
+            block_c=bc)
+        gx0 = gx0[:r, :c]
+        what = f"relu_bwd_with_bitmap {bench}/{name} {(r, c)} tile {(br, bc)}"
+        if not (torch.equal(ebits.bits, bits0) and torch.equal(
+                torch.nan_to_num(gx, 7.0), torch.nan_to_num(gx0, 7.0))):
+            raise AssertionError(f"{what}: gx or bits differ from the plain "
+                                 "version")
+        ok = ~torch.isnan(gx0)
+        err = max(err, float((gx[ok] - gx0[ok]).abs().max())
+                  if bool(ok.any()) else 0.0)
+        dead[f"{bench}/{name}"] = round(float(ebits.bits.float().mean()), 4)
+    log(f"  relu backward on every layer's output: gx and bits equal the "
+        f"plain version's; error-tile sparsity per layer: {dead} -> ok")
+    return err
+
+
+# The layers whose timings make the kernels-line rows: compacted at
+# alexnet conv4 (169x3456x384) and fc6 (1x9216x4096), the two-sided gate
+# at deepcomp-alexnet fc6.
+ROW_LAYERS = (("alexnet", "conv4"), ("alexnet", "fc6"),
+              ("deepcomp-alexnet", "fc6"))
+
+
+def check_eval_path(torch, dev, outs):
+    """Each layer's main-path output against its plain version on the
+    card and the masked oracle; per layer the plan, the measured
+    tile-skip fraction and the times of the kernel, its plain version
+    and ``x @ w`` (the :data:`ROW_LAYERS` at the kernels line's iteration
+    count); per benchmark the sum of kernel ms over ``x @ w`` ms.
+    Returns {layer of ROW_LAYERS: (plan, x, w, lhs bitmap, rhs bitmap,
+    ms, plain ms, x@w ms)}."""
+    from repro_torch.core import sasa
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    atol, rtol = 1e-3, 1e-4
+    why = ("f32 sums over up to 9216 terms of N(0, 1) products (outputs "
+           "~1e2) in another order")
+    keep = {}
+    for i, bench in enumerate(EVAL_BENCHES):
+        sums = [0.0, 0.0]
+        for layer, plan, x, w, lb, rbm in eval_layers(torch, dev, bench, i):
+            y = outs[bench, layer.name]
+            y0 = gemm_plain(torch, plan, x, w, lb, rbm)
+            ref = kref.sparce_gemm_ref(
+                x, w, block_m=plan.block_m, block_k=plan.block_k,
+                block_n=plan.block_n,
+                bits_lhs=lb.bits if plan.gate in ("lhs", "both") else None,
+                bits_rhs=rbm.bits if plan.gate in ("rhs", "both") else None)
+            name = f"{bench}/{layer.name}"
+            check_close(f"{name} vs plain", y, y0, atol=atol, rtol=rtol,
+                        why=why)
+            check_close(f"{name} vs sparce_gemm_ref", y, ref, atol=atol,
+                        rtol=rtol, why=why)
+            row = (bench, layer.name) in ROW_LAYERS
+            iters = 100 if row else 20
+            run = lambda: kops.sparce_gemm(  # noqa: E731
+                x, w, plan, lhs_bitmap=lb, rhs_bitmap=rbm)
+            ms = cuda_time_ms(run, iters)
+            plain_ms = cuda_time_ms(
+                lambda: gemm_plain(torch, plan, x, w, lb, rbm),
+                5 if row else 3, warmup=1)
+            dense_ms = cuda_time_ms(lambda: x @ w, iters)
+            sums[0] += ms
+            sums[1] += dense_ms
+            dropped, total = sasa.dropped_tile_products(plan, lb.bits,
+                                                        rbm.bits)
+            log(f"  {name} {layer.m}x{layer.k}x{layer.n}: gate={plan.gate} "
+                f"variant={plan.variant} blocks=({plan.block_m},"
+                f"{plan.block_k},{plan.block_n}); tile products skipped "
+                f"{dropped}/{total} = {dropped / total:.4f}; kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, x@w {dense_ms:.4f} "
+                "ms")
+            if row:
+                keep[bench, layer.name] = (plan, x, w, lb, rbm, ms, plain_ms,
+                                           dense_ms)
+        log(f"  {bench}: sum of kernel ms / sum of x@w ms = "
+            f"{sums[0]:.4f} / {sums[1]:.4f} = {sums[0] / sums[1]:.3f}")
+    return keep
+
+
+def gemm_bytes_ops(plan, x, w, lb, rbm):
+    """Bytes and operations the plan's skipping GEMM needs on these bits:
+    each live x tile and each w tile some live product uses read once,
+    y written once, the bit grids read; 2 flops per multiply-add of each
+    live tile product."""
+    M, K = x.shape
+    N = w.shape[1]
+    bm, bk, bn = plan.block_m, plan.block_k, plan.block_n
+    lbits = lb.bits.bool().cpu().numpy()
+    rbits = rbm.bits.bool().cpu().numpy()
+    gm, gk, gn = lbits.shape[0], lbits.shape[1], rbits.shape[1]
+    rows = np.minimum(bm, M - np.arange(gm) * bm)
+    depth = np.minimum(bk, K - np.arange(gk) * bk)
+    cols = np.minimum(bn, N - np.arange(gn) * bn)
+    live = ~lbits[:, :, None] if plan.gate == "lhs" else \
+        ~(lbits[:, :, None] | rbits[None])
+    live = np.broadcast_to(live, (gm, gk, gn))
+    x_live = live.any(axis=2)  # (gm, gk) x tiles some product reads
+    w_live = live.any(axis=0)  # (gk, gn)
+    item = x.element_size()
+    nbytes = (item * (rows[:, None] * depth[None] * x_live).sum()
+              + item * (depth[:, None] * cols[None] * w_live).sum()
+              + item * M * N + 4 * lb.bits.numel()
+              + (4 * rbm.bits.numel() if plan.gate == "both" else 0))
+    ops = 2 * (rows[:, None, None] * depth[None, :, None]
+               * cols[None, None, :] * live).sum()
+    return int(nbytes), int(ops)
+
+
+def eval_gemm_row(name, replaces, err, shapes, launches):
+    """The kernels-line row of a GEMM kernel of phase 7 from the layer
+    timings ``check_eval_path`` took: the first of ``shapes`` makes the
+    row, the rest are logged."""
+    row = None
+    for key, (plan, x, w, lb, rbm, ms, plain_ms, lib_ms) in shapes:
+        nbytes, ops = gemm_bytes_ops(plan, x, w, lb, rbm)
+        r = kernel_row(
+            name, "sparce_gemm.cu", replaces, err, ms, plain_ms, lib_ms,
+            nbytes, ops, f"{'/'.join(key)} {tuple(x.shape)} @ "
+            f"{tuple(w.shape)} blocks ({plan.block_m},{plan.block_k},"
+            f"{plan.block_n}) (x@w as the library call)", dtype="float32")
+        row = row or r
+    row["launches"] = launches[name]
+    return row
+
+
+def time_relu_bwd(torch, dev, err, launches):
+    """The relu backward at the relu decode tick's shape and tile: bf16
+    (8, 1536), tile (1, 128); x the pre-activation, g normal."""
+    from repro_torch.kernels import relu_bitmap as rb
+    _, _, _, h, _ = relu_decode_operands(torch, dev)
+    g = torch.randn(h.shape, device=dev).to(h.dtype)
+    bc = SPARCE_BLOCKS["block_k"]
+    M, F_ = h.shape
+    ms = cuda_time_ms(lambda: rb.relu_bwd_bitmap(h, g, block_r=1,
+                                                 block_c=bc), 200)
+    plain_ms = cuda_time_ms(lambda: rb.relu_bwd_bitmap_plain(
+        h, g, block_r=1, block_c=bc), 200)
+
+    def library():
+        gx = torch.where(h > 0, g, torch.zeros_like(g))
+        return gx, ~(gx != 0).view(M, 1, F_ // bc, bc).any(3).any(1)
+
+    lib_ms = cuda_time_ms(library, 200)
+    nbytes = 3 * 2 * h.numel() + 4 * M * (F_ // bc)
+    row = kernel_row(
+        "relu_bwd_bitmap", "relu_bitmap.cu",
+        "src/repro/kernels/relu_bitmap.py:70", err, ms, plain_ms, lib_ms,
+        nbytes, h.numel(), f"x=g={tuple(h.shape)} tile (1,{bc}) (torch.where "
+        "+ tile-any as the library call)")
+    row["launches"] = launches["relu_bwd_bitmap"]
+    return row
+
+
+def run_phase7(torch, dev, errs):
+    launches, outs, bwd = run_eval_path(torch, dev)
+    bwd_err = check_relu_bwd_path(torch, bwd)
+    keep = check_eval_path(torch, dev, outs)
+    return [
+        eval_gemm_row(
+            "sparce_gemm_compacted", "src/repro/kernels/sparce_gemm.py:215",
+            errs.get("sparce_gemm_compacted"),
+            [(k, keep[k]) for k in ROW_LAYERS[:2]], launches),
+        eval_gemm_row(
+            "sparce_gemm_gated_both", "src/repro/kernels/sparce_gemm.py:170",
+            errs.get("sparce_gemm_gated_both"),
+            [(ROW_LAYERS[2], keep[ROW_LAYERS[2]])], launches),
+        time_relu_bwd(torch, dev, max(errs.get("relu_bwd_bitmap", 0.0),
+                                      bwd_err), launches),
+    ]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
                     help="comma-separated subset of phases to run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -1160,6 +1624,9 @@ def main(argv=None) -> int:
             errs["sparce_gemm_gated"] = check_gemm(torch, dev)
             errs["sparce_mlp_fused"] = check_mlp(torch, dev)
             errs["paged_mla_decode_attn"] = check_mla(torch, dev)
+            errs["sparce_gemm_compacted"] = check_compacted(torch, dev)
+            errs["sparce_gemm_gated_both"] = check_both(torch, dev)
+            errs["relu_bwd_bitmap"] = check_relu_bwd(torch, dev)
         if 3 in phases:
             from repro_torch.core.sparse_ops import SparsityConfig
             log("phase 3: f32 full-width decode step, kernels vs plain")
@@ -1198,6 +1665,13 @@ def main(argv=None) -> int:
             row = time_mla(torch, dev, errs.get("paged_mla_decode_attn"))
             row["launches"] = launches["paged_mla_decode_attn"]
             rows.append(row)
+        if 7 in phases:
+            log("phase 7: the paper's evaluation path: the AlexNet GEMM "
+                "table at its published shapes (f32) under fig14's plans, "
+                "then launch.figures --figs 17,18,demo")
+            t0 = time.perf_counter()
+            rows += run_phase7(torch, dev, errs)
+            log(f"phase 7: {time.perf_counter() - t0:.1f}s")
         torch.cuda.synchronize()
     except Exception:  # noqa: BLE001 - report and fail the run
         traceback.print_exc()

@@ -7,16 +7,22 @@ the layer-stacked ``"stack"`` and ``"dense_stack"`` leaves (MoE layers'
 router, ``(E, d, de)`` expert tensors and shared expert included)
 unstacked into one dict per layer.
 bfloat16 arrays (numpy dtype name ``"bfloat16"``) are carried over bit
-for bit through their 16-bit patterns. This module imports neither the
-reference package nor its framework.
+for bit through their 16-bit patterns. :func:`plan_from_reference` and
+:func:`bitmap_from_reference` carry a reference ``SkipPlan`` and
+``TileBitmap`` over the same way (duck-typed: any object with their
+fields). This module imports neither the reference package nor its
+framework.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List
 
 import numpy as np
 import torch
 
+from repro_torch.core.sasa import SkipPlan
+from repro_torch.core.sprf import TileBitmap
 from repro_torch.device import resolve_device
 
 
@@ -67,3 +73,18 @@ def params_from_reference(tree: Dict[str, Any], device="cuda"
         out[key] = (unstack_layers(val, dev) if key in STACKS
                     else _convert(val, dev))
     return out
+
+
+def plan_from_reference(plan):
+    """A reference ``SkipPlan`` as the port's, field for field."""
+    return SkipPlan(**{f.name: getattr(plan, f.name)
+                       for f in dataclasses.fields(SkipPlan)})
+
+
+def bitmap_from_reference(bitmap, device="cpu"):
+    """A reference ``TileBitmap`` (bits any array numpy can read) as the
+    port's, bits int32 on ``device``."""
+    return TileBitmap(
+        bits=to_tensor(np.asarray(bitmap.bits, np.int32),
+                       resolve_device(device)),
+        block=tuple(bitmap.block), shape=tuple(bitmap.shape))

@@ -1,6 +1,8 @@
 """Architecture config registry: ``get_config(name)`` / ``--arch <id>``.
 
-Knows only the archs the port serves so far.
+Knows only the archs the port serves so far, plus ``paper-alexnet``
+(the GEMM layer table of the paper's figures), which ``ARCH_NAMES``
+leaves out as the reference's does.
 """
 from __future__ import annotations
 
@@ -14,9 +16,10 @@ from repro_torch.configs.base import (  # noqa: F401
 _ARCH_MODULES: Dict[str, str] = {
     "smollm-135m": "repro_torch.configs.smollm_135m",
     "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
+    "paper-alexnet": "repro_torch.configs.paper_alexnet",
 }
 
-ARCH_NAMES = tuple(_ARCH_MODULES)
+ARCH_NAMES = tuple(n for n in _ARCH_MODULES if n != "paper-alexnet")
 
 
 def get_config(name: str) -> ArchConfig:

@@ -6,8 +6,10 @@ that serving runs:
   * :class:`SparsityConfig` -- the technique's config, field for field,
     including the snap of ``expected_sparsity`` to the 1/8 EMA grid;
   * :func:`sparce_matmul` -- a matmul dropping gated tiles:
-    ``mode="kernel"`` runs the gated GEMM kernel, ``"reference"`` the
-    masked dense oracle, ``"off"`` the plain product;
+    ``mode="kernel"`` runs the GEMM kernel its plan names through
+    ``ops.sparce_gemm`` (gated, compacted, or the two-sided gate when
+    both bitmaps are given), ``"reference"`` the masked dense oracle,
+    ``"off"`` the plain product;
   * :func:`sparce_mlp` -- the relu-family MLP under the planner's plan:
     ``fused`` runs the fused MLP kernel, ``two_kernel`` the relu-bitmap
     kernel and the gated GEMM kernel, ``dense`` plain matmuls;

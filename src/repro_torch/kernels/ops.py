@@ -5,9 +5,13 @@ results back, with the reference's conventions: padded columns see zero
 gate weights, act(0) == 0 and ``|0| <= tau``, so padding can only vote a
 tile dead, never live; padding tiles of a bitmap are all-zero, so their
 bits are 1; decode lengths are clamped to the table's reach,
-``max_blocks * block_size``. The gated GEMM masks ragged edges in the
-kernel, so :func:`sparce_gemm` pads only the bit grids, never the
-operands.
+``max_blocks * block_size``. The GEMM kernels mask ragged edges
+themselves, so :func:`sparce_gemm` pads only the bit grids, never the
+operands. :func:`sparce_gemm` dispatches a plan to its kernel the way
+the reference does: ``dense`` to a plain product, lhs to the gated or
+the compacted kernel, rhs-compacted through the transpose trick onto the
+compacted kernel, and ``gate="both"`` to the two-sided kernel whatever
+the plan's variant.
 """
 from __future__ import annotations
 
@@ -46,9 +50,13 @@ def sparce_gemm(
 ) -> torch.Tensor:
     """y[M, N] = x[M, K] @ w[K, N] under ``plan``, dropping gated tiles.
 
-    ``gate="none"`` or ``variant="dense"`` is the plain f32 product. The
-    compacted variant and two-sided gating are not ported yet and
-    raise."""
+    ``gate="none"`` or ``variant="dense"`` is the plain f32 product.
+    ``gate="lhs"`` runs the gated or (``variant="compacted"``) the
+    compacted kernel over ``lhs_bitmap``; ``"rhs"`` the rhs-gated kernel
+    over ``rhs_bitmap``, or for a compacted plan the compacted kernel on
+    ``(w.T, x.T, bits.T)`` with blocks (block_n, block_k, block_m),
+    transposed back; ``"both"`` the two-sided kernel over both bitmaps,
+    also for a compacted plan (the reference routes it so)."""
     m, k = x.shape
     k2, n = w.shape
     if k != k2:
@@ -74,20 +82,25 @@ def sparce_gemm(
     gate = plan.gate
     if gate == "none" or plan.variant == "dense":
         return (x.float() @ w.float()).to(out_dtype)
+    x, w = x.contiguous(), w.contiguous()
+    blocks = dict(block_m=bm, block_k=bk, block_n=bn, out_dtype=out_dtype)
     if gate == "both":
-        raise NotImplementedError(
-            "gate='both' needs the sparce_gemm_gated_both kernel, which is "
-            "not ported yet")
-    if plan.variant == "compacted":
-        raise NotImplementedError(
-            "variant='compacted' needs the sparce_gemm_compacted kernel, "
-            "which is not ported yet; use variant='gated'")
+        return _sg.sparce_gemm_gated_both(
+            x, w, fit_bits(lhs_bitmap, "lhs"), fit_bits(rhs_bitmap, "rhs"),
+            **blocks)
     if gate not in _sg.GATES:
         raise ValueError(gate)
     bits = fit_bits(lhs_bitmap if gate == "lhs" else rhs_bitmap, gate)
-    return _sg.sparce_gemm_gated(
-        x.contiguous(), w.contiguous(), bits, block_m=bm, block_k=bk,
-        block_n=bn, gate=gate, out_dtype=out_dtype)
+    if plan.variant != "compacted":
+        return _sg.sparce_gemm_gated(x, w, bits, gate=gate, **blocks)
+    if gate == "lhs":
+        return _sg.sparce_gemm_compacted(x, w, bits, **blocks)
+    # y = (w^T @ x^T)^T with the lhs gate on w^T's (block_n, block_k)
+    # tiles.
+    yt = _sg.sparce_gemm_compacted(
+        w.T.contiguous(), x.T.contiguous(), bits.T.contiguous(),
+        block_m=bn, block_k=bk, block_n=bm, out_dtype=out_dtype)
+    return yt.T.contiguous()
 
 
 def sparce_mlp_fused(
@@ -128,6 +141,20 @@ def relu_with_bitmap(x: torch.Tensor, block) -> tuple[torch.Tensor,
         _pad2(x, _ceil_to(r, br), _ceil_to(c, bc)).contiguous(),
         block_r=br, block_c=bc)
     return y[:r, :c], TileBitmap(bits=bits, block=(br, bc), shape=(r, c))
+
+
+def relu_bwd_with_bitmap(x: torch.Tensor, g: torch.Tensor, block
+                         ) -> tuple[torch.Tensor, TileBitmap]:
+    """Fused relu backward + error bitmap over a 2-D activation: (g *
+    (x > 0), bitmap of gx). Padding is zero in x and g, so padding tiles
+    get bit 1."""
+    r, c = x.shape
+    br, bc = block
+    pr, pc = _ceil_to(r, br), _ceil_to(c, bc)
+    gx, bits = _rb.relu_bwd_bitmap(
+        _pad2(x, pr, pc).contiguous(), _pad2(g, pr, pc).contiguous(),
+        block_r=br, block_c=bc)
+    return gx[:r, :c], TileBitmap(bits=bits, block=(br, bc), shape=(r, c))
 
 
 def sparce_glu_mlp_fused(

@@ -5,7 +5,9 @@ path needs). These are the contracts the CUDA kernels are held to:
 
   * ``sparce_gemm_ref``: y = x @ w with every gated tile's contribution
     dropped (mask, then dense product in f32).
-  * ``relu_bitmap_ref``: relu plus the per-tile "no element > 0" bit.
+  * ``relu_bitmap_ref``: relu plus the per-tile "no element > 0" bit;
+    ``relu_bwd_bitmap_ref``: the relu backward ``g * (x > 0)`` plus the
+    per-tile "no element != 0" bit (error sparsity).
   * ``glu_act_ref`` / ``gate_bitmap_ref`` / ``glu_mlp_ref``: the gated
     GLU with the dead-tile bitmap at the gate's writeback.
   * ``gather_pool_view`` / ``paged_gqa_decode_attn_ref`` /
@@ -80,6 +82,23 @@ def relu_bitmap_ref(x: torch.Tensor, block: Tuple[int, int]
     t = yp.reshape(pr // br, br, pc // bc, bc)
     bits = (~(t > 0).any(dim=3).any(dim=1)).to(torch.int32)
     return y, bits
+
+
+def relu_bwd_bitmap_ref(x: torch.Tensor, g: torch.Tensor,
+                        block: Tuple[int, int]
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Oracle for the relu-backward kernel: (gx, bits) with
+    ``gx = where(x > 0, g, 0)`` in g's dtype (a NaN in g passes where
+    x > 0) and bit 1 iff no element of the zero-padded gx tile is != 0
+    (a NaN counts as nonzero, -0.0 as zero): the error sparsity of the
+    backward GEMMs."""
+    gx = torch.where(x > 0, g, torch.zeros_like(g)).to(g.dtype)
+    br, bc = block
+    gp = _pad2(gx, br, bc)
+    pr, pc = gp.shape
+    t = gp.reshape(pr // br, br, pc // bc, bc)
+    bits = (~(t != 0).any(dim=3).any(dim=1)).to(torch.int32)
+    return gx, bits
 
 
 def act_f32(gf: torch.Tensor, act: str) -> torch.Tensor:

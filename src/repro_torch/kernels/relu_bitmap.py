@@ -7,9 +7,13 @@ the activation reduces each tile to its bit in the same pass, so the
 bitmap costs no extra read of the activation (the paper's Sparse Value
 Checker at writeback). The CUDA kernel is ``csrc/relu_bitmap.cu``.
 
-:func:`relu_bitmap` is the entry point: a CUDA tensor launches the
-kernel (counted in ``launches``), a CPU tensor runs
-:func:`relu_bitmap_plain`.
+Also the port of ``relu_bitmap.py:relu_bwd_bitmap``, the backward with
+the error bitmap fused the same way (:func:`relu_bwd_bitmap`: ``gx =
+where(x > 0, g, 0)`` and bit 1 when no element of the gx tile is != 0).
+
+:func:`relu_bitmap` and :func:`relu_bwd_bitmap` are the entry points: a
+CUDA tensor launches the kernel (counted in ``launches``), a CPU tensor
+runs the ``*_plain`` version.
 """
 from __future__ import annotations
 
@@ -69,3 +73,55 @@ def relu_bitmap(x: torch.Tensor, *, block_r: int, block_c: int):
 
 
 relu_bitmap.launches = 0
+
+
+def _check_bwd(x: torch.Tensor, g: torch.Tensor, block_r: int,
+               block_c: int) -> None:
+    _check(x, block_r, block_c)
+    if g.shape != x.shape:
+        raise ValueError(f"g {tuple(g.shape)} must match x {tuple(x.shape)}")
+
+
+def relu_bwd_bitmap_plain(x: torch.Tensor, g: torch.Tensor, *, block_r: int,
+                          block_c: int):
+    """What the backward kernel computes, in plain PyTorch. Returns
+    (gx, bits): gx in g's dtype, a NaN in g passed where x > 0; bit 1
+    when no element of the tile is != 0 (NaN counts, -0.0 does not)."""
+    _check_bwd(x, g, block_r, block_c)
+    r, c = x.shape
+    gx = torch.where(x > 0, g, torch.zeros_like(g))
+    t = gx.reshape(r // block_r, block_r, c // block_c, block_c)
+    bits = (~(t != 0).any(dim=3).any(dim=1)).to(torch.int32)
+    return gx, bits
+
+
+def relu_bwd_bitmap(x: torch.Tensor, g: torch.Tensor, *, block_r: int,
+                    block_c: int):
+    """Returns (g * (x > 0) as ``where``, bits int32 (R/block_r,
+    C/block_c)), 1 == no element != 0: the error sparsity of the
+    backward GEMMs. x and g share dtype and shape; R and C are multiples
+    of the blocks (``ops.relu_bwd_with_bitmap`` pads). CUDA tensors
+    launch the kernel, CPU tensors run the plain version."""
+    if x.device.type == "cpu":
+        return relu_bwd_bitmap_plain(x, g, block_r=block_r, block_c=block_c)
+    if x.device.type != "cuda":
+        raise ValueError(f"relu_bwd_bitmap: unsupported device {x.device}")
+    _check_bwd(x, g, block_r, block_c)
+    dtype_id = _build.check_operands("relu_bwd_bitmap", x=x, g=g)
+    r, c = x.shape
+    gx = torch.empty_like(g)
+    bits = torch.empty((r // block_r, c // block_c), dtype=torch.int32,
+                       device=x.device)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = _build.function("relu_bitmap", "relu_bwd_bitmap",
+                         [p, p, p, p, i, i, i, i, i, p])
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(x.data_ptr(), g.data_ptr(), gx.data_ptr(), bits.data_ptr(), r, c,
+             block_r, block_c, dtype_id, stream)
+    relu_bwd_bitmap.launches += 1
+    if err != 0:
+        raise RuntimeError(f"relu_bwd_bitmap launch failed: cudaError {err}")
+    return gx, bits
+
+
+relu_bwd_bitmap.launches = 0

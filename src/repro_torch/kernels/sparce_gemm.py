@@ -1,7 +1,12 @@
-"""Bitmap-gated block GEMM: the SparCE skip of a matmul's zero tiles.
+"""Bitmap-gated block GEMMs: the SparCE skip of a matmul's zero tiles.
 
-Port of the TPU kernel ``repro/kernels/sparce_gemm.py:
-sparce_gemm_gated``: ``y = x @ w`` with f32 accumulation over k tiles,
+Ports of the three TPU kernels of ``repro/kernels/sparce_gemm.py``:
+:func:`sparce_gemm_gated` (below), :func:`sparce_gemm_compacted` (the
+same product under an lhs gate, walking only each row tile's nonzero k
+tiles) and :func:`sparce_gemm_gated_both` (a tile product dropped when
+either operand's bit is 1), all in ``csrc/sparce_gemm.cu``.
+
+``sparce_gemm_gated``: ``y = x @ w`` with f32 accumulation over k tiles,
 cast once to the output dtype, dropping every tile product whose bit is
 1 -- the bit of x's ``(block_m, block_k)`` tile ``[i, k]`` (``gate=
 "lhs"``) or of w's ``(block_k, block_n)`` tile ``[k, j]`` (``"rhs"``).
@@ -10,17 +15,17 @@ The bit decides, not the values. The CUDA kernel
 a gated tile is never loaded (the TPU kernel loads it and skips only the
 product).
 
-Dims need not be multiples of the blocks: the kernel masks the ragged
-edges itself, so the weight is never padded (a padded copy of a
+Dims need not be multiples of the blocks: the kernels mask the ragged
+edges themselves, so the weight is never padded (a padded copy of a
 1536 x 576 down-projection per layer per tick is what this avoids). The
 bit grids are ``ceil(M/block_m) x ceil(K/block_k)`` (lhs) or
 ``ceil(K/block_k) x ceil(N/block_n)`` (rhs), and the result equals the
 zero-padded product's ``[:M, :N]``.
 
-:func:`sparce_gemm_gated` is the entry point: a CUDA tensor launches the
-kernel (counted in ``launches``), a CPU tensor runs
-:func:`sparce_gemm_gated_plain`, which likewise indexes only ungated
-tiles so the NaN-poison tests hold for it on the CPU.
+Each of the three functions is an entry point: a CUDA tensor launches
+its kernel (counted in its ``launches``), a CPU tensor runs its
+``*_plain`` version, which likewise indexes only ungated tiles so the
+NaN-poison tests hold for it on the CPU.
 """
 from __future__ import annotations
 
@@ -62,6 +67,25 @@ def _check(x, w, bits, block_m, block_k, block_n, gate):
                          f"{tuple(bits.shape)}")
 
 
+def _live_cols(live_k: torch.Tensor, block_k: int, k: int) -> torch.Tensor:
+    """The k indices of the live k tiles ``live_k`` (ascending)."""
+    ar = torch.arange(block_k, device=live_k.device)
+    idx = (live_k[:, None] * block_k + ar).flatten()
+    return idx[idx < k]
+
+
+def _launch_checks(name, x, w, out_dtype, **bits):
+    """Device, dtype and contiguity checks of a GEMM kernel's operands;
+    returns the dtype id and the bit grids made contiguous."""
+    dtype_id = _build.check_operands(name, x=x, w=w)
+    if out_dtype not in (None, x.dtype):
+        raise TypeError("the kernel writes y in x's dtype")
+    for key, b in bits.items():
+        if b.device != x.device or b.dtype != torch.int32:
+            raise TypeError(f"{key} must be int32 on {x.device}")
+    return dtype_id, [b.contiguous() for b in bits.values()]
+
+
 def sparce_gemm_gated_plain(
     x: torch.Tensor, w: torch.Tensor, bits: torch.Tensor, *, block_m: int,
     block_k: int, block_n: int, gate: str = "lhs", out_dtype=None,
@@ -74,23 +98,19 @@ def sparce_gemm_gated_plain(
     m, k = x.shape
     n = w.shape[1]
     y = torch.zeros((m, n), dtype=torch.float32, device=x.device)
-    ar = torch.arange(block_k, device=x.device)
-
-    def cols(live_k):
-        idx = (live_k[:, None] * block_k + ar).flatten()
-        return idx[idx < k]
-
     live = (bits == 0).cpu()
     if gate == "lhs":
         for i in range(bits.shape[0]):
-            ks = cols(live[i].nonzero().flatten().to(x.device))
+            ks = _live_cols(live[i].nonzero().flatten().to(x.device),
+                            block_k, k)
             if ks.numel():
                 rows = slice(i * block_m, (i + 1) * block_m)
                 y[rows] = (x[rows].index_select(1, ks).float()
                            @ w.index_select(0, ks).float())
     else:
         for j in range(bits.shape[1]):
-            ks = cols(live[:, j].nonzero().flatten().to(x.device))
+            ks = _live_cols(live[:, j].nonzero().flatten().to(x.device),
+                            block_k, k)
             if ks.numel():
                 cs = slice(j * block_n, (j + 1) * block_n)
                 y[:, cs] = (x.index_select(1, ks).float()
@@ -115,12 +135,8 @@ def sparce_gemm_gated(
     if x.device.type != "cuda":
         raise ValueError(f"sparce_gemm_gated: unsupported device {x.device}")
     _check(x, w, bits, block_m, block_k, block_n, gate)
-    dtype_id = _build.check_operands("sparce_gemm_gated", x=x, w=w)
-    if out_dtype not in (None, x.dtype):
-        raise TypeError("the kernel writes y in x's dtype")
-    if bits.device != x.device or bits.dtype != torch.int32:
-        raise TypeError(f"bits must be int32 on {x.device}")
-    bits = bits.contiguous()
+    dtype_id, (bits,) = _launch_checks("sparce_gemm_gated", x, w, out_dtype,
+                                       bits=bits)
     m, k = x.shape
     n = w.shape[1]
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
@@ -138,3 +154,145 @@ def sparce_gemm_gated(
 
 
 sparce_gemm_gated.launches = 0
+
+
+# ------------------------------------------------------------- compacted
+# The longest live-k list the kernel holds (csrc/sparce_gemm.cu
+# MAX_K_TILES): K up to 131072 at block_k 128.
+COMPACTED_MAX_K_TILES = 1024
+
+
+def sparce_gemm_compacted_plain(
+    x: torch.Tensor, w: torch.Tensor, bits: torch.Tensor, *, block_m: int,
+    block_k: int, block_n: int, out_dtype=None,
+) -> torch.Tensor:
+    """What the compacted kernel computes, in plain PyTorch: per row
+    tile, the product over its nonzero k tiles only (the compacted list,
+    ascending), in f32, cast once; exact zeros for a row tile with none.
+    It is the lhs-gated product, so it is :func:`sparce_gemm_gated_plain`
+    with ``gate="lhs"``: no dead x tile, and no w k-stripe that no live
+    row tile lists, is ever indexed."""
+    return sparce_gemm_gated_plain(
+        x, w, bits, block_m=block_m, block_k=block_k, block_n=block_n,
+        gate="lhs", out_dtype=out_dtype)
+
+
+def sparce_gemm_compacted(
+    x: torch.Tensor, w: torch.Tensor, bits: torch.Tensor, *, block_m: int,
+    block_k: int, block_n: int, out_dtype=None,
+) -> torch.Tensor:
+    """Compacted-grid GEMM: y = x @ w where each (block_m)-row tile walks
+    only the k tiles whose bit is 0 (bits int32 (ceil(M/block_m),
+    ceil(K/block_k)), 1 == zero tile), so a dead tile is neither computed
+    nor loaded. The list is built on the device, inside the kernel.
+    ``block_n`` is the plan's column tile; the result does not depend on
+    it. CUDA tensors launch the kernel, CPU tensors run the plain
+    version."""
+    if x.device.type == "cpu":
+        return sparce_gemm_compacted_plain(
+            x, w, bits, block_m=block_m, block_k=block_k, block_n=block_n,
+            out_dtype=out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(
+            f"sparce_gemm_compacted: unsupported device {x.device}")
+    _check(x, w, bits, block_m, block_k, block_n, "lhs")
+    if bits.shape[1] > COMPACTED_MAX_K_TILES:
+        raise ValueError(
+            f"sparce_gemm_compacted: {bits.shape[1]} k tiles; the kernel "
+            f"holds a live list of at most {COMPACTED_MAX_K_TILES}")
+    dtype_id, (bits,) = _launch_checks("sparce_gemm_compacted", x, w,
+                                       out_dtype, bits=bits)
+    m, k = x.shape
+    n = w.shape[1]
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = _build.function("sparce_gemm", "sparce_gemm_compacted",
+                         [p, p, p, p, i, i, i, i, i, i, p])
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(x.data_ptr(), w.data_ptr(), bits.data_ptr(), y.data_ptr(), m, k,
+             n, block_m, block_k, dtype_id, stream)
+    sparce_gemm_compacted.launches += 1
+    if err != 0:
+        raise RuntimeError(
+            f"sparce_gemm_compacted launch failed: cudaError {err}")
+    return y
+
+
+sparce_gemm_compacted.launches = 0
+
+
+# ------------------------------------------------------ two-sided gate
+def _check_both(x, w, lbits, rbits, block_m, block_k, block_n):
+    _check(x, w, lbits, block_m, block_k, block_n, "lhs")
+    grid = bit_grid(x.shape[0], x.shape[1], w.shape[1], block_m=block_m,
+                    block_k=block_k, block_n=block_n, gate="rhs")
+    if tuple(rbits.shape) != grid:
+        raise ValueError(f"rhs bits must be {grid}, got "
+                         f"{tuple(rbits.shape)}")
+
+
+def sparce_gemm_gated_both_plain(
+    x: torch.Tensor, w: torch.Tensor, lbits: torch.Tensor,
+    rbits: torch.Tensor, *, block_m: int, block_k: int, block_n: int,
+    out_dtype=None,
+) -> torch.Tensor:
+    """What the two-sided kernel computes, in plain PyTorch: per output
+    tile (i, j), the product over the k tiles with ``lbits[i, k] == 0``
+    and ``rbits[k, j] == 0`` only, in f32, cast once. A tile product
+    that either bit drops indexes neither of its tiles."""
+    _check_both(x, w, lbits, rbits, block_m, block_k, block_n)
+    m, k = x.shape
+    n = w.shape[1]
+    y = torch.zeros((m, n), dtype=torch.float32, device=x.device)
+    live = ((lbits == 0)[:, :, None] & (rbits == 0)[None, :, :]).cpu()
+    for i in range(lbits.shape[0]):
+        rows = slice(i * block_m, (i + 1) * block_m)
+        for j in range(rbits.shape[1]):
+            ks = _live_cols(live[i, :, j].nonzero().flatten().to(x.device),
+                            block_k, k)
+            if ks.numel():
+                cs = slice(j * block_n, (j + 1) * block_n)
+                y[rows, cs] = (x[rows].index_select(1, ks).float()
+                               @ w[:, cs].index_select(0, ks).float())
+    return y.to(out_dtype or x.dtype)
+
+
+def sparce_gemm_gated_both(
+    x: torch.Tensor, w: torch.Tensor, lbits: torch.Tensor,
+    rbits: torch.Tensor, *, block_m: int, block_k: int, block_n: int,
+    out_dtype=None,
+) -> torch.Tensor:
+    """y = x @ w with a tile product dropped when either operand's bit
+    is 1 (the paper's SpRFCondition ``Ra | Rb``): lbits int32 over x's
+    (block_m, block_k) tiles, rbits int32 over w's (block_k, block_n)
+    tiles, see :func:`bit_grid`. Both bits are read before either tile
+    is loaded. CUDA tensors launch the kernel, CPU tensors run the plain
+    version."""
+    if x.device.type == "cpu":
+        return sparce_gemm_gated_both_plain(
+            x, w, lbits, rbits, block_m=block_m, block_k=block_k,
+            block_n=block_n, out_dtype=out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(
+            f"sparce_gemm_gated_both: unsupported device {x.device}")
+    _check_both(x, w, lbits, rbits, block_m, block_k, block_n)
+    dtype_id, (lbits, rbits) = _launch_checks(
+        "sparce_gemm_gated_both", x, w, out_dtype, lbits=lbits, rbits=rbits)
+    m, k = x.shape
+    n = w.shape[1]
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = _build.function("sparce_gemm", "sparce_gemm_gated_both",
+                         [p, p, p, p, p, i, i, i, i, i, i, i, p])
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(x.data_ptr(), w.data_ptr(), lbits.data_ptr(), rbits.data_ptr(),
+             y.data_ptr(), m, k, n, block_m, block_k, block_n, dtype_id,
+             stream)
+    sparce_gemm_gated_both.launches += 1
+    if err != 0:
+        raise RuntimeError(
+            f"sparce_gemm_gated_both launch failed: cudaError {err}")
+    return y
+
+
+sparce_gemm_gated_both.launches = 0

@@ -14,8 +14,13 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.configs.paper_alexnet import (
+    ALEXNET_GEMMS, BENCH_SPARSITY, DEEPCOMP_WEIGHT_SPARSITY,
+)
+from repro_torch.core import sasa, sprf
 from repro_torch.core.sparse_ops import SparsityConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 from repro_torch.kernels import paged_decode_attn as pda
 from repro_torch.kernels import relu_bitmap as rb
 from repro_torch.kernels import sparce_gemm as sg
@@ -427,3 +432,204 @@ def test_reduced_deepseek_engine_is_deterministic_in_bf16(cuda):
                  "kv_blocks_peak_in_use"):
         assert getattr(metrics[0], name) == getattr(metrics[1], name)
     assert metrics[0].attn_block_skip_fraction > 0
+
+
+# ------------------------------------ the paper's evaluation path (GEMMs)
+def _bits_view(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else \
+        t.view(torch.int16)
+
+
+@pytest.mark.parametrize("M,K,N,bm,bk,bn", [
+    (169, 3456, 384, 8, 128, 256),    # conv4, alexnet's compacted plan
+    (1, 9216, 4096, 8, 128, 256),     # fc6
+    (169, 2304, 384, 168, 128, 128),  # 168-row tiles, ragged M
+    (300, 1000, 250, 256, 128, 128),  # 256-row tiles, ragged M, K and N
+    (37, 640, 200, 1, 128, 128),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_compacted_kernel_equals_gated_kernel_bit_for_bit(
+        cuda, M, K, N, bm, bk, bn, dtype):
+    """The same tile products in the same ascending order with the same
+    per-patch FMA order: the compacted kernel's output equals the gated
+    kernel's bit for bit; both equal the plain version within f32
+    rounding; a row tile with nnz == 0 writes exact zeros; NaN in every
+    dead x tile and in every w k-stripe no live row tile lists never
+    reaches y."""
+    rng = np.random.default_rng(20)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    w = (rng.standard_normal((K, N)) * K ** -0.5).astype(np.float32)
+    grid = sg.bit_grid(M, K, N, block_m=bm, block_k=bk, block_n=bn,
+                       gate="lhs")
+    bits = (rng.random(grid) < 0.6).astype(np.int32)
+    bits[:, 1] = 1  # k-stripe 1 listed by no row tile
+    if grid[0] > 1:
+        bits[-1] = 1  # the last row tile: nnz == 0
+        bits[0, 0] = 0
+    xt, wt = (torch.from_numpy(a).to(cuda, dtype) for a in (x, w))
+    bt = torch.from_numpy(bits).to(cuda)
+    kw = dict(block_m=bm, block_k=bk, block_n=bn)
+    before = sg.sparce_gemm_compacted.launches
+    y = sg.sparce_gemm_compacted(xt, wt, bt, **kw)
+    assert sg.sparce_gemm_compacted.launches == before + 1
+    yg = sg.sparce_gemm_gated(xt, wt, bt, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits_view(y), _bits_view(yg))
+    tol = 1e-4 if dtype == torch.float32 else 2e-2  # sums in another order
+    y0 = sg.sparce_gemm_compacted_plain(xt, wt, bt, **kw)
+    torch.testing.assert_close(y.float(), y0.float(), rtol=tol, atol=tol)
+    if grid[0] > 1:
+        assert bool((y[(grid[0] - 1) * bm:] == 0).all())
+    x2, w2 = xt.clone(), wt.clone()
+    for i, j in zip(*np.nonzero(bits)):
+        x2[i * bm:(i + 1) * bm, j * bk:(j + 1) * bk] = float("nan")
+    w2[bk:2 * bk] = float("nan")
+    y2 = sg.sparce_gemm_compacted(x2, w2, bt, **kw)
+    assert bool(torch.isfinite(y2).all()) and torch.equal(y2, y)
+
+
+def test_compacted_kernel_refuses_a_list_past_its_cap(cuda):
+    """One k tile past the live list the kernel holds: the wrapper raises
+    before it launches; at the cap it launches and equals the plain
+    version."""
+    cap = sg.COMPACTED_MAX_K_TILES
+    kw = dict(block_m=1, block_k=1, block_n=128)
+    for K in (cap, cap + 1):
+        x = torch.randn((2, K), device=cuda)
+        w = torch.randn((K, 8), device=cuda)
+        bits = torch.zeros((2, K), dtype=torch.int32, device=cuda)
+        before = sg.sparce_gemm_compacted.launches
+        if K > cap:
+            with pytest.raises(ValueError, match="k tiles"):
+                sg.sparce_gemm_compacted(x, w, bits, **kw)
+            assert sg.sparce_gemm_compacted.launches == before
+        else:
+            y = sg.sparce_gemm_compacted(x, w, bits, **kw)
+            torch.testing.assert_close(  # f32 sums over K in another order
+                y, sg.sparce_gemm_compacted_plain(x, w, bits, **kw),
+                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("M,K,N,bm,bk,bn", [
+    (169, 3456, 256, 8, 128, 256),   # deepcomp conv5's plan
+    (1, 9216, 4096, 8, 128, 128),    # deepcomp fc6's
+    (40, 700, 300, 16, 128, 64),     # narrow column tiles, ragged dims
+])
+@pytest.mark.parametrize("dtype,tol", [
+    (torch.float32, 1e-4),   # f32 sums over K in another order
+    (torch.bfloat16, 2e-2),  # bf16 output rounding
+])
+def test_both_kernel_matches_ref_and_plain(cuda, M, K, N, bm, bk, bn, dtype,
+                                           tol):
+    """The two-sided gate against the masked oracle with both masks and
+    the plain version; NaN in every x tile with lbits 1, every w tile
+    with rbits 1 and every w k-stripe dropped for all row tiles."""
+    rng = np.random.default_rng(21)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    w = (rng.standard_normal((K, N)) * K ** -0.5).astype(np.float32)
+    lg = sg.bit_grid(M, K, N, block_m=bm, block_k=bk, block_n=bn, gate="lhs")
+    rg = sg.bit_grid(M, K, N, block_m=bm, block_k=bk, block_n=bn, gate="rhs")
+    lbits = (rng.random(lg) < 0.5).astype(np.int32)
+    rbits = (rng.random(rg) < 0.5).astype(np.int32)
+    lbits[:, 2] = 1
+    xt, wt = (torch.from_numpy(a).to(cuda, dtype) for a in (x, w))
+    lb, rbt = (torch.from_numpy(a).to(cuda) for a in (lbits, rbits))
+    kw = dict(block_m=bm, block_k=bk, block_n=bn)
+    before = sg.sparce_gemm_gated_both.launches
+    y = sg.sparce_gemm_gated_both(xt, wt, lb, rbt, **kw)
+    assert sg.sparce_gemm_gated_both.launches == before + 1
+    want = kref.sparce_gemm_ref(xt, wt, bits_lhs=lb, bits_rhs=rbt, **kw)
+    torch.testing.assert_close(y.float(), want.float(), rtol=tol, atol=tol)
+    y0 = sg.sparce_gemm_gated_both_plain(xt, wt, lb, rbt, **kw)
+    torch.testing.assert_close(y.float(), y0.float(), rtol=tol, atol=tol)
+    x2, w2 = xt.clone(), wt.clone()
+    for i, j in zip(*np.nonzero(lbits)):
+        x2[i * bm:(i + 1) * bm, j * bk:(j + 1) * bk] = float("nan")
+    for i, j in zip(*np.nonzero(rbits)):
+        w2[i * bk:(i + 1) * bk, j * bn:(j + 1) * bn] = float("nan")
+    w2[2 * bk:3 * bk] = float("nan")
+    y2 = sg.sparce_gemm_gated_both(x2, w2, lb, rbt, **kw)
+    assert bool(torch.isfinite(y2).all()) and torch.equal(y2, y)
+
+
+@pytest.mark.parametrize("shape,block", [
+    ((8, 1536), (1, 128)), ((128, 256), (8, 128)), ((64, 384), (64, 128)),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_relu_bwd_kernel_matches_plain(cuda, shape, block, dtype):
+    """gx and bits equal the plain version's exactly: NaN in g where
+    x <= 0 never reaches gx, NaN where x > 0 passes (bit 0), -0.0 counts
+    as zero."""
+    rng = np.random.default_rng(22)
+    br, bc = block
+    x = rng.standard_normal(shape).astype(np.float32)
+    g = rng.standard_normal(shape).astype(np.float32)
+    x[:br, :bc] = -1.0
+    g[:br, :bc] = np.nan  # poison where x <= 0: dropped
+    g[:br, bc:2 * bc] = -0.0
+    x[-br:, -bc:], g[-br:, -bc:] = 1.0, 0.0
+    g[-1, -1] = np.nan
+    xt, gt = (torch.from_numpy(a).to(cuda, dtype) for a in (x, g))
+    before = rb.relu_bwd_bitmap.launches
+    gx, bits = rb.relu_bwd_bitmap(xt, gt, block_r=br, block_c=bc)
+    assert rb.relu_bwd_bitmap.launches == before + 1
+    gx0, bits0 = rb.relu_bwd_bitmap_plain(xt, gt, block_r=br, block_c=bc)
+    assert torch.equal(bits, bits0)
+    assert torch.equal(torch.nan_to_num(gx, 7.0), torch.nan_to_num(gx0, 7.0))
+    assert bits[0, 0] == 1 and bits[0, 1] == 1 and bits[-1, -1] == 0
+    assert bool(torch.isnan(gx).sum() == 1)
+
+
+def test_relu_bwd_with_bitmap_pads_on_gpu(cuda):
+    """Ragged rows and columns through ops: padding tiles get bit 1;
+    equal to the CPU plain version."""
+    rng = np.random.default_rng(23)
+    x = rng.standard_normal((10, 300)).astype(np.float32)
+    g = rng.standard_normal((10, 300)).astype(np.float32)
+    x[8:] = -1.0
+    xt, gt = torch.from_numpy(x), torch.from_numpy(g)
+    gx, bmp = kops.relu_bwd_with_bitmap(xt.to(cuda), gt.to(cuda), (8, 128))
+    gx0, bmp0 = kops.relu_bwd_with_bitmap(xt, gt, (8, 128))
+    assert tuple(gx.shape) == (10, 300)
+    assert torch.equal(gx.cpu(), gx0) and torch.equal(bmp.bits.cpu(),
+                                                      bmp0.bits)
+    assert bool(bmp.bits[1].all()) and bmp.bits.shape == (2, 3)
+
+
+@pytest.mark.parametrize("bench,layer_name", [
+    ("alexnet", "conv4"), ("deepcomp-alexnet", "fc6"),
+    ("deepcomp-alexnet", "conv2"),
+])
+def test_ops_sparce_gemm_on_alexnet_layers_at_full_shape(cuda, bench,
+                                                         layer_name):
+    """One AlexNet layer at its published shape (batch 1, f32): features
+    with 8 x 128 zero clusters at the scaled sparsity, weights
+    block-pruned at the deep-compression sparsity, the fig14 plan; the
+    kernel the plan names launches and equals the masked oracle and the
+    dense product (honest bits)."""
+    layer = next(g for g in ALEXNET_GEMMS if g.name == layer_name)
+    act = min(0.9, layer.act_sparsity * BENCH_SPARSITY[bench] / 0.36)
+    ws = DEEPCOMP_WEIGHT_SPARSITY[layer.name] if bench.startswith("deep") \
+        else 0.0
+    plan = sasa.plan_matmul(layer.m, layer.k, layer.n, lhs_sparsity=act,
+                            rhs_sparsity=ws, lhs_cluster=8 * 128,
+                            rhs_cluster=64 * 128)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = sprf.random_sparse(gen, (layer.m, layer.k), act, cluster=(8, 128))
+    w = torch.randn((layer.k, layer.n), generator=gen, device=cuda) \
+        * layer.k ** -0.5
+    if ws:
+        w = sprf.prune_weights(w, ws, block=plan.block_rhs)
+    lb = sprf.compute_bitmap(x, plan.block_lhs)
+    rbm = sprf.compute_bitmap(w, plan.block_rhs)
+    fn = {"lhs": sg.sparce_gemm_compacted, "rhs": sg.sparce_gemm_gated,
+          "both": sg.sparce_gemm_gated_both}[plan.gate]
+    before = fn.launches
+    y = kops.sparce_gemm(x, w, plan, lhs_bitmap=lb, rhs_bitmap=rbm)
+    assert fn.launches == before + 1
+    want = kref.sparce_gemm_ref(
+        x, w, bits_lhs=lb.bits if plan.gate in ("lhs", "both") else None,
+        bits_rhs=rbm.bits if plan.gate in ("rhs", "both") else None,
+        block_m=plan.block_m, block_k=plan.block_k, block_n=plan.block_n)
+    torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(y, x @ w, rtol=1e-4, atol=1e-4)

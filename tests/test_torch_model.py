@@ -148,10 +148,11 @@ def test_two_kernel_mlp_matches_reference(act):
 
 
 def test_mlp_fwd_raises_for_unported_paths():
-    """What the port still leaves out raises, naming the missing kernel:
-    the compacted GEMM variant and two-sided gating (``gate="both"``) in
-    ``ops.sparce_gemm``, also when the layer's matmul asks for them; an
-    activation the MLP does not know raises too."""
+    """An activation the MLP does not know raises. The compacted GEMM
+    variant and two-sided gating (``gate="both"``), which raised here
+    until their kernels were ported, now run: under all-zero bits
+    ``ops.sparce_gemm`` and the layer's matmul (both bitmaps, no plan)
+    give the dense product."""
     x = torch.ones((4, 64))
     w = torch.ones((64, 32))
     lhs = TileBitmap(torch.zeros((4, 2), dtype=torch.int32), (1, 32),
@@ -159,17 +160,18 @@ def test_mlp_fwd_raises_for_unported_paths():
     rhs = TileBitmap(torch.zeros((2, 1), dtype=torch.int32), (32, 128),
                      (64, 32))
     blocks = dict(block_m=1, block_k=32, block_n=128)
-    with pytest.raises(NotImplementedError, match="sparce_gemm_compacted"):
-        kops.sparce_gemm(x, w, sasa.SkipPlan(gate="lhs", variant="compacted",
+    dense = x @ w
+    y = kops.sparce_gemm(x, w, sasa.SkipPlan(gate="lhs", variant="compacted",
                                              **blocks), lhs_bitmap=lhs)
-    with pytest.raises(NotImplementedError, match="sparce_gemm_gated_both"):
-        kops.sparce_gemm(x, w, sasa.SkipPlan(gate="both", variant="gated",
+    assert torch.equal(y, dense)
+    y = kops.sparce_gemm(x, w, sasa.SkipPlan(gate="both", variant="gated",
                                              **blocks),
                          lhs_bitmap=lhs, rhs_bitmap=rhs)
+    assert torch.equal(y, dense)
     scfg = sparse_ops.SparsityConfig(enabled=True, mode="kernel", block_m=1,
                                      block_k=32)
-    with pytest.raises(NotImplementedError, match="sparce_gemm_gated_both"):
-        sparse_ops.sparce_matmul(x, w, scfg, lhs_bitmap=lhs, rhs_bitmap=rhs)
+    y = sparse_ops.sparce_matmul(x, w, scfg, lhs_bitmap=lhs, rhs_bitmap=rhs)
+    assert torch.equal(y, dense)
     _, _, params = _params(act="relu")
     with pytest.raises(ValueError, match="activation"):
         layers.mlp_fwd(params["stack"][0]["mlp"], x, "tanh",
