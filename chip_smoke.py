@@ -61,10 +61,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
 # H100 SXM data-sheet peaks (dense): HBM bandwidth, and the rate of each
-# dtype's best matrix path (bf16 tensor cores; f32 outside them, since
-# the port runs f32 products at full precision, TF32 off).
+# matrix path: bf16 tensor cores; f32 outside them (the port runs f32
+# products at full precision, TF32 off); split-TF32, the f32 route of
+# the gated and compacted GEMMs, three TF32 tensor-core products per
+# multiply-add at the TF32 peak of 495 TFLOP/s.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12,
+                  "split-tf32": 495e12 / 3}
 
 ARCH = "smollm-135m"
 # DeepSeek-V3 serving (MLA + MoE) at its published widths, depth cut.
@@ -116,9 +119,144 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(bytes_moved: float, ops: float, dtype: str):
+def _dev_us(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def device_time_ms(fn, iters: int = 50, names=None, repeats: int = 3):
+    """Mean device ms per call of ``fn`` from ``torch.profiler``: for
+    each kernel it launches (every kernel, or those whose name holds one
+    of ``names``), the mean time of a launch times its launches per call
+    (its count over ``iters`` calls, rounded, at least 1: every kernel
+    seen is one the call launches), summed; the median of ``repeats``
+    profiled windows. After a profiled engine run a window can lose many
+    kernel records; the mean per launch survives that, the log reports
+    it, and a window that saw none of the call's kernels is profiled
+    again. Returns (ms, {kernel: ms per call})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    windows, partial = [], []
+    for _ in range(4 * repeats):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        parts, counts = {}, {}
+        for e in prof.key_averages():
+            if (e.device_type != torch.autograd.DeviceType.CUDA
+                    or _dev_us(e) <= 0
+                    or (names and not any(n in e.key for n in names))):
+                continue
+            key = next((n for n in names or () if n in e.key), e.key[:40])
+            per_call = max(1, round(e.count / iters))
+            counts[key] = counts.get(key, 0) + e.count
+            parts[key] = (parts.get(key, 0.0)
+                          + _dev_us(e) / 1e3 / e.count * per_call)
+        if any(c % iters for c in counts.values()):
+            partial.append(counts)
+        if parts:
+            windows.append((sum(parts.values()), parts))
+        if len(windows) == repeats:
+            break
+    if partial:
+        log(f"    profiler: {len(partial)} windows lost kernel records "
+            f"(launches seen over {iters} calls: {partial})")
+    if not windows:
+        raise AssertionError("the profiler recorded no device time")
+    windows.sort(key=lambda w: w[0])
+    return windows[len(windows) // 2]
+
+
+def graph_time_ms(fn, iters: int = 20, repeats: int = 5) -> float:
+    """Device ms per call of ``fn`` without the profiler and without the
+    host's per-call cost: ``iters`` calls captured in one CUDA graph,
+    replayed between CUDA events; the median of ``repeats`` replays.
+    Every kernel the call launches counts, with the gaps between them."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return sorted(times)[len(times) // 2]
+
+
+# The kernels of a gated or compacted GEMM call: the core, and the chunk
+# reduction of a split-K call; with the two-sided kernel, every kernel a
+# skipping plan of phase 7 runs.
+GEMM_KERNELS = ("gated_gemm_kernel", "compacted_gemm_kernel",
+                "chunk_reduce_kernel")
+EVAL_KERNELS = GEMM_KERNELS + ("gated_both_gemm_kernel",)
+
+
+def log_device_times(label, ms, run, lib_ms, library):
+    """A GEMM call's device time (both passes of a split-K call) and its
+    library call's, beside their CUDA-events times."""
+    dev_ms, parts = device_time_ms(run, names=GEMM_KERNELS)
+    lib_dev_ms, _ = device_time_ms(library)
+    split = ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+    log(f"  {label}: device {dev_ms:.4f} ms ({split}), events {ms:.4f} ms; "
+        f"library device {lib_dev_ms:.4f} ms, events {lib_ms:.4f} ms")
+    return dev_ms, lib_dev_ms
+
+
+def log_gemm_resources(_build):
+    """Registers and spills (ptxas) and dynamic shared memory of each
+    instantiation of the gated and compacted kernels."""
+    import ctypes
+    import re
+    i = ctypes.c_int
+    smem = _build.function("sparce_gemm", "sparce_gemm_smem_bytes", [i, i])
+    entry = spill = None
+    for line in _build.build_log("sparce_gemm").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line and entry is not None:
+            k = re.search(
+                r"([a-z][a-z_]*_kernel)I(13__nv_bfloat16|f)(?:Li(\d+)E)?",
+                entry)
+            if k is None:
+                continue
+            dtype = "bf16" if k.group(2) != "f" else "f32"
+            what = f"{k.group(1)}<{dtype}"
+            if k.group(3):
+                nt8 = int(k.group(3))
+                what += (f", {8 * nt8} rows>, "
+                         f"{smem(int(dtype == 'bf16'), nt8)} bytes of "
+                         "dynamic smem")
+            else:
+                what += ">"
+            used = line.split("Used", 1)[1].strip()
+            log(f"  sparce_gemm: {what}: {used}; {spill}")
+
+
+def bound(bytes_moved: float, ops: float, path: str):
     t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_OPS_PER_S[dtype]
+    t_ops = ops / PEAK_OPS_PER_S[path]
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -1044,16 +1182,12 @@ def profile_engine(torch, cfg, params, sc, dev, label):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
     # Device-side events only (kernels, memcpy/memset); the CPU-side
     # aten ops that launched them would count the same time again.
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
-              and dev_us(e) > 0]
-    total_us = sum(dev_us(e) for e in events)
+              and _dev_us(e) > 0]
+    total_us = sum(_dev_us(e) for e in events)
     if not events:
         log("  profiler: no device time recorded")
         return
@@ -1061,8 +1195,8 @@ def profile_engine(torch, cfg, params, sc, dev, label):
         f"{int(srv.metrics.admitted)} prefills): device busy "
         f"{total_us / 1e3:.3f} ms of {wall * 1e3:.3f} ms wall "
         f"({total_us / 1e4 / wall:.1f}%)")
-    for e in sorted(events, key=dev_us, reverse=True)[:10]:
-        log(f"    {dev_us(e) / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:70]}")
+    for e in sorted(events, key=_dev_us, reverse=True)[:10]:
+        log(f"    {_dev_us(e) / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:70]}")
 
 
 def _leaves(tree):
@@ -1233,12 +1367,15 @@ def relu_decode_operands(torch, dev):
 
 
 def kernel_row(name, cu, replaces, err, ms, plain_ms, lib_ms, nbytes, ops,
-               what, dtype="bfloat16"):
-    bound_ms, by = bound(nbytes, ops, dtype)
+               what, dtype="bfloat16", path=None):
+    """A kernels-line row; ``path`` (default ``dtype``) names the peak
+    of :data:`PEAK_OPS_PER_S` the operations bound is taken at."""
+    path = path or dtype
+    bound_ms, by = bound(nbytes, ops, path)
     tag = {"bfloat16": "bf16", "float32": "f32"}[dtype]
     log(f"  {name} {tag} {what}: {ms:.4f} ms; plain {plain_ms:.4f} ms; "
         f"library {lib_ms:.4f} ms; bound {bound_ms:.5f} ms ({by}; "
-        f"{nbytes} bytes, {ops} operations)")
+        f"{nbytes} bytes, {ops} operations at the {path} peak)")
     return dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{cu}",
                 replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
@@ -1301,18 +1438,49 @@ def time_gemm(torch, dev, err):
     plain_ms = cuda_time_ms(
         lambda: sg.sparce_gemm_gated_plain(a, wo, bits, **kw), 20)
     lib_ms = cuda_time_ms(lambda: a @ wo, 200)
+    log_device_times("sparce_gemm_gated relu decode", ms,
+                     lambda: sg.sparce_gemm_gated(a, wo, bits, **kw), lib_ms,
+                     lambda: a @ wo)
+    row = gated_row(a, wo, bits, kw, err, ms, plain_ms, lib_ms, "decode")
+    # The relu prefill's shape (one 256-row bucket), logged: per-row and
+    # 64-row tiles, each output held against the plain version.
+    hp = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (256, h.shape[1]), dtype=np.float32)).to(dev, h.dtype)
+    atol, rtol, why = RELU_TOLS["bfloat16"]
+    for bm in (1, 64):
+        ap, bp = rb.relu_bitmap(hp, block_r=bm, block_c=bk)
+        kwp = dict(kw, block_m=bm)
+        run = lambda: sg.sparce_gemm_gated(ap, wo, bp, **kwp)  # noqa: E731
+        plain = lambda: sg.sparce_gemm_gated_plain(  # noqa: E731
+            ap, wo, bp, **kwp)
+        err_p = check_close(f"sparce_gemm_gated relu prefill block_m {bm}",
+                            run(), plain(), atol=atol, rtol=rtol, why=why)
+        ms_p = cuda_time_ms(run, 100)
+        lib_p = cuda_time_ms(lambda: ap @ wo, 100)
+        log_device_times(f"sparce_gemm_gated relu prefill block_m {bm}",
+                         ms_p, run, lib_p, lambda: ap @ wo)
+        gated_row(ap, wo, bp, kwp, err_p, ms_p,
+                  cuda_time_ms(plain, 3, warmup=1), lib_p, "prefill")
+    return row
+
+
+def gated_row(a, wo, bits, kw, err, ms, plain_ms, lib_ms, what):
+    """The kernels-line row of the gated kernel (lhs gate, bf16) at one
+    relu MLP shape, with its bound from these bits."""
+    bm, bk = kw["block_m"], kw["block_k"]
     M, K = a.shape
     N = wo.shape[1]
     live = int((bits == 0).sum())
     live_stripes = int((bits == 0).any(dim=0).sum())
-    nbytes = 2 * (live * bk + live_stripes * bk * N + M * N) \
+    nbytes = 2 * (live * bm * bk + live_stripes * bk * N + M * N) \
         + 4 * bits.numel()
-    ops = live * 2 * bk * N
+    ops = live * 2 * bm * bk * N
     return kernel_row(
         "sparce_gemm_gated", "sparce_gemm.cu",
         "src/repro/kernels/sparce_gemm.py:123", err, ms, plain_ms, lib_ms,
-        nbytes, ops, f"a={tuple(a.shape)} @ w_out {tuple(wo.shape)}, lhs "
-        f"tiles (1,{bk}), {live} live tiles (a@w_out as the library call)")
+        nbytes, ops, f"{what} a={tuple(a.shape)} @ w_out {tuple(wo.shape)},"
+        f" lhs tiles ({bm},{bk}), {live} live tiles (a@w_out as the library"
+        " call)")
 
 
 # ------------------------------------------- phase 7: the paper's figures
@@ -1429,11 +1597,13 @@ def check_relu_bwd_path(torch, bwd):
     return err
 
 
-# The layers whose timings make the kernels-line rows: compacted at
+# The layers whose timings make the kernels-line rows (compacted at
 # alexnet conv4 (169x3456x384) and fc6 (1x9216x4096), the two-sided gate
-# at deepcomp-alexnet fc6.
+# at deepcomp-alexnet fc6) or are logged beside them (the gated kernel
+# at alexnet conv2, lhs, and deepcomp-alexnet conv4, rhs).
 ROW_LAYERS = (("alexnet", "conv4"), ("alexnet", "fc6"),
-              ("deepcomp-alexnet", "fc6"))
+              ("deepcomp-alexnet", "fc6"), ("alexnet", "conv2"),
+              ("deepcomp-alexnet", "conv4"))
 
 
 def check_eval_path(torch, dev, outs):
@@ -1441,7 +1611,10 @@ def check_eval_path(torch, dev, outs):
     card and the masked oracle; per layer the plan, the measured
     tile-skip fraction and the times of the kernel, its plain version
     and ``x @ w`` (the :data:`ROW_LAYERS` at the kernels line's iteration
-    count); per benchmark the sum of kernel ms over ``x @ w`` ms.
+    count), then the device time of the kernel and of ``x @ w`` from the
+    profiler and, as a second witness, from a replayed CUDA graph; per
+    benchmark the sum of kernel ms over ``x @ w`` ms, by events, by
+    profiler device time and by graph time.
     Returns {layer of ROW_LAYERS: (plan, x, w, lhs bitmap, rhs bitmap,
     ms, plain ms, x@w ms)}."""
     from repro_torch.core import sasa
@@ -1452,7 +1625,7 @@ def check_eval_path(torch, dev, outs):
            "~1e2) in another order")
     keep = {}
     for i, bench in enumerate(EVAL_BENCHES):
-        sums = [0.0, 0.0]
+        sums = [0.0] * 6
         for layer, plan, x, w, lb, rbm in eval_layers(torch, dev, bench, i):
             y = outs[bench, layer.name]
             y0 = gemm_plain(torch, plan, x, w, lb, rbm)
@@ -1475,21 +1648,34 @@ def check_eval_path(torch, dev, outs):
                 lambda: gemm_plain(torch, plan, x, w, lb, rbm),
                 5 if row else 3, warmup=1)
             dense_ms = cuda_time_ms(lambda: x @ w, iters)
-            sums[0] += ms
-            sums[1] += dense_ms
+            dense = plan.gate == "none" or plan.variant == "dense"
+            dev_ms, parts = device_time_ms(
+                run, names=None if dense else EVAL_KERNELS)
+            dense_dev_ms, _ = device_time_ms(lambda: x @ w)
+            graph_ms = graph_time_ms(run)
+            dense_graph_ms = graph_time_ms(lambda: x @ w)
+            for i_sum, v in enumerate((ms, dense_ms, dev_ms, dense_dev_ms,
+                                       graph_ms, dense_graph_ms)):
+                sums[i_sum] += v
             dropped, total = sasa.dropped_tile_products(plan, lb.bits,
                                                         rbm.bits)
+            split = ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
             log(f"  {name} {layer.m}x{layer.k}x{layer.n}: gate={plan.gate} "
                 f"variant={plan.variant} blocks=({plan.block_m},"
                 f"{plan.block_k},{plan.block_n}); tile products skipped "
                 f"{dropped}/{total} = {dropped / total:.4f}; kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms, x@w {dense_ms:.4f} "
-                "ms")
+                f"ms; device: kernel {dev_ms:.4f} ms ({split}), x@w "
+                f"{dense_dev_ms:.4f} ms; graph: kernel {graph_ms:.4f} ms, "
+                f"x@w {dense_graph_ms:.4f} ms")
             if row:
                 keep[bench, layer.name] = (plan, x, w, lb, rbm, ms, plain_ms,
                                            dense_ms)
         log(f"  {bench}: sum of kernel ms / sum of x@w ms = "
-            f"{sums[0]:.4f} / {sums[1]:.4f} = {sums[0] / sums[1]:.3f}")
+            f"{sums[0]:.4f} / {sums[1]:.4f} = {sums[0] / sums[1]:.3f}; "
+            f"device: {sums[2]:.4f} / {sums[3]:.4f} = "
+            f"{sums[2] / sums[3]:.3f}; graph: {sums[4]:.4f} / "
+            f"{sums[5]:.4f} = {sums[4] / sums[5]:.3f}")
     return keep
 
 
@@ -1525,7 +1711,9 @@ def gemm_bytes_ops(plan, x, w, lb, rbm):
 def eval_gemm_row(name, replaces, err, shapes, launches):
     """The kernels-line row of a GEMM kernel of phase 7 from the layer
     timings ``check_eval_path`` took: the first of ``shapes`` makes the
-    row, the rest are logged."""
+    row, the rest are logged. The gated and compacted kernels run f32
+    as split-TF32, the two-sided kernel on the f32 cores."""
+    path = "float32" if name == "sparce_gemm_gated_both" else "split-tf32"
     row = None
     for key, (plan, x, w, lb, rbm, ms, plain_ms, lib_ms) in shapes:
         nbytes, ops = gemm_bytes_ops(plan, x, w, lb, rbm)
@@ -1533,7 +1721,8 @@ def eval_gemm_row(name, replaces, err, shapes, launches):
             name, "sparce_gemm.cu", replaces, err, ms, plain_ms, lib_ms,
             nbytes, ops, f"{'/'.join(key)} {tuple(x.shape)} @ "
             f"{tuple(w.shape)} blocks ({plan.block_m},{plan.block_k},"
-            f"{plan.block_n}) (x@w as the library call)", dtype="float32")
+            f"{plan.block_n}) (x@w as the library call)", dtype="float32",
+            path=path)
         row = row or r
     row["launches"] = launches[name]
     return row
@@ -1571,6 +1760,9 @@ def run_phase7(torch, dev, errs):
     launches, outs, bwd = run_eval_path(torch, dev)
     bwd_err = check_relu_bwd_path(torch, bwd)
     keep = check_eval_path(torch, dev, outs)
+    eval_gemm_row("sparce_gemm_gated", "src/repro/kernels/sparce_gemm.py:123",
+                  errs.get("sparce_gemm_gated"),
+                  [(k, keep[k]) for k in ROW_LAYERS[3:]], launches)
     return [
         eval_gemm_row(
             "sparce_gemm_compacted", "src/repro/kernels/sparce_gemm.py:215",
@@ -1612,6 +1804,9 @@ def main(argv=None) -> int:
         log(f"phase 1: built {len(_build.SOURCES)} kernels in "
             f"{time.perf_counter() - t0:.1f}s (sm_90a)")
         for name in _build.SOURCES:
+            if name == "sparce_gemm":
+                log_gemm_resources(_build)
+                continue
             for line in _build.build_log(name).splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"  {name}: {line.strip()}")

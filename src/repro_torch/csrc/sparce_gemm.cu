@@ -1,34 +1,57 @@
 // Bitmap-gated block GEMMs, for Hopper (sm_90a): the gated, the
 // compacted-grid and the two-sided-gate variants of the SparCE GEMM.
 //
-// The gated kernel replaces the TPU kernel repro/kernels/sparce_gemm.py:
+// gated_gemm_kernel replaces the TPU kernel repro/kernels/sparce_gemm.py:
 // sparce_gemm_gated (Pallas). y = x @ w with f32 accumulation over k
 // tiles, cast once to the output dtype, dropping every tile product whose
 // bit is 1: with gate = lhs the bit of x's (bm, bk) tile [i, k], with
 // gate = rhs the bit of w's (bk, bn) tile [k, j]. The bit decides, not
 // the values: a tile with bit 1 is dropped even when it is nonzero.
 //
-// Unlike the TPU kernel, which fetches every tile and predicates only the
-// MXU op, this one reads the bits before it loads an operand: a gated
-// tile is never loaded. One block computes a 16 x 128 output sub-tile
-// and walks the k tiles in order. For each k tile it first reads the
-// bits of its rows (lhs) or columns (rhs); when all of them are gated it
-// loads neither operand's tile and multiplies nothing. Otherwise it
-// stages only the ungated rows of x (lhs) or ungated columns of w (rhs),
-// zeros in place of the rest, so a gated tile is still never read.
+// compacted_gemm_kernel replaces sparce_gemm.py:sparce_gemm_compacted:
+// the same product under an lhs gate, where each row tile walks only its
+// nonzero k tiles (the TPU kernel builds the list, nnz and idx, in its
+// wrapper and chases idx in its index maps so a dead tile is never
+// fetched; a row tile with nnz == 0 writes exact zeros).
 //
-// Dims need not be multiples of the blocks: rows, columns and depth past
-// M, N and K are masked in the kernel (the weight is not padded), and
-// the bit grids are ceil(M/bm) x ceil(K/bk) (lhs) or ceil(K/bk) x
-// ceil(N/bn) (rhs). The result equals the zero-padded product's [:M, :N].
+// Both run on one core, skip_gemm.cuh: a block computes a 64-column by
+// 8- to 64-row slab over one fixed chunk of k tiles, on the tensor cores
+// (bf16 mma.sync m16n8k16; f32 split-TF32 m16n8k8), with its operands
+// streamed by cp.async through a 3-stage ring. The grid is column slabs
+// x row slabs x k chunks; with more than one chunk the blocks write f32
+// partials to scratch and chunk_reduce_kernel adds them in ascending
+// chunk order (deterministic, no atomics). The two kernels differ only
+// in their rows: a gated block serves any 8-64 consecutive rows and
+// walks the k tiles on which any of them (lhs) or of its columns (rhs)
+// is live, with the gated rows or columns zero-filled, never loaded; a
+// compacted block serves min(64, bm) rows of one row tile, so its walk
+// is exactly that tile's live list within the chunk, built on the device
+// by a ballot over the bits. On the same bits the two give the same
+// output bit for bit (skip_gemm.cuh says why). Dims need not be
+// multiples of the blocks: rows, columns and depth past M, N and K are
+// masked in the kernels (the weight is not padded), and the bit grids
+// are ceil(M/bm) x ceil(K/bk) (lhs) or ceil(K/bk) x ceil(N/bn) (rhs).
 //
-// What bounds it on this card: at decode shapes (8 x 1536 @ 1536 x 576)
-// bytes -- the ungated k-stripes of w stream once per 16-row block, ~1
-// flop per weight byte per row -- but the grid is only 5 x 1 blocks, so
-// it is latency-bound first. This first version runs SIMT f32 FMAs (each
-// of 256 threads owns a 1x8 patch); split-K, tensor cores (wgmma) and
-// TMA are later work.
-#include "tile_gemm.cuh"
+// What bounds them on this card: bytes at the decode and fc shapes (1-8
+// rows: each live w tile is read once per row slab at ~2 flops per byte
+// per row), operations only at conv shapes in f32 (split-TF32 spends 3
+// tensor-core products per product). The old design's limits -- SIMT
+// FMAs, scalar staging behind two barriers per 32-deep chunk, and grids
+// of 5 to 66 blocks on 132 SMs -- are what the core removes: tensor
+// cores, 16-byte asynchronous copies in flight during the products, and
+// a grid split over k chunks (e.g. 9 x 1 x 6 blocks at the relu decode
+// shape, 64 x 1 x 8 at AlexNet fc6).
+//
+// gated_both_gemm_kernel replaces sparce_gemm.py:sparce_gemm_gated_both:
+// a tile product is dropped when EITHER operand's bit is 1 (the paper's
+// SpRFCondition Ra | Rb). For each k tile the block reads both bits
+// before it loads any operand; when either is 1 it loads neither tile.
+// A block never straddles a tile boundary: it serves min(16, bm) rows of
+// one bm-row tile and min(128, bn) columns of one bn-column tile, so the
+// skip decision is the block's. It still runs the first design: SIMT f32
+// FMAs through gemm_patch_acc (tile_gemm.cuh), no split-K; bytes bound
+// it at the deepcomp fc shapes, where only 8-32 blocks run.
+#include "skip_gemm.cuh"
 
 namespace {
 
@@ -58,108 +81,141 @@ __device__ __forceinline__ void store_patch(const float (&acc)[RM][8],
     }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NT) gated_gemm_kernel(
-    const T* __restrict__ x, const T* __restrict__ w,
-    const int32_t* __restrict__ bits, T* __restrict__ y, int M, int K, int N,
-    int bm, int bk, int bn, int rhs) {
-  const int col0 = blockIdx.x * TN, row0 = blockIdx.y * TM;
-  const int gk = (K + bk - 1) / bk, gn = (N + bn - 1) / bn;
-  const int rlim = min(TM, M - row0), clim = min(TN, N - col0);
-  __shared__ float xs[TM * XS_LD];
-  __shared__ float ws[KC * TN];
-  __shared__ int live_s[TN];  // per row (lhs) or per column (rhs)
-  const int tid = threadIdx.x;
-  float acc[RM][8];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int kt = 0; kt < gk; ++kt) {
-    // The bits first: nothing of this k tile is loaded before them.
-    int live = 0;
-    if (!rhs && tid < TM) {
-      live = tid < rlim && bits[(size_t)((row0 + tid) / bm) * gk + kt] == 0;
-      live_s[tid] = live;
-    } else if (rhs && tid < TN) {
-      live = tid < clim && bits[(size_t)kt * gn + (col0 + tid) / bn] == 0;
-      live_s[tid] = live;
-    }
-    if (!__syncthreads_or(live)) continue;  // gated for the whole block
-    const int k_lo = kt * bk, depth = min(bk, K - k_lo);
-    sparce::gemm_patch_acc<RM>(
-        acc, depth,
-        [&](int r, int k) {
-          return (r < rlim && (rhs || live_s[r]))
-                     ? to_f(x[(size_t)(row0 + r) * K + k_lo + k])
-                     : 0.f;
-        },
-        [&](int k, int c) {
-          return (c < clim && (!rhs || live_s[c]))
-                     ? to_f(w[(size_t)(k_lo + k) * N + col0 + c])
-                     : 0.f;
-        },
-        xs, ws);
-  }
-  store_patch<T>(acc, y, N, row0, col0, rlim, clim);
-}
-
-// ---------------------------------------------------------------------
-// The compacted-grid and two-sided-gate kernels.
-//
-// compacted_gemm_kernel replaces the TPU kernel sparce_gemm.py:
-// sparce_gemm_compacted: y = x @ w, lhs gate, where each row tile walks
-// only its nonzero k tiles (the TPU kernel builds the list, nnz and idx,
-// in its wrapper and chases idx in its index maps so a dead tile is
-// never fetched; a row tile with nnz == 0 writes exact zeros). Here each
-// block builds its row tile's list itself: warp 0 reads the tile's bit
-// row and compacts the live k indices, in ascending order, into shared
-// memory with a ballot (no host sync, no extra launch). Then the block
-// walks the list: it loads only the x and w tiles of live k tiles, so
-// no operand byte of a dead tile is read, and nnz == 0 leaves the
-// accumulators at exact zeros.
-//
-// gated_both_gemm_kernel replaces sparce_gemm.py:sparce_gemm_gated_both:
-// a tile product is dropped when EITHER operand's bit is 1 (the paper's
-// SpRFCondition Ra | Rb). For each k tile the block reads both bits
-// before it loads any operand; when either is 1 it loads neither tile.
-//
-// In both, a block never straddles a tile boundary: it serves min(16,
-// bm) rows of one bm-row tile (a 168- or 256-row tile is served by 11 or
-// 16 blocks, one 16-row chunk each) and, in the two-sided kernel,
-// min(128, bn) columns of one bn-column tile. So the skip decision is the
-// same for every row and column of a block, and a dropped product's
-// tiles are never read even when they hold NaN. The cost: at bm = 8 half
-// of the block's 16 thread rows idle. The tile products go through
-// gemm_patch_acc in ascending k order like the gated kernel's, so on the
-// same bits the compacted kernel's output equals the gated kernel's bit
-// for bit (where the gated kernel's 16-row block spans two 8-row tiles,
-// a row whose tile is gated adds 0 * w = +-0 to its sum, which leaves
-// it unchanged). Ragged M, K and N are masked in the kernels; only the
-// bit grids are padded (with 1s) by the wrapper.
-//
-// What bounds them on this card: bytes. At the AlexNet shapes (m 1 to
-// 169, k up to 9216, n up to 4096, f32) the live w tiles stream once per
-// row block at ~2 flops per byte; fc6-fc8 (m = 1) use 1 of 16 thread
-// rows for the FMAs and only n / 128 = 8 to 32 blocks. Tensor cores,
-// wider grids (split-K) and TMA are later work.
-
-// The longest live-k list a block holds: 1024 k tiles (4 KB of shared
-// memory), K up to 131072 at bk = 128. The wrapper refuses longer ones.
-constexpr int MAX_K_TILES = 1024;
-
-// Rows of the block: one chunk of min(16, bm) rows of row tile ti.
+// Rows of a block that serves one chunk of min(rows, bm) rows of row
+// tile ti (the compacted and two-sided kernels).
 struct RowChunk {
   int ti, row0, rlim;
 };
-__device__ __forceinline__ RowChunk row_chunk(int by, int M, int bm) {
-  const int rb = min(TM, bm), cpt = (bm + rb - 1) / rb;
+__device__ __forceinline__ RowChunk row_chunk(int by, int M, int bm,
+                                              int rows) {
+  const int rb = min(rows, bm), cpt = (bm + rb - 1) / rb;
   const int ti = by / cpt, ch = by - ti * cpt;
   const int row0 = ti * bm + ch * rb;
   return {ti, row0, min(min(rb, bm - ch * rb), M - row0)};
 }
 
+// Blocks along M: every bm-row tile in chunks of min(rows, bm) rows.
+inline unsigned row_blocks(int M, int bm, int rows) {
+  const int rb = bm < rows ? bm : rows;
+  return (unsigned)(((M + bm - 1) / bm) * ((bm + rb - 1) / rb));
+}
+
+// ------------------------------------------- the gated and compacted GEMMs
+template <typename T, int NT8>
+__global__ void __launch_bounds__(skip::THREADS) gated_gemm_kernel(
+    const T* __restrict__ x, const T* __restrict__ w,
+    const int32_t* __restrict__ bits, T* __restrict__ y,
+    float* __restrict__ partial, int M, int K, int N, int bm, int bk, int bn,
+    int rhs, int S, int nchunks, int vec_x, int vec_w) {
+  const int gk = (K + bk - 1) / bk, gn = (N + bn - 1) / bn;
+  skip::Slab s;
+  s.row0 = blockIdx.y * 8 * NT8;
+  s.rlim = min(8 * NT8, M - s.row0);
+  s.col0 = blockIdx.x * skip::SLAB_N;
+  s.clim = min(skip::SLAB_N, N - s.col0);
+  s.t_lo = blockIdx.z * S;
+  s.t_hi = min(gk, s.t_lo + S);
+  const skip::Gate g{bits, rhs, bm, bn, gk, gn};
+  skip::skip_gemm<T, NT8>(x, w, g, s, y, partial, M, K, N, bk, nchunks,
+                          vec_x, vec_w);
+}
+
+template <typename T, int NT8>
+__global__ void __launch_bounds__(skip::THREADS) compacted_gemm_kernel(
+    const T* __restrict__ x, const T* __restrict__ w,
+    const int32_t* __restrict__ bits, T* __restrict__ y,
+    float* __restrict__ partial, int M, int K, int N, int bm, int bk, int S,
+    int nchunks, int vec_x, int vec_w) {
+  const RowChunk rc = row_chunk(blockIdx.y, M, bm, 8 * NT8);
+  if (rc.rlim <= 0) return;  // the same for every thread of the block
+  const int gk = (K + bk - 1) / bk;
+  skip::Slab s;
+  s.row0 = rc.row0;
+  s.rlim = rc.rlim;
+  s.col0 = blockIdx.x * skip::SLAB_N;
+  s.clim = min(skip::SLAB_N, N - s.col0);
+  s.t_lo = blockIdx.z * S;
+  s.t_hi = min(gk, s.t_lo + S);
+  const skip::Gate g{bits, 0, bm, 1, gk, 1};
+  skip::skip_gemm<T, NT8>(x, w, g, s, y, partial, M, K, N, bk, nchunks,
+                          vec_x, vec_w);
+}
+
+// One launch of the core kernel at NT8 row tiles of 8, then the chunk
+// reduction when there are several chunks. Errors of either launch are
+// returned.
+template <typename T, int NT8>
+int launch_skip(bool compacted, const void* x, const void* w,
+                const void* bits, void* y, void* partial, int M, int K,
+                int N, int bm, int bk, int bn, int rhs, int S,
+                cudaStream_t stream) {
+  const int gk = (K + bk - 1) / bk;
+  const int nchunks = gk > 0 ? (gk + S - 1) / S : 1;
+  if (nchunks > 1 && partial == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t smem = skip::smem_bytes<T>(NT8);
+  const unsigned rows =
+      compacted ? row_blocks(M, bm, 8 * NT8) : (unsigned)((M + 8 * NT8 - 1) /
+                                                          (8 * NT8));
+  if (rows > 65535u) return (int)cudaErrorInvalidValue;  // gridDim.y
+  const dim3 grid((N + skip::SLAB_N - 1) / skip::SLAB_N, rows, nchunks);
+  const T* xt = static_cast<const T*>(x);
+  const T* wt = static_cast<const T*>(w);
+  const int32_t* bt = static_cast<const int32_t*>(bits);
+  T* yt = static_cast<T*>(y);
+  float* pt = static_cast<float*>(partial);
+  const int vx = skip::vec_ok<T>(x, K, bk);
+  const int vw = skip::vec_ok<T>(w, N, skip::SLAB_N);
+  cudaError_t err;
+  if (compacted) {
+    static bool ready = false;  // the shared-memory limit, once
+    if (!ready) {
+      err = sparce::allow_smem(compacted_gemm_kernel<T, NT8>, smem);
+      if (err != cudaSuccess) return (int)err;
+      ready = true;
+    }
+    compacted_gemm_kernel<T, NT8><<<grid, skip::THREADS, smem, stream>>>(
+        xt, wt, bt, yt, pt, M, K, N, bm, bk, S, nchunks, vx, vw);
+  } else {
+    static bool ready = false;
+    if (!ready) {
+      err = sparce::allow_smem(gated_gemm_kernel<T, NT8>, smem);
+      if (err != cudaSuccess) return (int)err;
+      ready = true;
+    }
+    gated_gemm_kernel<T, NT8><<<grid, skip::THREADS, smem, stream>>>(
+        xt, wt, bt, yt, pt, M, K, N, bm, bk, bn, rhs, S, nchunks, vx, vw);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess || nchunks == 1) return (int)err;
+  return (int)skip::launch_chunk_reduce<T>(pt, yt, (size_t)M * N, nchunks,
+                                           stream);
+}
+
+// The row slab fitted to the rows a block has to serve: the compacted
+// kernel's min(bm, M) rows of one row tile, the gated kernel's M.
+template <typename T>
+int launch(bool compacted, const void* x, const void* w, const void* bits,
+           void* y, void* partial, int M, int K, int N, int bm, int bk,
+           int bn, int rhs, int S, cudaStream_t stream) {
+  if (S < 1 || bm < 1 || bk < 1 || bn < 1) return (int)cudaErrorInvalidValue;
+  switch (skip::nt8_for(compacted ? (bm < M ? bm : M) : M)) {
+    case 1:
+      return launch_skip<T, 1>(compacted, x, w, bits, y, partial, M, K, N,
+                               bm, bk, bn, rhs, S, stream);
+    case 2:
+      return launch_skip<T, 2>(compacted, x, w, bits, y, partial, M, K, N,
+                               bm, bk, bn, rhs, S, stream);
+    case 4:
+      return launch_skip<T, 4>(compacted, x, w, bits, y, partial, M, K, N,
+                               bm, bk, bn, rhs, S, stream);
+    default:
+      return launch_skip<T, skip::MAX_NT8>(compacted, x, w, bits, y, partial,
+                                           M, K, N, bm, bk, bn, rhs, S,
+                                           stream);
+  }
+}
+
+// ------------------------------------------------------ the two-sided gate
 // The block's share of the tile product of k tile kt: rows rc of x,
 // columns [col0, col0 + clim) of w, added to acc. Only this k tile's
 // rows and columns of the block are loaded.
@@ -182,48 +238,11 @@ __device__ __forceinline__ void chunk_product(
 }
 
 template <typename T>
-__global__ void __launch_bounds__(NT) compacted_gemm_kernel(
-    const T* __restrict__ x, const T* __restrict__ w,
-    const int32_t* __restrict__ bits, T* __restrict__ y, int M, int K, int N,
-    int bm, int bk) {
-  const RowChunk rc = row_chunk(blockIdx.y, M, bm);
-  const int col0 = blockIdx.x * TN, clim = min(TN, N - col0);
-  if (rc.rlim <= 0) return;  // the same for every thread of the block
-  const int gk = (K + bk - 1) / bk;
-  __shared__ int idx_s[MAX_K_TILES];  // the live k tiles, ascending
-  __shared__ int nnz_s;
-  __shared__ float xs[TM * XS_LD];
-  __shared__ float ws[KC * TN];
-  if (threadIdx.x < 32) {  // warp 0 compacts the bit row, ascending
-    const int lane = threadIdx.x;
-    int count = 0;
-    for (int base = 0; base < gk; base += 32) {
-      const int kt = base + lane;
-      const bool live = kt < gk && bits[(size_t)rc.ti * gk + kt] == 0;
-      const unsigned mask = __ballot_sync(0xffffffffu, live);
-      if (live) idx_s[count + __popc(mask & ((1u << lane) - 1u))] = kt;
-      count += __popc(mask);
-    }
-    if (lane == 0) nnz_s = count;
-  }
-  __syncthreads();
-  const int nnz = nnz_s;
-  float acc[RM][8];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  for (int t = 0; t < nnz; ++t)
-    chunk_product<T>(acc, x, w, rc, col0, clim, K, N, idx_s[t], bk, xs, ws);
-  store_patch<T>(acc, y, N, rc.row0, col0, rc.rlim, clim);
-}
-
-template <typename T>
 __global__ void __launch_bounds__(NT) gated_both_gemm_kernel(
     const T* __restrict__ x, const T* __restrict__ w,
     const int32_t* __restrict__ lbits, const int32_t* __restrict__ rbits,
     T* __restrict__ y, int M, int K, int N, int bm, int bk, int bn) {
-  const RowChunk rc = row_chunk(blockIdx.y, M, bm);
+  const RowChunk rc = row_chunk(blockIdx.y, M, bm, TM);
   const int cb = min(TN, bn), cpt = (bn + cb - 1) / cb;
   const int tj = blockIdx.x / cpt, cc = blockIdx.x - tj * cpt;
   const int col0 = tj * bn + cc * cb;
@@ -248,31 +267,13 @@ __global__ void __launch_bounds__(NT) gated_both_gemm_kernel(
   store_patch<T>(acc, y, N, rc.row0, col0, rc.rlim, clim);
 }
 
-// Blocks along M: every bm-row tile in chunks of min(16, bm) rows.
-inline unsigned row_blocks(int M, int bm) {
-  const int rb = bm < TM ? bm : TM;
-  return (unsigned)(((M + bm - 1) / bm) * ((bm + rb - 1) / rb));
-}
-
-template <typename T>
-int launch_compacted(const void* x, const void* w, const void* bits, void* y,
-                     int M, int K, int N, int bm, int bk,
-                     cudaStream_t stream) {
-  if ((K + bk - 1) / bk > MAX_K_TILES) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + TN - 1) / TN, row_blocks(M, bm));
-  compacted_gemm_kernel<T><<<grid, NT, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const int32_t*>(bits), static_cast<T*>(y), M, K, N, bm, bk);
-  return (int)cudaGetLastError();
-}
-
 template <typename T>
 int launch_both(const void* x, const void* w, const void* lbits,
                 const void* rbits, void* y, int M, int K, int N, int bm,
                 int bk, int bn, cudaStream_t stream) {
   const int cb = bn < TN ? bn : TN;
   const dim3 grid((unsigned)(((N + bn - 1) / bn) * ((bn + cb - 1) / cb)),
-                  row_blocks(M, bm));
+                  row_blocks(M, bm, TM));
   gated_both_gemm_kernel<T><<<grid, NT, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const int32_t*>(lbits), static_cast<const int32_t*>(rbits),
@@ -280,52 +281,52 @@ int launch_both(const void* x, const void* w, const void* lbits,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch(const void* x, const void* w, const void* bits, void* y, int M,
-           int K, int N, int bm, int bk, int bn, int rhs,
-           cudaStream_t stream) {
-  const dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM);
-  gated_gemm_kernel<T><<<grid, NT, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const int32_t*>(bits), static_cast<T*>(y), M, K, N, bm, bk,
-      bn, rhs);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, w and y share it). rhs: 0 gates
-// on x's tiles, 1 on w's. Returns cudaGetLastError() after the launch
-// (0 = success).
+// on x's tiles, 1 on w's. S: k tiles per chunk (the wrapper's
+// chunk_tiles(K, bk)); partial: f32 scratch of ceil(ceil(K/bk)/S) x M x
+// N when that is more than one chunk, else unused. Returns
+// cudaGetLastError() after the launches (0 = success).
 extern "C" int sparce_gemm_gated(const void* x, const void* w,
-                                 const void* bits, void* y, int M, int K,
-                                 int N, int bm, int bk, int bn, int rhs,
-                                 int dtype, void* stream) {
+                                 const void* bits, void* y, void* partial,
+                                 int M, int K, int N, int bm, int bk, int bn,
+                                 int rhs, int S, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N <= 0) return 0;
   if (dtype == 0)
-    return launch<float>(x, w, bits, y, M, K, N, bm, bk, bn, rhs, s);
+    return launch<float>(false, x, w, bits, y, partial, M, K, N, bm, bk, bn,
+                         rhs, S, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, w, bits, y, M, K, N, bm, bk, bn, rhs, s);
+    return launch<__nv_bfloat16>(false, x, w, bits, y, partial, M, K, N, bm,
+                                 bk, bn, rhs, S, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // The compacted-grid GEMM (lhs gate): bits int32 (ceil(M/bm),
-// ceil(K/bk)), ceil(K/bk) <= MAX_K_TILES (else cudaErrorInvalidValue,
-// nothing launched). Same dtype ids and return value as
+// ceil(K/bk)). Same S, scratch, dtype ids and return value as
 // sparce_gemm_gated.
 extern "C" int sparce_gemm_compacted(const void* x, const void* w,
-                                     const void* bits, void* y, int M, int K,
-                                     int N, int bm, int bk, int dtype,
+                                     const void* bits, void* y,
+                                     void* partial, int M, int K, int N,
+                                     int bm, int bk, int S, int dtype,
                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N <= 0) return 0;
   if (dtype == 0)
-    return launch_compacted<float>(x, w, bits, y, M, K, N, bm, bk, s);
+    return launch<float>(true, x, w, bits, y, partial, M, K, N, bm, bk, 1, 0,
+                         S, s);
   if (dtype == 1)
-    return launch_compacted<__nv_bfloat16>(x, w, bits, y, M, K, N, bm, bk,
-                                           s);
+    return launch<__nv_bfloat16>(true, x, w, bits, y, partial, M, K, N, bm,
+                                 bk, 1, 0, S, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of the gated and compacted kernels' block at
+// nt8 x 8 rows (1, 2, 4 or 8), dtype id as above: the operand ring.
+extern "C" int sparce_gemm_smem_bytes(int dtype, int nt8) {
+  return (int)(dtype == 0 ? skip::smem_bytes<float>(nt8)
+                          : skip::smem_bytes<__nv_bfloat16>(nt8));
 }
 
 // The two-sided gate: lbits int32 (ceil(M/bm), ceil(K/bk)) over x's

@@ -26,6 +26,13 @@ Each of the three functions is an entry point: a CUDA tensor launches
 its kernel (counted in its ``launches``), a CPU tensor runs its
 ``*_plain`` version, which likewise indexes only ungated tiles so the
 NaN-poison tests hold for it on the CPU.
+
+The gated and compacted kernels split K: each block sums one fixed
+chunk of :func:`chunk_tiles` k tiles, and with more than one chunk the
+chunks' f32 partials (scratch of :func:`partial_shape`, allocated here)
+are added in ascending chunk order by a second launch inside the same C
+call. The chunks depend on ``(K, block_k)`` only, the same for both
+kernels, which is what keeps their outputs equal bit for bit.
 """
 from __future__ import annotations
 
@@ -65,6 +72,51 @@ def _check(x, w, bits, block_m, block_k, block_n, gate):
     if tuple(bits.shape) != grid:
         raise ValueError(f"{gate} bits must be {grid}, got "
                          f"{tuple(bits.shape)}")
+
+
+# Chunks of k tiles the gated and compacted kernels split K into, at most.
+MAX_CHUNKS = 8
+
+
+def chunk_tiles(k: int, block_k: int) -> int:
+    """k tiles per chunk: chunk c sums the k tiles [c*S, (c+1)*S). A
+    function of (K, block_k) only -- never of the bits, M or a kernel's
+    block -- so both kernels split every row's sum at the same tiles."""
+    gk = _ceil_div(k, block_k)
+    return max(1, _ceil_div(gk, max(1, min(gk, MAX_CHUNKS))))
+
+
+def num_chunks(k: int, block_k: int) -> int:
+    """Chunks (the grid's third dimension) at ``chunk_tiles(k, block_k)``."""
+    return max(1, _ceil_div(_ceil_div(k, block_k), chunk_tiles(k, block_k)))
+
+
+def partial_shape(m: int, k: int, n: int, block_k: int) -> tuple:
+    """The f32 scratch the kernels write the chunks' partial sums to:
+    (chunks, M, N), or (0,) with one chunk (the kernel then writes y
+    itself)."""
+    nc = num_chunks(k, block_k)
+    return (nc, m, n) if nc > 1 else (0,)
+
+
+def _launch_gemm(name, x, w, bits, out_dtype, block_k, *args):
+    """Allocate y and the f32 scratch and call the C launch function
+    ``name(x, w, bits, y, scratch, M, K, N, *args, S, dtype, stream)``.
+    Returns (y, cudaError)."""
+    dtype_id, (bits,) = _launch_checks(name, x, w, out_dtype, bits=bits)
+    m, k = x.shape
+    n = w.shape[1]
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    partial = torch.empty(partial_shape(m, k, n, block_k),
+                          dtype=torch.float32, device=x.device)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = _build.function("sparce_gemm", name,
+                         [p] * 5 + [i] * (3 + len(args) + 2) + [p])
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(x.data_ptr(), w.data_ptr(), bits.data_ptr(), y.data_ptr(),
+             partial.data_ptr() if partial.numel() else None, m, k, n, *args,
+             chunk_tiles(k, block_k), dtype_id, stream)
+    return y, err
 
 
 def _live_cols(live_k: torch.Tensor, block_k: int, k: int) -> torch.Tensor:
@@ -135,18 +187,9 @@ def sparce_gemm_gated(
     if x.device.type != "cuda":
         raise ValueError(f"sparce_gemm_gated: unsupported device {x.device}")
     _check(x, w, bits, block_m, block_k, block_n, gate)
-    dtype_id, (bits,) = _launch_checks("sparce_gemm_gated", x, w, out_dtype,
-                                       bits=bits)
-    m, k = x.shape
-    n = w.shape[1]
-    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn = _build.function("sparce_gemm", "sparce_gemm_gated",
-                         [p, p, p, p, i, i, i, i, i, i, i, i, p])
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), w.data_ptr(), bits.data_ptr(), y.data_ptr(), m, k,
-             n, block_m, block_k, block_n, int(gate == "rhs"), dtype_id,
-             stream)
+    y, err = _launch_gemm("sparce_gemm_gated", x, w, bits, out_dtype,
+                          block_k, block_m, block_k, block_n,
+                          int(gate == "rhs"))
     sparce_gemm_gated.launches += 1
     if err != 0:
         raise RuntimeError(f"sparce_gemm_gated launch failed: cudaError {err}")
@@ -157,9 +200,6 @@ sparce_gemm_gated.launches = 0
 
 
 # ------------------------------------------------------------- compacted
-# The longest live-k list the kernel holds (csrc/sparce_gemm.cu
-# MAX_K_TILES): K up to 131072 at block_k 128.
-COMPACTED_MAX_K_TILES = 1024
 
 
 def sparce_gemm_compacted_plain(
@@ -184,7 +224,8 @@ def sparce_gemm_compacted(
     """Compacted-grid GEMM: y = x @ w where each (block_m)-row tile walks
     only the k tiles whose bit is 0 (bits int32 (ceil(M/block_m),
     ceil(K/block_k)), 1 == zero tile), so a dead tile is neither computed
-    nor loaded. The list is built on the device, inside the kernel.
+    nor loaded. The list is built on the device, inside the kernel, one
+    k chunk at a time, so its length has no cap.
     ``block_n`` is the plan's column tile; the result does not depend on
     it. CUDA tensors launch the kernel, CPU tensors run the plain
     version."""
@@ -196,21 +237,8 @@ def sparce_gemm_compacted(
         raise ValueError(
             f"sparce_gemm_compacted: unsupported device {x.device}")
     _check(x, w, bits, block_m, block_k, block_n, "lhs")
-    if bits.shape[1] > COMPACTED_MAX_K_TILES:
-        raise ValueError(
-            f"sparce_gemm_compacted: {bits.shape[1]} k tiles; the kernel "
-            f"holds a live list of at most {COMPACTED_MAX_K_TILES}")
-    dtype_id, (bits,) = _launch_checks("sparce_gemm_compacted", x, w,
-                                       out_dtype, bits=bits)
-    m, k = x.shape
-    n = w.shape[1]
-    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn = _build.function("sparce_gemm", "sparce_gemm_compacted",
-                         [p, p, p, p, i, i, i, i, i, i, p])
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), w.data_ptr(), bits.data_ptr(), y.data_ptr(), m, k,
-             n, block_m, block_k, dtype_id, stream)
+    y, err = _launch_gemm("sparce_gemm_compacted", x, w, bits, out_dtype,
+                          block_k, block_m, block_k)
     sparce_gemm_compacted.launches += 1
     if err != 0:
         raise RuntimeError(

@@ -155,7 +155,7 @@ def test_relu_bitmap_kernel_matches_plain(cuda, shape, block, dtype):
 
 
 @pytest.mark.parametrize("gate", ["lhs", "rhs"])
-@pytest.mark.parametrize("M,bm", [(8, 1), (256, 1), (128, 64)])
+@pytest.mark.parametrize("M,bm", [(8, 1), (256, 1), (128, 64), (256, 64)])
 @pytest.mark.parametrize("dtype,tol", [
     (torch.float32, 1e-4),   # f32 sums over K in another order
     (torch.bfloat16, 2e-2),  # bf16 output rounding
@@ -488,26 +488,112 @@ def test_compacted_kernel_equals_gated_kernel_bit_for_bit(
     assert bool(torch.isfinite(y2).all()) and torch.equal(y2, y)
 
 
-def test_compacted_kernel_refuses_a_list_past_its_cap(cuda):
-    """One k tile past the live list the kernel holds: the wrapper raises
-    before it launches; at the cap it launches and equals the plain
-    version."""
-    cap = sg.COMPACTED_MAX_K_TILES
+def test_compacted_kernel_takes_a_list_past_the_old_cap(cuda):
+    """1024 and 1025 k tiles (the first design's cap on the live list,
+    which the chunked walk no longer has) at block_k 1, a k tile below
+    the MMA's k step: both launch and equal the plain version."""
     kw = dict(block_m=1, block_k=1, block_n=128)
-    for K in (cap, cap + 1):
+    for K in (1024, 1025):
         x = torch.randn((2, K), device=cuda)
         w = torch.randn((K, 8), device=cuda)
         bits = torch.zeros((2, K), dtype=torch.int32, device=cuda)
+        bits[1, ::3] = 1
         before = sg.sparce_gemm_compacted.launches
-        if K > cap:
-            with pytest.raises(ValueError, match="k tiles"):
-                sg.sparce_gemm_compacted(x, w, bits, **kw)
-            assert sg.sparce_gemm_compacted.launches == before
-        else:
-            y = sg.sparce_gemm_compacted(x, w, bits, **kw)
-            torch.testing.assert_close(  # f32 sums over K in another order
-                y, sg.sparce_gemm_compacted_plain(x, w, bits, **kw),
-                rtol=1e-4, atol=1e-4)
+        y = sg.sparce_gemm_compacted(x, w, bits, **kw)
+        assert sg.sparce_gemm_compacted.launches == before + 1
+        torch.testing.assert_close(  # f32 sums over K in another order
+            y, sg.sparce_gemm_compacted_plain(x, w, bits, **kw),
+            rtol=1e-4, atol=1e-4)
+
+
+GEMM_TOLS = [
+    (torch.float32, 1e-4),   # f32 sums over K in another order
+    (torch.bfloat16, 2e-2),  # bf16 output rounding
+]
+
+
+def _gemm_operands(dev, dtype, M, K, N, bm, bk, bn, seed, live=0.5):
+    """x, init-scale w, and random lhs and rhs bit grids at ``live``."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    w = (rng.standard_normal((K, N)) * K ** -0.5).astype(np.float32)
+    kw = dict(block_m=bm, block_k=bk, block_n=bn)
+    lbits = (rng.random(sg.bit_grid(M, K, N, gate="lhs", **kw)) >= live
+             ).astype(np.int32)
+    rbits = (rng.random(sg.bit_grid(M, K, N, gate="rhs", **kw)) >= live
+             ).astype(np.int32)
+    xt, wt = (torch.from_numpy(a).to(dev, dtype) for a in (x, w))
+    return xt, wt, lbits, rbits, kw
+
+
+def _all_three(xt, wt, lbits, rbits, kw, dev):
+    """The compacted kernel, the gated kernel (lhs) on the same bits,
+    and the gated kernel (rhs), each beside its plain version."""
+    lb, rbt = (torch.from_numpy(b).to(dev) for b in (lbits, rbits))
+    return [
+        (sg.sparce_gemm_compacted(xt, wt, lb, **kw),
+         sg.sparce_gemm_compacted_plain(xt, wt, lb, **kw)),
+        (sg.sparce_gemm_gated(xt, wt, lb, gate="lhs", **kw),
+         sg.sparce_gemm_gated_plain(xt, wt, lb, gate="lhs", **kw)),
+        (sg.sparce_gemm_gated(xt, wt, rbt, gate="rhs", **kw),
+         sg.sparce_gemm_gated_plain(xt, wt, rbt, gate="rhs", **kw)),
+    ]
+
+
+@pytest.mark.parametrize("M,K,N,bm,bk,bn", [
+    (8, 1536, 576, 1, 128, 128),     # relu decode: 6 k chunks
+    (169, 3456, 384, 8, 128, 256),   # AlexNet conv4: 7 k chunks
+    (4, 96, 64, 1, 128, 128),        # one chunk: y written directly
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_kernels_are_deterministic(cuda, M, K, N, bm, bk, bn, dtype):
+    """Two calls on the same inputs give the same bits, for both kernels
+    and both gates: the chunks' partials are added in a fixed order,
+    with no atomics."""
+    xt, wt, lbits, rbits, kw = _gemm_operands(cuda, dtype, M, K, N, bm, bk,
+                                              bn, seed=30)
+    first = _all_three(xt, wt, lbits, rbits, kw, cuda)
+    second = _all_three(xt, wt, lbits, rbits, kw, cuda)
+    for (a, _), (b, _) in zip(first, second):
+        assert torch.equal(_bits_view(a), _bits_view(b))
+
+
+@pytest.mark.parametrize("case", ["one_chunk", "empty_chunks", "ragged_k"])
+@pytest.mark.parametrize("dtype,tol", GEMM_TOLS)
+def test_gemm_kernels_on_chunk_edges(cuda, case, dtype, tol):
+    """K = 1536 at block_k 128 runs 6 chunks of 2 k tiles: live tiles in
+    exactly one chunk; live tiles only in the first and last chunks (the
+    four between them empty); and K = 1500, not a multiple of S * bk,
+    its last k tile ragged. Each kernel equals its plain version, the
+    compacted kernel equals the gated one bit for bit."""
+    K = 1500 if case == "ragged_k" else 1536
+    xt, wt, lbits, rbits, kw = _gemm_operands(cuda, dtype, 40, K, 200, 8,
+                                              128, 128, seed=31)
+    assert sg.chunk_tiles(1536, 128) == 2 and sg.num_chunks(1536, 128) == 6
+    if case != "ragged_k":
+        keep = [4, 5] if case == "one_chunk" else [0, 11]
+        for b in (lbits, rbits.T):
+            dead = np.ones(b.shape[1], bool)
+            dead[keep] = False
+            b[:, dead] = 1
+    outs = _all_three(xt, wt, lbits, rbits, kw, cuda)
+    for y, y0 in outs:
+        torch.testing.assert_close(y.float(), y0.float(), rtol=tol, atol=tol)
+    assert torch.equal(_bits_view(outs[0][0]), _bits_view(outs[1][0]))
+
+
+@pytest.mark.parametrize("bk", [1, 32])
+@pytest.mark.parametrize("dtype,tol", GEMM_TOLS)
+def test_gemm_kernels_at_small_block_k(cuda, bk, dtype, tol):
+    """k tiles of 1 and 32: below the MMA's k step (zero-padded) and one
+    stage each; ragged M, K and N. Both kernels and both gates equal
+    their plain versions; compacted equals gated bit for bit."""
+    xt, wt, lbits, rbits, kw = _gemm_operands(cuda, dtype, 24, 300, 100, 8,
+                                              bk, 64, seed=32)
+    outs = _all_three(xt, wt, lbits, rbits, kw, cuda)
+    for y, y0 in outs:
+        torch.testing.assert_close(y.float(), y0.float(), rtol=tol, atol=tol)
+    assert torch.equal(_bits_view(outs[0][0]), _bits_view(outs[1][0]))
 
 
 @pytest.mark.parametrize("M,K,N,bm,bk,bn", [
@@ -598,7 +684,8 @@ def test_relu_bwd_with_bitmap_pads_on_gpu(cuda):
 
 @pytest.mark.parametrize("bench,layer_name", [
     ("alexnet", "conv4"), ("deepcomp-alexnet", "fc6"),
-    ("deepcomp-alexnet", "conv2"),
+    ("deepcomp-alexnet", "conv2"), ("alexnet", "conv2"),
+    ("deepcomp-alexnet", "conv4"),
 ])
 def test_ops_sparce_gemm_on_alexnet_layers_at_full_shape(cuda, bench,
                                                          layer_name):
@@ -624,6 +711,8 @@ def test_ops_sparce_gemm_on_alexnet_layers_at_full_shape(cuda, bench,
     rbm = sprf.compute_bitmap(w, plan.block_rhs)
     fn = {"lhs": sg.sparce_gemm_compacted, "rhs": sg.sparce_gemm_gated,
           "both": sg.sparce_gemm_gated_both}[plan.gate]
+    if plan.gate == "lhs" and plan.variant == "gated":
+        fn = sg.sparce_gemm_gated
     before = fn.launches
     y = kops.sparce_gemm(x, w, plan, lhs_bitmap=lb, rhs_bitmap=rbm)
     assert fn.launches == before + 1

@@ -481,3 +481,124 @@ def test_dropped_tile_products_counts_each_gate(gate, variant, want):
     plan = SkipPlan(gate=gate, variant=variant, block_m=8, block_k=128,
                     block_n=128)
     assert sasa.dropped_tile_products(plan, lbits, rbits) == (want, 12)
+
+
+# ------------------------------------- the k chunks of the gated kernels
+# (K, block_k) pairs of the paths and tests: the relu decode and
+# prefill, every AlexNet layer, ragged K, block_k 1 and 32.
+CHUNK_CASES = [(1536, 128), (2400, 128), (3456, 128), (9216, 128),
+               (4096, 128), (363, 128), (1000, 128), (640, 128),
+               (1025, 1), (1024, 1), (700, 32), (96, 128), (1, 1)]
+
+
+def _chunks(k, block_k):
+    s = sg.chunk_tiles(k, block_k)
+    gk = -(-k // block_k)
+    return [range(c * s, min((c + 1) * s, gk))
+            for c in range(sg.num_chunks(k, block_k))]
+
+
+@pytest.mark.parametrize("k,block_k", CHUNK_CASES)
+def test_chunks_cover_every_k_tile_once(k, block_k):
+    """Chunk c holds k tiles [c*S, (c+1)*S): together they cover the
+    ceil(K/block_k) tiles exactly once, in ascending order, none empty,
+    at most MAX_CHUNKS of them."""
+    chunks = _chunks(k, block_k)
+    assert [t for c in chunks for t in c] == list(range(-(-k // block_k)))
+    assert all(len(c) > 0 for c in chunks)
+    assert 1 <= len(chunks) <= sg.MAX_CHUNKS
+
+
+def test_chunk_size_depends_on_k_and_block_k_only():
+    """S takes (K, block_k) and nothing else -- not M, N, the bits, the
+    gate or the kernel -- so the gated and compacted kernels cut every
+    row's sum at the same k tiles; it grows with K at fixed block_k."""
+    import inspect
+    assert list(inspect.signature(sg.chunk_tiles).parameters) == [
+        "k", "block_k"]
+    sizes = [sg.chunk_tiles(k, 128) for k in range(128, 128 * 200, 128)]
+    assert sizes == sorted(sizes)
+    # The shapes of the paths: relu decode 12 k tiles -> 6 chunks of 2;
+    # AlexNet fc6 72 -> 8 of 9; conv4 27 -> 7 of 4.
+    assert [(sg.chunk_tiles(k, 128), sg.num_chunks(k, 128))
+            for k in (1536, 9216, 3456)] == [(2, 6), (9, 8), (4, 7)]
+
+
+@pytest.mark.parametrize("m,k,n,block_k", [
+    (8, 1536, 576, 128), (1, 9216, 4096, 128), (169, 3456, 384, 128),
+    (4, 96, 64, 128), (2, 1, 8, 1)])
+def test_partial_shape_is_what_the_kernels_write(m, k, n, block_k):
+    """The scratch is one f32 (M, N) partial per chunk; with a single
+    chunk there is none (the kernel writes y itself)."""
+    nc = sg.num_chunks(k, block_k)
+    want = (nc, m, n) if nc > 1 else (0,)
+    assert sg.partial_shape(m, k, n, block_k) == want
+    assert (nc == 1) == (sg.chunk_tiles(k, block_k) >= -(-k // block_k))
+
+
+def test_both_kernels_get_the_same_chunks_and_scratch(monkeypatch):
+    """The wrappers' C calls (stubbed here) pass S = chunk_tiles(K,
+    block_k) to the gated and the compacted kernel alike, a scratch
+    pointer exactly when there is more than one chunk, and as many
+    arguments as the declared C signature."""
+    from repro_torch.kernels import _build
+    calls = {}
+
+    def function(lib, symbol, argtypes):
+        def fn(*args):
+            assert len(args) == len(argtypes)
+            calls[symbol] = args
+            return 0
+        return fn
+
+    monkeypatch.setattr(_build, "function", function)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: type("S", (), {"cuda_stream": 0}))
+    for (m, k, n) in ((8, 1536, 576), (4, 96, 64)):
+        _, x, w = _operands(60, m, k, n)
+        xt, wt = _t(x, w)
+        bits = torch.zeros((m, -(-k // 128)), dtype=torch.int32)
+        sg._launch_gemm("sparce_gemm_gated", xt, wt, bits, None, 128, 1,
+                        128, 128, 0)
+        sg._launch_gemm("sparce_gemm_compacted", xt, wt, bits, None, 128,
+                        1, 128)
+        g, c = calls["sparce_gemm_gated"], calls["sparce_gemm_compacted"]
+        assert g[-3] == c[-3] == sg.chunk_tiles(k, 128)
+        assert g[5:8] == c[5:8] == (m, k, n)
+        multi = sg.num_chunks(k, 128) > 1
+        assert (g[4] is not None) == (c[4] is not None) == multi
+
+
+@pytest.mark.parametrize("M,K,N,bm,bk,bn", [
+    (16, 1536, 64, 1, 128, 128),   # relu decode's K: 6 chunks of 2
+    (24, 1000, 40, 8, 128, 128),   # ragged K: 8 chunks of 1
+    (9, 700, 33, 8, 32, 64),       # block_k 32: 8 chunks of 3
+])
+def test_chunked_sum_equals_reference_kernel(M, K, N, bm, bk, bn):
+    """The kernels' split: each chunk's partial over its live k tiles
+    (the plain version with the tiles outside the chunk gated), added
+    in ascending chunk order from +0, equals the Pallas kernel; a row
+    tile with no live tile gets exact zeros."""
+    rng, x, w = _operands(61, M, K, N)
+    grid = sg.bit_grid(M, K, N, block_m=bm, block_k=bk, block_n=bn,
+                       gate="lhs")
+    bits = (rng.random(grid) < 0.5).astype(np.int32)
+    bits[-1] = 1
+    kw = dict(block_m=bm, block_k=bk, block_n=bn)
+    xt, wt = _t(x, w)
+    y = torch.zeros((M, N))
+    for chunk in _chunks(K, bk):
+        cb = np.ones_like(bits)
+        cb[:, chunk.start:chunk.stop] = bits[:, chunk.start:chunk.stop]
+        y = y + sg.sparce_gemm_gated_plain(xt, wt, torch.from_numpy(cb),
+                                           gate="lhs", **kw)
+    # The Pallas kernel takes padded dims: the zero-padded product's
+    # [:M, :N] is the kernels' contract.
+    pm, pk, pn = (-(-d // b) * b for d, b in ((M, bm), (K, bk), (N, bn)))
+    xp = np.pad(x, ((0, pm - M), (0, pk - K)))
+    wp = np.pad(w, ((0, pk - K), (0, pn - N)))
+    want = ref_sg.sparce_gemm_compacted(*_j(xp, wp, bits), interpret=True,
+                                        **kw)
+    np.testing.assert_allclose(y.numpy(), np.asarray(want)[:M, :N],
+                               **F32_TOL)
+    assert float(y[(grid[0] - 1) * bm:].abs().max()) == 0.0
