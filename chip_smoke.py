@@ -63,8 +63,8 @@ SRC = os.path.join(ROOT, "src")
 # H100 SXM data-sheet peaks (dense): HBM bandwidth, and the rate of each
 # matrix path: bf16 tensor cores; f32 outside them (the port runs f32
 # products at full precision, TF32 off); split-TF32, the f32 route of
-# the gated and compacted GEMMs, three TF32 tensor-core products per
-# multiply-add at the TF32 peak of 495 TFLOP/s.
+# the skipping GEMMs and the gated GLU, three TF32 tensor-core products
+# per multiply-add at the TF32 peak of 495 TFLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12,
                   "split-tf32": 495e12 / 3}
@@ -202,18 +202,20 @@ def graph_time_ms(fn, iters: int = 20, repeats: int = 5) -> float:
     return sorted(times)[len(times) // 2]
 
 
-# The kernels of a gated or compacted GEMM call: the core, and the chunk
-# reduction of a split-K call; with the two-sided kernel, every kernel a
+# The kernels of a skipping GEMM call: the core (gated, compacted or
+# two-sided), and the chunk reduction of a split-K call; every kernel a
 # skipping plan of phase 7 runs.
 GEMM_KERNELS = ("gated_gemm_kernel", "compacted_gemm_kernel",
-                "chunk_reduce_kernel")
-EVAL_KERNELS = GEMM_KERNELS + ("gated_both_gemm_kernel",)
+                "gated_both_gemm_kernel", "chunk_reduce_kernel")
+# The kernels of a gated-GLU call: the cluster kernel and the reduction
+# over live stripes.
+GLU_KERNELS = ("glu_cluster_kernel", "stripe_reduce_kernel")
 
 
-def log_device_times(label, ms, run, lib_ms, library):
-    """A GEMM call's device time (both passes of a split-K call) and its
-    library call's, beside their CUDA-events times."""
-    dev_ms, parts = device_time_ms(run, names=GEMM_KERNELS)
+def log_device_times(label, ms, run, lib_ms, library, names=GEMM_KERNELS):
+    """A kernel call's device time (every kernel of ``names`` it
+    launches) and its library call's, beside their CUDA-events times."""
+    dev_ms, parts = device_time_ms(run, names=names)
     lib_dev_ms, _ = device_time_ms(library)
     split = ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
     log(f"  {label}: device {dev_ms:.4f} ms ({split}), events {ms:.4f} ms; "
@@ -221,15 +223,17 @@ def log_device_times(label, ms, run, lib_ms, library):
     return dev_ms, lib_dev_ms
 
 
-def log_gemm_resources(_build):
-    """Registers and spills (ptxas) and dynamic shared memory of each
-    instantiation of the gated and compacted kernels."""
+def log_kernel_resources(_build, name):
+    """Registers and spills (ptxas) of each instantiation of the kernels
+    of ``csrc/<name>.cu``; for the GEMM core's, also its dynamic shared
+    memory (a function of the rows it serves)."""
     import ctypes
     import re
     i = ctypes.c_int
-    smem = _build.function("sparce_gemm", "sparce_gemm_smem_bytes", [i, i])
+    smem = (_build.function("sparce_gemm", "sparce_gemm_smem_bytes", [i, i])
+            if name == "sparce_gemm" else None)
     entry = spill = None
-    for line in _build.build_log("sparce_gemm").splitlines():
+    for line in _build.build_log(name).splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             entry = m.group(1)
@@ -240,18 +244,20 @@ def log_gemm_resources(_build):
                 r"([a-z][a-z_]*_kernel)I(13__nv_bfloat16|f)(?:Li(\d+)E)?",
                 entry)
             if k is None:
+                log(f"  {name}: {line.strip()}; {spill}")
                 continue
             dtype = "bf16" if k.group(2) != "f" else "f32"
             what = f"{k.group(1)}<{dtype}"
             if k.group(3):
                 nt8 = int(k.group(3))
-                what += (f", {8 * nt8} rows>, "
-                         f"{smem(int(dtype == 'bf16'), nt8)} bytes of "
-                         "dynamic smem")
+                what += f", {8 * nt8} rows>"
+                if smem is not None:
+                    what += (f", {smem(int(dtype == 'bf16'), nt8)} bytes of "
+                             "dynamic smem")
             else:
                 what += ">"
             used = line.split("Used", 1)[1].strip()
-            log(f"  sparce_gemm: {what}: {used}; {spill}")
+            log(f"  {name}: {what}: {used}; {spill}")
 
 
 def bound(bytes_moved: float, ops: float, path: str):
@@ -465,20 +471,25 @@ def check_glu(torch, dev):
     }
     err_main = None
     for dtype, (atol, rtol, why) in tols.items():
-        for M in (8, 100):  # decode slots; a prefill bucket (2 row tiles)
+        # Decode slots, a ragged prefill bucket (2 row tiles) and a full
+        # one, unpadded: the kernel masks rows past M itself.
+        for M in (8, 100, 256):
             for tau in (0.0, 0.05):
                 x, wg, wi, wo = glu_case(torch, dev, dtype, seed=2, M=M)
-                pm = -(-M // bm) * bm
-                xp = torch.nn.functional.pad(x, (0, 0, 0, pm - M))
                 y, bits = sgm.sparce_glu_mlp_fused(
-                    xp, wg, wi, wo, block_m=bm, block_f=bf, tau=tau)
+                    x, wg, wi, wo, block_m=bm, block_f=bf, tau=tau)
                 y0, bits0 = sgm.sparce_glu_mlp_fused_plain(
-                    xp, wg, wi, wo, block_m=bm, block_f=bf, tau=tau)
+                    x, wg, wi, wo, block_m=bm, block_f=bf, tau=tau)
                 torch.cuda.synchronize()
                 name = (f"sparce_glu_mlp_fused {str(dtype)[6:]} M={M} "
                         f"tau={tau}")
                 if not torch.equal(bits, bits0):
                     raise AssertionError(f"{name}: bits differ")
+                y1, bits1 = sgm.sparce_glu_mlp_fused(
+                    x, wg, wi, wo, block_m=bm, block_f=bf, tau=tau)
+                if not (same_bits(torch, y1, y)
+                        and torch.equal(bits1, bits)):
+                    raise AssertionError(f"{name}: a second call differs")
                 dead = int(bits.sum())
                 if dead == 0:
                     raise AssertionError(f"{name}: expected dead stripes")
@@ -494,13 +505,14 @@ def check_glu(torch, dev):
                     wi2[:, f * bf:(f + 1) * bf] = float("nan")
                     wo2[f * bf:(f + 1) * bf] = float("nan")
                 y2, bits2 = sgm.sparce_glu_mlp_fused(
-                    xp, wg, wi2, wo2, block_m=bm, block_f=bf, tau=tau)
+                    x, wg, wi2, wo2, block_m=bm, block_f=bf, tau=tau)
                 torch.cuda.synchronize()
                 if not (torch.isfinite(y2).all() and torch.equal(y2, y)
                         and torch.equal(bits2, bits)):
                     raise AssertionError(
                         f"{name}: NaN-poisoned dead stripes reached y")
-        # The padded wrapper the model calls: ragged M, dead pad rows.
+        # The wrapper the model calls: 8 rows under a 64-row tile, nothing
+        # padded.
         x, wg, wi, wo = glu_case(torch, dev, dtype, seed=3, M=8)
         y, bmp = kops.sparce_glu_mlp_fused(x, wg, wi, wo, block_m=bm,
                                            block_f=bf)
@@ -508,9 +520,16 @@ def check_glu(torch, dev):
                                              wo.cpu(), block_m=bm,
                                              block_f=bf)
         if not torch.equal(bmp.bits.cpu(), bmp0.bits):
-            raise AssertionError("padded wrapper: bits differ from the CPU")
-        log(f"  ops.sparce_glu_mlp_fused {str(dtype)[6:]} (M=8 padded to "
-            f"{bm}): bits equal to the CPU plain version's -> ok")
+            raise AssertionError("ops wrapper: bits differ from the CPU")
+        grid = sgm.kernel_grid(8, x.shape[1], wg.shape[1], wo.shape[1],
+                               block_m=bm, block_f=bf, dtype=dtype)
+        if grid["ctas"] <= wg.shape[1] // bf:
+            raise AssertionError(f"decode grid of {grid['ctas']} CTAs")
+        log(f"  ops.sparce_glu_mlp_fused {str(dtype)[6:]} (M=8 unpadded, "
+            f"block_m {bm}): bits equal to the CPU plain version's; the "
+            f"kernel's launch: {grid['ctas']} CTAs in clusters of "
+            f"{grid['cluster']}, {grid['rows']} rows per chunk, "
+            f"{grid['smem']} bytes of dynamic smem -> ok")
         # Per-slot gate tiles (block_m 1), the launcher's --sparce tiling
         # for a GLU arch: the zero rows are dead in every stripe.
         x, wg, wi, wo = glu_case(torch, dev, dtype, seed=4, M=8)
@@ -809,12 +828,23 @@ def check_both(torch, dev):
                 err_main = err
             x2, w2 = poison(torch, x, w, lbits, rbits, bm, bk, bn, both=True)
             y2 = sg.sparce_gemm_gated_both(x2, w2, lb, rb_, **kw)
+            y3 = sg.sparce_gemm_gated_both(x, w, lb, rb_, **kw)
             torch.cuda.synchronize()
             if not (torch.isfinite(y2).all() and torch.equal(y2, y)):
                 raise AssertionError(f"{name}: NaN-poisoned dropped tiles "
                                      "reached y")
+            if not same_bits(torch, y3, y):
+                raise AssertionError(f"{name}: a second call differs")
+            # With every rhs bit 0 it is the lhs-gated kernel's walk.
+            open_ = sg.sparce_gemm_gated_both(x, w, lb, torch.zeros_like(rb_),
+                                              **kw)
+            if not same_bits(torch, open_,
+                             sg.sparce_gemm_gated(x, w, lb, gate="lhs", **kw)):
+                raise AssertionError(f"{name}: with rhs bits 0 it differs "
+                                     "from the lhs-gated kernel")
     log("  sparce_gemm_gated_both: NaN-poisoned dropped x and w tiles "
-        "never read (every case above) -> ok")
+        "never read, a second call equal bit for bit, equal to the "
+        "lhs-gated kernel when every rhs bit is 0 (every case above) -> ok")
     return err_main
 
 
@@ -1307,7 +1337,13 @@ def time_mla(torch, dev, err):
 
 
 def time_glu(torch, dev, err):
+    """The gated GLU at the decode tick's real operands (8 rows, init
+    scales, every stripe live), unpadded as the engine calls it: events
+    time, device time by two witnesses (the profiler by kernel name, a
+    replayed CUDA graph), each beside the library call's; then the
+    256-row prefill bucket, logged."""
     import torch.nn.functional as F
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels import sparce_glu_mlp as sgm
     cfg = arch_config()
     rng = np.random.default_rng(6)
@@ -1318,29 +1354,56 @@ def time_glu(torch, dev, err):
         a = rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
         return torch.from_numpy(a).to(dev, torch.bfloat16)
 
-    # The main path's shapes and init scales (every stripe live).
-    xp = F.pad(normal(M, K), (0, 0, 0, bm - M))
+    x = normal(M, K)
     wg, wi = normal(K, F_, scale=K ** -0.5), normal(K, F_, scale=K ** -0.5)
     wo = normal(F_, N, scale=F_ ** -0.5)
-    run = lambda: sgm.sparce_glu_mlp_fused(  # noqa: E731
-        xp, wg, wi, wo, block_m=bm, block_f=bf)
+    run = lambda: kops.sparce_glu_mlp_fused(  # noqa: E731
+        x, wg, wi, wo, block_m=bm, block_f=bf)
+    library = lambda: (F.silu(x @ wg) * (x @ wi)) @ wo  # noqa: E731
     ms = cuda_time_ms(run, 100)
     plain_ms = cuda_time_ms(lambda: sgm.sparce_glu_mlp_fused_plain(
-        xp, wg, wi, wo, block_m=bm, block_f=bf), 20)
-    lib_ms = cuda_time_ms(lambda: (F.silu(xp @ wg) * (xp @ wi)) @ wo, 200)
-    _, bits = run()
+        x, wg, wi, wo, block_m=bm, block_f=bf), 20)
+    lib_ms = cuda_time_ms(library, 200)
+    log_device_times("sparce_glu_mlp_fused decode", ms, run, lib_ms,
+                     library, names=GLU_KERNELS)
+    log(f"  sparce_glu_mlp_fused decode: graph: kernel "
+        f"{graph_time_ms(run):.4f} ms, library {graph_time_ms(library):.4f}"
+        " ms")
+    _, bmp = run()
+    bits = bmp.bits
     live = int((bits == 0).sum())
     live_stripes = int((bits == 0).any(dim=0).sum())
     item = 2
-    nbytes = (xp.numel() * item + wg.numel() * item
+    # Each input byte once (x, the gate weights, the live stripes of w_in
+    # and w_out), y and the bits written once; the products of the real
+    # rows only.
+    nbytes = (x.numel() * item + wg.numel() * item
               + live_stripes * (K * bf + bf * N) * item
-              + bm * N * item + bits.numel() * 4)  # y as written: bm rows
-    ops = 2 * bm * K * F_ + live * (2 * bm * K * bf + 2 * bm * bf * N)
+              + M * N * item + bits.numel() * 4)
+    ops = 2 * M * K * F_ + live_stripes * (2 * M * K * bf + 2 * M * bf * N)
     bound_ms, by = bound(nbytes, ops, "bfloat16")
-    log(f"  sparce_glu_mlp_fused bf16 x={tuple(xp.shape)} (M={M} padded to "
-        f"{bm}) K={K} F={F_} N={N}, {live} live tiles: {ms:.4f} ms; plain "
-        f"{plain_ms:.4f} ms; 3 matmuls + silu {lib_ms:.4f} ms; bound "
-        f"{bound_ms:.5f} ms ({by})")
+    grid = sgm.kernel_grid(M, K, F_, N, block_m=bm, block_f=bf,
+                           dtype=torch.bfloat16)
+    log(f"  sparce_glu_mlp_fused bf16 x={tuple(x.shape)} (unpadded, "
+        f"block_m {bm}) K={K} F={F_} N={N}, {live} live tiles, "
+        f"{grid['ctas']} CTAs: {ms:.4f} ms; plain {plain_ms:.4f} ms; 3 "
+        f"matmuls + silu {lib_ms:.4f} ms; bound {bound_ms:.5f} ms ({by}; "
+        f"{nbytes} bytes, {ops} operations)")
+    xp = normal(256, K)
+    run_p = lambda: kops.sparce_glu_mlp_fused(  # noqa: E731
+        xp, wg, wi, wo, block_m=bm, block_f=bf)
+    lib_p = lambda: (F.silu(xp @ wg) * (xp @ wi)) @ wo  # noqa: E731
+    y, bmp_p = run_p()
+    y0, bits0 = sgm.sparce_glu_mlp_fused_plain(xp, wg, wi, wo, block_m=bm,
+                                               block_f=bf)
+    if not torch.equal(bmp_p.bits, bits0):
+        raise AssertionError("sparce_glu_mlp_fused prefill: bits differ")
+    check_close("sparce_glu_mlp_fused prefill 256 rows", y, y0, atol=2e-2,
+                rtol=2e-2, why="bf16 roundings of g, h, a and y after f32 "
+                "sums in another order")
+    log_device_times("sparce_glu_mlp_fused prefill 256 rows",
+                     cuda_time_ms(run_p, 100), run_p,
+                     cuda_time_ms(lib_p, 100), lib_p, names=GLU_KERNELS)
     return dict(name="sparce_glu_mlp_fused", route="cuda",
                 source="src/repro_torch/csrc/sparce_glu_mlp.cu",
                 replaces="src/repro/kernels/sparce_glu_mlp.py:150",
@@ -1650,7 +1713,7 @@ def check_eval_path(torch, dev, outs):
             dense_ms = cuda_time_ms(lambda: x @ w, iters)
             dense = plan.gate == "none" or plan.variant == "dense"
             dev_ms, parts = device_time_ms(
-                run, names=None if dense else EVAL_KERNELS)
+                run, names=None if dense else GEMM_KERNELS)
             dense_dev_ms, _ = device_time_ms(lambda: x @ w)
             graph_ms = graph_time_ms(run)
             dense_graph_ms = graph_time_ms(lambda: x @ w)
@@ -1711,9 +1774,9 @@ def gemm_bytes_ops(plan, x, w, lb, rbm):
 def eval_gemm_row(name, replaces, err, shapes, launches):
     """The kernels-line row of a GEMM kernel of phase 7 from the layer
     timings ``check_eval_path`` took: the first of ``shapes`` makes the
-    row, the rest are logged. The gated and compacted kernels run f32
-    as split-TF32, the two-sided kernel on the f32 cores."""
-    path = "float32" if name == "sparce_gemm_gated_both" else "split-tf32"
+    row, the rest are logged. All three skipping kernels run f32 as
+    split-TF32."""
+    path = "split-tf32"
     row = None
     for key, (plan, x, w, lb, rbm, ms, plain_ms, lib_ms) in shapes:
         nbytes, ops = gemm_bytes_ops(plan, x, w, lb, rbm)
@@ -1804,8 +1867,8 @@ def main(argv=None) -> int:
         log(f"phase 1: built {len(_build.SOURCES)} kernels in "
             f"{time.perf_counter() - t0:.1f}s (sm_90a)")
         for name in _build.SOURCES:
-            if name == "sparce_gemm":
-                log_gemm_resources(_build)
+            if name in ("sparce_gemm", "sparce_glu_mlp"):
+                log_kernel_resources(_build, name)
                 continue
             for line in _build.build_log(name).splitlines():
                 if "registers" in line or "spill" in line:

@@ -113,7 +113,9 @@ def prune_weights(w: torch.Tensor, sparsity: float,
     thresh = torch.sort(mag.reshape(-1)).values[k - 1]
     keep = (mag > thresh)[:, None, :, None]
     wp = torch.where(keep, t, torch.zeros_like(t)).reshape(pr, pc)
-    return wp[:rows, :cols]
+    # Dense, as the reference's sliced array is: a strided view of the
+    # padded grid would be copied by the GEMM wrappers on every call.
+    return wp[:rows, :cols].contiguous()
 
 
 def random_sparse(generator: torch.Generator, shape: Tuple[int, int],

@@ -14,7 +14,7 @@
 // byte). At the decode shape (8 x 1536, tile 1 x 128) the grid is 96
 // blocks of 128 elements each, so it is launch- and latency-bound; wider
 // loads and several tiles per block are later work.
-#include "tile_gemm.cuh"
+#include "dtype.cuh"
 
 namespace {
 

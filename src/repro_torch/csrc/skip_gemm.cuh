@@ -1,14 +1,19 @@
-// The tensor-core core of the gated and compacted SparCE GEMMs (sm_90a).
+// The tensor-core core of the gated, compacted and two-sided SparCE
+// GEMMs (sm_90a), and the MMA and copy primitives the gated-GLU kernel
+// (sparce_glu_mlp.cu) builds on.
 //
 // A block computes one output slab -- SLAB_N columns of w by RB rows of
 // x -- over one chunk of the plan's k tiles, [c*S, (c+1)*S) with S a
 // function of (K, block_k) only (the wrapper's chunk_tiles). Within the
-// chunk it walks only the k tiles some row (lhs gate) or column (rhs
-// gate) of the slab has live: warp by warp, a ballot over 32 k tiles at
-// a time turns the bits into a mask of live tiles, so the list is built
-// on the device and needs no storage. A row (lhs) or column (rhs) whose
-// own bit is 1 is zero-filled in shared memory; a gated tile is never
-// loaded.
+// chunk it walks only the k tiles the slab has live: some row with its
+// lhs bit at 0 (lhs gate), some column with its rhs bit at 0 (rhs gate),
+// or both of these (the two-sided gate, where a tile product is dropped
+// when either bit is 1). Warp by warp, a ballot over 32 k tiles at a
+// time turns the bits into a mask of live tiles, so the list is built
+// on the device and needs no storage. A row whose lhs bit is 1 and a
+// column whose rhs bit is 1 are zero-filled in shared memory; a gated
+// tile is never loaded. With both gates that zeroes exactly the
+// products for which Ra | Rb holds.
 //
 // The product is transposed: w's columns are the MMA's M dimension (16
 // per warp), x's rows its N dimension (8 per n-tile), so at decode and
@@ -44,7 +49,7 @@
 // x != -0).
 #pragma once
 
-#include "tile_gemm.cuh"
+#include "dtype.cuh"
 
 namespace skip {
 
@@ -85,11 +90,16 @@ struct Slab {
   int t_lo, t_hi;  // k tiles [t_lo, t_hi)
 };
 
-// The bit grid: lhs (rhs == 0) ceil(M/bm) x gk over x's tiles, rhs
-// gk x gn over w's. 1 == gated.
+// The bit grids, 1 == gated. bits: one gate's grid, lhs (rhs == 0)
+// ceil(M/bm) x gk over x's tiles or rhs gk x gn over w's. The two-sided
+// gate (TWO below, a compile-time switch) passes its lhs grid as bits and
+// its rhs grid as rbits. (Kept in this shape on purpose: holding an lhs
+// and an rhs grid pointer, one of them null, slowed the compacted f32
+// kernel through its code generation alone.)
 struct Gate {
   const int32_t* bits;
   int rhs, bm, bn, gk, gn;
+  const int32_t* rbits;
 };
 
 // One stage: k tile kt, depth [k0, k0 + d) of K (d <= KB).
@@ -97,8 +107,11 @@ struct Step {
   int kt, k0, d;
 };
 
-// Mask of the k tiles [base, base + 32) of the chunk that some row (lhs)
-// or column (rhs) of the slab has live. Every lane of the warp calls it.
+// Mask of the k tiles [base, base + 32) of the chunk that the slab has
+// live: some row (lhs) or column (rhs) of the slab with its bit at 0 and,
+// with TWO, also some column with its rbits bit at 0. Every lane of the
+// warp calls it.
+template <bool TWO>
 __device__ __forceinline__ unsigned live_window(const Gate& g, const Slab& s,
                                                 int base) {
   const int kt = base + (threadIdx.x & 31);
@@ -113,6 +126,12 @@ __device__ __forceinline__ unsigned live_window(const Gate& g, const Slab& s,
       for (int j = s.col0 / g.bn; j <= jl; ++j)
         live |= g.bits[(size_t)kt * g.gn + j] == 0;
     }
+    if (TWO && live) {
+      live = false;
+      const int jl = (s.col0 + s.clim - 1) / g.bn;
+      for (int j = s.col0 / g.bn; j <= jl; ++j)
+        live |= g.rbits[(size_t)kt * g.gn + j] == 0;
+    }
   }
   return __ballot_sync(0xffffffffu, live);
 }
@@ -123,6 +142,7 @@ struct Walk {
   int base, kt, koff, depth;
   unsigned mask;
 
+  template <bool TWO>
   __device__ bool next(const Gate& g, const Slab& s, int K, int bk, int kb,
                        Step& st) {
     if (kt >= 0 && koff + kb < depth) {
@@ -131,7 +151,7 @@ struct Walk {
       while (mask == 0) {
         base += 32;
         if (base >= s.t_hi) return false;
-        mask = live_window(g, s, base);
+        mask = live_window<TWO>(g, s, base);
       }
       kt = base + __ffs(mask) - 1;
       mask &= mask - 1;
@@ -160,11 +180,12 @@ __device__ __forceinline__ void zero16(void* dst) {
 }
 
 // Stage st's tiles into shared memory: w (KB x SLAB_N) and x (RB x KB),
-// zeros for gated rows (lhs) or columns (rhs), ragged depth and edges.
+// zeros for gated rows (lhs bit 1) and columns (rhs bit 1), ragged depth
+// and edges.
 // vec_x / vec_w: 16-byte copies are aligned (rows and k tiles multiples
 // of 16 bytes). Two passes: first every bit this thread's vectors need,
 // so the reads are in flight together, then the copies.
-template <typename T, int RB>
+template <typename T, int RB, bool TWO>
 __device__ __forceinline__ void load_stage(T* ws, T* xs,
                                            const T* __restrict__ x,
                                            const T* __restrict__ w,
@@ -185,11 +206,11 @@ __device__ __forceinline__ void load_stage(T* ws, T* xs,
     const int e = threadIdx.x + it * THREADS, kr = e / WV;
     const int c = (e - kr * WV) * V, n_in = min(V, s.clim - c);
     wmode[it] = (kr >= st.d || n_in <= 0) ? 1 : (vec_w && n_in == V) ? 0 : 2;
-    if (g.rhs && wmode[it] != 1) {
+    if ((TWO || g.rhs) && wmode[it] != 1) {
       const int jf = (s.col0 + c) / g.bn, jl = (s.col0 + c + n_in - 1) / g.bn;
       if (jf != jl)
         wmode[it] = 3;
-      else if (g.bits[(size_t)st.kt * g.gn + jf] != 0)
+      else if ((TWO ? g.rbits : g.bits)[(size_t)st.kt * g.gn + jf] != 0)
         wmode[it] = 1;
     }
   }
@@ -218,7 +239,8 @@ __device__ __forceinline__ void load_stage(T* ws, T* xs,
         const bool live =
             i < n_in &&
             (wmode[it] == 2 ||
-             g.bits[(size_t)st.kt * g.gn + (s.col0 + c + i) / g.bn] == 0);
+             (TWO ? g.rbits : g.bits)[(size_t)st.kt * g.gn +
+                                      (s.col0 + c + i) / g.bn] == 0);
         dst[i] = live ? src[i] : zero;
       }
     }
@@ -265,24 +287,28 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// acc[.][j] (16 columns of the warp x rows 8j..8j+7) += the stage's
-// product. A = w^T (m = column, k), B = x^T (k, n = row).
+// acc[.][j] (16 columns at m0 of the stage x rows 8j..8j+7) += the
+// stage's product. A = w^T (m = column, k): ws holds KB k rows of wld
+// columns; B = x^T (k, n = row): xs holds rows of xld. A step's
+// accumulator set depends on its place in the stage only.
 template <int NT8>
 __device__ __forceinline__ void mma_stage(float (&acc)[3][NT8][4],
-                                          const float* ws, const float* xs) {
-  constexpr int X_LD = Cfg<float>::X_LD;
+                                          const float* ws, int wld, int m0,
+                                          const float* xs, int xld) {
+  constexpr int KSTEPS = Cfg<float>::KB / Cfg<float>::KS;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const float* wp = ws + (threadIdx.x >> 5) * 16 + g;
+  const float* wp = ws + m0 + g;
 #pragma unroll
-  for (int k0 = 0; k0 < Cfg<float>::KB; k0 += Cfg<float>::KS) {
+  for (int ks = 0; ks < KSTEPS; ++ks) {
+    const int k0 = ks * Cfg<float>::KS;
     uint32_t ab[4], as[4];
-    split_tf32(wp[(k0 + t) * W_LD], ab[0], as[0]);
-    split_tf32(wp[(k0 + t) * W_LD + 8], ab[1], as[1]);
-    split_tf32(wp[(k0 + t + 4) * W_LD], ab[2], as[2]);
-    split_tf32(wp[(k0 + t + 4) * W_LD + 8], ab[3], as[3]);
+    split_tf32(wp[(k0 + t) * wld], ab[0], as[0]);
+    split_tf32(wp[(k0 + t) * wld + 8], ab[1], as[1]);
+    split_tf32(wp[(k0 + t + 4) * wld], ab[2], as[2]);
+    split_tf32(wp[(k0 + t + 4) * wld + 8], ab[3], as[3]);
 #pragma unroll
     for (int j = 0; j < NT8; ++j) {
-      const float* xp = xs + (8 * j + g) * X_LD + k0 + t;
+      const float* xp = xs + (8 * j + g) * xld + k0 + t;
       uint32_t bb[2], bs[2];
       split_tf32(xp[0], bb[0], bs[0]);
       split_tf32(xp[4], bb[1], bs[1]);
@@ -295,21 +321,21 @@ __device__ __forceinline__ void mma_stage(float (&acc)[3][NT8][4],
 
 template <int NT8>
 __device__ __forceinline__ void mma_stage(float (&acc)[2][NT8][4],
-                                          const __nv_bfloat16* ws,
-                                          const __nv_bfloat16* xs) {
-  constexpr int X_LD = Cfg<__nv_bfloat16>::X_LD;
+                                          const __nv_bfloat16* ws, int wld,
+                                          int m0, const __nv_bfloat16* xs,
+                                          int xld) {
+  constexpr int KS = Cfg<__nv_bfloat16>::KS;
+  constexpr int KSTEPS = Cfg<__nv_bfloat16>::KB / KS;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int i = lane & 7, q = lane >> 3;
   // ldmatrix .trans: lanes 8q..8q+7 address the 8 k rows of matrix q
   // (q & 1: columns +8, q >> 1: k +8), giving the row-major A fragment.
-  const __nv_bfloat16* wp =
-      ws + (i + (q >> 1) * 8) * W_LD + (threadIdx.x >> 5) * 16 + (q & 1) * 8;
+  const __nv_bfloat16* wp = ws + (i + (q >> 1) * 8) * wld + m0 + (q & 1) * 8;
 #pragma unroll
-  for (int k0 = 0; k0 < Cfg<__nv_bfloat16>::KB;
-       k0 += Cfg<__nv_bfloat16>::KS) {
+  for (int ks = 0; ks < KSTEPS; ++ks) {
+    const int k0 = ks * KS;
     uint32_t a[4];
-    const unsigned addr =
-        (unsigned)__cvta_generic_to_shared(wp + k0 * W_LD);
+    const unsigned addr = (unsigned)__cvta_generic_to_shared(wp + k0 * wld);
     asm volatile(
         "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
         "[%4];\n"
@@ -318,10 +344,10 @@ __device__ __forceinline__ void mma_stage(float (&acc)[2][NT8][4],
         : "memory");
 #pragma unroll
     for (int j = 0; j < NT8; ++j) {
-      const __nv_bfloat16* xp = xs + (8 * j + g) * X_LD + k0 + 2 * t;
+      const __nv_bfloat16* xp = xs + (8 * j + g) * xld + k0 + 2 * t;
       const uint32_t b[2] = {*reinterpret_cast<const uint32_t*>(xp),
                              *reinterpret_cast<const uint32_t*>(xp + 8)};
-      mma_bf16(acc[(k0 / Cfg<__nv_bfloat16>::KS) & 1][j], a, b);
+      mma_bf16(acc[ks & 1][j], a, b);
     }
   }
 }
@@ -356,7 +382,8 @@ __device__ __forceinline__ void store_slab(
 
 // The block's slab over its chunk (blockIdx.z): walk the live stages
 // through the cp.async ring, multiply each on the tensor cores, store.
-template <typename T, int NT8>
+// TWO: the two-sided gate (g.bits over x's tiles, g.rbits over w's).
+template <typename T, int NT8, bool TWO>
 __device__ __forceinline__ void skip_gemm(const T* __restrict__ x,
                                           const T* __restrict__ w,
                                           const Gate& g, const Slab& s,
@@ -382,9 +409,9 @@ __device__ __forceinline__ void skip_gemm(const T* __restrict__ x,
   int issued = 0;
 #pragma unroll
   for (int p = 0; p < STAGES - 1; ++p) {
-    if (walk.next(g, s, K, bk, C::KB, st)) {
+    if (walk.template next<TWO>(g, s, K, bk, C::KB, st)) {
       const int slot = issued % STAGES;
-      load_stage<T, RB>(ws + slot * WS, xs + slot * XS, x, w, g, s, st, K,
+      load_stage<T, RB, TWO>(ws + slot * WS, xs + slot * XS, x, w, g, s, st, K,
                         N, vec_x, vec_w);
       ++issued;
     }
@@ -393,15 +420,16 @@ __device__ __forceinline__ void skip_gemm(const T* __restrict__ x,
   for (int i = 0; i < issued; ++i) {
     cp_async_wait<STAGES - 2>();
     __syncthreads();  // stage i landed; stage i - 1's buffer is free
-    if (walk.next(g, s, K, bk, C::KB, st)) {
+    if (walk.template next<TWO>(g, s, K, bk, C::KB, st)) {
       const int slot = issued % STAGES;
-      load_stage<T, RB>(ws + slot * WS, xs + slot * XS, x, w, g, s, st, K,
+      load_stage<T, RB, TWO>(ws + slot * WS, xs + slot * XS, x, w, g, s, st, K,
                         N, vec_x, vec_w);
       ++issued;
     }
     cp_async_commit();
     const int slot = i % STAGES;
-    mma_stage<NT8>(acc, ws + slot * WS, xs + slot * XS);
+    mma_stage<NT8>(acc, ws + slot * WS, W_LD, (threadIdx.x >> 5) * 16,
+                   xs + slot * XS, C::X_LD);  // each warp its 16 columns
   }
   store_slab<T, NT8>(acc, y, partial, nchunks, M, N, s);
 }

@@ -153,7 +153,8 @@ int launch(const void* x, const void* w_in, const void* w_out, void* y,
   const int g = bm >= MAX_G ? 1 : MAX_G / bm;
   const size_t smem =
       (size_t)(g * bm * bf + TM * XS_LD + KC * TN) * sizeof(float);
-  cudaError_t e = sparce::allow_smem(mlp_tile_kernel<T>, smem);
+  static size_t allowed = 48 * 1024;
+  cudaError_t e = sparce::allow_smem(mlp_tile_kernel<T>, smem, allowed);
   if (e != cudaSuccess) return (int)e;
   mlp_tile_kernel<T><<<dim3(nf, (nm + g - 1) / g), NT, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w_in),

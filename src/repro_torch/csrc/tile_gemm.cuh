@@ -1,12 +1,10 @@
-// Device helpers shared by the SparCE MLP and GEMM kernels (sm_90a):
-// dtype conversions, a register-blocked SIMT tile product staged
-// through shared memory, and the fixed-order reduction of live f32
-// partials that the two-pass MLP kernels end with.
+// The SIMT helpers of the fused relu MLP kernel (sparce_mlp.cu, sm_90a):
+// a register-blocked tile product staged through shared memory, and the
+// fixed-order reduction of live f32 partials its two passes end with.
+// (The GEMM and GLU kernels run on the tensor cores: skip_gemm.cuh.)
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "dtype.cuh"
 
 namespace sparce {
 
@@ -15,34 +13,21 @@ constexpr int KC = 32;   // depth staged per shared-memory round
 constexpr int NT = 256;  // threads: 16 (rows) x 16 (columns)
 constexpr int XS_LD = KC + 1;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even
-}
-// Round an f32 value through T and back, as a writeback in T would.
-template <typename T> __device__ __forceinline__ float round_t(float v) {
-  return to_f(from_f<T>(v));
-}
-
-// acc[RM][8] += A (16*RM x depth) @ B (depth x TN) for this thread's
+// acc[RM][8] = A (16*RM x depth) @ B (depth x TN) for this thread's
 // patch: rows ty*RM + i, columns tx + 16*j. load_a(r, k) / load_b(k, c)
 // return the operand value (0 where the caller masks it); staging goes
 // through xs (16*RM x XS_LD) and ws (KC x TN) in shared memory. Every
 // thread of the block must call it (it synchronises).
 template <int RM, typename LoadA, typename LoadB>
-__device__ __forceinline__ void gemm_patch_acc(float (&acc)[RM][8], int depth,
-                                               LoadA load_a, LoadB load_b,
-                                               float* xs, float* ws) {
+__device__ __forceinline__ void gemm_patch(float (&acc)[RM][8], int depth,
+                                           LoadA load_a, LoadB load_b,
+                                           float* xs, float* ws) {
   constexpr int TM = 16 * RM;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
   for (int k0 = 0; k0 < depth; k0 += KC) {
     for (int e = tid; e < TM * KC; e += NT) {
       const int r = e / KC, kk = e - r * KC;
@@ -67,18 +52,6 @@ __device__ __forceinline__ void gemm_patch_acc(float (&acc)[RM][8], int depth,
     }
     __syncthreads();
   }
-}
-
-// acc = A @ B (see gemm_patch_acc).
-template <int RM, typename LoadA, typename LoadB>
-__device__ __forceinline__ void gemm_patch(float (&acc)[RM][8], int depth,
-                                           LoadA load_a, LoadB load_b,
-                                           float* xs, float* ws) {
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  gemm_patch_acc<RM>(acc, depth, load_a, load_b, xs, ws);
 }
 
 // y[m, n] = sum over live stripes f (bits[m/bm, f] == 0), in fixed f
@@ -111,14 +84,6 @@ cudaError_t launch_live_partial_reduce(const float* partial,
   live_partial_reduce_kernel<T>
       <<<blocks, threads, 0, stream>>>(partial, bits, y, M, N, bm, nf);
   return cudaGetLastError();
-}
-
-// Raise the dynamic shared-memory limit of `kernel` when `bytes` needs it.
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 }  // namespace sparce

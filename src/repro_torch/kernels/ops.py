@@ -1,17 +1,17 @@
-"""Padded wrappers over the port's kernels (``repro/kernels/ops.py``).
+"""Ragged-shape wrappers over the port's kernels (``repro/kernels/ops.py``).
 
-They pad ragged dims to the kernels' block multiples and slice the
+Where a kernel needs block multiples they pad ragged dims and slice the
 results back, with the reference's conventions: padded columns see zero
-gate weights, act(0) == 0 and ``|0| <= tau``, so padding can only vote a
-tile dead, never live; padding tiles of a bitmap are all-zero, so their
-bits are 1; decode lengths are clamped to the table's reach,
-``max_blocks * block_size``. The GEMM kernels mask ragged edges
-themselves, so :func:`sparce_gemm` pads only the bit grids, never the
-operands. :func:`sparce_gemm` dispatches a plan to its kernel the way
-the reference does: ``dense`` to a plain product, lhs to the gated or
-the compacted kernel, rhs-compacted through the transpose trick onto the
-compacted kernel, and ``gate="both"`` to the two-sided kernel whatever
-the plan's variant.
+weights and act(0) == 0, so padding can only vote a tile dead, never
+live; padding tiles of a bitmap are all-zero, so their bits are 1;
+decode lengths are clamped to the table's reach, ``max_blocks *
+block_size``. The GEMM and gated-GLU kernels mask ragged edges
+themselves, so :func:`sparce_gemm` pads only the bit grids and
+:func:`sparce_glu_mlp_fused` nothing. :func:`sparce_gemm` dispatches a
+plan to its kernel the way the reference does: ``dense`` to a plain
+product, lhs to the gated or the compacted kernel, rhs-compacted through
+the transpose trick onto the compacted kernel, and ``gate="both"`` to the
+two-sided kernel whatever the plan's variant.
 """
 from __future__ import annotations
 
@@ -171,21 +171,16 @@ def sparce_glu_mlp_fused(
 ) -> tuple[torch.Tensor, TileBitmap]:
     """Returns (y[M, N], bitmap over act(x @ w_gate) at (block_m,
     block_f) granularity) -- the grid the unfused gate-threshold path
-    produces, so skip accounting is identical."""
-    m, k = x.shape
-    fdim = w_in.shape[1]
-    n = w_out.shape[1]
-    pm, pf = _ceil_to(m, block_m), _ceil_to(fdim, block_f)
+    produces, so skip accounting is identical. Nothing is padded: the
+    kernel takes any M and F (rows past M and columns past F vote dead,
+    as the padded reference's zeros do)."""
     y, bits = _sgm.sparce_glu_mlp_fused(
-        _pad2(x, pm, k).contiguous(),
-        _pad2(w_gate, k, pf).contiguous(),
-        _pad2(w_in, k, pf).contiguous(),
-        _pad2(w_out, pf, n).contiguous(),
-        block_m=block_m, block_f=block_f, act=act, tau=tau,
-        out_dtype=out_dtype,
+        x.contiguous(), w_gate.contiguous(), w_in.contiguous(),
+        w_out.contiguous(), block_m=block_m, block_f=block_f, act=act,
+        tau=tau, out_dtype=out_dtype,
     )
-    return y[:m, :n], TileBitmap(
-        bits=bits, block=(block_m, block_f), shape=(m, fdim))
+    return y, TileBitmap(bits=bits, block=(block_m, block_f),
+                         shape=(x.shape[0], w_in.shape[1]))
 
 
 def paged_decode_attn(

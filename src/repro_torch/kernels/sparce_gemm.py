@@ -27,12 +27,13 @@ its kernel (counted in its ``launches``), a CPU tensor runs its
 ``*_plain`` version, which likewise indexes only ungated tiles so the
 NaN-poison tests hold for it on the CPU.
 
-The gated and compacted kernels split K: each block sums one fixed
-chunk of :func:`chunk_tiles` k tiles, and with more than one chunk the
-chunks' f32 partials (scratch of :func:`partial_shape`, allocated here)
-are added in ascending chunk order by a second launch inside the same C
-call. The chunks depend on ``(K, block_k)`` only, the same for both
-kernels, which is what keeps their outputs equal bit for bit.
+All three kernels split K: each block sums one fixed chunk of
+:func:`chunk_tiles` k tiles, and with more than one chunk the chunks'
+f32 partials (scratch of :func:`partial_shape`, allocated here) are
+added in ascending chunk order by a second launch inside the same C
+call. The chunks depend on ``(K, block_k)`` only, the same for every
+kernel, which is what keeps the gated and compacted outputs equal bit
+for bit.
 """
 from __future__ import annotations
 
@@ -99,11 +100,14 @@ def partial_shape(m: int, k: int, n: int, block_k: int) -> tuple:
     return (nc, m, n) if nc > 1 else (0,)
 
 
-def _launch_gemm(name, x, w, bits, out_dtype, block_k, *args):
+def _launch_gemm(name, x, w, bits, out_dtype, block_k, *args, rbits=None):
     """Allocate y and the f32 scratch and call the C launch function
-    ``name(x, w, bits, y, scratch, M, K, N, *args, S, dtype, stream)``.
-    Returns (y, cudaError)."""
-    dtype_id, (bits,) = _launch_checks(name, x, w, out_dtype, bits=bits)
+    ``name(x, w, bits[, rbits], y, scratch, M, K, N, *args, S, dtype,
+    stream)`` (``rbits``: the two-sided kernel's second grid). Returns
+    (y, cudaError)."""
+    grids = dict(bits=bits) if rbits is None else dict(lbits=bits,
+                                                       rbits=rbits)
+    dtype_id, grids = _launch_checks(name, x, w, out_dtype, **grids)
     m, k = x.shape
     n = w.shape[1]
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
@@ -111,11 +115,12 @@ def _launch_gemm(name, x, w, bits, out_dtype, block_k, *args):
                           dtype=torch.float32, device=x.device)
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = _build.function("sparce_gemm", name,
-                         [p] * 5 + [i] * (3 + len(args) + 2) + [p])
+                         [p] * (4 + len(grids)) + [i] * (3 + len(args) + 2)
+                         + [p])
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), w.data_ptr(), bits.data_ptr(), y.data_ptr(),
-             partial.data_ptr() if partial.numel() else None, m, k, n, *args,
-             chunk_tiles(k, block_k), dtype_id, stream)
+    err = fn(x.data_ptr(), w.data_ptr(), *(b.data_ptr() for b in grids),
+             y.data_ptr(), partial.data_ptr() if partial.numel() else None,
+             m, k, n, *args, chunk_tiles(k, block_k), dtype_id, stream)
     return y, err
 
 
@@ -304,18 +309,8 @@ def sparce_gemm_gated_both(
         raise ValueError(
             f"sparce_gemm_gated_both: unsupported device {x.device}")
     _check_both(x, w, lbits, rbits, block_m, block_k, block_n)
-    dtype_id, (lbits, rbits) = _launch_checks(
-        "sparce_gemm_gated_both", x, w, out_dtype, lbits=lbits, rbits=rbits)
-    m, k = x.shape
-    n = w.shape[1]
-    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn = _build.function("sparce_gemm", "sparce_gemm_gated_both",
-                         [p, p, p, p, p, i, i, i, i, i, i, i, p])
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), w.data_ptr(), lbits.data_ptr(), rbits.data_ptr(),
-             y.data_ptr(), m, k, n, block_m, block_k, block_n, dtype_id,
-             stream)
+    y, err = _launch_gemm("sparce_gemm_gated_both", x, w, lbits, out_dtype,
+                          block_k, block_m, block_k, block_n, rbits=rbits)
     sparce_gemm_gated_both.launches += 1
     if err != 0:
         raise RuntimeError(

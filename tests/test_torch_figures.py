@@ -204,6 +204,18 @@ def test_prune_weights_equals_reference(block, sparsity):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def test_prune_weights_returns_a_dense_tensor_at_ragged_shapes():
+    """Block pruning pads to whole blocks and slices back; like the
+    reference's array, the result is dense (the GEMM wrappers would copy
+    a strided view on every call)."""
+    w = np.random.default_rng(61).standard_normal((300, 250)).astype(
+        np.float32)
+    got = sprf.prune_weights(torch.from_numpy(w), 0.5, block=(128, 128))
+    assert got.is_contiguous() and tuple(got.shape) == (300, 250)
+    want = ref_sprf.prune_weights(jnp.asarray(w), 0.5, block=(128, 128))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 @pytest.mark.parametrize("block", [None, (2, 2)])
 def test_prune_weights_ties_at_the_threshold(block):
     """Equal magnitudes at the k-th smallest: the reference prunes every

@@ -136,6 +136,73 @@ def test_glu_kernel_at_block_m_1_matches_plain(cuda):
         torch.testing.assert_close(y.float(), y0.float(), rtol=tol, atol=tol)
 
 
+def _nan_tail(a, dev, dtype, pad=4096):
+    """``a`` on the card as a contiguous view into a flat buffer that
+    holds NaN right past its end: a read past the last row or column
+    brings NaN in."""
+    buf = torch.full((a.size + pad,), float("nan"), device=dev, dtype=dtype)
+    view = buf[:a.size].view(a.shape)
+    view.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+    return view
+
+
+# (M, K, F, N, block_m, block_f): the decode tick (8 rows under 64-row
+# tiles, and per-row tiles), a 256-row prefill bucket, ragged M, K, F, N,
+# and row tiles of 128 and 256 rows (walked in chunks of 64).
+GLU_CASES = [(8, 576, 1536, 576, 64, 128), (8, 576, 1536, 576, 1, 128),
+             (256, 576, 1536, 576, 64, 128), (40, 200, 320, 70, 16, 128),
+             (300, 192, 320, 96, 256, 128), (130, 64, 256, 48, 128, 64)]
+
+
+@pytest.mark.parametrize("M,K,F,N,bm,bf", GLU_CASES)
+@pytest.mark.parametrize("dtype,tol", [
+    (torch.float32, 1e-4),   # f32 (split-TF32) sums in another order
+    (torch.bfloat16, 2e-2),  # bf16 roundings of g, h, a and y
+])
+def test_glu_cluster_kernel_at_unpadded_shapes(cuda, M, K, F, N, bm, bf,
+                                               dtype, tol):
+    """The kernel takes M and F unpadded, with NaN right past every
+    operand's end: bits equal the plain version's, y within tolerance;
+    a second call gives the same bits; NaN in the w_in columns and w_out
+    rows of the stripes dead in every row tile never reaches y. At the
+    decode shape the launch spreads over more CTAs than stripes."""
+    rng = np.random.default_rng(40)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    x[[1, 5]] = 0.0
+    wg, wi = (rng.standard_normal((K, F)).astype(np.float32) * K ** -0.5
+              for _ in range(2))
+    wo = rng.standard_normal((F, N)).astype(np.float32) * F ** -0.5
+    wg[:, bf:2 * bf] = 0.0           # stripe 1 dead at any tau
+    wg[:, -(F % bf or bf):] *= 1e-3  # the last stripe dead at tau 0.05
+    args = [_nan_tail(a, cuda, dtype) for a in (x, wg, wi, wo)]
+    grid = sgm.kernel_grid(M, K, F, N, block_m=bm, block_f=bf, dtype=dtype)
+    assert grid["ctas"] > -(-M // max(bm, 64)) * -(-F // bf)
+    for tau in (0.0, 0.05):
+        before = sgm.sparce_glu_mlp_fused.launches
+        y, bits = sgm.sparce_glu_mlp_fused(*args, block_m=bm, block_f=bf,
+                                           tau=tau)
+        assert sgm.sparce_glu_mlp_fused.launches == before + 1
+        y0, bits0 = sgm.sparce_glu_mlp_fused_plain(*args, block_m=bm,
+                                                   block_f=bf, tau=tau)
+        assert torch.equal(bits, bits0)
+        assert bool(bits[:, 1].all()) and not bool(bits.all())
+        assert bool(torch.isfinite(y).all())
+        torch.testing.assert_close(y.float(), y0.float(), rtol=tol, atol=tol)
+        y1, bits1 = sgm.sparce_glu_mlp_fused(*args, block_m=bm, block_f=bf,
+                                             tau=tau)
+        assert torch.equal(bits1, bits)
+        assert torch.equal(_bits_view(y1), _bits_view(y))
+        dead = bits.bool().all(dim=0).nonzero().flatten().tolist()
+        wi2, wo2 = args[2].clone(), args[3].clone()
+        for f in dead:
+            wi2[:, f * bf:(f + 1) * bf] = float("nan")
+            wo2[f * bf:(f + 1) * bf] = float("nan")
+        y2, bits2 = sgm.sparce_glu_mlp_fused(args[0], args[1], wi2, wo2,
+                                             block_m=bm, block_f=bf, tau=tau)
+        assert torch.equal(bits2, bits)
+        assert bool(torch.isfinite(y2).all()) and torch.equal(y2, y)
+
+
 @pytest.mark.parametrize("shape,block", [
     ((8, 1536), (1, 128)), ((256, 1536), (1, 128)), ((128, 256), (64, 128)),
 ])
@@ -636,6 +703,44 @@ def test_both_kernel_matches_ref_and_plain(cuda, M, K, N, bm, bk, bn, dtype,
     w2[2 * bk:3 * bk] = float("nan")
     y2 = sg.sparce_gemm_gated_both(x2, w2, lb, rbt, **kw)
     assert bool(torch.isfinite(y2).all()) and torch.equal(y2, y)
+
+
+@pytest.mark.parametrize("M,K,N,bm,bk,bn", [
+    (1, 9216, 4096, 8, 128, 128),   # deepcomp fc6: 8 k chunks of 9 tiles
+    (40, 1500, 300, 16, 128, 64),   # ragged dims: 6 chunks of 2
+])
+@pytest.mark.parametrize("dtype,tol", GEMM_TOLS)
+def test_both_kernel_is_deterministic_over_k_chunks(cuda, M, K, N, bm, bk,
+                                                    bn, dtype, tol):
+    """More than one k chunk: the chunks' partials are added in a fixed
+    order, so two calls give the same bits, within tolerance of the
+    plain version."""
+    assert sg.num_chunks(K, bk) > 1
+    xt, wt, lbits, rbits, kw = _gemm_operands(cuda, dtype, M, K, N, bm, bk,
+                                              bn, seed=33)
+    lb, rbt = (torch.from_numpy(b).to(cuda) for b in (lbits, rbits))
+    y = sg.sparce_gemm_gated_both(xt, wt, lb, rbt, **kw)
+    y1 = sg.sparce_gemm_gated_both(xt, wt, lb, rbt, **kw)
+    assert torch.equal(_bits_view(y), _bits_view(y1))
+    y0 = sg.sparce_gemm_gated_both_plain(xt, wt, lb, rbt, **kw)
+    torch.testing.assert_close(y.float(), y0.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_both_kernel_with_one_gate_open_equals_the_gated_kernel(cuda, dtype):
+    """With every rhs bit 0 the two-sided kernel walks and stages what
+    the lhs-gated kernel does, and with every lhs bit 0 what the
+    rhs-gated one does: the same MMAs in the same order, so the outputs
+    are equal bit for bit."""
+    xt, wt, lbits, rbits, kw = _gemm_operands(cuda, dtype, 24, 1536, 200, 8,
+                                              128, 64, seed=34)
+    lb, rbt = (torch.from_numpy(b).to(cuda) for b in (lbits, rbits))
+    y = sg.sparce_gemm_gated_both(xt, wt, lb, torch.zeros_like(rbt), **kw)
+    assert torch.equal(_bits_view(y), _bits_view(
+        sg.sparce_gemm_gated(xt, wt, lb, gate="lhs", **kw)))
+    y = sg.sparce_gemm_gated_both(xt, wt, torch.zeros_like(lb), rbt, **kw)
+    assert torch.equal(_bits_view(y), _bits_view(
+        sg.sparce_gemm_gated(xt, wt, rbt, gate="rhs", **kw)))
 
 
 @pytest.mark.parametrize("shape,block", [

@@ -314,8 +314,111 @@ def test_glu_rejects_bad_arguments():
     with pytest.raises(ValueError, match="threshold"):
         sgm.sparce_glu_mlp_fused(x, wg, wi, wo, block_m=16, block_f=128,
                                  tau=-1.0)
-    with pytest.raises(ValueError, match="padded"):
-        sgm.sparce_glu_mlp_fused(x, wg, wi, wo, block_m=12, block_f=128)
+    with pytest.raises(ValueError, match="blocks"):
+        sgm.sparce_glu_mlp_fused(x, wg, wi, wo, block_m=0, block_f=128)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        sgm.sparce_glu_mlp_fused(x, wg, wi[:, :64], wo, block_m=16,
+                                 block_f=128)
+
+
+@pytest.mark.parametrize("act", ["silu", "relu"])
+@pytest.mark.parametrize("tau", [0.0, 0.05])
+@pytest.mark.parametrize("M,F,bm,bf", [
+    (8, 320, 64, 128),   # decode rows under a 64-row tile; ragged F
+    (20, 200, 16, 128),  # ragged M and F
+    (8, 256, 1, 64),     # per-row tiles
+])
+def test_glu_plain_at_ragged_dims_matches_reference(act, tau, M, F, bm, bf):
+    """The plain version takes M and F that are not block multiples: its
+    bits equal the padded reference wrapper's (interpret mode) and y is
+    within the f32 tolerance; the zero rows are dead in every stripe."""
+    x, wg, wi, wo = _glu_case(10, M=M, K=64, F=F, N=48, zero_rows=[1, 5])
+    wg[:, bf:2 * bf] = 0.0  # a stripe dead at any tau
+    wg[:, -(F % bf or bf):] *= 1e-3  # the ragged stripe dead at tau 0.05
+    y_ref, bmp_ref = ref_ops.sparce_glu_mlp_fused(
+        *map(jnp.asarray, (x, wg, wi, wo)), block_m=bm, block_f=bf, act=act,
+        tau=tau, interpret=True)
+    y, bits = sgm.sparce_glu_mlp_fused(*_t(x, wg, wi, wo), block_m=bm,
+                                       block_f=bf, act=act, tau=tau)
+    assert tuple(bits.shape) == sgm.bit_grid(M, F, block_m=bm, block_f=bf)
+    np.testing.assert_array_equal(bits.numpy(), np.asarray(bmp_ref.bits))
+    assert bits.numpy()[:, 1].all()
+    if bm == 1:
+        assert bits.numpy()[[1, 5]].all()
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), **F32_TOL)
+
+
+def test_glu_ops_wrapper_hands_the_kernel_unpadded_operands(monkeypatch):
+    """ops.sparce_glu_mlp_fused pads nothing: the kernel entry gets x and
+    the weights at their own shapes (8 decode rows under 64-row tiles, a
+    ragged F), and y and the bitmap come back as the entry made them."""
+    x, wg, wi, wo = _t(*_glu_case(11, M=8, K=64, F=200, N=48))
+    seen = []
+
+    def entry(*args, **kw):
+        seen.append([tuple(a.shape) for a in args])
+        return sgm.sparce_glu_mlp_fused_plain(*args, **kw)
+
+    monkeypatch.setattr(sgm, "sparce_glu_mlp_fused", entry)
+    y, bmp = kops.sparce_glu_mlp_fused(x, wg, wi, wo, block_m=64,
+                                       block_f=128)
+    assert seen == [[(8, 64), (64, 200), (64, 200), (200, 48)]]
+    assert tuple(y.shape) == (8, 48) and tuple(bmp.bits.shape) == (1, 2)
+    assert bmp.shape == (8, 200) and bmp.block == (64, 128)
+    want, want_bits = sgm.sparce_glu_mlp_fused_plain(x, wg, wi, wo,
+                                                     block_m=64, block_f=128)
+    assert torch.equal(y, want) and torch.equal(bmp.bits, want_bits)
+
+
+def test_glu_ragged_plain_never_reads_dead_stripes_or_past_the_ends():
+    """The operands are views of larger buffers holding NaN past M (x's
+    rows), past F (w_gate's and w_in's columns, w_out's rows) and in the
+    dead stripes' w_in columns and w_out rows: y and the bits equal the
+    clean run's, so none of it was read."""
+    M, K, F, N, bm, bf = 10, 64, 200, 48, 16, 64
+    x, wg, wi, wo = _glu_case(12, M=M, K=K, F=F, N=N)
+    wg[:, bf:2 * bf] = 0.0  # stripe 1 dead in every row tile
+    y, bits = sgm.sparce_glu_mlp_fused(*_t(x, wg, wi, wo), block_m=bm,
+                                       block_f=bf)
+    assert bits.numpy()[:, 1].all() and not bits.numpy().all()
+
+    def poisoned(a, rows, cols):
+        buf = np.full((rows, cols), np.nan, np.float32)
+        buf[:a.shape[0], :a.shape[1]] = a
+        return torch.from_numpy(buf)
+
+    wi2, wo2 = wi.copy(), wo.copy()
+    wi2[:, bf:2 * bf] = np.nan
+    wo2[bf:2 * bf] = np.nan
+    xp = poisoned(x, M + 6, K)[:M]
+    wgp = poisoned(wg, K, F + 56)[:, :F]
+    wip = poisoned(wi2, K, F + 56)[:, :F]
+    wop = poisoned(wo2, F + 56, N)[:F]
+    y2, bits2 = sgm.sparce_glu_mlp_fused(xp, wgp, wip, wop, block_m=bm,
+                                         block_f=bf)
+    assert torch.isfinite(y2).all()
+    assert torch.equal(y2, y) and torch.equal(bits2, bits)
+
+
+@pytest.mark.parametrize("m,fdim,n,bf", [(8, 1536, 576, 128),
+                                         (100, 320, 70, 128)])
+def test_glu_scratch_is_a_function_of_the_shapes(m, fdim, n, bf):
+    """The f32 scratch the wrapper allocates is one unpadded (M, N)
+    partial per stripe, whatever block_m and the bits are; the bit grid
+    is ceil(M/block_m) x ceil(F/block_f), the plain version's."""
+    nf = -(-fdim // bf)
+    for bm in (1, 16, 64, 256):
+        assert sgm.partial_shape(m, fdim, n, block_f=bf) == (nf, m, n)
+        assert sgm.bit_grid(m, fdim, block_m=bm, block_f=bf) == (
+            -(-m // bm), nf)
+    x, wg, wi, wo = _t(*_glu_case(13, M=m, K=32, F=fdim, N=n))
+    for zero in (False, True):
+        wgz = torch.zeros_like(wg) if zero else wg
+        _, bits = sgm.sparce_glu_mlp_fused(x, wgz, wi, wo, block_m=64,
+                                           block_f=bf)
+        assert bool(bits.all()) == zero
+        assert tuple(bits.shape) == sgm.bit_grid(m, fdim, block_m=64,
+                                                 block_f=bf)
 
 
 @pytest.mark.parametrize("act", ["silu", "gelu", "relu", "relu2"])

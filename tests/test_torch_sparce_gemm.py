@@ -569,6 +569,60 @@ def test_both_kernels_get_the_same_chunks_and_scratch(monkeypatch):
         assert (g[4] is not None) == (c[4] is not None) == multi
 
 
+def test_two_sided_kernel_gets_the_gated_chunks_whatever_the_bits(
+        monkeypatch):
+    """The two-sided wrapper's C call (stubbed here) gets both bit grids,
+    the gated kernel's S = chunk_tiles(K, block_k) and a scratch pointer
+    exactly when there is more than one chunk, as many arguments as the
+    declared C signature -- and the same S and scratch for any bits:
+    they are functions of the shapes only."""
+    from repro_torch.kernels import _build
+    calls = []
+
+    def function(lib, symbol, argtypes):
+        def fn(*args):
+            assert len(args) == len(argtypes)
+            calls.append((symbol, args))
+            return 0
+        return fn
+
+    monkeypatch.setattr(_build, "function", function)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: type("S", (), {"cuda_stream": 0}))
+    rng = np.random.default_rng(62)
+    for (m, k, n, bm, bk, bn) in ((1, 9216, 4096, 8, 128, 128),
+                                  (40, 1500, 300, 16, 128, 64),
+                                  (4, 96, 64, 8, 128, 128)):
+        _, x, w = _operands(63, m, k, n)
+        xt, wt = _t(x, w)
+        kw = dict(block_m=bm, block_k=bk, block_n=bn)
+        lg = sg.bit_grid(m, k, n, gate="lhs", **kw)
+        rg = sg.bit_grid(m, k, n, gate="rhs", **kw)
+        seen = []
+        for fill in ("zeros", "ones", "random"):
+            if fill == "random":
+                lb, rb = ((rng.random(g) < 0.5).astype(np.int32)
+                          for g in (lg, rg))
+            else:
+                lb, rb = (getattr(np, fill)(g, np.int32) for g in (lg, rg))
+            lbt, rbt = _t(lb, rb)
+            sg._launch_gemm("sparce_gemm_gated_both", xt, wt, lbt, None, bk,
+                            bm, bk, bn, rbits=rbt)
+            sg._launch_gemm("sparce_gemm_gated", xt, wt, lbt, None, bk, bm,
+                            bk, bn, 0)
+            (sb, b), (sgd, g) = calls[-2:]
+            assert (sb, sgd) == ("sparce_gemm_gated_both",
+                                 "sparce_gemm_gated")
+            assert b[2] == lbt.data_ptr() and b[3] == rbt.data_ptr()
+            assert b[6:9] == g[5:8] == (m, k, n)
+            assert b[9:12] == (bm, bk, bn)
+            assert b[-3] == g[-3] == sg.chunk_tiles(k, bk)
+            multi = sg.num_chunks(k, bk) > 1
+            assert (b[5] is not None) == (g[4] is not None) == multi
+            seen.append((b[-3], b[5] is None))
+        assert len(set(seen)) == 1
+
+
 @pytest.mark.parametrize("M,K,N,bm,bk,bn", [
     (16, 1536, 64, 1, 128, 128),   # relu decode's K: 6 chunks of 2
     (24, 1000, 40, 8, 128, 128),   # ragged K: 8 chunks of 1
