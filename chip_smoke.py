@@ -208,8 +208,15 @@ def graph_time_ms(fn, iters: int = 20, repeats: int = 5) -> float:
 GEMM_KERNELS = ("gated_gemm_kernel", "compacted_gemm_kernel",
                 "gated_both_gemm_kernel", "chunk_reduce_kernel")
 # The kernels of a gated-GLU call: the cluster kernel and the reduction
-# over live stripes.
+# over live stripes; of a fused relu MLP call, the same design's; of a
+# paged MLA call, the chunk kernel and the merge of a slot's chunks; and
+# the single kernel of each of the other calls.
 GLU_KERNELS = ("glu_cluster_kernel", "stripe_reduce_kernel")
+MLP_KERNELS = ("mlp_cluster_kernel", "stripe_reduce_kernel")
+MLA_KERNELS = ("mla_chunk_kernel", "mla_combine_kernel")
+GQA_KERNELS = ("paged_gqa_decode_kernel",)
+RELU_KERNELS = ("relu_bitmap_kernel",)
+RELU_BWD_KERNELS = ("relu_bwd_bitmap_kernel",)
 
 
 def log_device_times(label, ms, run, lib_ms, library, names=GEMM_KERNELS):
@@ -221,6 +228,19 @@ def log_device_times(label, ms, run, lib_ms, library, names=GEMM_KERNELS):
     log(f"  {label}: device {dev_ms:.4f} ms ({split}), events {ms:.4f} ms; "
         f"library device {lib_dev_ms:.4f} ms, events {lib_ms:.4f} ms")
     return dev_ms, lib_dev_ms
+
+
+def log_device_witnesses(label, ms, run, lib_ms, library, names):
+    """A kernel call's device time by both witnesses -- the profiler (the
+    kernels of ``names``) and a replayed CUDA graph -- beside its library
+    call's, and both calls' CUDA-events times. Returns (device ms, graph
+    ms, library device ms, library graph ms)."""
+    dev_ms, lib_dev_ms = log_device_times(label, ms, run, lib_ms, library,
+                                          names=names)
+    graph_ms, lib_graph_ms = graph_time_ms(run), graph_time_ms(library)
+    log(f"  {label}: graph: kernel {graph_ms:.4f} ms, library "
+        f"{lib_graph_ms:.4f} ms")
+    return dev_ms, graph_ms, lib_dev_ms, lib_graph_ms
 
 
 def log_kernel_resources(_build, name):
@@ -248,7 +268,9 @@ def log_kernel_resources(_build, name):
                 continue
             dtype = "bf16" if k.group(2) != "f" else "f32"
             what = f"{k.group(1)}<{dtype}"
-            if k.group(3):
+            if k.group(3) and name == "paged_mla_decode_attn":
+                what += f", {8 * int(k.group(3))} latent columns a warp>"
+            elif k.group(3):
                 nt8 = int(k.group(3))
                 what += f", {8 * nt8} rows>"
                 if smem is not None:
@@ -381,9 +403,12 @@ def mla_case(torch, dev, dtype, seed, *, B=8, h=128, r=512, rope=64, bs=16,
 
 def check_mla(torch, dev):
     """The MLA kernel against its plain version and the gathered-view
-    oracle, at the full decode width and a small ragged shape (heads not
-    a multiple of the kernel's 8 per block, a latent narrower than a
-    warp), in f32 and bf16; zeros for a length-0 slot; NaN poison in the
+    oracle, at the full decode width, at lengths on the chunk edges (E *
+    bs, E * bs + 1, the table's reach, past it, 0; slots whose trailing
+    chunks are all empty) and at a small ragged shape (heads not a
+    multiple of the kernel's 32 per block, a latent narrower than a
+    warp, a rope below one MMA depth), in f32 and bf16; zeros for a
+    length-0 slot; a second call equal bit for bit; NaN poison in the
     null block and in every block past a slot's live count."""
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import paged_decode_attn as pda
@@ -395,9 +420,24 @@ def check_mla(torch, dev):
                          "max in the kernel, against the final max in the "
                          "plain version; bf16 output rounding"),
     }
+    bs = ENGINE["block_size"]
+    max_blocks = ENGINE["max_len"] // bs
+    grid = pda.mla_grid(8, MLA_DIMS["h"], max_blocks, bs)
+    edge, reach = grid["entries"] * bs, max_blocks * bs
     shapes = {"full width": dict(MLA_DIMS),
+              "chunk edges": dict(MLA_DIMS, lengths=[
+                  edge, edge + 1, reach, reach + 1, 0, edge - 1, 2 * edge,
+                  1]),
               "small": dict(B=5, h=12, r=16, rope=8, bs=4, max_blocks=6,
                             lengths=[0, 4, 7, 24, 30])}
+    if grid["ctas"] < 132:
+        raise AssertionError(f"MLA launch of {grid['ctas']} CTAs at the "
+                             "engine shape")
+    log(f"  paged_mla_decode_attn launch at the DeepSeek decode shape (8 "
+        f"slots, {MLA_DIMS['h']} heads, {max_blocks} table entries of "
+        f"{bs} rows): {grid['ctas']} CTAs = {grid['chunks']} chunks of "
+        f"{grid['entries']} entries x {grid['head_groups']} head groups x "
+        "8 slots")
     err_main = None
     for dtype, (atol, rtol, why) in tols.items():
         for label, kw in shapes.items():
@@ -419,6 +459,9 @@ def check_mla(torch, dev):
             if not torch.equal(wrapped, got):
                 raise AssertionError(
                     f"{name}: the clamping wrapper differs from the kernel")
+            again = pda.paged_mla_decode_attn(*args, scale=MLA_SCALE)
+            if not same_bits(torch, again, got):
+                raise AssertionError(f"{name}: a second call differs")
             if not bool((got[~live] == 0).all()):
                 raise AssertionError("a length-0 slot did not produce zeros")
             dead = [i for i in range(c["nb"]) if i not in c["live_ids"]]
@@ -561,11 +604,16 @@ RELU_TOLS = {
 
 def mlp_case(torch, dev, dtype, seed, *, M, bm, K=576, F=1536, N=576,
              bf=128):
-    """Nonnegative x with one dead row tile; w_in's stripe 2 negative so
-    it is dead in every row tile; init-scale weights."""
+    """Nonnegative x with the row tile of row M // 2 dead (with one row
+    tile, its rows from M // 2 zero); w_in's stripe 2 negative so it is
+    dead in every row tile; init-scale weights."""
     rng = np.random.default_rng(seed)
     x = np.abs(rng.standard_normal((M, K), dtype=np.float32))
-    x[M // 2: M // 2 + bm] = 0.0
+    if M > bm:
+        t = (M // 2) // bm
+        x[t * bm:(t + 1) * bm] = 0.0
+    else:
+        x[M // 2:] = 0.0
     wi = rng.standard_normal((K, F), dtype=np.float32) / np.sqrt(K)
     wi[:, 2 * bf: 3 * bf] = -np.abs(wi[:, 2 * bf: 3 * bf])
     wo = rng.standard_normal((F, N), dtype=np.float32) / np.sqrt(F)
@@ -654,31 +702,45 @@ def check_gemm(torch, dev):
 
 
 def check_mlp(torch, dev):
+    """The fused relu MLP kernel against its plain version: bits exactly,
+    y within tolerance, at the relu cases, unpadded ragged M and F, f32
+    and bf16, relu and relu2; a second call equal bit for bit; NaN in
+    the w_out rows of the stripes dead in every row tile, and (per row)
+    in a stripe live in one row tile and dead in another, never reaching
+    a row whose tile is dead there."""
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import sparce_mlp as sm
     bf = 128
     err_main = None
+    # (M, F, block_m): the relu cases at F 1536, then ragged M and F.
+    cases = [(M, 1536, bm) for M, bm in RELU_CASES] + [
+        (37, 1000, 1), (37, 1000, 64), (100, 1000, 64)]
     for dtype in (torch.float32, torch.bfloat16):
         atol, rtol, why = RELU_TOLS[str(dtype)[6:]]
-        for M, bm in RELU_CASES:
+        for M, F_, bm in cases:
             for act in ("relu", "relu2"):
                 x, wi, wo = mlp_case(torch, dev, dtype, seed=M + bm, M=M,
-                                     bm=bm)
+                                     bm=bm, F=F_)
                 kw = dict(block_m=bm, block_f=bf, act=act)
                 y, bits = sm.sparce_mlp_fused(x, wi, wo, **kw)
                 y0, bits0 = sm.sparce_mlp_fused_plain(x, wi, wo, **kw)
                 torch.cuda.synchronize()
                 name = (f"sparce_mlp_fused {str(dtype)[6:]} {act} M={M} "
-                        f"block_m={bm}")
+                        f"F={F_} block_m={bm}")
                 if not torch.equal(bits, bits0):
                     raise AssertionError(f"{name}: bits differ")
+                dead_t = (M // 2) // bm
                 if not (bool(bits[:, 2].all())
-                        and bool(bits[M // 2 // bm].all())):
+                        and (M <= bm or bool(bits[dead_t].all()))):
                     raise AssertionError(f"{name}: dead tiles not flagged")
                 err = check_close(f"{name} ({int(bits.sum())} dead tiles)",
                                   y, y0, atol=atol, rtol=rtol, why=why)
                 if dtype == torch.bfloat16 and M == 8 and act == "relu":
                     err_main = err
+                y1, bits1 = sm.sparce_mlp_fused(x, wi, wo, **kw)
+                if not (same_bits(torch, y1, y)
+                        and torch.equal(bits1, bits)):
+                    raise AssertionError(f"{name}: a second call differs")
                 # NaN poison the w_out rows of the stripes dead in every
                 # row tile.
                 dead_f = bits.bool().all(dim=0).nonzero().flatten().tolist()
@@ -691,18 +753,54 @@ def check_mlp(torch, dev):
                         and torch.equal(bits2, bits)):
                     raise AssertionError(
                         f"{name}: NaN-poisoned dead stripes reached y")
-        # The padded wrapper the model calls: 8 rows over 64-row tiles.
+                if M > bm:  # a dead row tile beside live ones
+                    per_row_poison(torch, sm, name, x, wi, wo, y, bits, kw)
+        # The wrapper the model calls: 8 rows under a 64-row tile, nothing
+        # padded.
         x, wi, wo = mlp_case(torch, dev, dtype, seed=5, M=8, bm=1)
         y, bmp = kops.sparce_mlp_fused(x, wi, wo, block_m=64, block_f=bf)
         y0, bmp0 = kops.sparce_mlp_fused(x.cpu(), wi.cpu(), wo.cpu(),
                                          block_m=64, block_f=bf)
         if not torch.equal(bmp.bits.cpu(), bmp0.bits):
-            raise AssertionError("padded wrapper: bits differ from the CPU")
-        log(f"  ops.sparce_mlp_fused {str(dtype)[6:]} (M=8 padded to 64): "
-            "bits equal to the CPU plain version's -> ok")
-    log("  sparce_mlp_fused: NaN-poisoned dead w_out stripes never read "
+            raise AssertionError("ops wrapper: bits differ from the CPU")
+        for M, bm in ((8, 64), (8, 1)):
+            grid = sm.kernel_grid(M, x.shape[1], wi.shape[1], wo.shape[1],
+                                  block_m=bm, block_f=bf, dtype=dtype)
+            if grid["ctas"] <= wi.shape[1] // bf:
+                raise AssertionError(f"decode grid of {grid['ctas']} CTAs")
+        log(f"  ops.sparce_mlp_fused {str(dtype)[6:]} (M=8 unpadded, "
+            f"block_m 64): bits equal to the CPU plain version's; the "
+            f"kernel's launch at block_m 1: {grid['ctas']} CTAs in "
+            f"clusters of {grid['cluster']}, {grid['rows']} rows per chunk, "
+            f"{grid['smem']} bytes of dynamic smem -> ok")
+    log("  sparce_mlp_fused: NaN-poisoned dead w_out stripes never read, "
+        "per-row poison never added to a dead row, second calls equal "
         "(every case above) -> ok")
     return err_main
+
+
+def per_row_poison(torch, sm, name, x, wi, wo, y, bits, kw):
+    """NaN in the w_out rows of a stripe live in some row tile and dead
+    in another: the dead tile's rows keep their finite output, equal to
+    the unpoisoned run's; a live row does take the poison."""
+    bm, bf = kw["block_m"], kw["block_f"]
+    mixed = [f for f in range(bits.shape[1])
+             if bool(bits[:, f].any()) and not bool(bits[:, f].all())]
+    if not mixed:
+        raise AssertionError(f"{name}: no stripe live in one row tile and "
+                             "dead in another")
+    f = mixed[0]
+    wo2 = wo.clone()
+    wo2[f * bf:(f + 1) * bf] = float("nan")
+    y2, bits2 = sm.sparce_mlp_fused(x, wi, wo2, **kw)
+    torch.cuda.synchronize()
+    rows = torch.arange(x.shape[0], device=x.device)
+    dead = bits[rows // bm, f].bool()
+    if not (torch.equal(bits2, bits) and torch.isfinite(y2[dead]).all()
+            and torch.equal(y2[dead], y[dead])
+            and torch.isnan(y2[~dead]).any()):
+        raise AssertionError(f"{name}: the per-row NaN poison of stripe {f} "
+                             "reached a row whose tile is dead in it")
 
 
 # ------------------------------------- the evaluation path's GEMM kernels
@@ -1264,8 +1362,13 @@ def time_attention(torch, dev, err):
     L = kv.shape[2]
     mask = (torch.arange(L, device=dev)[None, :]
             < c["lengths"][:, None])[:, None, None, :]
-    lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-        qh, kv, vv, attn_mask=mask, enable_gqa=True), 200)
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qh, kv, vv, attn_mask=mask, enable_gqa=True)
+    lib_ms = cuda_time_ms(library, 200)
+    log_device_witnesses(
+        "paged_gqa_decode_attn decode", ms,
+        lambda: pda.paged_gqa_decode_attn(*args), lib_ms, library,
+        GQA_KERNELS)
     live_blocks = int(sum(-(-int(n) // bs) for n in lengths))
     item = 2
     nbytes = (2 * B * KV * g * D * item  # q in, out
@@ -1300,8 +1403,9 @@ def time_mla(torch, dev, err):
                  max_blocks=max_blocks, lengths=lengths.tolist(), **MLA_DIMS)
     args = (c["q_lat"], c["q_rope"], c["ckv"], c["kr"], c["tables"],
             c["lengths"])
-    ms = cuda_time_ms(
-        lambda: pda.paged_mla_decode_attn(*args, scale=MLA_SCALE), 200)
+    run = lambda: pda.paged_mla_decode_attn(  # noqa: E731
+        *args, scale=MLA_SCALE)
+    ms = cuda_time_ms(run, 200)
     plain_ms = cuda_time_ms(
         lambda: pda.paged_mla_decode_attn_plain(*args, scale=MLA_SCALE), 10,
         warmup=1)
@@ -1316,8 +1420,19 @@ def time_mla(torch, dev, err):
     L = cc.shape[1]
     mask = (torch.arange(L, device=dev)[None, :]
             < c["lengths"][:, None])[:, None, None, :]
-    lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-        qk, kk, vv, attn_mask=mask, scale=MLA_SCALE), 200)
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qk, kk, vv, attn_mask=mask, scale=MLA_SCALE)
+    lib_ms = cuda_time_ms(library, 200)
+    log_device_witnesses("paged_mla_decode_attn decode", ms, run, lib_ms,
+                         library, MLA_KERNELS)
+    grid = pda.mla_grid(B, h, max_blocks, bs)
+    walk = pda.mla_chunk_walk(c["tables"].cpu().numpy(), lengths, bs, h)
+    live_ctas = grid["head_groups"] * sum(
+        len(e) > 0 for chunks in walk for e in chunks)
+    log(f"  paged_mla_decode_attn launch: {grid['ctas']} CTAs "
+        f"({grid['chunks']} chunks of {grid['entries']} entries x "
+        f"{grid['head_groups']} head groups x {B} slots), {live_ctas} of "
+        "them with a live chunk")
     live_blocks = int(sum(-(-int(n) // bs) for n in lengths))
     item = 2
     nbytes = (B * h * (2 * r + rope) * item  # q_lat, q_rope in; out
@@ -1364,11 +1479,8 @@ def time_glu(torch, dev, err):
     plain_ms = cuda_time_ms(lambda: sgm.sparce_glu_mlp_fused_plain(
         x, wg, wi, wo, block_m=bm, block_f=bf), 20)
     lib_ms = cuda_time_ms(library, 200)
-    log_device_times("sparce_glu_mlp_fused decode", ms, run, lib_ms,
-                     library, names=GLU_KERNELS)
-    log(f"  sparce_glu_mlp_fused decode: graph: kernel "
-        f"{graph_time_ms(run):.4f} ms, library {graph_time_ms(library):.4f}"
-        " ms")
+    log_device_witnesses("sparce_glu_mlp_fused decode", ms, run, lib_ms,
+                         library, GLU_KERNELS)
     _, bmp = run()
     bits = bmp.bits
     live = int((bits == 0).sum())
@@ -1445,15 +1557,23 @@ def kernel_row(name, cu, replaces, err, ms, plain_ms, lib_ms, nbytes, ops,
 
 
 def time_mlp(torch, dev, err):
+    """The fused relu MLP at the relu decode tick's operands (events,
+    and device time by both witnesses beside the library call's), then
+    at a 256-row prefill bucket with per-row tiles, held against its
+    plain version and logged."""
     from repro_torch.kernels import sparce_mlp as sm
     x, wi, wo, _, _ = relu_decode_operands(torch, dev)
     bf = SPARCE_BLOCKS["block_k"]
     kw = dict(block_m=1, block_f=bf)
-    ms = cuda_time_ms(lambda: sm.sparce_mlp_fused(x, wi, wo, **kw), 200)
+    run = lambda: sm.sparce_mlp_fused(x, wi, wo, **kw)  # noqa: E731
+    library = lambda: torch.relu(x @ wi) @ wo  # noqa: E731
+    ms = cuda_time_ms(run, 200)
     plain_ms = cuda_time_ms(
         lambda: sm.sparce_mlp_fused_plain(x, wi, wo, **kw), 20)
-    lib_ms = cuda_time_ms(lambda: torch.relu(x @ wi) @ wo, 200)
-    _, bits = sm.sparce_mlp_fused(x, wi, wo, **kw)
+    lib_ms = cuda_time_ms(library, 200)
+    log_device_witnesses("sparce_mlp_fused decode", ms, run, lib_ms,
+                         library, MLP_KERNELS)
+    _, bits = run()
     live = int((bits == 0).sum())
     live_stripes = int((bits == 0).any(dim=0).sum())
     M, K = x.shape
@@ -1461,11 +1581,29 @@ def time_mlp(torch, dev, err):
     nbytes = 2 * (x.numel() + wi.numel() + live_stripes * bf * N + M * N) \
         + 4 * bits.numel()
     ops = 2 * M * K * F_ + live * 2 * bf * N
-    return kernel_row(
+    grid = sm.kernel_grid(M, K, F_, N, dtype=x.dtype, **kw)
+    row = kernel_row(
         "sparce_mlp_fused", "sparce_mlp.cu",
         "src/repro/kernels/sparce_mlp.py:111", err, ms, plain_ms, lib_ms,
         nbytes, ops, f"x={tuple(x.shape)} K={K} F={F_} N={N} block (1,{bf}),"
-        f" {live} live tiles (relu(x@w_in)@w_out as the library call)")
+        f" {live} live tiles, {grid['ctas']} CTAs (relu(x@w_in)@w_out as "
+        "the library call)")
+    # The relu prefill's shape: one 256-row bucket, per-row tiles.
+    xp = torch.from_numpy(np.abs(np.random.default_rng(13).standard_normal(
+        (256, K), dtype=np.float32))).to(dev, x.dtype)
+    run_p = lambda: sm.sparce_mlp_fused(xp, wi, wo, **kw)  # noqa: E731
+    lib_p = lambda: torch.relu(xp @ wi) @ wo  # noqa: E731
+    y, bits_p = run_p()
+    y0, bits0 = sm.sparce_mlp_fused_plain(xp, wi, wo, **kw)
+    if not torch.equal(bits_p, bits0):
+        raise AssertionError("sparce_mlp_fused prefill: bits differ")
+    atol, rtol, why = RELU_TOLS["bfloat16"]
+    check_close("sparce_mlp_fused prefill 256 rows", y, y0, atol=atol,
+                rtol=rtol, why=why)
+    log_device_witnesses("sparce_mlp_fused prefill 256 rows",
+                         cuda_time_ms(run_p, 100), run_p,
+                         cuda_time_ms(lib_p, 100), lib_p, MLP_KERNELS)
+    return row
 
 
 def time_relu_bitmap(torch, dev, err):
@@ -1482,6 +1620,10 @@ def time_relu_bitmap(torch, dev, err):
         return y, ~(y > 0).view(M, 1, F_ // bc, bc).any(3).any(1)
 
     lib_ms = cuda_time_ms(library, 200)
+    log_device_witnesses(
+        "relu_bitmap decode", ms,
+        lambda: rb.relu_bitmap(h, block_r=1, block_c=bc), lib_ms, library,
+        RELU_KERNELS)
     nbytes = 2 * 2 * h.numel() + 4 * M * (F_ // bc)
     return kernel_row(
         "relu_bitmap", "relu_bitmap.cu", "src/repro/kernels/relu_bitmap.py:41",
@@ -1809,6 +1951,10 @@ def time_relu_bwd(torch, dev, err, launches):
         return gx, ~(gx != 0).view(M, 1, F_ // bc, bc).any(3).any(1)
 
     lib_ms = cuda_time_ms(library, 200)
+    log_device_witnesses(
+        "relu_bwd_bitmap decode", ms,
+        lambda: rb.relu_bwd_bitmap(h, g, block_r=1, block_c=bc), lib_ms,
+        library, RELU_BWD_KERNELS)
     nbytes = 3 * 2 * h.numel() + 4 * M * (F_ // bc)
     row = kernel_row(
         "relu_bwd_bitmap", "relu_bitmap.cu",
@@ -1867,7 +2013,8 @@ def main(argv=None) -> int:
         log(f"phase 1: built {len(_build.SOURCES)} kernels in "
             f"{time.perf_counter() - t0:.1f}s (sm_90a)")
         for name in _build.SOURCES:
-            if name in ("sparce_gemm", "sparce_glu_mlp"):
+            if name in ("sparce_gemm", "sparce_glu_mlp", "sparce_mlp",
+                        "paged_mla_decode_attn"):
                 log_kernel_resources(_build, name)
                 continue
             for line in _build.build_log(name).splitlines():

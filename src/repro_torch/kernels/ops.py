@@ -5,10 +5,10 @@ results back, with the reference's conventions: padded columns see zero
 weights and act(0) == 0, so padding can only vote a tile dead, never
 live; padding tiles of a bitmap are all-zero, so their bits are 1;
 decode lengths are clamped to the table's reach, ``max_blocks *
-block_size``. The GEMM and gated-GLU kernels mask ragged edges
-themselves, so :func:`sparce_gemm` pads only the bit grids and
-:func:`sparce_glu_mlp_fused` nothing. :func:`sparce_gemm` dispatches a
-plan to its kernel the way the reference does: ``dense`` to a plain
+block_size``. The GEMM and both MLP kernels mask ragged edges
+themselves, so :func:`sparce_gemm` pads only the bit grids, and
+:func:`sparce_glu_mlp_fused` and :func:`sparce_mlp_fused` nothing.
+:func:`sparce_gemm` dispatches a plan to its kernel the way the reference does: ``dense`` to a plain
 product, lhs to the gated or the compacted kernel, rhs-compacted through
 the transpose trick onto the compacted kernel, and ``gate="both"`` to the
 two-sided kernel whatever the plan's variant.
@@ -115,21 +115,15 @@ def sparce_mlp_fused(
 ) -> tuple[torch.Tensor, TileBitmap]:
     """Returns (y[M, N], bitmap over act(x @ w_in) at (block_m, block_f)
     granularity) -- the bitmap the two-kernel path produces, so skip
-    accounting is identical. Padding rows and stripes are all-zero after
-    the activation: their bits are 1 and their w_out stripes never
-    load."""
-    m, k = x.shape
-    fdim = w_in.shape[1]
-    n = w_out.shape[1]
-    pm, pf = _ceil_to(m, block_m), _ceil_to(fdim, block_f)
+    accounting is identical. Nothing is padded: the kernel takes any M
+    and F (rows past M and columns past F vote dead, as the padded
+    reference's zeros do)."""
     y, bits = _sm.sparce_mlp_fused(
-        _pad2(x, pm, k).contiguous(),
-        _pad2(w_in, k, pf).contiguous(),
-        _pad2(w_out, pf, n).contiguous(),
+        x.contiguous(), w_in.contiguous(), w_out.contiguous(),
         block_m=block_m, block_f=block_f, act=act, out_dtype=out_dtype,
     )
-    return y[:m, :n], TileBitmap(
-        bits=bits, block=(block_m, block_f), shape=(m, fdim))
+    return y, TileBitmap(bits=bits, block=(block_m, block_f),
+                         shape=(x.shape[0], w_in.shape[1]))
 
 
 def relu_with_bitmap(x: torch.Tensor, block) -> tuple[torch.Tensor,

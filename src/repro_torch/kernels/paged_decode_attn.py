@@ -3,10 +3,14 @@
 Ports of the TPU kernels ``repro/kernels/paged_decode_attn.py:
 paged_gqa_decode_attn`` and ``paged_mla_decode_attn``. The GQA kernel
 (``csrc/paged_decode_attn.cu``) runs one thread block per (slot, KV
-head); the MLA kernel (``csrc/paged_mla_decode_attn.cu``) one per
-(slot, group of 8 heads). Both loop over the slot's
-``ceil(len / block_size)`` live blocks only -- the loop bound replaces
-the TPU kernel's index-map clamp, so a table entry past the live prefix,
+head) over the slot's ``ceil(len / block_size)`` live blocks. The MLA
+kernel (``csrc/paged_mla_decode_attn.cu``) runs one per (chunk of the
+table, group of 32 heads, slot) on the tensor cores; the chunks
+(:func:`mla_chunks`) are fixed by the shapes, a chunk at or past the
+slot's live count reads nothing (:func:`mla_chunk_walk` mirrors it on
+the host), and a second launch merges a slot's live chunks from f32
+scratch of :func:`mla_scratch_shape`. Both loops' bounds replace the
+TPU kernel's index-map clamp, so a table entry past the live prefix,
 and the block it names, is never read (the paper's skip-before-fetch).
 
 :func:`paged_gqa_decode_attn` and :func:`paged_mla_decode_attn` are the
@@ -186,10 +190,73 @@ paged_gqa_decode_attn.launches = 0
 
 
 # ------------------------------------------------------------------- MLA
-# Widths the MLA kernel's per-lane registers hold (16 latent and 4 rope
-# values per lane of a 32-lane warp).
+# Widths the MLA kernel takes: its O accumulators (up to 8 n-tiles of 8
+# latent columns per warp) and its shared-memory rows.
 MLA_MAX_LATENT = 512
 MLA_MAX_ROPE = 128
+# The kernel's heads per thread block; the CTAs its grid aims at when
+# every chunk is live (twice an H100's 132 SMs: the chunks stay short --
+# 4 blocks at the DeepSeek decode shape, the fastest there of 2, 4 and
+# 8 by tools/mla_probe.py -- and a dead chunk's CTA exits at once); the
+# rows a chunk holds at least, so that its f32 scratch (heads x latent)
+# stays small beside the pool rows it reads.
+MLA_HEADS_PER_CTA = 32
+MLA_CTA_AIM = 2 * 132
+MLA_MIN_CHUNK_ROWS = 64
+# A chunk's table entries sit in the kernel's shared memory.
+MLA_MAX_CHUNK_ENTRIES = 256
+
+
+def mla_chunks(batch: int, heads: int, max_blocks: int,
+               block_size: int) -> tuple[int, int]:
+    """(S, E): the MLA kernel cuts each slot's table into S chunks of E
+    entries, S * E >= max_blocks. A function of the shapes only -- never
+    of the lengths -- so the launch needs no host read and can be
+    captured in a CUDA graph."""
+    if max_blocks <= 0:
+        return 1, 1
+    groups = -(-heads // MLA_HEADS_PER_CTA)
+    s = max(1, -(-MLA_CTA_AIM // (batch * groups)))
+    e = max(-(-max_blocks // s), -(-MLA_MIN_CHUNK_ROWS // block_size))
+    e = min(e, max_blocks, MLA_MAX_CHUNK_ENTRIES)
+    return -(-max_blocks // e), e
+
+
+def mla_grid(batch: int, heads: int, max_blocks: int,
+             block_size: int) -> dict:
+    """The MLA kernel's launch: chunks per slot, table entries per chunk,
+    head groups, and CTAs (chunks x head groups x slots)."""
+    s, e = mla_chunks(batch, heads, max_blocks, block_size)
+    groups = -(-heads // MLA_HEADS_PER_CTA)
+    return dict(chunks=s, entries=e, head_groups=groups,
+                ctas=s * groups * batch)
+
+
+def mla_scratch_shape(batch: int, heads: int, latent: int, max_blocks: int,
+                      block_size: int) -> tuple:
+    """The f32 scratch the MLA kernel writes a chunk's (O, m, l) to:
+    (slots, chunks, heads, latent + 2 rounded up to 4, so rows start on
+    16 bytes). A function of the shapes only."""
+    s, _ = mla_chunks(batch, heads, max_blocks, block_size)
+    return (batch, s, heads, -(-(latent + 2) // 4) * 4)
+
+
+def mla_chunk_walk(block_tables: np.ndarray, lengths: np.ndarray,
+                   block_size: int, heads: int) -> List[List[np.ndarray]]:
+    """Host-side mirror of the table entries the MLA kernel reads: for
+    slot b and chunk c of :func:`mla_chunks`, entries ``[c * E, min((c +
+    1) * E, n))`` with ``n`` the slot's live count, and nothing for a
+    chunk at or past it."""
+    tbl = np.asarray(block_tables)
+    B, max_blocks = tbl.shape
+    s, e = mla_chunks(B, heads, max_blocks, block_size)
+    walk = []
+    for b in range(B):
+        n = live_block_count(int(np.asarray(lengths)[b]), block_size,
+                             max_blocks)
+        walk.append([tbl[b, c * e: min((c + 1) * e, n)] if c * e < n
+                     else tbl[b, :0] for c in range(s)])
+    return walk
 
 
 def paged_mla_decode_attn_plain(
@@ -272,22 +339,24 @@ def paged_mla_decode_attn(
             f"{tuple(q_rope.shape)}, pools {tuple(ckv_pool.shape)}/"
             f"{tuple(kr_pool.shape)}, tables {tuple(block_tables.shape)}, "
             f"lengths {tuple(lengths.shape)}")
-    if r > MLA_MAX_LATENT or rope > MLA_MAX_ROPE:
+    if r > MLA_MAX_LATENT or rope > MLA_MAX_ROPE or B > 65535:
         raise ValueError(
             f"paged_mla_decode_attn: latent width {r} (max "
-            f"{MLA_MAX_LATENT}) or rope width {rope} (max {MLA_MAX_ROPE}) "
-            "too wide for the kernel's per-lane registers")
+            f"{MLA_MAX_LATENT}), rope width {rope} (max {MLA_MAX_ROPE}) "
+            f"or {B} slots (max 65535) past the kernel's limits")
+    chunks, entries = mla_chunks(B, h, max_blocks, bs)
     out = torch.empty_like(q_lat)
+    scratch = torch.empty(mla_scratch_shape(B, h, r, max_blocks, bs),
+                          dtype=torch.float32, device=q_lat.device)
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = _build.function("paged_mla_decode_attn", "paged_mla_decode_attn",
-                         [p, p, p, p, p, p, p, i, i, i, i, i, i,
-                          ctypes.c_float, i, p])
+                         [p] * 8 + [i] * 8 + [ctypes.c_float, i, p])
     stream = torch.cuda.current_stream(q_lat.device).cuda_stream
     err = fn(
         q_lat.data_ptr(), q_rope.data_ptr(), ckv_pool.data_ptr(),
         kr_pool.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), B, h, r, rope, bs, max_blocks, float(scale),
-        dtype_id, stream)
+        out.data_ptr(), scratch.data_ptr(), B, h, r, rope, bs, max_blocks,
+        entries, chunks, float(scale), dtype_id, stream)
     paged_mla_decode_attn.launches += 1
     if err != 0:
         raise RuntimeError(

@@ -290,6 +290,71 @@ def test_fused_mlp_kernel_matches_plain(cuda, act, M, bm, dtype, tol):
     assert torch.equal(y2, y) and torch.equal(bits2, bits)
 
 
+# (M, K, F, N, block_m, block_f): the relu decode tick and a 256-row
+# prefill bucket at per-row tiles, ragged M and F unpadded under per-row
+# and 64-row tiles, ragged K and N, and 256-row tiles (chunks of 64).
+MLP_CASES = [(8, 576, 1536, 576, 1, 128), (256, 576, 1536, 576, 1, 128),
+             (37, 576, 1000, 576, 1, 128), (37, 576, 1000, 576, 64, 128),
+             (100, 200, 1000, 70, 64, 128), (300, 192, 320, 96, 256, 128)]
+
+
+@pytest.mark.parametrize("M,K,F,N,bm,bf", MLP_CASES)
+@pytest.mark.parametrize("act", ["relu", "relu2"])
+@pytest.mark.parametrize("dtype,tol", [
+    (torch.float32, 1e-4),   # f32 (split-TF32) sums over K and F
+    (torch.bfloat16, 2e-2),  # bf16 roundings of a and y
+])
+def test_mlp_cluster_kernel_at_unpadded_shapes(cuda, M, K, F, N, bm, bf,
+                                               act, dtype, tol):
+    """The cluster kernel takes M and F unpadded, with NaN right past
+    every operand's end: bits equal the plain version's, y within
+    tolerance, a second call equal bit for bit; NaN in the w_out rows of
+    the stripes dead in every row tile never reaches y, and NaN in a
+    stripe live in one row tile and dead in another never reaches the
+    dead tile's rows. The launch spreads over more CTAs than stripes."""
+    rng = np.random.default_rng(41)
+    x = np.abs(rng.standard_normal((M, K))).astype(np.float32)
+    t = (M // 2) // bm
+    if M > bm:
+        x[t * bm:(t + 1) * bm] = 0.0  # a dead row tile
+    w_in = (rng.standard_normal((K, F)) * K ** -0.5).astype(np.float32)
+    w_in[:, bf:2 * bf] = -np.abs(w_in[:, bf:2 * bf])  # stripe 1 dead
+    w_out = (rng.standard_normal((F, N)) * F ** -0.5).astype(np.float32)
+    args = [_nan_tail(a, cuda, dtype) for a in (x, w_in, w_out)]
+    kw = dict(block_m=bm, block_f=bf, act=act)
+    grid = sm.kernel_grid(M, K, F, N, block_m=bm, block_f=bf, dtype=dtype)
+    assert grid["ctas"] > -(-M // max(bm, 64)) * -(-F // bf)
+    before = sm.sparce_mlp_fused.launches
+    y, bits = sm.sparce_mlp_fused(*args, **kw)
+    assert sm.sparce_mlp_fused.launches == before + 1
+    y0, bits0 = sm.sparce_mlp_fused_plain(*args, **kw)
+    assert torch.equal(bits, bits0)
+    assert bool(bits[:, 1].all()) and not bool(bits.all())
+    assert M <= bm or bool(bits[t].all())
+    assert bool(torch.isfinite(y).all())
+    torch.testing.assert_close(y.float(), y0.float(), rtol=tol, atol=tol)
+    y1, bits1 = sm.sparce_mlp_fused(*args, **kw)
+    assert torch.equal(bits1, bits)
+    assert torch.equal(_bits_view(y1), _bits_view(y))
+    dead = bits.bool().all(dim=0).nonzero().flatten().tolist()
+    wo2 = args[2].clone()
+    for f in dead:
+        wo2[f * bf:(f + 1) * bf] = float("nan")
+    y2, bits2 = sm.sparce_mlp_fused(args[0], args[1], wo2, **kw)
+    assert torch.equal(bits2, bits)
+    assert bool(torch.isfinite(y2).all()) and torch.equal(y2, y)
+    if M > bm:  # per-row poison: stripe 0 is live but dead in tile t
+        assert not bool(bits[:, 0].all()) and bool(bits[t, 0])
+        wo3 = args[2].clone()
+        wo3[:bf] = float("nan")
+        y3, _ = sm.sparce_mlp_fused(args[0], args[1], wo3, **kw)
+        rows = torch.arange(M, device=cuda) // bm
+        dead_rows = bits[rows, 0].bool()
+        assert bool(torch.isfinite(y3[dead_rows]).all())
+        assert torch.equal(y3[dead_rows], y[dead_rows])
+        assert bool(torch.isnan(y3[~dead_rows]).any())
+
+
 def test_wrappers_check_their_inputs(cuda):
     q, kp, vp, tables, lengths, _ = _attn_case(cuda, torch.float32)
     with pytest.raises(TypeError, match="int32"):
@@ -453,6 +518,50 @@ def test_mla_kernel_matches_plain(cuda, dtype, tol, r, rope):
     ckv2[dead] = float("nan")
     kr2[dead] = float("nan")
     poisoned = pda.paged_mla_decode_attn(ql, qr, ckv2, kr2, tables, lengths,
+                                         scale=scale)
+    assert bool(torch.isfinite(poisoned).all())
+    assert torch.equal(poisoned, got)
+
+
+@pytest.mark.parametrize("dtype,tol", [
+    (torch.float32, 1e-4),   # f32 (split-TF32) sums, chunks merged
+    (torch.bfloat16, 2e-2),  # p rounded vs a chunk's running max
+])
+@pytest.mark.parametrize("shape", [
+    dict(h=128, r=512, rope=64, BS=16, max_blocks=32),  # DeepSeek decode
+    dict(h=40, r=100, rope=20, BS=24, max_blocks=5),    # ragged widths
+])
+def test_mla_kernel_at_chunk_edges(cuda, dtype, tol, shape):
+    """Lengths on the kernel's chunk edges (E * bs, E * bs + 1, one row
+    short, two chunks), the table's reach and past it, 0 and 1, so some
+    slots' trailing chunks are all empty: the kernel equals its plain
+    version, a second call is equal bit for bit, a length-0 slot gives
+    zeros, and NaN in the null block and every block past the live
+    counts never reaches the output. At the DeepSeek shape the launch
+    has at least 132 CTAs."""
+    bs, max_blocks = shape["BS"], shape["max_blocks"]
+    grid = pda.mla_grid(8, shape["h"], max_blocks, bs)
+    edge, reach = grid["entries"] * bs, max_blocks * bs
+    if shape["h"] == 128:
+        assert grid["ctas"] >= 132 and grid["chunks"] > 1
+    lengths = (edge, edge + 1, edge - 1, 2 * edge, reach, reach + 1, 0, 1)
+    ql, qr, ckv, kr, tables, lens, live_ids = _mla_case(
+        cuda, dtype, lengths=lengths, **shape)
+    scale = 192 ** -0.5
+    got = pda.paged_mla_decode_attn(ql, qr, ckv, kr, tables, lens,
+                                    scale=scale)
+    want = pda.paged_mla_decode_attn_plain(ql, qr, ckv, kr, tables, lens,
+                                           scale=scale)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert bool((got[6] == 0).all())
+    again = pda.paged_mla_decode_attn(ql, qr, ckv, kr, tables, lens,
+                                      scale=scale)
+    assert torch.equal(_bits_view(again), _bits_view(got))
+    dead = [i for i in range(ckv.shape[0]) if i not in live_ids]
+    ckv2, kr2 = ckv.clone(), kr.clone()
+    ckv2[dead] = float("nan")
+    kr2[dead] = float("nan")
+    poisoned = pda.paged_mla_decode_attn(ql, qr, ckv2, kr2, tables, lens,
                                          scale=scale)
     assert bool(torch.isfinite(poisoned).all())
     assert torch.equal(poisoned, got)

@@ -731,7 +731,8 @@ def test_fused_mlp_odd_patterns():
 
 
 def test_fused_mlp_wrapper_ragged_dims_match_reference():
-    """The wrapper pads M and F; padding never leaks into y or bits."""
+    """The wrapper takes ragged M and F; nothing past them leaks into y or
+    bits."""
     M, K, F, N, bm, bf = 40, 64, 200, 64, 16, 128
     x, wi, wo = _mlp_case(44, M, K, F, N, 8, 0.3)
     y_ref, bmp_ref = ref_ops.sparce_mlp_fused(
@@ -767,3 +768,118 @@ def test_fused_mlp_nan_poisoned_dead_stripes_never_read(act):
     y3, _ = sm.sparce_mlp_fused(*_t(x, wi, wo3), block_m=bm, block_f=bf,
                                 act=act)
     assert torch.isnan(y3[0, 0]) and torch.isfinite(y3[6]).all()
+
+
+@pytest.mark.parametrize("act", ["relu", "relu2"])
+@pytest.mark.parametrize("M,F,bm,bf", [
+    (8, 320, 64, 128),   # decode rows under a 64-row tile; ragged F
+    (37, 200, 16, 128),  # ragged M and F
+    (37, 1000, 1, 128),  # per-row tiles, ragged F
+])
+def test_fused_mlp_plain_at_ragged_dims_matches_reference(act, M, F, bm,
+                                                          bf):
+    """The plain version takes M and F that are not block multiples: its
+    bits equal the padded reference wrapper's (interpret mode) and y is
+    within the f32 tolerance; the zero rows are dead in every stripe and
+    the negative stripe in every row tile."""
+    rng = np.random.default_rng(46)
+    x = np.abs(rng.standard_normal((M, 64))).astype(np.float32)
+    x[[1, 5]] = 0.0
+    wi = (rng.standard_normal((64, F)) * 0.1).astype(np.float32)
+    wi[:, bf:2 * bf] = -np.abs(wi[:, bf:2 * bf])  # stripe 1 dead
+    wo = (rng.standard_normal((F, 48)) * 0.1).astype(np.float32)
+    y_ref, bmp_ref = ref_ops.sparce_mlp_fused(
+        *map(jnp.asarray, (x, wi, wo)), block_m=bm, block_f=bf, act=act,
+        interpret=True)
+    y, bits = sm.sparce_mlp_fused(*_t(x, wi, wo), block_m=bm, block_f=bf,
+                                  act=act)
+    assert tuple(bits.shape) == sm.bit_grid(M, F, block_m=bm, block_f=bf)
+    np.testing.assert_array_equal(bits.numpy(), np.asarray(bmp_ref.bits))
+    assert bits.numpy()[:, 1].all() and not bits.numpy().all()
+    if bm == 1:
+        assert bits.numpy()[[1, 5]].all()
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), **GEMM_TOL)
+
+
+def test_mlp_ops_wrapper_hands_the_kernel_unpadded_operands(monkeypatch):
+    """ops.sparce_mlp_fused pads nothing: the kernel entry gets x and the
+    weights at their own shapes (8 decode rows under 64-row tiles, a
+    ragged F), and y and the bitmap come back as the entry made them."""
+    x, wi, wo = _t(*_mlp_case(47, 8, 64, 200, 48, 1, 0.0))
+    seen = []
+
+    def entry(*args, **kw):
+        seen.append([tuple(a.shape) for a in args])
+        return sm.sparce_mlp_fused_plain(*args, **kw)
+
+    monkeypatch.setattr(sm, "sparce_mlp_fused", entry)
+    y, bmp = kops.sparce_mlp_fused(x, wi, wo, block_m=64, block_f=128)
+    assert seen == [[(8, 64), (64, 200), (200, 48)]]
+    assert tuple(y.shape) == (8, 48) and tuple(bmp.bits.shape) == (1, 2)
+    assert bmp.shape == (8, 200) and bmp.block == (64, 128)
+    want, want_bits = sm.sparce_mlp_fused_plain(x, wi, wo, block_m=64,
+                                                block_f=128)
+    assert torch.equal(y, want) and torch.equal(bmp.bits, want_bits)
+
+
+def test_fused_mlp_ragged_plain_never_reads_dead_stripes_or_past_the_ends():
+    """The operands are views of larger buffers holding NaN past M (x's
+    rows), past F (w_in's columns, w_out's rows) and in the w_out rows of
+    the stripe dead in every row tile: y and the bits equal the clean
+    run's, so none of it was read."""
+    M, K, F, N, bm, bf = 10, 64, 200, 48, 4, 64
+    x, wi, wo = _mlp_case(48, M, K, F, N, 1, 0.0)
+    wi[:, bf:2 * bf] = -1.0  # stripe 1 dead in every row tile
+    y, bits = sm.sparce_mlp_fused(*_t(x, wi, wo), block_m=bm, block_f=bf)
+    assert bits.numpy()[:, 1].all() and not bits.numpy().all()
+
+    def poisoned(a, rows, cols):
+        buf = np.full((rows, cols), np.nan, np.float32)
+        buf[:a.shape[0], :a.shape[1]] = a
+        return torch.from_numpy(buf)
+
+    wo2 = wo.copy()
+    wo2[bf:2 * bf] = np.nan
+    xp = poisoned(x, M + 6, K)[:M]
+    wip = poisoned(wi, K, F + 56)[:, :F]
+    wop = poisoned(wo2, F + 56, N)[:F]
+    y2, bits2 = sm.sparce_mlp_fused(xp, wip, wop, block_m=bm, block_f=bf)
+    assert torch.isfinite(y2).all()
+    assert torch.equal(y2, y) and torch.equal(bits2, bits)
+
+
+@pytest.mark.parametrize("act", ["relu", "relu2"])
+def test_fused_mlp_per_row_poison_never_reaches_a_dead_row(act):
+    """At block_m 1, NaN in the w_out rows of a stripe live for some rows
+    and dead for another: the dead row's output stays finite and equal
+    to the clean run's, and a live row takes the poison."""
+    M, K, F, N, bm, bf = 8, 64, 128, 32, 1, 32
+    x, wi, wo = _mlp_case(49, M, K, F, N, bm, 0.0)
+    x[3] = 0.0  # row 3 dead in every stripe
+    y, bits = sm.sparce_mlp_fused(*_t(x, wi, wo), block_m=bm, block_f=bf,
+                                  act=act)
+    assert bits[3].all() and not bits[:, 3].all()
+    wo2 = wo.copy()
+    wo2[3 * bf:4 * bf] = np.nan
+    y2, bits2 = sm.sparce_mlp_fused(*_t(x, wi, wo2), block_m=bm,
+                                    block_f=bf, act=act)
+    assert torch.equal(bits2, bits)
+    assert torch.isfinite(y2[3]).all() and torch.equal(y2[3], y[3])
+    live = (bits[:, 3] == 0).nonzero().flatten()
+    assert torch.isnan(y2[live]).all()
+
+
+@pytest.mark.parametrize("m,fdim,n,bf", [(8, 1536, 576, 128),
+                                         (37, 1000, 70, 128)])
+def test_mlp_scratch_is_a_function_of_the_shapes(m, fdim, n, bf):
+    """The fused MLP's f32 scratch is one unpadded (M, N) partial per
+    stripe, whatever block_m is, and its bit grid ceil(M/block_m) x
+    ceil(F/block_f) is the plain version's."""
+    nf = -(-fdim // bf)
+    x, wi, wo = _t(*_mlp_case(50, m, 32, fdim, n, 1, 0.0))
+    for bm in (1, 16, 64, 256):
+        assert sm.partial_shape(m, fdim, n, block_f=bf) == (nf, m, n)
+        _, bits = sm.sparce_mlp_fused(x, wi, wo, block_m=bm, block_f=bf)
+        assert tuple(bits.shape) == sm.bit_grid(m, fdim, block_m=bm,
+                                                block_f=bf) == (-(-m // bm),
+                                                                nf)

@@ -196,6 +196,72 @@ def test_mla_wrapper_takes_plain_version_only_for_cpu_tensors():
         pda.paged_mla_decode_attn(*meta, scale=SCALE)
 
 
+@pytest.mark.parametrize("B,h,r,max_blocks,bs", [
+    (8, 128, 512, 32, 16),  # the DeepSeek decode shape
+    (5, 12, 16, 6, 4),      # the small ragged shape
+    (3, 40, 100, 5, 24),    # heads past a group, blocks past a piece
+    (1, 128, 512, 4096, 16),  # one slot, a long table
+    (2, 16, 64, 65536, 1),    # a table past a chunk's shared entries
+])
+def test_mla_scratch_is_a_function_of_the_shapes(B, h, r, max_blocks, bs):
+    """The MLA kernel's chunks and f32 scratch follow from the shapes
+    alone: S chunks of E entries cover the table, no chunk is empty at
+    a full table, a chunk holds 64 rows at least (or the whole table),
+    and the scratch is (slots, chunks, heads, latent + 2 rounded up to
+    4)."""
+    s, e = pda.mla_chunks(B, h, max_blocks, bs)
+    assert s * e >= max_blocks > (s - 1) * e
+    assert e <= pda.MLA_MAX_CHUNK_ENTRIES
+    assert e * bs >= min(pda.MLA_MIN_CHUNK_ROWS, max_blocks * bs)
+    assert pda.mla_scratch_shape(B, h, r, max_blocks, bs) == (
+        B, s, h, -(-(r + 2) // 4) * 4)
+    grid = pda.mla_grid(B, h, max_blocks, bs)
+    assert grid["ctas"] == s * -(-h // pda.MLA_HEADS_PER_CTA) * B
+    for lengths in ([0] * B, [max_blocks * bs] * B):
+        c = dict(tables=np.zeros((B, max_blocks), np.int32),
+                 lengths=np.asarray(lengths, np.int32))
+        assert pda.mla_chunks(B, h, max_blocks, bs) == (s, e)
+        assert len(pda.mla_chunk_walk(c["tables"], c["lengths"], bs,
+                                      h)[0]) == s
+
+
+def test_mla_grid_fills_the_card_at_the_engine_shape():
+    """At the DeepSeek decode shape (8 slots, 128 heads, 32 table entries
+    of 16 rows) the launch has at least 132 CTAs: 8 chunks of 4 entries
+    x 4 head groups x 8 slots."""
+    grid = pda.mla_grid(8, 128, 32, 16)
+    assert grid == dict(chunks=8, entries=4, head_groups=4, ctas=256)
+    assert grid["ctas"] >= 132
+
+
+@pytest.mark.parametrize("lengths", [
+    [64, 65, 512, 513, 0, 63, 128, 1],  # chunk edges, reach, past it
+    [1, 17, 300, 0, 0, 511, 16, 33],    # trailing chunks empty
+    [0] * 8,                            # nothing live
+])
+def test_mla_chunk_walk_reads_exactly_the_live_blocks(lengths):
+    """Host-side skip contract of the chunked kernel: over its chunks a
+    slot reads exactly ``live_block_ids`` in order, no chunk reads more
+    than E entries, and a chunk at or past the live count reads none."""
+    B, h, max_blocks, bs = 8, 128, 32, 16
+    rng = np.random.default_rng(7)
+    tables = rng.permutation(np.arange(1, B * max_blocks + 1)).reshape(
+        B, max_blocks).astype(np.int32)
+    s, e = pda.mla_chunks(B, h, max_blocks, bs)
+    walk = pda.mla_chunk_walk(tables, np.asarray(lengths), bs, h)
+    live = pda.live_block_ids(tables, np.minimum(lengths, max_blocks * bs),
+                              bs)
+    for b, n in enumerate(lengths):
+        chunks = walk[b]
+        assert len(chunks) == s
+        np.testing.assert_array_equal(np.concatenate(chunks), live[b])
+        nblk = pda.live_block_count(n, bs, max_blocks)
+        for ci, got in enumerate(chunks):
+            assert len(got) <= e
+            if ci * e >= nblk:
+                assert len(got) == 0
+
+
 # ------------------------------------------------------------ mla_forward
 def _mla_params(seed=0):
     ref_cfg = ref_get_config(ARCH).reduced()
