@@ -209,12 +209,13 @@ GEMM_KERNELS = ("gated_gemm_kernel", "compacted_gemm_kernel",
                 "gated_both_gemm_kernel", "chunk_reduce_kernel")
 # The kernels of a gated-GLU call: the cluster kernel and the reduction
 # over live stripes; of a fused relu MLP call, the same design's; of a
-# paged MLA call, the chunk kernel and the merge of a slot's chunks; and
-# the single kernel of each of the other calls.
+# paged MLA call, the chunk kernel and the merge of a slot's chunks; of a
+# paged GQA call, the chunk kernel (which merges a slot's chunks in its
+# last-arriving CTA); and the single kernel of each of the other calls.
 GLU_KERNELS = ("glu_cluster_kernel", "stripe_reduce_kernel")
 MLP_KERNELS = ("mlp_cluster_kernel", "stripe_reduce_kernel")
 MLA_KERNELS = ("mla_chunk_kernel", "mla_combine_kernel")
-GQA_KERNELS = ("paged_gqa_decode_kernel",)
+GQA_KERNELS = ("gqa_chunk_kernel",)
 RELU_KERNELS = ("relu_bitmap_kernel",)
 RELU_BWD_KERNELS = ("relu_bwd_bitmap_kernel",)
 
@@ -270,6 +271,8 @@ def log_kernel_resources(_build, name):
             what = f"{k.group(1)}<{dtype}"
             if k.group(3) and name == "paged_mla_decode_attn":
                 what += f", {8 * int(k.group(3))} latent columns a warp>"
+            elif k.group(3) and name == "paged_decode_attn":
+                what += f", head dim up to {16 * int(k.group(3))}>"
             elif k.group(3):
                 nt8 = int(k.group(3))
                 what += f", {8 * nt8} rows>"
@@ -364,6 +367,9 @@ def check_attention(torch, dev):
         if not (torch.isfinite(poisoned).all() and torch.equal(poisoned, got)):
             raise AssertionError("NaN-poisoned dead blocks reached the output")
         log(f"  {name}: NaN-poisoned dead blocks never read -> ok")
+        if not same_bits(torch, pda.paged_gqa_decode_attn(*args), got):
+            raise AssertionError(f"{name}: a second call differs")
+        log(f"  {name}: a second call equal bit for bit -> ok")
     return errs[torch.bfloat16]
 
 
@@ -625,23 +631,32 @@ def check_relu_bitmap(torch, dev):
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import relu_bitmap as rb
     for dtype in (torch.float32, torch.bfloat16):
-        for M, bm in RELU_CASES:
+        # The relu paths' shapes, then ragged ones the kernel takes
+        # unpadded: rows not 16-byte multiples, a ragged tile taller than
+        # a row.
+        cases = [((M, 1536), (bm, 128)) for M, bm in RELU_CASES] + [
+            ((7, 300), (1, 128)), ((130, 200), (64, 128))]
+        for (M, C), (bm, bc) in cases:
             rng = np.random.default_rng(M + bm)
-            h = rng.standard_normal((M, 1536), dtype=np.float32)
-            h[: bm, :128] = -1.0  # no element > 0
-            h[M // 2: M // 2 + bm] = 0.0
+            h = rng.standard_normal((M, C), dtype=np.float32)
+            h[: bm, :bc] = -1.0  # no element > 0
+            t = M // 2 // bm  # the row tile of row M // 2: all zero
+            h[t * bm: (t + 1) * bm] = 0.0
+            h[-1, -1] = np.nan  # NaN and -0.0 pass through
+            h[0, -1] = -0.0
             ht = torch.from_numpy(h).to(dev, dtype)
-            y, bits = rb.relu_bitmap(ht, block_r=bm, block_c=128)
-            y0, bits0 = rb.relu_bitmap_plain(ht, block_r=bm, block_c=128)
+            y, bits = rb.relu_bitmap(ht, block_r=bm, block_c=bc)
+            y0, bits0 = rb.relu_bitmap_plain(ht, block_r=bm, block_c=bc)
             torch.cuda.synchronize()
-            name = f"relu_bitmap {str(dtype)[6:]} M={M} block=({bm},128)"
-            if not (torch.equal(y, y0) and torch.equal(bits, bits0)):
+            name = (f"relu_bitmap {str(dtype)[6:]} {M}x{C} "
+                    f"block=({bm},{bc})")
+            if not (same_bits(torch, y, y0) and torch.equal(bits, bits0)):
                 raise AssertionError(f"{name}: y or bits differ")
             if not (bool(bits[0, 0]) and bool(bits[M // 2 // bm].all())):
                 raise AssertionError(f"{name}: dead tiles not flagged")
-            log(f"  {name}: y and bits equal the plain version's "
-                f"({int(bits.sum())} dead tiles) -> ok")
-        # The padded wrapper: 8 rows over 64-row tiles.
+            log(f"  {name}: y and bits equal the plain version's bit for "
+                f"bit ({int(bits.sum())} dead tiles) -> ok")
+        # The unpadded wrapper: 8 rows over 64-row tiles.
         ht = torch.from_numpy(np.random.default_rng(9).standard_normal(
             (8, 1536), dtype=np.float32)).to(dev, dtype)
         y, bmp = kops.relu_with_bitmap(ht, (64, 128))
@@ -1339,36 +1354,64 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------- timing
-def time_attention(torch, dev, err):
-    import torch.nn.functional as F
-    from repro_torch.kernels import paged_decode_attn as pda
-    from repro_torch.kernels import ref as kref
+def trace_lengths():
+    """The 8 slots' lengths ``time_attention`` times: drawn from the
+    engine trace's range of prompt plus new tokens."""
     rng = np.random.default_rng(5)
-    B, KV, g, D, bs = 8, 3, 3, 64, 16
-    max_blocks = ENGINE["max_len"] // bs
-    lengths = rng.integers(ENGINE["prompt_lo"],
-                           ENGINE["prompt_hi"] + ENGINE["max_new"], B)
-    c = attn_case(torch, dev, torch.bfloat16, seed=5, lengths=lengths.tolist(),
-                  max_blocks=max_blocks)
-    args = (c["q"], c["k"], c["v"], c["tables"], c["lengths"])
-    ms = cuda_time_ms(lambda: pda.paged_gqa_decode_attn(*args), 200)
-    plain_ms = cuda_time_ms(lambda: pda.paged_gqa_decode_attn_plain(*args),
-                            10, warmup=1)
-    # Yardstick: SDPA over the gathered full view (gather done outside).
+    return rng.integers(ENGINE["prompt_lo"],
+                        ENGINE["prompt_hi"] + ENGINE["max_new"],
+                        ENGINE["slots"]).tolist()
+
+
+def gqa_library(torch, c):
+    """The GQA yardstick on an ``attn_case``: SDPA over the gathered full
+    view (the gather done outside the call)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref as kref
+    B, KV, g, D = c["q"].shape
     kv = kref.gather_pool_view(c["k"], c["tables"]).transpose(1, 2)
     vv = kref.gather_pool_view(c["v"], c["tables"]).transpose(1, 2)
     kv, vv = kv.contiguous(), vv.contiguous()
     qh = c["q"].reshape(B, KV * g, 1, D)
-    L = kv.shape[2]
-    mask = (torch.arange(L, device=dev)[None, :]
+    mask = (torch.arange(kv.shape[2], device=kv.device)[None, :]
             < c["lengths"][:, None])[:, None, None, :]
-    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+    return lambda: F.scaled_dot_product_attention(
         qh, kv, vv, attn_mask=mask, enable_gqa=True)
+
+
+def time_attention(torch, dev, err):
+    """The GQA kernel at the GLU engine's decode shape (8 slots of the
+    trace's lengths, 3 KV heads of 3 query rows, head dim 64, 16-row
+    blocks, 32 entries, bf16): events, device time by both witnesses
+    beside SDPA's over the gathered view, the launch; then every slot at
+    512 rows (the full table), logged the same way."""
+    from repro_torch.kernels import paged_decode_attn as pda
+    B, KV, g, D, bs = ENGINE["slots"], 3, 3, 64, ENGINE["block_size"]
+    max_blocks = ENGINE["max_len"] // bs
+    lengths = np.asarray(trace_lengths())
+
+    def case(lens):
+        c = attn_case(torch, dev, torch.bfloat16, seed=5,
+                      lengths=lens.tolist(), max_blocks=max_blocks)
+        args = (c["q"], c["k"], c["v"], c["tables"], c["lengths"])
+        library = gqa_library(torch, c)
+        walk = pda.gqa_chunk_walk(c["tables"].cpu().numpy(), lens, bs, KV)
+        grid = pda.gqa_grid(B, KV, max_blocks, bs)
+        log(f"  paged_gqa_decode_attn launch: {grid['ctas']} CTAs of "
+            f"{grid['warps']} warps ({grid['chunks']} chunks of "
+            f"{grid['entries']} entries x {grid['head_groups']} head groups "
+            f"x {B} slots), {sum(len(e) > 0 for w in walk for e in w)} of "
+            "them with a live chunk")
+        return args, library
+
+    args, library = case(lengths)
+    run = lambda: pda.paged_gqa_decode_attn(*args)  # noqa: E731
+    ms = cuda_time_ms(run, 200)
+    plain_ms = cuda_time_ms(lambda: pda.paged_gqa_decode_attn_plain(*args),
+                            10, warmup=1)
     lib_ms = cuda_time_ms(library, 200)
-    log_device_witnesses(
-        "paged_gqa_decode_attn decode", ms,
-        lambda: pda.paged_gqa_decode_attn(*args), lib_ms, library,
-        GQA_KERNELS)
+    log_device_witnesses("paged_gqa_decode_attn decode", ms, run, lib_ms,
+                         library, GQA_KERNELS)
     live_blocks = int(sum(-(-int(n) // bs) for n in lengths))
     item = 2
     nbytes = (2 * B * KV * g * D * item  # q in, out
@@ -1379,6 +1422,12 @@ def time_attention(torch, dev, err):
     log(f"  paged_gqa_decode_attn bf16 B={B} lengths={lengths.tolist()}: "
         f"{ms:.4f} ms; plain {plain_ms:.4f} ms; SDPA(gathered view) "
         f"{lib_ms:.4f} ms; bound {bound_ms:.5f} ms ({by})")
+    full_args, full_library = case(np.full(B, max_blocks * bs))
+    full = lambda: pda.paged_gqa_decode_attn(*full_args)  # noqa: E731
+    log_device_witnesses("paged_gqa_decode_attn full table (512 rows a "
+                         "slot)", cuda_time_ms(full, 200), full,
+                         cuda_time_ms(full_library, 200), full_library,
+                         GQA_KERNELS)
     return dict(name="paged_gqa_decode_attn", route="cuda",
                 source="src/repro_torch/csrc/paged_decode_attn.cu",
                 replaces="src/repro/kernels/paged_decode_attn.py:139",
@@ -1606,24 +1655,58 @@ def time_mlp(torch, dev, err):
     return row
 
 
+def relu_library(torch, x, bc):
+    """relu_bitmap's yardstick: ``torch.relu`` and a tile-any over
+    one-row tiles of bc columns (C a multiple of bc)."""
+    R, C = x.shape
+
+    def library():
+        y = torch.relu(x)
+        return y, ~(y > 0).view(R, 1, C // bc, bc).any(3).any(1)
+
+    return library
+
+
 def time_relu_bitmap(torch, dev, err):
+    """relu_bitmap at the relu decode tick's h (8 x 1536, tile (1, 128),
+    bf16): events, device time by both witnesses beside the library
+    call's; then a 256-row prefill bucket the same way, and one (1, 128)
+    tile by both witnesses (the kernel's launch floor), each logged with
+    its launch."""
     from repro_torch.kernels import relu_bitmap as rb
     _, _, _, h, _ = relu_decode_operands(torch, dev)
     bc = SPARCE_BLOCKS["block_k"]
     M, F_ = h.shape
-    ms = cuda_time_ms(lambda: rb.relu_bitmap(h, block_r=1, block_c=bc), 200)
+
+    def calls(x):
+        R, C = x.shape
+        grid = rb.relu_bitmap_grid(R, C, 1, bc, x.dtype)
+        log(f"  relu_bitmap launch at {R} x {C}: {grid['ctas']} CTAs of up "
+            f"to {grid['tiles_per_cta']} tiles ({rb.RELU_THREADS} threads)")
+        return (lambda: rb.relu_bitmap(x, block_r=1, block_c=bc),
+                relu_library(torch, x, bc))
+
+    run, library = calls(h)
+    ms = cuda_time_ms(run, 200)
     plain_ms = cuda_time_ms(
         lambda: rb.relu_bitmap_plain(h, block_r=1, block_c=bc), 200)
-
-    def library():
-        y = torch.relu(h)
-        return y, ~(y > 0).view(M, 1, F_ // bc, bc).any(3).any(1)
-
     lib_ms = cuda_time_ms(library, 200)
-    log_device_witnesses(
-        "relu_bitmap decode", ms,
-        lambda: rb.relu_bitmap(h, block_r=1, block_c=bc), lib_ms, library,
-        RELU_KERNELS)
+    log_device_witnesses("relu_bitmap decode", ms, run, lib_ms, library,
+                         RELU_KERNELS)
+    hp = torch.from_numpy(np.random.default_rng(14).standard_normal(
+        (256, F_), dtype=np.float32)).to(dev, h.dtype)
+    run_p, lib_p = calls(hp)
+    y, bits = run_p()
+    y0, bits0 = rb.relu_bitmap_plain(hp, block_r=1, block_c=bc)
+    if not (same_bits(torch, y, y0) and torch.equal(bits, bits0)):
+        raise AssertionError("relu_bitmap prefill: y or bits differ")
+    log_device_witnesses("relu_bitmap prefill 256 rows",
+                         cuda_time_ms(run_p, 200), run_p,
+                         cuda_time_ms(lib_p, 200), lib_p, RELU_KERNELS)
+    run_1, _ = calls(h[:1, :bc].contiguous())
+    tile_ms, _ = device_time_ms(run_1, names=RELU_KERNELS)
+    log(f"  relu_bitmap one (1,{bc}) tile (the launch floor): device "
+        f"{tile_ms:.4f} ms, graph {graph_time_ms(run_1):.4f} ms")
     nbytes = 2 * 2 * h.numel() + 4 * M * (F_ // bc)
     return kernel_row(
         "relu_bitmap", "relu_bitmap.cu", "src/repro/kernels/relu_bitmap.py:41",
@@ -2013,13 +2096,7 @@ def main(argv=None) -> int:
         log(f"phase 1: built {len(_build.SOURCES)} kernels in "
             f"{time.perf_counter() - t0:.1f}s (sm_90a)")
         for name in _build.SOURCES:
-            if name in ("sparce_gemm", "sparce_glu_mlp", "sparce_mlp",
-                        "paged_mla_decode_attn"):
-                log_kernel_resources(_build, name)
-                continue
-            for line in _build.build_log(name).splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"  {name}: {line.strip()}")
+            log_kernel_resources(_build, name)
         errs = {}
         if 2 in phases:
             log("phase 2: kernels vs plain versions on the card")

@@ -7,7 +7,8 @@ live; padding tiles of a bitmap are all-zero, so their bits are 1;
 decode lengths are clamped to the table's reach, ``max_blocks *
 block_size``. The GEMM and both MLP kernels mask ragged edges
 themselves, so :func:`sparce_gemm` pads only the bit grids, and
-:func:`sparce_glu_mlp_fused` and :func:`sparce_mlp_fused` nothing.
+:func:`sparce_glu_mlp_fused`, :func:`sparce_mlp_fused` and
+:func:`relu_with_bitmap` nothing.
 :func:`sparce_gemm` dispatches a plan to its kernel the way the reference does: ``dense`` to a plain
 product, lhs to the gated or the compacted kernel, rhs-compacted through
 the transpose trick onto the compacted kernel, and ``gate="both"`` to the
@@ -128,13 +129,12 @@ def sparce_mlp_fused(
 
 def relu_with_bitmap(x: torch.Tensor, block) -> tuple[torch.Tensor,
                                                       TileBitmap]:
-    """Fused relu + SpRF bitmap over a 2-D activation."""
-    r, c = x.shape
+    """Fused relu + SpRF bitmap over a 2-D activation. Nothing is padded:
+    the kernel takes any shape (elements past the edge count as 0, so
+    edge tiles get the padded reference's bits)."""
     br, bc = block
-    y, bits = _rb.relu_bitmap(
-        _pad2(x, _ceil_to(r, br), _ceil_to(c, bc)).contiguous(),
-        block_r=br, block_c=bc)
-    return y[:r, :c], TileBitmap(bits=bits, block=(br, bc), shape=(r, c))
+    y, bits = _rb.relu_bitmap(x.contiguous(), block_r=br, block_c=bc)
+    return y, TileBitmap(bits=bits, block=(br, bc), shape=tuple(x.shape))
 
 
 def relu_bwd_with_bitmap(x: torch.Tensor, g: torch.Tensor, block

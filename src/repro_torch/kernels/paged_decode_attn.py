@@ -1,17 +1,19 @@
 """Paged decode attention straight out of the shared KV pool.
 
 Ports of the TPU kernels ``repro/kernels/paged_decode_attn.py:
-paged_gqa_decode_attn`` and ``paged_mla_decode_attn``. The GQA kernel
-(``csrc/paged_decode_attn.cu``) runs one thread block per (slot, KV
-head) over the slot's ``ceil(len / block_size)`` live blocks. The MLA
-kernel (``csrc/paged_mla_decode_attn.cu``) runs one per (chunk of the
-table, group of 32 heads, slot) on the tensor cores; the chunks
-(:func:`mla_chunks`) are fixed by the shapes, a chunk at or past the
-slot's live count reads nothing (:func:`mla_chunk_walk` mirrors it on
-the host), and a second launch merges a slot's live chunks from f32
-scratch of :func:`mla_scratch_shape`. Both loops' bounds replace the
-TPU kernel's index-map clamp, so a table entry past the live prefix,
-and the block it names, is never read (the paper's skip-before-fetch).
+paged_gqa_decode_attn`` and ``paged_mla_decode_attn``. Both CUDA kernels
+run on the tensor cores over chunks of each slot's block table, the
+chunks fixed by the shapes: the GQA kernel (``csrc/paged_decode_attn.cu``)
+one thread block per (group of up to 4 KV heads, slot, chunk)
+(:func:`gqa_chunks`, :func:`gqa_grid`), the MLA kernel
+(``csrc/paged_mla_decode_attn.cu``) one per (chunk, group of 32 heads,
+slot) (:func:`mla_chunks`). A chunk at or past the slot's live count
+reads nothing (:func:`gqa_chunk_walk` and :func:`mla_chunk_walk` mirror
+the reads on the host); a slot's live chunks are merged in ascending
+order from f32 scratch -- by the last GQA block of the slot to arrive,
+by a second launch for MLA. The loops' bounds replace the TPU kernel's
+index-map clamp, so a table entry past the live prefix, and the block it
+names, is never read (the paper's skip-before-fetch).
 
 :func:`paged_gqa_decode_attn` and :func:`paged_mla_decode_attn` are the
 entry points: a CUDA tensor launches the kernel (and counts the launch
@@ -124,6 +126,106 @@ def paged_gqa_decode_attn_plain(
 
 
 # ------------------------------------------------------------- CUDA kernel
+# Shapes the GQA kernel takes: query rows of a KV head (the MMA's N) and
+# the head dim (its O accumulators in registers).
+GQA_MAX_GROUP = 8
+GQA_MAX_HEAD_DIM = 128
+# KV heads a thread block covers (one warp each); the CTAs its grid aims
+# at when every chunk is live (one per H100 SM: 2 blocks a chunk at
+# smollm's decode shape, of 1, 2 and 4 the fastest by tools/gqa_probe.py
+# over the trace's lengths and the full table together; a 16-row step of
+# a chunk costs more than merging one more chunk); a chunk's table
+# entries sit in the kernel's shared memory.
+GQA_HEADS_PER_CTA = 4
+GQA_CTA_AIM = 132
+GQA_MAX_CHUNK_ENTRIES = 256
+
+
+def gqa_head_groups(kv_heads: int) -> tuple[int, int]:
+    """(groups, heads per group): the KV heads split as evenly as
+    possible into groups of at most :data:`GQA_HEADS_PER_CTA`."""
+    groups = -(-kv_heads // GQA_HEADS_PER_CTA)
+    return groups, -(-kv_heads // groups)
+
+
+def gqa_chunks(batch: int, kv_heads: int, max_blocks: int,
+               block_size: int) -> tuple[int, int]:
+    """(S, E): the GQA kernel cuts each slot's table into S chunks of E
+    entries, S * E >= max_blocks. A function of the shapes only -- never
+    of the lengths -- so the launch needs no host read and can be
+    captured in a CUDA graph."""
+    del block_size  # a chunk's rows stream through a ring: any bs
+    if max_blocks <= 0:
+        return 1, 1
+    groups, _ = gqa_head_groups(kv_heads)
+    s = max(1, -(-GQA_CTA_AIM // (batch * groups)))
+    e = min(max(1, -(-max_blocks // s)), GQA_MAX_CHUNK_ENTRIES)
+    return -(-max_blocks // e), e
+
+
+def gqa_grid(batch: int, kv_heads: int, max_blocks: int,
+             block_size: int) -> dict:
+    """The GQA kernel's launch: chunks per slot, table entries per chunk,
+    head groups, warps (KV heads) per CTA, and CTAs (head groups x slots
+    x chunks)."""
+    s, e = gqa_chunks(batch, kv_heads, max_blocks, block_size)
+    groups, hpc = gqa_head_groups(kv_heads)
+    return dict(chunks=s, entries=e, head_groups=groups, warps=hpc,
+                ctas=groups * batch * s)
+
+
+def gqa_scratch_shape(batch: int, kv_heads: int, group: int, head_dim: int,
+                      max_blocks: int, block_size: int) -> tuple:
+    """The f32 scratch the GQA kernel writes a chunk's (O, m, l) to:
+    (slots, chunks, KV heads, query rows, head_dim rounded up to 8 plus
+    8: O, then m and l, in rows of whole 32-byte groups). A function of
+    the shapes only."""
+    s, _ = gqa_chunks(batch, kv_heads, max_blocks, block_size)
+    return (batch, s, kv_heads, group, -(-head_dim // 8) * 8 + 8)
+
+
+def gqa_chunk_walk(block_tables: np.ndarray, lengths: np.ndarray,
+                   block_size: int,
+                   kv_heads: int) -> List[List[np.ndarray]]:
+    """Host-side mirror of the table entries the GQA kernel reads: for
+    slot b and chunk c of :func:`gqa_chunks`, entries ``[c * E, min((c +
+    1) * E, n))`` with ``n`` the slot's live count, and nothing for a
+    chunk at or past it."""
+    tbl = np.asarray(block_tables)
+    B, max_blocks = tbl.shape
+    s, e = gqa_chunks(B, kv_heads, max_blocks, block_size)
+    walk = []
+    for b in range(B):
+        n = live_block_count(int(np.asarray(lengths)[b]), block_size,
+                             max_blocks)
+        walk.append([tbl[b, c * e: min((c + 1) * e, n)] if c * e < n
+                     else tbl[b, :0] for c in range(s)])
+    return walk
+
+
+# The arrival counters of the last-arriving merge, one int32 per (slot,
+# head group), per device, stream and shape: zeroed once, and every call
+# that runs to its end leaves them at zero. Calls on one stream run in
+# order, so they never share a counter at once.
+_GQA_COUNTS: dict = {}
+
+
+def _gqa_counts(device: torch.device, stream: int, batch: int,
+                groups: int) -> torch.Tensor:
+    shape = (batch, groups)
+    if torch.cuda.is_current_stream_capturing():
+        # A captured graph owns its counters, zeroed by a memset captured
+        # before the launch: a replay on any stream shares them with no
+        # eager call and no other graph.
+        return torch.zeros(shape, dtype=torch.int32, device=device)
+    key = (device, stream, shape)
+    counts = _GQA_COUNTS.get(key)
+    if counts is None:
+        counts = torch.zeros(shape, dtype=torch.int32, device=device)
+        _GQA_COUNTS[key] = counts
+    return counts
+
+
 def paged_gqa_decode_attn(
     q: torch.Tensor,  # (B, KV, g, D) grouped query heads
     k_pool: torch.Tensor,  # (nb, bs, KV, D)
@@ -135,7 +237,13 @@ def paged_gqa_decode_attn(
 ) -> torch.Tensor:
     """(B, KV, g, D) attention over each slot's live pool blocks; zeros
     for a slot with ``lengths[b] == 0``. CUDA tensors launch the kernel,
-    CPU tensors run the plain version; anything else raises."""
+    CPU tensors run the plain version; anything else raises.
+
+    The kernel's last-arriving merge counts arrivals in int32 counters
+    that each call leaves at zero: one set per device, stream and shape
+    for eager calls, and one per captured call, zeroed in the graph. Two
+    calls must not use one set at once, so calls on one stream run in
+    order, and a graph is not replayed while a replay of it runs."""
     if q.device.type == "cpu":
         return paged_gqa_decode_attn_plain(
             q, k_pool, v_pool, block_tables, lengths, scale=scale)
@@ -167,18 +275,26 @@ def paged_gqa_decode_attn(
                     ("block_tables", block_tables), ("lengths", lengths)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if g > GQA_MAX_GROUP or D > GQA_MAX_HEAD_DIM or B > 65535:
+        raise ValueError(
+            f"paged_gqa_decode_attn: {g} query heads per KV head (max "
+            f"{GQA_MAX_GROUP}), head dim {D} (max {GQA_MAX_HEAD_DIM}) or "
+            f"{B} slots (max 65535) past the kernel's limits")
     scale = scale if scale is not None else D ** -0.5
+    chunks, entries = gqa_chunks(B, KV, max_blocks, bs)
     out = torch.empty_like(q)
+    scratch = torch.empty(gqa_scratch_shape(B, KV, g, D, max_blocks, bs),
+                          dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    counts = _gqa_counts(q.device, stream, B, gqa_head_groups(KV)[0])
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = _build.function("paged_decode_attn", "paged_gqa_decode_attn",
-                         [p, p, p, p, p, p, i, i, i, i, i, i,
-                          ctypes.c_float, i, p])
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+                         [p] * 8 + [i] * 8 + [ctypes.c_float, i, p])
     err = fn(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, KV, g, D, bs, max_blocks, float(scale),
-        _build.DTYPE_IDS[q.dtype], stream)
+        scratch.data_ptr(), counts.data_ptr(), B, KV, g, D, bs, max_blocks,
+        entries, chunks, float(scale), _build.DTYPE_IDS[q.dtype], stream)
     paged_gqa_decode_attn.launches += 1
     if err != 0:
         raise RuntimeError(

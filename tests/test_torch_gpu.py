@@ -54,7 +54,8 @@ def _attn_case(dev, dtype, seed=0, lengths=(0, 1, 4, 5, 17, 24), BS=4,
         nxt += live
     spare = ids[nxt:]
     for b, n in enumerate(lengths):  # dead entries name spare blocks
-        tables[b, -(-n // BS):] = spare[b % len(spare)]
+        if -(-n // BS) < max_blocks:
+            tables[b, -(-n // BS):] = spare[b % len(spare)]
     t = lambda *s: torch.from_numpy(  # noqa: E731
         rng.standard_normal(s).astype(np.float32)).to(dev, dtype)
     return (t(B, KV, g, D), t(nb, BS, KV, D), t(nb, BS, KV, D),
@@ -82,6 +83,133 @@ def test_paged_attn_kernel_matches_plain(cuda, dtype, tol):
     poisoned = pda.paged_gqa_decode_attn(q, kp2, vp2, tables, lengths)
     assert bool(torch.isfinite(poisoned).all())
     assert torch.equal(poisoned, got)
+
+
+def _replayed(fn):
+    """fn's result from a CUDA graph of one call, captured after a warm-up
+    call on a side stream and replayed once."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+# time_attention's lengths (chip_smoke.py: 8 slots from the seeded trace).
+_TRACE_LENGTHS = tuple(int(n) for n in np.random.default_rng(5).integers(
+    16, 256 + 32, 8))
+GQA_CASES = [
+    # (lengths, BS, max_blocks, KV, g, D)
+    pytest.param(_TRACE_LENGTHS, 16, 32, 3, 3, 64, id="time_attention"),
+    pytest.param((512,) * 8, 16, 32, 3, 3, 64, id="full_table"),
+    pytest.param((601, 0, 1, 3, 300, 598, 599, 2), 1, 601, 3, 3, 64,
+                 id="width_not_a_multiple_of_E"),
+    pytest.param((16, 1, 5, 0, 16, 9, 3, 2), 16, 32, 3, 3, 64,
+                 id="single_live_chunk"),
+    pytest.param((0, 1, 23, 24, 25, 120, 240, 239), 24, 10, 5, 8, 40,
+                 id="rows_across_blocks"),
+    pytest.param((0, 70, 33, 128), 16, 8, 8, 8, 128, id="wide_heads"),
+    pytest.param((0, 70, 33, 128), 16, 8, 2, 5, 20, id="unaligned_rows"),
+]
+
+
+@pytest.mark.parametrize("lengths,BS,max_blocks,KV,g,D", GQA_CASES)
+@pytest.mark.parametrize("dtype,tol", [
+    (torch.float32, 1e-5),   # f32 (split-TF32) sums, chunks merged
+    (torch.bfloat16, 2e-2),  # p rounded vs a chunk's running max
+])
+def test_gqa_kernel_on_chunked_shapes(cuda, lengths, BS, max_blocks, KV, g,
+                                      D, dtype, tol):
+    """The chunked GQA kernel at the engine's shape, a full table, a
+    table width that is not a multiple of E, a single live chunk, rows
+    crossing blocks (bs 24), two head groups at D 128 and rows that are
+    not 16-byte multiples: it equals its plain version, NaN in every dead
+    block leaves the output equal and finite, a second call is equal bit
+    for bit, and a replayed CUDA graph of the call equals the eager
+    call. The launch covers more than the old one-CTA-per-(slot, KV
+    head) grid wherever a slot has more than one chunk."""
+    grid = pda.gqa_grid(len(lengths), KV, max_blocks, BS)
+    if max_blocks == 601:
+        assert max_blocks % grid["entries"] != 0
+    if lengths == _TRACE_LENGTHS:
+        assert grid["ctas"] > len(lengths) * KV
+    q, kp, vp, tables, lens, live_ids = _attn_case(
+        cuda, dtype, lengths=lengths, BS=BS, max_blocks=max_blocks, KV=KV,
+        g=g, D=D)
+    run = lambda: pda.paged_gqa_decode_attn(  # noqa: E731
+        q, kp, vp, tables, lens)
+    got = run()
+    want = pda.paged_gqa_decode_attn_plain(q, kp, vp, tables, lens)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    for b, n in enumerate(lengths):
+        if n == 0:
+            assert bool((got[b] == 0).all())
+    assert torch.equal(_bits_view(run()), _bits_view(got))
+    assert torch.equal(_bits_view(_replayed(run)), _bits_view(got))
+    dead = [i for i in range(kp.shape[0]) if i not in live_ids]
+    kp2, vp2 = kp.clone(), vp.clone()
+    kp2[dead] = float("nan")
+    vp2[dead] = float("nan")
+    poisoned = pda.paged_gqa_decode_attn(q, kp2, vp2, tables, lens)
+    assert bool(torch.isfinite(poisoned).all())
+    assert torch.equal(_bits_view(poisoned), _bits_view(got))
+
+
+def test_gqa_kernel_checks_its_limits(cuda):
+    q, kp, vp, tables, lengths, _ = _attn_case(cuda, torch.bfloat16, g=9)
+    with pytest.raises(ValueError, match="past the kernel's limits"):
+        pda.paged_gqa_decode_attn(q, kp, vp, tables, lengths)
+
+
+def test_gqa_arrival_counters_per_stream_and_graph(cuda):
+    """The last-arriving merge's arrival counters: eager calls on two
+    streams use two sets, a captured call one of its own, so replays of
+    the graph on a side stream, unsynchronised with eager calls on the
+    main stream, stay equal to the eager call; every call leaves its
+    counters at zero."""
+    q, kp, vp, tables, lens, _ = _attn_case(
+        cuda, torch.bfloat16, lengths=_TRACE_LENGTHS, BS=16, max_blocks=32)
+    run = lambda: pda.paged_gqa_decode_attn(  # noqa: E731
+        q, kp, vp, tables, lens)
+    assert pda.gqa_grid(8, 3, 32, 16)["chunks"] > 1
+    want = run()
+    main = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        got_side = run()
+    torch.cuda.synchronize()
+    assert torch.equal(got_side, want)
+    sets = {k[1]: v for k, v in pda._GQA_COUNTS.items()
+            if k[0] == q.device and k[2] == (8, 1)}
+    assert {main.cuda_stream, side.cuda_stream} <= set(sets)
+    assert sets[main.cuda_stream].data_ptr() \
+        != sets[side.cuda_stream].data_ptr()
+    cached = len(pda._GQA_COUNTS)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    assert len(pda._GQA_COUNTS) == cached
+    replay_stream = torch.cuda.Stream()
+    eager = []
+    for _ in range(8):
+        replay_stream.wait_stream(main)
+        with torch.cuda.stream(replay_stream):
+            graph.replay()
+        eager.append(run())
+        main.wait_stream(replay_stream)
+    torch.cuda.synchronize()
+    assert torch.equal(captured, want)
+    for out in eager:
+        assert torch.equal(out, want)
+    for counts in pda._GQA_COUNTS.values():
+        assert int(counts.abs().sum()) == 0
 
 
 @pytest.mark.parametrize("dtype,tol", [
@@ -219,6 +347,50 @@ def test_relu_bitmap_kernel_matches_plain(cuda, shape, block, dtype):
     y0, bits0 = rb.relu_bitmap_plain(xt, block_r=block[0], block_c=block[1])
     assert torch.equal(y, y0) and torch.equal(bits, bits0)
     assert bool(bits[0, 0]) and bool(bits[-1].all()) and not bool(bits.all())
+
+
+RELU_BITMAP_CASES = [
+    ((8, 1536), (1, 128)),    # decode
+    ((256, 1536), (1, 128)),  # prefill
+    ((256, 1536), (64, 128)),
+    ((7, 300), (1, 128)),     # ragged, rows not 16-byte multiples
+    ((130, 200), (64, 128)),  # ragged, tiles taller than a row
+    ((1, 128), (1, 128)),     # a single tile
+    ((3, 1000), (2, 700)),    # a segment wider than a warp's vectors
+]
+
+
+@pytest.mark.parametrize("shape,block", RELU_BITMAP_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+def test_relu_bitmap_kernel_changes_no_bit(cuda, shape, block, dtype,
+                                           offset):
+    """The unpadded relu_bitmap kernel at the decode, prefill, ragged and
+    single-tile shapes, with NaN, -0.0 and whole tiles <= 0 in x, from an
+    aligned base and from one element past it (no 16-byte vectors): y
+    equals the plain version's bit for bit (NaN and -0.0 pass through),
+    and so do the bits over ceil(R/br) x ceil(C/bc) tiles."""
+    rng = np.random.default_rng(5)
+    R, C = shape
+    br, bc = block
+    x = rng.standard_normal(shape).astype(np.float32)
+    x[:br, :bc] = -1.0  # a tile with no element > 0
+    x[-1, -1] = np.nan
+    x[0, -1] = -0.0
+    x[R // 2, : min(C, 3)] = np.nan
+    buf = torch.empty(R * C + offset, dtype=dtype, device=cuda)
+    xt = buf[offset:].view(R, C)
+    xt.copy_(torch.from_numpy(x))
+    before = rb.relu_bitmap.launches
+    y, bits = rb.relu_bitmap(xt, block_r=br, block_c=bc)
+    assert rb.relu_bitmap.launches == before + 1
+    y0, bits0 = rb.relu_bitmap_plain(xt, block_r=br, block_c=bc)
+    assert tuple(bits.shape) == (-(-R // br), -(-C // bc))
+    assert torch.equal(_bits_view(y), _bits_view(y0))
+    assert torch.equal(bits, bits0)
+    assert bool(bits[0, 0])
+    yb, _ = rb.relu_bitmap(xt.cpu(), block_r=br, block_c=bc)
+    assert torch.equal(_bits_view(y.cpu()), _bits_view(yb))
 
 
 @pytest.mark.parametrize("gate", ["lhs", "rhs"])

@@ -195,6 +195,78 @@ def test_live_block_ids_are_the_exact_loads():
         assert nan_slots.tolist() == [i == b for i in range(3)]
 
 
+@pytest.mark.parametrize("B,KV,max_blocks,bs", [
+    (8, 3, 32, 16),     # smollm's decode shape
+    (8, 3, 33, 16),     # a table width past the grid aim
+    (1, 8, 4096, 16),   # one slot, a long table, two head groups
+    (8, 5, 32, 16),     # five KV heads in two groups of three
+    (2, 1, 65536, 1),   # a table past a chunk's shared entries
+    (3, 3, 0, 16),      # no table
+])
+def test_gqa_chunks_are_a_function_of_the_shapes(B, KV, max_blocks, bs):
+    """The GQA kernel's chunks and f32 scratch follow from the shapes
+    alone: S chunks of E entries cover the table with no empty chunk at
+    a full table, E stays within the kernel's shared entries, the head
+    groups hold at most 4 KV heads as evenly as possible, and the walk
+    has S chunks a slot whatever the lengths."""
+    s, e = pda.gqa_chunks(B, KV, max_blocks, bs)
+    assert s * e >= max(max_blocks, 1) and (s - 1) * e < max(max_blocks, 1)
+    assert 1 <= e <= pda.GQA_MAX_CHUNK_ENTRIES
+    groups, hpc = pda.gqa_head_groups(KV)
+    assert hpc <= pda.GQA_HEADS_PER_CTA and groups * hpc >= KV
+    assert (groups - 1) * hpc < KV
+    grid = pda.gqa_grid(B, KV, max_blocks, bs)
+    assert grid == dict(chunks=s, entries=e, head_groups=groups, warps=hpc,
+                        ctas=groups * B * s)
+    assert pda.gqa_scratch_shape(B, KV, 3, 64, max_blocks, bs) == (
+        B, s, KV, 3, 72)
+    for lengths in ([0] * B, [max_blocks * bs] * B, [1] * B):
+        walk = pda.gqa_chunk_walk(np.zeros((B, max_blocks), np.int32),
+                                  np.asarray(lengths), bs, KV)
+        assert [len(w) for w in walk] == [s] * B
+    assert pda.gqa_chunks(B, KV, max_blocks, bs) == (s, e)
+
+
+def test_gqa_grid_at_the_engine_shape():
+    """At smollm's decode shape (8 slots, 3 KV heads, 32 entries of 16
+    rows) the launch has 128 CTAs of 3 warps, 16 chunks of 2 entries a
+    slot -- about one CTA per SM, where the first design ran 24 (one per
+    slot and KV head)."""
+    grid = pda.gqa_grid(8, 3, 32, 16)
+    assert grid == dict(chunks=16, entries=2, head_groups=1, warps=3,
+                        ctas=128)
+    assert grid["ctas"] > 8 * 3
+
+
+@pytest.mark.parametrize("lengths", [
+    [0, 1, 16, 17, 512, 600, 15, 33],  # 0, 1, a block edge, past the table
+    [1, 17, 300, 0, 0, 511, 16, 32],   # trailing chunks empty
+    [0] * 8,                           # nothing live
+])
+@pytest.mark.parametrize("max_blocks", [32, 33])
+def test_gqa_chunk_walk_reads_exactly_the_live_blocks(lengths, max_blocks):
+    """Host-side skip contract of the chunked GQA kernel: over its chunks
+    a slot reads exactly ``live_block_ids`` in order (a length past the
+    table reads the whole table), no chunk reads more than E entries,
+    and a chunk at or past the live count reads none."""
+    B, KV, bs = 8, 3, 16
+    rng = np.random.default_rng(8)
+    tables = rng.permutation(np.arange(1, B * max_blocks + 1)).reshape(
+        B, max_blocks).astype(np.int32)
+    s, e = pda.gqa_chunks(B, KV, max_blocks, bs)
+    walk = pda.gqa_chunk_walk(tables, np.asarray(lengths), bs, KV)
+    live = pda.live_block_ids(tables, np.minimum(lengths, max_blocks * bs),
+                              bs)
+    for b, n in enumerate(lengths):
+        np.testing.assert_array_equal(np.concatenate(walk[b]), live[b])
+        nblk = pda.live_block_count(n, bs, max_blocks)
+        assert len(live[b]) == nblk
+        for ci, got in enumerate(walk[b]):
+            assert len(got) <= e
+            if ci * e >= nblk:
+                assert len(got) == 0
+
+
 def test_block_counting_equals_reference():
     for lengths, mb, bs in (([0, 1, 8, 9], 6, 4), ([16, 17, 0], 3, 16),
                             ([], 6, 4), ([5], 1, 8)):
@@ -486,6 +558,102 @@ def test_relu_bitmap_plain_matches_reference_kernel(shape, block):
     ry, rbits = ref_kref.relu_bitmap_ref(jnp.asarray(x), block)
     np.testing.assert_array_equal(oy.numpy(), np.asarray(ry))
     np.testing.assert_array_equal(obits.numpy(), np.asarray(rbits))
+
+
+@pytest.mark.parametrize("shape,block", [
+    ((7, 300), (1, 128)),     # ragged columns, one-row tiles
+    ((130, 200), (64, 128)),  # ragged rows and columns, tall tiles
+    ((3, 1000), (2, 700)),    # a tile wider than the columns left
+    ((8, 1536), (1, 128)),    # aligned: the decode shape
+])
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_relu_bitmap_plain_at_ragged_dims_matches_reference(shape, block,
+                                                            dtype):
+    """The port's relu_bitmap takes ragged dims unpadded: y and the bits
+    over ceil(R/br) x ceil(C/bc) tiles equal the reference's
+    ``ops.relu_with_bitmap`` (which pads, runs its Pallas kernel in
+    interpret mode and slices), with whole dead tiles, zero rows and a
+    NaN in x."""
+    rng = np.random.default_rng(22)
+    x = rng.standard_normal(shape).astype(np.float32)
+    br, bc = block
+    x[:br, :bc] = -np.abs(x[:br, :bc])  # dead
+    x[shape[0] // 2] = 0.0
+    x[-1, 0] = np.nan
+    if dtype == "bfloat16":
+        xt = torch.from_numpy(x).bfloat16()
+        xj = jnp.asarray(xt.float().numpy()).astype(jnp.bfloat16)
+    else:
+        xt, xj = torch.from_numpy(x), jnp.asarray(x)
+    y, bits = rb.relu_bitmap(xt, block_r=br, block_c=bc)
+    ry, rbmp = ref_ops.relu_with_bitmap(xj, block, interpret=True)
+    np.testing.assert_array_equal(y.float().numpy(),
+                                  np.asarray(ry.astype(jnp.float32)))
+    np.testing.assert_array_equal(bits.numpy(), np.asarray(rbmp.bits))
+    assert tuple(bits.shape) == (-(-shape[0] // br), -(-shape[1] // bc))
+    assert bits[0, 0] == 1
+    y0, bits0 = kref.relu_bitmap_ref(xt, block)
+    assert torch.equal(bits, bits0)
+
+
+def test_relu_bitmap_plain_passes_nan_and_negative_zero():
+    """y = x < 0 ? 0 : x, the kernel's writeback: NaN and -0.0 pass
+    through bit for bit, and neither counts as > 0."""
+    x = torch.tensor([[-0.0, float("nan"), -1.0, 2.0]])
+    y, bits = rb.relu_bitmap(x, block_r=1, block_c=2)
+    want = torch.tensor([[-0.0, float("nan"), 0.0, 2.0]])
+    assert torch.equal(y.view(torch.int32), want.view(torch.int32))
+    assert bits.tolist() == [[1, 0]]
+
+
+def test_relu_bitmap_grid_covers_several_tiles_a_cta():
+    """The forward kernel's launch is a function of the shapes: a CTA
+    takes the tiles of one tile row that one 16-byte vector a thread
+    covers, so the 96 one-row tiles of the decode shape go to 16 CTAs of
+    up to 8 and the 3072 of a 256-row prefill to 512 (one CTA a tile
+    made 3072); the bit grid is ceil(R/br) x ceil(C/bc)."""
+    bf16 = torch.bfloat16
+    assert rb.relu_bitmap_grid(8, 1536, 1, 128, bf16) == dict(
+        bits=(8, 12), tiles_per_cta=8, ctas=16)
+    assert rb.relu_bitmap_grid(256, 1536, 1, 128, bf16) == dict(
+        bits=(256, 12), tiles_per_cta=8, ctas=512)
+    assert rb.relu_bitmap_grid(256, 1536, 1, 128, torch.float32) == dict(
+        bits=(256, 12), tiles_per_cta=4, ctas=768)
+    assert rb.relu_bitmap_grid(7, 300, 1, 128, bf16) == dict(
+        bits=(7, 3), tiles_per_cta=3, ctas=7)
+    assert rb.relu_bitmap_grid(1, 128, 1, 128, bf16) == dict(
+        bits=(1, 1), tiles_per_cta=1, ctas=1)
+    assert rb.relu_bitmap_grid(130, 200, 64, 128, bf16)["ctas"] == 6
+    wide = rb.relu_bitmap_grid(1, 1 << 20, 1, 1, bf16)
+    assert wide["tiles_per_cta"] == rb.RELU_MAX_TILES_PER_CTA
+
+
+def test_relu_ops_wrapper_hands_the_kernel_unpadded_operands(monkeypatch):
+    """ops.relu_with_bitmap pads nothing: the kernel entry gets x at its
+    own shape (8 decode rows under 64-row tiles, 200 columns under
+    128-column tiles), and y and the bits come back as the entry made
+    them."""
+    x = torch.from_numpy(np.random.default_rng(23).standard_normal(
+        (8, 200)).astype(np.float32))
+    seen = []
+
+    def entry(x, **kw):
+        seen.append((tuple(x.shape), kw))
+        return rb.relu_bitmap_plain(x, **kw)
+
+    monkeypatch.setattr(rb, "relu_bitmap", entry)
+    y, bmp = kops.relu_with_bitmap(x, (64, 128))
+    assert seen == [((8, 200), dict(block_r=64, block_c=128))]
+    want, want_bits = rb.relu_bitmap_plain(x, block_r=64, block_c=128)
+    assert torch.equal(y, want) and torch.equal(bmp.bits, want_bits)
+    assert tuple(bmp.bits.shape) == (1, 2)
+    assert (bmp.block, bmp.shape) == ((64, 128), (8, 200))
+
+
+def test_relu_bwd_still_takes_padded_dims_only():
+    x = torch.ones((7, 300))
+    with pytest.raises(ValueError, match="padded dims required"):
+        rb.relu_bwd_bitmap(x, x, block_r=1, block_c=128)
 
 
 def test_relu_with_bitmap_pads_like_reference():

@@ -1,23 +1,28 @@
-"""Device times of the fused relu MLP, the paged MLA and the gated GLU
-kernels of one source tree, beside the library calls computing the same
-functions, on one GPU; for comparing two trees in turns in one call.
+"""Device times of the paged GQA attention, relu_bitmap, fused relu
+MLP, paged MLA and gated GLU kernels of one source tree, beside the
+library calls computing the same functions, on one GPU; for comparing
+two trees in turns in one call.
 
     python tools/kernel_ab.py --src SRC [--label NAME]
 
 SRC is the ``src`` directory of a checkout (this one's by default); its
 ``repro_torch`` is imported, so its kernels are built from its own
-``csrc``. Shapes are ``chip_smoke.py``'s: the relu MLP at the relu
-decode tick's operands (8 rows, block (1, 128), bf16) and at a 256-row
-prefill bucket with the same tiles; the MLA kernel at ``time_mla``'s
-operands (8 slots of the trace's lengths, 128 heads, R 512, ROPE 64,
-16-row blocks); the GLU at ``time_glu``'s decode operands. Each kernel
-is called through its module's entry (so neither tree pads). Times per
-call: CUDA events around 200 calls, the profiler's device time of every
-kernel the call launches (``chip_smoke.device_time_ms``) and a replayed
-CUDA graph of 20 calls (``chip_smoke.graph_time_ms``). Prints one JSON
-line with the card's name and power limit. To compare trees, run it
-once per tree in one command, in the order parent, change, change,
-parent.
+``csrc``. Shapes are ``chip_smoke.py``'s: the GQA kernel at
+``time_attention``'s operands (8 slots of the trace's lengths, 3 KV
+heads of 3 query rows, head dim 64, 16-row blocks, 32 entries, bf16) and
+with every slot at 512 rows; relu_bitmap at the relu decode tick's h (8
+x 1536, tile (1, 128)), a 256-row prefill bucket and one (1, 128) tile;
+the relu MLP at the relu decode tick's operands (8 rows, block (1, 128),
+bf16) and at a 256-row prefill bucket with the same tiles; the MLA
+kernel at ``time_mla``'s operands (8 slots of the trace's lengths, 128
+heads, R 512, ROPE 64, 16-row blocks); the GLU at ``time_glu``'s decode
+operands. Each kernel is called through its module's entry (so neither
+tree pads). Times per call: CUDA events around 200 calls, the
+profiler's device time of every kernel the call launches
+(``chip_smoke.device_time_ms``) and a replayed CUDA graph of 20 calls
+(``chip_smoke.graph_time_ms``). Prints one JSON line with the card's
+name and power limit. To compare trees, run it once per tree in one
+command, in the order parent, change, change, parent.
 """
 from __future__ import annotations
 
@@ -52,12 +57,36 @@ def main():
     from repro_torch.kernels import _build
     from repro_torch.kernels import paged_decode_attn as pda
     from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import relu_bitmap as rb
     from repro_torch.kernels import sparce_glu_mlp as sgm
     from repro_torch.kernels import sparce_mlp as sm
-    _build.build(["sparce_mlp", "paged_mla_decode_attn", "sparce_glu_mlp"])
+    _build.build(["paged_decode_attn", "relu_bitmap", "sparce_mlp",
+                  "paged_mla_decode_attn", "sparce_glu_mlp"])
     dev = torch.device("cuda", 0)
     out = dict(label=args.label, src=os.path.abspath(args.src),
                card=cs.gpu_name_and_power())
+
+    # Paged GQA at time_attention's operands, then every slot at 512 rows.
+    B, bs = cs.ENGINE["slots"], cs.ENGINE["block_size"]
+    max_blocks = cs.ENGINE["max_len"] // bs
+    for name, lengths in (("gqa_decode", cs.trace_lengths()),
+                          ("gqa_full_table", [max_blocks * bs] * B)):
+        c = cs.attn_case(torch, dev, torch.bfloat16, seed=5, lengths=lengths,
+                         max_blocks=max_blocks)
+        gargs = (c["q"], c["k"], c["v"], c["tables"], c["lengths"])
+        out[name] = witnesses(cs, lambda: pda.paged_gqa_decode_attn(*gargs))
+        out[name + "_library"] = witnesses(cs, cs.gqa_library(torch, c))
+
+    # relu_bitmap at the decode tick's h, a 256-row prefill, one tile.
+    _, _, _, h, _ = cs.relu_decode_operands(torch, dev)
+    bc = cs.SPARCE_BLOCKS["block_k"]
+    hp = torch.from_numpy(np.random.default_rng(14).standard_normal(
+        (256, h.shape[1]), dtype=np.float32)).to(dev, h.dtype)
+    for name, x in (("relu_bitmap_decode", h), ("relu_bitmap_prefill", hp),
+                    ("relu_bitmap_tile", h[:1, :bc].contiguous())):
+        out[name] = witnesses(
+            cs, lambda: rb.relu_bitmap(x, block_r=1, block_c=bc))
+        out[name + "_library"] = witnesses(cs, cs.relu_library(torch, x, bc))
 
     # The relu MLP: decode, then the 256-row prefill bucket.
     x, wi, wo, _, _ = cs.relu_decode_operands(torch, dev)
@@ -72,8 +101,6 @@ def main():
 
     # Paged MLA at time_mla's operands.
     rng = np.random.default_rng(12)
-    B, bs = cs.ENGINE["slots"], cs.ENGINE["block_size"]
-    max_blocks = cs.ENGINE["max_len"] // bs
     lengths = rng.integers(cs.ENGINE["prompt_lo"],
                            cs.ENGINE["prompt_hi"] + cs.ENGINE["max_new"], B)
     c = cs.mla_case(torch, dev, torch.bfloat16, seed=12, B=B, bs=bs,
