@@ -36,7 +36,17 @@ is printed only when all of them pass):
      gated and two-sided kernels) and the relu backward of its output,
      then ``launch.figures --figs 17,18,demo``, with the launch counts
      read around them; then each layer against its plain version and
-     the masked oracle, with its time beside ``x @ w``'s.
+     the masked oracle, with its time beside ``x @ w``'s;
+  8. the full-width bf16 gated-GLU engine with the prefix cache
+     (``ServeConfig(prefix_cache=True)``) on a trace of 16 prompts behind
+     one shared 128-token prefix plus a byte-identical re-prompt (the
+     copy-on-write case), served with the cache off and on: equal ticks,
+     decode tokens, decode skip and attention block counters, prefix
+     counters equal a count made on the host from the prompts, fewer
+     prefill tokens, only the index holding blocks afterwards, and its
+     kernels' launch counts read around the cache-on run; then f32
+     2-layer greedy streams at full width equal with the cache off and
+     on. Phase 2 holds the paged GQA kernel over such aliased tables.
 
 After phases 4-7, each of the nine kernels' time at its path's shapes
 beside its plain version, a library yardstick and its bound.
@@ -48,6 +58,7 @@ rest of the repository beside it, the script exits non-zero first.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -87,7 +98,6 @@ def arch_config():
 def relu_config():
     """The arch with the launcher's --sparce swap: a relu MLP (w_in,
     w_out; no w_gate)."""
-    import dataclasses
     return dataclasses.replace(arch_config(), mlp_act="relu")
 
 
@@ -211,13 +221,15 @@ GEMM_KERNELS = ("gated_gemm_kernel", "compacted_gemm_kernel",
 # over live stripes; of a fused relu MLP call, the same design's; of a
 # paged MLA call, the chunk kernel and the merge of a slot's chunks; of a
 # paged GQA call, the chunk kernel (which merges a slot's chunks in its
-# last-arriving CTA); and the single kernel of each of the other calls.
+# last-arriving CTA); and the single kernel of each of the other calls
+# (relu_bitmap and its backward: the instantiations of one kernel over
+# the element operation, told apart by its name).
 GLU_KERNELS = ("glu_cluster_kernel", "stripe_reduce_kernel")
 MLP_KERNELS = ("mlp_cluster_kernel", "stripe_reduce_kernel")
 MLA_KERNELS = ("mla_chunk_kernel", "mla_combine_kernel")
 GQA_KERNELS = ("gqa_chunk_kernel",)
-RELU_KERNELS = ("relu_bitmap_kernel",)
-RELU_BWD_KERNELS = ("relu_bwd_bitmap_kernel",)
+RELU_KERNELS = ("ReluFwd",)
+RELU_BWD_KERNELS = ("ReluBwd",)
 
 
 def log_device_times(label, ms, run, lib_ms, library, names=GEMM_KERNELS):
@@ -280,7 +292,8 @@ def log_kernel_resources(_build, name):
                     what += (f", {smem(int(dtype == 'bf16'), nt8)} bytes of "
                              "dynamic smem")
             else:
-                what += ">"
+                op = re.search(r"Relu(Fwd|Bwd)", entry)
+                what += f", {op.group(0)}>" if op else ">"
             used = line.split("Used", 1)[1].strip()
             log(f"  {name}: {what}: {used}; {spill}")
 
@@ -371,6 +384,79 @@ def check_attention(torch, dev):
             raise AssertionError(f"{name}: a second call differs")
         log(f"  {name}: a second call equal bit for bit -> ok")
     return errs[torch.bfloat16]
+
+
+def aliased_attn_case(torch, dev, dtype, seed, *, B=8, KV=3, g=3, D=64,
+                      bs=16, max_blocks=32, n_shared=8):
+    """Tables as the prefix cache lays them out: every live slot's first
+    entries name the SAME ``n_shared`` physical blocks (a shared 128-row
+    prefix), owned blocks after them; one slot dead, one shorter than
+    the prefix. Also the same tables unaliased: each slot names its own
+    copies of the shared blocks (equal bytes)."""
+    rng = np.random.default_rng(seed)
+    lengths = [0, 100, 128, 129, 160, 255, 400, 512]
+    live = [-(-n // bs) for n in lengths]
+    owned = [max(0, n - n_shared) for n in live]
+    nb = 1 + n_shared + sum(owned) + B * n_shared
+    ids = rng.permutation(np.arange(1, nb))
+    shared, nxt = ids[:n_shared], n_shared
+    tables = np.zeros((B, max_blocks), np.int32)
+    copies = np.zeros((B, max_blocks), np.int32)
+    for b in range(B):
+        tables[b, :min(live[b], n_shared)] = shared[:live[b]]
+        tables[b, n_shared:live[b]] = ids[nxt:nxt + owned[b]]
+        nxt += owned[b]
+    for b in range(B):
+        copies[b] = tables[b]
+        copies[b, :n_shared] = ids[nxt:nxt + n_shared]
+        nxt += n_shared
+    mk = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s, dtype=np.float32)).to(dev, dtype)
+    k, v = mk(nb, bs, KV, D), mk(nb, bs, KV, D)
+    for b in range(B):
+        k[copies[b, :n_shared]] = k[shared]
+        v[copies[b, :n_shared]] = v[shared]
+    used = {int(t) for b in range(B) for t in tables[b, :live[b]]}
+    return dict(q=mk(B, KV, g, D), k=k, v=v, nb=nb, live_ids=used,
+                tables=torch.from_numpy(tables).to(dev),
+                copies=torch.from_numpy(copies).to(dev),
+                lengths=torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+
+def check_attention_aliased(torch, dev):
+    """The paged GQA kernel over tables in which several slots name the
+    same blocks (the prefix cache's read-only sharing): equal to its
+    plain version within the tolerance of ``check_attention``, equal bit
+    for bit to the same call over unaliased copies (each slot's chunk
+    walk and arrival counters are its own), and NaN-poisoned blocks no
+    live prefix names never read."""
+    from repro_torch.kernels import paged_decode_attn as pda
+    for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        c = aliased_attn_case(torch, dev, dtype, seed=2)
+        args = (c["q"], c["k"], c["v"], c["tables"], c["lengths"])
+        got = pda.paged_gqa_decode_attn(*args)
+        want = pda.paged_gqa_decode_attn_plain(*args)
+        apart = pda.paged_gqa_decode_attn(c["q"], c["k"], c["v"],
+                                          c["copies"], c["lengths"])
+        torch.cuda.synchronize()
+        name = f"paged_gqa_decode_attn {str(dtype)[6:]} aliased tables"
+        check_close(name, got, want, atol=atol, rtol=atol,
+                    why="as check_attention's")
+        if not same_bits(torch, got, apart):
+            raise AssertionError(f"{name}: differs from the same call over "
+                                 "unaliased copies")
+        dead = [i for i in range(c["nb"]) if i not in c["live_ids"]]
+        kp, vp = c["k"].clone(), c["v"].clone()
+        kp[dead] = float("nan")
+        vp[dead] = float("nan")
+        poisoned = pda.paged_gqa_decode_attn(c["q"], kp, vp, c["tables"],
+                                             c["lengths"])
+        torch.cuda.synchronize()
+        if not torch.equal(poisoned, got):
+            raise AssertionError(f"{name}: NaN-poisoned blocks reached the "
+                                 "output")
+        log(f"  {name}: 7 live slots share 8 blocks; equal bit for bit to "
+            "unaliased copies, unnamed blocks never read -> ok")
 
 
 # ------------------------------------------------------------------ MLA
@@ -961,26 +1047,44 @@ def check_both(torch, dev):
     return err_main
 
 
+def relu_bwd_operands(shape, block, seed):
+    """x and g (f32 numpy) for a relu backward: tile (0, 0) has x <= 0
+    under a NaN g (dropped: dead), a second tile (the next one of row
+    tile 0, else of column tile 0) has g = -0.0 (dead), and the last
+    tile's only nonzero gx is a NaN (live). Returns (x, g, second)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape, dtype=np.float32)
+    g = rng.standard_normal(shape, dtype=np.float32)
+    (br, bc), (r, c) = block, shape
+    x[:br, :bc], g[:br, :bc] = -1.0, np.nan
+    second = (0, 1) if c > bc else (1, 0)
+    g[second[0] * br:(second[0] + 1) * br,
+      second[1] * bc:(second[1] + 1) * bc] = -0.0
+    lr, lc = (r - 1) // br * br, (c - 1) // bc * bc
+    x[lr:, lc:], g[lr:, lc:] = 1.0, 0.0
+    g[-1, -1] = np.nan
+    return x, g, second
+
+
 def check_relu_bwd(torch, dev):
     """gx and bits equal the plain version's exactly, at the relu decode
-    tick's shape and two more: NaN in g where x <= 0 never reaches gx, a
-    NaN where x > 0 passes (bit 0), -0.0 counts as zero. Returns the
-    largest |gx - plain| over the non-NaN positions of every case."""
+    tick's shape, a prefill, a tall tile and ragged shapes the kernel
+    takes unpadded (phase 7's conv1 output among them): NaN in g where
+    x <= 0 never reaches gx, a NaN where x > 0 passes (bit 0), -0.0
+    counts as zero. Returns the largest |gx - plain| over the non-NaN
+    positions of every case."""
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import relu_bitmap as rb
     err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for shape, (br, bc) in (((8, 1536), (1, 128)),
                                 ((256, 1536), (1, 128)),
-                                ((128, 256), (64, 128))):
-            rng = np.random.default_rng(shape[0] + br)
-            x = rng.standard_normal(shape, dtype=np.float32)
-            g = rng.standard_normal(shape, dtype=np.float32)
-            x[:br, :bc] = -1.0
-            g[:br, :bc] = np.nan
-            g[:br, bc:2 * bc] = -0.0
-            x[-br:, -bc:], g[-br:, -bc:] = 1.0, 0.0
-            g[-1, -1] = np.nan
+                                ((128, 256), (64, 128)),
+                                ((7, 300), (1, 128)), ((10, 300), (8, 128)),
+                                ((3025, 96), (8, 128)),
+                                ((3025, 96), (256, 128))):
+            x, g, second = relu_bwd_operands(shape, (br, bc),
+                                             seed=shape[0] + br)
             xt, gt = (torch.from_numpy(a).to(dev, dtype) for a in (x, g))
             gx, bits = rb.relu_bwd_bitmap(xt, gt, block_r=br, block_c=bc)
             gx0, bits0 = rb.relu_bwd_bitmap_plain(xt, gt, block_r=br,
@@ -988,30 +1092,28 @@ def check_relu_bwd(torch, dev):
             torch.cuda.synchronize()
             name = (f"relu_bwd_bitmap {str(dtype)[6:]} {shape} tile "
                     f"({br},{bc})")
-            if not (torch.equal(bits, bits0) and torch.equal(
-                    torch.nan_to_num(gx, 7.0), torch.nan_to_num(gx0, 7.0))):
+            if not (torch.equal(bits, bits0) and same_bits(torch, gx, gx0)):
                 raise AssertionError(f"{name}: gx or bits differ")
-            if not (bits[0, 0] == 1 and bits[0, 1] == 1
+            if not (bits[0, 0] == 1 and bits[second] == 1
                     and bits[-1, -1] == 0
                     and int(torch.isnan(gx).sum()) == 1):
                 raise AssertionError(f"{name}: NaN or -0.0 mishandled")
             ok = ~torch.isnan(gx0)
             err = max(err, float((gx[ok].float() - gx0[ok].float()).abs()
                                  .max()))
-            log(f"  {name}: gx and bits equal the plain version's "
-                f"({int(bits.sum())} dead tiles) -> ok")
+            log(f"  {name}: gx and bits equal the plain version's bit for "
+                f"bit ({int(bits.sum())} dead tiles) -> ok")
         xt = torch.from_numpy(np.random.default_rng(3).standard_normal(
             (10, 300), dtype=np.float32)).to(dev, dtype)
         gx, bmp = kops.relu_bwd_with_bitmap(xt, xt, (8, 128))
         gx0, bmp0 = kops.relu_bwd_with_bitmap(xt.cpu(), xt.cpu(), (8, 128))
-        if not (torch.equal(gx.cpu(), gx0)
+        if not (torch.equal(gx.cpu(), gx0) and gx.is_contiguous()
                 and torch.equal(bmp.bits.cpu(), bmp0.bits)):
             raise AssertionError("ops.relu_bwd_with_bitmap differs from the "
                                  "CPU")
     return err
 
 
-# ------------------------------------------------------- decode-step parity
 def decode_state(torch, cfg, dev, seed, *, B=8, max_blocks=8, bs=16):
     """Random pools, ragged live lengths, dead slots, block tables."""
     from repro_torch.models import model as model_lib
@@ -1052,7 +1154,6 @@ def to_device(tree, dev):
 def check_decode_step(torch, dev, base_cfg, sparsity, label):
     """One f32 full-width decode step of ``base_cfg`` under ``sparsity``:
     kernels on the card against plain versions on the CPU."""
-    import dataclasses
     from repro_torch.models import model as model_lib
     cfg = dataclasses.replace(base_cfg, dtype="float32", sparsity=sparsity)
     params = model_lib.init_params(cfg, seed=0, device=dev)
@@ -1246,10 +1347,212 @@ def run_relu_engines(torch, dev):
     return launches
 
 
+# Phase 8's trace: a seeded shared prefix of 8 blocks (--shared-prefix-len
+# 128) before every prompt, tails of 16-128 tokens, budgets from [8, 32].
+PREFIX = dict(requests=16, prefix_len=128, tail_lo=16, tail_hi=128,
+              seed=3)
+
+
+def prefix_requests(cfg, seed):
+    """Phase 8's requests: PREFIX["requests"] prompts of the shared prefix
+    and a seeded tail, the first tail a whole number of blocks; then a
+    byte-identical re-prompt of the first request (a full-prompt match,
+    the copy-on-write case)."""
+    from repro_torch.runtime.server import Request
+    rng = np.random.default_rng(seed)
+    bs = ENGINE["block_size"]
+    prefix = rng.integers(0, cfg.vocab_size, PREFIX["prefix_len"])
+    reqs = []
+    for i in range(PREFIX["requests"]):
+        n = int(rng.integers(PREFIX["tail_lo"], PREFIX["tail_hi"] + 1))
+        if i == 0:
+            n -= n % bs
+        reqs.append(Request(uid=i, prompt=np.concatenate(
+            [prefix, rng.integers(0, cfg.vocab_size, n)]),
+            max_new=int(rng.integers(ENGINE["max_new"] // 4,
+                                     ENGINE["max_new"] + 1))))
+    reqs.append(Request(uid=len(reqs), prompt=reqs[0].prompt.copy(),
+                        max_new=reqs[0].max_new))
+    return reqs
+
+
+def prefix_counts(reqs, bs):
+    """The prefix-cache counters the trace must produce, counted on the
+    host from the prompts in admission (queue) order with nothing
+    evicted: a lookup per request, the longest run of already registered
+    chain keys, a fork when the run covers the whole prompt (its last
+    row re-runs), then the prompt's full blocks registered."""
+    from repro_torch.runtime.paging import PrefixCache
+    index = set()
+    c = dict(prefix_lookups=0, prefix_hits=0, prefix_matched_tokens=0,
+             prefix_blocks_shared=0, prefix_cow_forks=0)
+    for r in reqs:
+        keys = PrefixCache.chain_keys(r.prompt, bs)
+        n = 0
+        while n < len(keys) and keys[n] in index:
+            n += 1
+        rows0 = len(r.prompt)
+        cow = n > 0 and n * bs == rows0
+        c["prefix_lookups"] += 1
+        c["prefix_hits"] += n > 0
+        c["prefix_matched_tokens"] += (rows0 - 1 if cow else n * bs)
+        c["prefix_blocks_shared"] += n - 1 if cow else n
+        c["prefix_cow_forks"] += cow
+        index.update(keys[:rows0 // bs])
+    return c
+
+
+def serve_prefix_trace(torch, dev, cfg, params, sp, reqs, prefix_cache):
+    """One drain-mode run of ``reqs`` with the cache off or on; the launch
+    counts are read around it. Returns (server, done, launches, wall)."""
+    from repro_torch.runtime.server import ServeConfig, Server
+    sc = ServeConfig(batch_slots=ENGINE["slots"], max_len=ENGINE["max_len"],
+                     kv_block_size=ENGINE["block_size"], attn_kernel="paged",
+                     sparsity=sp, prefix_cache=prefix_cache)
+    srv = Server(cfg, params, sc, device=dev)
+    wrappers = counters()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    done = srv.generate([dataclasses.replace(r, out=None, stats={})
+                         for r in reqs])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return srv, done, {n: f.launches for n, f in wrappers.items()}, wall
+
+
+def run_prefix_engine(torch, dev):
+    """Phase 8: the full-width bf16 GLU engine (``mode="fused"``, the
+    paged decode kernel) on a shared-prefix trace with the prefix cache
+    off, then on; then an f32 2-layer engine at full width on a hit and a
+    copy-on-write request, cache off against on."""
+    from repro_torch.core.sparse_ops import SparsityConfig
+    cfg = arch_config()
+    params = full_width_params(torch, cfg, dev)
+    sp = SparsityConfig(enabled=True, mode="fused", gate_threshold=0.0,
+                        autotune=False)
+    bs = ENGINE["block_size"]
+    reqs = prefix_requests(cfg, PREFIX["seed"])
+    # Warm-up (library loads, the suffix prefill's shapes).
+    serve_prefix_trace(torch, dev, cfg, params, sp, reqs[:3], True)
+    runs = {on: serve_prefix_trace(torch, dev, cfg, params, sp, reqs, on)
+            for on in (False, True)}
+    m = {on: runs[on][0].metrics for on in runs}
+    for on, (srv, done, launches, wall) in runs.items():
+        label = "cache on " if on else "cache off"
+        if len(done) != len(reqs) or any(len(r.out) != r.max_new
+                                          for r in done):
+            raise AssertionError(f"{label}: not every request completed")
+        log(f"  {label}: {len(done)} requests, {int(m[on].decode_tokens)} "
+            f"decode tokens in {int(m[on].ticks)} ticks, "
+            f"{1e3 * m[on].decode_s / m[on].ticks:.3f} ms per decode tick; "
+            f"prefill {int(m[on].prefill_tokens)} tokens in "
+            f"{m[on].prefill_s:.3f}s; wall {wall:.3f}s")
+    for name in ("ticks", "decode_tokens", "attn_blocks_fetched",
+                 "attn_blocks_total"):
+        if getattr(m[True], name) != getattr(m[False], name):
+            raise AssertionError(f"{name}: cache on {getattr(m[True], name)}"
+                                 f" != off {getattr(m[False], name)}")
+    for total, pre in (("skipped_tile_dots", "prefill_skipped_tile_dots"),
+                       ("total_tile_dots", "prefill_total_tile_dots")):
+        on, off = (getattr(m[x], total) - getattr(m[x], pre)
+                   for x in (True, False))
+        if on != off:
+            raise AssertionError(f"decode {total}: cache on {on} != off "
+                                 f"{off}")
+    want = prefix_counts(reqs, bs)
+    got = {k: getattr(m[True], k) for k in want}
+    if got != want or m[True].prefix_evicted_blocks:
+        raise AssertionError(f"prefix counters {got} (evicted "
+                             f"{m[True].prefix_evicted_blocks}), counted on "
+                             f"the host {want}")
+    if not m[True].prefill_tokens < m[False].prefill_tokens:
+        raise AssertionError("the cache saved no prefill token")
+    srv = runs[True][0]
+    alloc = srv._st.alloc
+    if alloc.in_use != len(srv._prefix) or alloc.reserved:
+        raise AssertionError(f"after the run {alloc.in_use} blocks in use, "
+                             f"{len(srv._prefix)} indexed, "
+                             f"{alloc.reserved} reserved")
+    alloc.check(expect_reserved=0)
+    if list(srv.admitted_uids) != [r.uid for r in reqs]:
+        raise AssertionError("admission left the queue order")
+    launches = runs[True][2]
+    for name in ("paged_gqa_decode_attn", "sparce_glu_mlp_fused"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched with the cache on")
+    outs = {on: {r.uid: r.out.tolist() for r in runs[on][1]} for on in runs}
+    same = sum(outs[True][u] == outs[False][u] for u in outs[False])
+    log(f"  prefix counters equal the host's count {want}; ticks, decode "
+        f"tokens, decode skip and attention block counters equal off and "
+        f"on; only the index holds blocks ({alloc.in_use}) -> ok")
+    log(f"  bf16 token streams equal between cache off and on: "
+        f"{same}/{len(reqs)} (the prefix rows of a hit were written by "
+        "another request's prefill at another bucket: a near-tie may flip)")
+    log(f"  launches with the cache on: "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    check_prefix_f32(torch, dev, cfg, params, reqs)
+    return launches
+
+
+def check_prefix_f32(torch, dev, cfg, params, reqs):
+    """Full width, 2 layers, f32 (TF32 off): a miss, a hit on its shared
+    prefix and the copy-on-write re-prompt, served with the cache off and
+    on: greedy streams of 8 tokens equal, and each first token's logits
+    (from the full prefill, the suffix prefill) allclose."""
+    from repro_torch.core.sparse_ops import SparsityConfig
+    from repro_torch.runtime.server import ServeConfig, Server
+    cfg32 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    p32 = {k: v for k, v in params.items() if k != "stack"}
+    p32["stack"] = params["stack"][:2]
+    p32 = to_device(p32, dev)
+    upcast_in_place(torch, p32)
+    trio = [dataclasses.replace(r, max_new=8)
+            for r in (reqs[0], reqs[1], reqs[-1])]
+    sp = SparsityConfig(enabled=True, mode="fused", gate_threshold=0.0,
+                        autotune=False)
+    outs, firsts = {}, {}
+    for on in (False, True):
+        srv = Server(cfg32, p32, ServeConfig(
+            batch_slots=ENGINE["slots"], max_len=ENGINE["max_len"],
+            kv_block_size=ENGINE["block_size"], attn_kernel="paged",
+            sparsity=sp, prefix_cache=on), device=dev)
+        seen = {}
+
+        def keep(fn):
+            def wrapped(r, *a):
+                last, caches = fn(r, *a)
+                seen[r.uid] = last
+                return last, caches
+            return wrapped
+
+        srv._prefill_one = keep(srv._prefill_one)
+        srv._prefill_suffix = keep(srv._prefill_suffix)
+        done = srv.generate([dataclasses.replace(r, out=None, stats={})
+                             for r in trio])
+        outs[on] = {r.uid: r.out.tolist() for r in done}
+        firsts[on] = seen
+        if on:
+            m = srv.metrics
+            if (m.prefix_hits, m.prefix_cow_forks) != (2, 1):
+                raise AssertionError(f"f32 run: {int(m.prefix_hits)} hits, "
+                                     f"{int(m.prefix_cow_forks)} forks")
+    if outs[True] != outs[False]:
+        raise AssertionError(f"f32 greedy streams differ: {outs}")
+    for uid in outs[True]:
+        check_close(f"f32 2-layer first-token logits uid={uid} cache on vs "
+                    "off", torch.from_numpy(firsts[True][uid]),
+                    torch.from_numpy(firsts[False][uid]), atol=1e-4,
+                    rtol=1e-4, why="the suffix prefill's attention sums "
+                    "over the scratch in another chunking")
+    log(f"  f32 2-layer full width: greedy streams of 8 tokens equal with "
+        f"the cache off and on (a miss, a hit, a copy-on-write re-prompt)"
+        " -> ok")
+
+
 def deepseek_config():
     """DeepSeek-V3 at its published widths, cut to 4 layers: the 3 dense
     MLA + GLU layers (first_k_dense as published) and 1 MLA + MoE layer."""
-    import dataclasses
     from repro_torch.configs import get_config
     return dataclasses.replace(get_config(DEEPSEEK), **DEEPSEEK_DEPTH)
 
@@ -1280,7 +1583,6 @@ def run_deepseek(torch, dev):
     # The f32 step's weights: the engine's first dense and first MoE
     # layer, upcast on the card one leaf at a time (the rest is freed
     # first, so the card never holds both copies of a leaf for long).
-    import dataclasses
     cfg2 = dataclasses.replace(cfg, num_layers=2, first_k_dense=1,
                                dtype="float32", sparsity=sp)
     params["dense_stack"] = params["dense_stack"][:1]
@@ -1667,6 +1969,22 @@ def relu_library(torch, x, bc):
     return library
 
 
+def relu_bwd_library(torch, x, g, br, bc):
+    """relu_bwd_bitmap's yardstick at any shape: ``torch.where`` and a
+    tile-any of ``gx != 0`` over (br, bc) tiles, the edge padded with
+    False."""
+    R, C = x.shape
+    gr, gc = -(-R // br), -(-C // bc)
+
+    def library():
+        gx = torch.where(x > 0, g, torch.zeros_like(g))
+        live = torch.nn.functional.pad(gx != 0, (0, gc * bc - C,
+                                                 0, gr * br - R))
+        return gx, ~live.view(gr, br, gc, bc).any(3).any(1)
+
+    return library
+
+
 def time_relu_bitmap(torch, dev, err):
     """relu_bitmap at the relu decode tick's h (8 x 1536, tile (1, 128),
     bf16): events, device time by both witnesses beside the library
@@ -1857,23 +2175,16 @@ def run_eval_path(torch, dev):
 
 def check_relu_bwd_path(torch, bwd):
     """Each main-path relu backward against its plain version on the card,
-    on the same inputs padded as ``ops.relu_bwd_with_bitmap`` pads them:
-    bits equal, gx equal (NaN in the same places). Returns the largest
-    |gx - plain| over the non-NaN positions."""
+    on the same unpadded inputs: bits equal, gx equal bit for bit (NaN in
+    the same places). Returns the largest |gx - plain| over the non-NaN
+    positions."""
     from repro_torch.kernels import relu_bitmap as rb
-    pad = torch.nn.functional.pad
     err, dead = 0.0, {}
     for (bench, name), (y, g, (br, bc), gx, ebits) in bwd.items():
         r, c = y.shape
-        pr, pc = -(-r // br) * br, -(-c // bc) * bc
-        gx0, bits0 = rb.relu_bwd_bitmap_plain(
-            pad(y, (0, pc - c, 0, pr - r)).contiguous(),
-            pad(g, (0, pc - c, 0, pr - r)).contiguous(), block_r=br,
-            block_c=bc)
-        gx0 = gx0[:r, :c]
+        gx0, bits0 = rb.relu_bwd_bitmap_plain(y, g, block_r=br, block_c=bc)
         what = f"relu_bwd_with_bitmap {bench}/{name} {(r, c)} tile {(br, bc)}"
-        if not (torch.equal(ebits.bits, bits0) and torch.equal(
-                torch.nan_to_num(gx, 7.0), torch.nan_to_num(gx0, 7.0))):
+        if not (torch.equal(ebits.bits, bits0) and same_bits(torch, gx, gx0)):
             raise AssertionError(f"{what}: gx or bits differ from the plain "
                                  "version")
         ok = ~torch.isnan(gx0)
@@ -2018,7 +2329,10 @@ def eval_gemm_row(name, replaces, err, shapes, launches):
 
 def time_relu_bwd(torch, dev, err, launches):
     """The relu backward at the relu decode tick's shape and tile: bf16
-    (8, 1536), tile (1, 128); x the pre-activation, g normal."""
+    (8, 1536), tile (1, 128); x the pre-activation, g normal. Then logged
+    by both witnesses beside the library call's: a 256-row prefill at the
+    same tile, and phase 7's largest operand, alexnet conv1's output
+    (3025 x 96, f32) at its plan's tile (256, 128), unpadded."""
     from repro_torch.kernels import relu_bitmap as rb
     _, _, _, h, _ = relu_decode_operands(torch, dev)
     g = torch.randn(h.shape, device=dev).to(h.dtype)
@@ -2028,16 +2342,28 @@ def time_relu_bwd(torch, dev, err, launches):
                                                  block_c=bc), 200)
     plain_ms = cuda_time_ms(lambda: rb.relu_bwd_bitmap_plain(
         h, g, block_r=1, block_c=bc), 200)
-
-    def library():
-        gx = torch.where(h > 0, g, torch.zeros_like(g))
-        return gx, ~(gx != 0).view(M, 1, F_ // bc, bc).any(3).any(1)
-
+    library = relu_bwd_library(torch, h, g, 1, bc)
     lib_ms = cuda_time_ms(library, 200)
     log_device_witnesses(
         "relu_bwd_bitmap decode", ms,
         lambda: rb.relu_bwd_bitmap(h, g, block_r=1, block_c=bc), lib_ms,
         library, RELU_BWD_KERNELS)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    for label, shape, dtype, (br, bcc) in (
+            ("prefill 256 rows", (256, F_), h.dtype, (1, bc)),
+            ("alexnet conv1 output", (3025, 96), torch.float32, (256, 128))):
+        x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        gg = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        run = lambda: rb.relu_bwd_bitmap(x, gg, block_r=br,  # noqa: E731
+                                         block_c=bcc)
+        lib = relu_bwd_library(torch, x, gg, br, bcc)
+        grid = rb.relu_bitmap_grid(*shape, br, bcc, dtype)
+        log(f"  relu_bwd_bitmap launch at {shape} tile ({br},{bcc}): "
+            f"{grid['ctas']} CTAs of up to {grid['tiles_per_cta']} tiles")
+        # Every kernel of the call: a split tile's call fills the bits.
+        log_device_witnesses(f"relu_bwd_bitmap {label}",
+                             cuda_time_ms(run, 200), run,
+                             cuda_time_ms(lib, 200), lib, None)
     nbytes = 3 * 2 * h.numel() + 4 * M * (F_ // bc)
     row = kernel_row(
         "relu_bwd_bitmap", "relu_bitmap.cu",
@@ -2071,7 +2397,7 @@ def run_phase7(torch, dev, errs):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
                     help="comma-separated subset of phases to run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -2101,6 +2427,7 @@ def main(argv=None) -> int:
         if 2 in phases:
             log("phase 2: kernels vs plain versions on the card")
             errs["paged_gqa_decode_attn"] = check_attention(torch, dev)
+            check_attention_aliased(torch, dev)
             errs["sparce_glu_mlp_fused"] = check_glu(torch, dev)
             errs["relu_bitmap"] = check_relu_bitmap(torch, dev)
             errs["sparce_gemm_gated"] = check_gemm(torch, dev)
@@ -2154,6 +2481,13 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             rows += run_phase7(torch, dev, errs)
             log(f"phase 7: {time.perf_counter() - t0:.1f}s")
+        if 8 in phases:
+            log("phase 8: full-width bf16 prefix-cache engine (GLU fused, "
+                "paged attention) on a shared-prefix trace, cache off then "
+                "on; then f32 2-layer streams, cache off against on")
+            t0 = time.perf_counter()
+            run_prefix_engine(torch, dev)
+            log(f"phase 8: {time.perf_counter() - t0:.1f}s")
         torch.cuda.synchronize()
     except Exception:  # noqa: BLE001 - report and fail the run
         traceback.print_exc()

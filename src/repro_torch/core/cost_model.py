@@ -316,6 +316,12 @@ class TickCosts:
         """Prefill cost in decode-tick units (>= a small floor)."""
         return max(self.prefill_s(rows) / self.decode_tick_s, 1e-3)
 
+    def prefill_flops(self, rows: int) -> float:
+        """Modeled FLOPs of a batch=1 prefill over ``rows`` positions
+        (``2 * N * rows``); the prefix cache reports its savings in this
+        unit."""
+        return 2.0 * float(self.n_params) * float(max(rows, 0))
+
 
 def forward_roofline_s(
     n_params: int, tokens: int, *, dtype_bytes: int = 2, chips: int = 1,

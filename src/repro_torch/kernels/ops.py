@@ -1,14 +1,13 @@
 """Ragged-shape wrappers over the port's kernels (``repro/kernels/ops.py``).
 
-Where a kernel needs block multiples they pad ragged dims and slice the
-results back, with the reference's conventions: padded columns see zero
-weights and act(0) == 0, so padding can only vote a tile dead, never
-live; padding tiles of a bitmap are all-zero, so their bits are 1;
-decode lengths are clamped to the table's reach, ``max_blocks *
-block_size``. The GEMM and both MLP kernels mask ragged edges
-themselves, so :func:`sparce_gemm` pads only the bit grids, and
-:func:`sparce_glu_mlp_fused`, :func:`sparce_mlp_fused` and
-:func:`relu_with_bitmap` nothing.
+They keep the reference's conventions for ragged dims: padded columns
+see zero weights and act(0) == 0, so padding can only vote a tile dead,
+never live; padding tiles of a bitmap are all-zero, so their bits are
+1; decode lengths are clamped to the table's reach, ``max_blocks *
+block_size``. Every kernel masks ragged edges itself, so
+:func:`sparce_gemm` pads only the bit grids, and
+:func:`sparce_glu_mlp_fused`, :func:`sparce_mlp_fused`,
+:func:`relu_with_bitmap` and :func:`relu_bwd_with_bitmap` nothing.
 :func:`sparce_gemm` dispatches a plan to its kernel the way the reference does: ``dense`` to a plain
 product, lhs to the gated or the compacted kernel, rhs-compacted through
 the transpose trick onto the compacted kernel, and ``gate="both"`` to the
@@ -28,16 +27,6 @@ from repro_torch.kernels import relu_bitmap as _rb
 from repro_torch.kernels import sparce_gemm as _sg
 from repro_torch.kernels import sparce_glu_mlp as _sgm
 from repro_torch.kernels import sparce_mlp as _sm
-
-
-def _ceil_to(v: int, q: int) -> int:
-    return -(-v // q) * q
-
-
-def _pad2(x: torch.Tensor, r: int, c: int) -> torch.Tensor:
-    if tuple(x.shape) == (r, c):
-        return x
-    return F.pad(x, (0, c - x.shape[1], 0, r - x.shape[0]))
 
 
 def sparce_gemm(
@@ -140,15 +129,13 @@ def relu_with_bitmap(x: torch.Tensor, block) -> tuple[torch.Tensor,
 def relu_bwd_with_bitmap(x: torch.Tensor, g: torch.Tensor, block
                          ) -> tuple[torch.Tensor, TileBitmap]:
     """Fused relu backward + error bitmap over a 2-D activation: (g *
-    (x > 0), bitmap of gx). Padding is zero in x and g, so padding tiles
-    get bit 1."""
-    r, c = x.shape
+    (x > 0), bitmap of gx). Nothing is padded: the kernel takes any
+    shape (elements past the edge count as 0, so edge tiles get the
+    padded reference's bits), and gx comes back dense at x's shape."""
     br, bc = block
-    pr, pc = _ceil_to(r, br), _ceil_to(c, bc)
-    gx, bits = _rb.relu_bwd_bitmap(
-        _pad2(x, pr, pc).contiguous(), _pad2(g, pr, pc).contiguous(),
-        block_r=br, block_c=bc)
-    return gx[:r, :c], TileBitmap(bits=bits, block=(br, bc), shape=(r, c))
+    gx, bits = _rb.relu_bwd_bitmap(x.contiguous(), g.contiguous(),
+                                   block_r=br, block_c=bc)
+    return gx, TileBitmap(bits=bits, block=(br, bc), shape=tuple(x.shape))
 
 
 def sparce_glu_mlp_fused(

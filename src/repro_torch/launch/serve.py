@@ -4,14 +4,21 @@
         --requests 16 --mixed --batch-slots 8 --max-len 512 \
         --max-new 32 [--prompt-len 256] [--device cuda] \
         [--sparce] [--sparce-mode reference|kernel|fused] \
-        [--sparce-autotune] [--sparce-gate-threshold TAU]
+        [--sparce-autotune] [--sparce-gate-threshold TAU] \
+        [--prefill-buckets 16,32,64|off] [--prefix-cache] \
+        [--shared-prefix-len N]
 
 ``--arch`` names any arch of the port's registry: ``smollm-135m``
 (dense, GQA) or ``deepseek-v3-671b`` (moe, MLA; its full config holds
 671 B parameters, so run it ``--reduced``). The subset of
 ``repro/launch/serve.py``'s flags that the port supports (no
-``--mesh``, prefix cache, SLO or open-loop flags), over the paged KV
-pool with the paged decode kernel by default (``--attn-kernel paged``).
+``--mesh``, SLO or open-loop flags), over the paged KV pool with the
+paged decode kernel by default (``--attn-kernel paged``).
+``--prefix-cache`` shares identical prompt prefixes across requests as
+read-only pool blocks (dense family); ``--shared-prefix-len N`` prepends
+one seeded prefix of N tokens to every prompt (a shared system prompt),
+the traffic it serves; ``--prefill-buckets`` sets the prefill buckets
+(``off``: exact-length prefill).
 The SparCE flags mean what the reference launcher's mean: ``--sparce``
 swaps the MLP activation to relu before init (the paper's sparsity
 source: a 2-matrix MLP without ``w_gate``); ``--sparce-gate-threshold``
@@ -68,6 +75,17 @@ def main(argv=None):
     ap.add_argument("--eos-id", type=int, default=None)
     ap.add_argument("--kv-block-size", type=int, default=16)
     ap.add_argument("--kv-pool-blocks", type=int, default=None)
+    ap.add_argument("--prefill-buckets", default=None,
+                    help="comma-separated prompt-length buckets (padded, "
+                         "masked-tail prefill); default = powers of two "
+                         "up to --max-len; 'off' = exact-length prefill")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share identical prompt prefixes across requests "
+                         "as read-only KV pool blocks (chain-hashed "
+                         "index, copy-on-write on a full-prompt match)")
+    ap.add_argument("--shared-prefix-len", type=int, default=0,
+                    help="prepend a seeded common prefix of N tokens to "
+                         "every request (a shared system prompt)")
     ap.add_argument("--attn-kernel", default="paged",
                     choices=("gather", "paged"))
     ap.add_argument("--device", default="cuda",
@@ -98,13 +116,23 @@ def main(argv=None):
             enabled=True, mode=args.sparce_mode, block_m=1, block_k=128,
             autotune=args.sparce_autotune, gate_threshold=tau)
     params = model_lib.init_params(cfg, seed=args.seed, device=args.device)
+    buckets = None
+    if args.prefill_buckets is not None:
+        buckets = (
+            () if args.prefill_buckets.strip().lower() == "off"
+            else tuple(int(b) for b in args.prefill_buckets.split(",")))
     serve_cfg = ServeConfig(
         batch_slots=args.batch_slots, max_len=args.max_len,
         temperature=args.temperature, eos_id=args.eos_id, seed=args.seed,
         sparsity=sparsity, kv_block_size=args.kv_block_size,
-        kv_pool_blocks=args.kv_pool_blocks, attn_kernel=args.attn_kernel)
+        kv_pool_blocks=args.kv_pool_blocks, prefill_buckets=buckets,
+        attn_kernel=args.attn_kernel, prefix_cache=args.prefix_cache)
 
     rng = np.random.default_rng(args.seed)
+    # One seeded prefix shared by every request, drawn first, as the
+    # reference launcher draws it.
+    shared_prefix = (rng.integers(0, cfg.vocab_size, args.shared_prefix_len)
+                     if args.shared_prefix_len > 0 else None)
     reqs = []
     for i in range(args.requests):
         plen, max_new = args.prompt_len, args.max_new
@@ -113,9 +141,10 @@ def main(argv=None):
                                     args.prompt_len + 1))
             max_new = int(rng.integers(max(1, args.max_new // 4),
                                        args.max_new + 1))
-        reqs.append(Request(uid=i, prompt=rng.integers(0, cfg.vocab_size,
-                                                       plen),
-                            max_new=max_new))
+        prompt = rng.integers(0, cfg.vocab_size, plen)
+        if shared_prefix is not None:
+            prompt = np.concatenate([shared_prefix, prompt])
+        reqs.append(Request(uid=i, prompt=prompt, max_new=max_new))
 
     srv = Server(cfg, params, serve_cfg, device=args.device)
     t0 = time.perf_counter()
@@ -156,6 +185,18 @@ def main(argv=None):
               f"(skip {m.attn_block_skip_fraction:.1%}); "
               f"{(m.attn_bytes_gather - m.attn_bytes_paged)/1e6:.2f}"
               f" MB (modeled) {realized} vs full-view gather")
+    if m.prefix_cache_enabled:
+        print(f"  prefix cache: {int(m.prefix_hits)}/"
+              f"{int(m.prefix_lookups)} admissions hit "
+              f"(rate {m.prefix_hit_rate:.1%}), "
+              f"{int(m.prefix_matched_tokens)} prompt tokens served from "
+              f"cache, {int(m.prefix_blocks_shared)} blocks shared, "
+              f"{int(m.prefix_cow_forks)} CoW forks, "
+              f"{int(m.prefix_evicted_blocks)} evicted")
+        print(f"  prefix savings (modeled): "
+              f"{m.prefill_ticks_saved:.2f}/{m.prefill_ticks_nocache:.2f} "
+              f"prefill ticks ({m.prefill_ticks_saved_frac:.1%}), "
+              f"{m.prefill_flops_saved/1e9:.2f} GFLOP of prefill skipped")
     for r in done[:3]:
         s = r.stats
         print(f"  req {r.uid}: ttft={s['ttft_s']*1e3:.1f}ms "

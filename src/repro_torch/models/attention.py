@@ -139,11 +139,13 @@ def attn_init(rng, cfg: ArchConfig, dtype, device):
     return p
 
 
-def _flash_chunked(q, k, v, *, q_offset: int, chunk_q: int, chunk_k: int,
+def _flash_chunked(q, k, v, *, q_offset, chunk_q: int, chunk_k: int,
                    causal: bool = True) -> torch.Tensor:
     """Online-softmax attention. q: (B, Sq, H, D), k/v: (B, Sk, KV, D),
     H = g * KV. Loops q chunks (outer) and kv chunks (inner) carrying
-    (acc, m, l) in f32, like the reference's double scan."""
+    (acc, m, l) in f32, like the reference's double scan. ``q_offset``
+    (an int, or a 0-d tensor read on the device) is the first query's
+    position in k's rows."""
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     g = H // KV
@@ -203,6 +205,7 @@ def gqa_forward(
     advance: Optional[torch.Tensor] = None,
     attn_kernel: str = "gather",
     active: Optional[torch.Tensor] = None,
+    continuation: bool = False,
     chunk_q: Optional[int] = None,
     chunk_k: Optional[int] = None,
 ):
@@ -212,6 +215,12 @@ def gqa_forward(
     decode) or a :class:`PagedKVCache` (decode only; prefill targets a
     small contiguous cache that admission scatters into pool blocks).
     ``advance`` (int32 (B,)) is the bucketed-prefill true length.
+    ``continuation`` (batch 1 prefill only) marks a SUFFIX prefill behind
+    a cache that already holds a prefix (prefix-cache admission): the
+    fresh rows scatter at the cache length as usual, and the queries run
+    over the WHOLE cache buffer with ``q_offset`` at the prefix length,
+    so suffix tokens attend over the cached prefix as a full prefill's
+    would; rows past the written tail are causally masked.
     ``attn_kernel`` picks the paged decode path: 'gather' materializes
     the full per-slot pool view, 'paged' runs the paged decode kernel,
     which reads only live blocks of live slots (``active`` marks them).
@@ -276,8 +285,22 @@ def gqa_forward(
         idx = _slot_lengths(cache, B)
         ck = _scatter_rows(cache.k, k, idx)
         cv = _scatter_rows(cache.v, v, idx)
-        out = _flash_chunked(q, k, v, q_offset=0, chunk_q=min(chunk_q, S),
-                             chunk_k=min(chunk_k, S))
+        if continuation:
+            # One causal mask anchored at the prefix length serves the
+            # whole batch only when the batch is one request.
+            if B != 1:
+                raise ValueError("continuation prefill is batch=1 "
+                                 "(admission)")
+            # One kv chunk over the whole scratch: rows past the written
+            # tail add exact zeros, and the reference's chunk of the
+            # suffix's length would cost the host L / S chunks a layer.
+            out = _flash_chunked(q, ck, cv, q_offset=idx[0],
+                                 chunk_q=min(chunk_q, S),
+                                 chunk_k=ck.shape[1])
+        else:
+            out = _flash_chunked(q, k, v, q_offset=0,
+                                 chunk_q=min(chunk_q, S),
+                                 chunk_k=min(chunk_k, S))
         new_cache = KVCache(ck, cv, _advance_by(idx, S, advance))
 
     y = out.reshape(B, S, h * hd) @ params["wo"]

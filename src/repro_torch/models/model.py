@@ -24,7 +24,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import modules as nn
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import (
-    gqa_init_cache, gqa_init_paged_cache, mla_init_cache,
+    KVCache, gqa_init_cache, gqa_init_paged_cache, mla_init_cache,
     mla_init_paged_cache,
 )
 from repro_torch.models.layers import rmsnorm, rmsnorm_init
@@ -100,10 +100,11 @@ def _cache_length(caches) -> torch.Tensor:
 
 
 def _backbone(params, cfg: ArchConfig, x, positions, caches, active=None,
-              block_tables=None, advance=None, attn_kernel="gather"):
+              block_tables=None, advance=None, attn_kernel="gather",
+              continuation=False):
     """The layer stacks; returns (x, new_caches dict or None, aux)."""
     kw = dict(active=active, block_tables=block_tables, advance=advance,
-              attn_kernel=attn_kernel)
+              attn_kernel=attn_kernel, continuation=continuation)
     aux = tfm.aux_zero(x.device)
     new_caches = {}
     for key, kind, _ in _stacks(cfg):
@@ -117,12 +118,18 @@ def _backbone(params, cfg: ArchConfig, x, positions, caches, active=None,
 
 def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
             caches: Optional[Dict[str, Any]] = None, *,
-            last_only: bool = False, attn_kernel: str = "gather"
+            last_only: bool = False, attn_kernel: str = "gather",
+            continuation: bool = False
             ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]], dict]:
     """Full-sequence forward. Returns (logits, new_caches, aux) with aux
     {'loss', 'skip': f32[2] [skipped, total] tile-dots summed over
     layers}. ``last_only`` computes logits at the last (real) position
-    only; with ``batch['advance']`` that is row advance-1."""
+    only; with ``batch['advance']`` that is row advance-1.
+
+    ``continuation=True`` marks a prefix-cache SUFFIX prefill: the
+    caches already hold a prefix (see :func:`paged_prefix_caches`) and
+    attention runs the fresh queries over the whole buffer anchored at
+    the cache length. Bucketable families only, like ``advance``."""
     _check_family(cfg)
     tokens = batch["tokens"]
     x = params["embed"][tokens.long()]  # (B, S, d)
@@ -137,6 +144,13 @@ def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     positions = offset[:, None] + torch.arange(S, device=x.device,
                                                dtype=torch.int32)[None, :]
     advance = batch.get("advance")
+    if continuation and cfg.family not in bucketable_families():
+        # Same exactness requirement as bucketed prefill: suffix rows are
+        # masked-tail padded, and the cached prefix must be position-
+        # causal for the continuation to equal the full prefill.
+        raise ValueError(
+            f"continuation prefill is not supported for family "
+            f"{cfg.family!r}")
     if advance is not None and cfg.family not in bucketable_families():
         # Masked-tail prefill is exact only for position-causal stacks;
         # MoE capacity routing is batch-shape dependent.
@@ -146,7 +160,7 @@ def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     x, new_caches, aux = _backbone(
         params, cfg, x, positions, caches, active=active,
         block_tables=batch.get("block_tables"), advance=advance,
-        attn_kernel=attn_kernel)
+        attn_kernel=attn_kernel, continuation=continuation)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if last_only:
         if advance is not None:
@@ -228,4 +242,74 @@ def insert_slot_paged(big, small, slot: int, block_ids: torch.Tensor,
             flat = pool.view((pool.shape[0], nb * bs) + tuple(pool.shape[3:]))
             flat[:, dest] = rows[:, 0].to(flat.dtype)
         bp.length[:, slot] = int(true_len)
+    return big
+
+
+def _pool_rows(block_ids: torch.Tensor, rows: torch.Tensor, bs: int
+               ) -> torch.Tensor:
+    """Flat pool row of each cache row through a block table row; rows
+    past the table clamp into its last entry."""
+    ids = block_ids.to(rows.device).long()
+    return ids[torch.clamp(rows // bs, max=ids.shape[0] - 1)] * bs + rows % bs
+
+
+def insert_slot_paged_from(big, small, slot: int, block_ids: torch.Tensor,
+                           true_len: int, start_row: int):
+    """Suffix-aware :func:`insert_slot_paged`: scatter only rows
+    ``start_row..`` of the batch=1 cache ``small`` into the pool blocks
+    ``block_ids`` names and pin slot ``slot``'s length to ``true_len``,
+    IN PLACE. Rows below ``start_row`` are the SHARED prefix, already
+    resident in pool blocks other slots may map too: their writes go to
+    the null block instead, as do bucket-padding rows past the table, so
+    a shared block is never written."""
+    for key in big:
+        bp, sp = big[key], small[key]
+        nb, bs = bp.k.shape[1], bp.k.shape[2]
+        S, mb = sp.k.shape[2], block_ids.shape[0]
+        p = torch.arange(S, device=bp.k.device)
+        ok = (p >= start_row) & (p < mb * bs)
+        dest = torch.where(ok, _pool_rows(block_ids, p, bs),
+                           torch.zeros_like(p))
+        for pool, rows in ((bp.k, sp.k), (bp.v, sp.v)):
+            flat = pool.view((pool.shape[0], nb * bs) + tuple(pool.shape[3:]))
+            flat[:, dest] = rows[:, 0].to(flat.dtype)
+        bp.length[:, slot] = int(true_len)
+    return big
+
+
+def paged_prefix_caches(big, block_ids: torch.Tensor, prefix_len: int,
+                        small_len: int) -> Dict[str, Any]:
+    """Batch=1 contiguous caches of ``small_len`` rows whose first
+    ``prefix_len`` rows are GATHERED from the pool through ``block_ids``:
+    the suffix prefill's starting state for prefix-cache admission.
+    ``small_len`` is the server's max rows plus its largest bucket, so a
+    bucketed suffix behind a near-full prefix never overruns it. Rows at
+    or past ``prefix_len`` are exact zeros, as in a fresh cache, and the
+    lengths are pinned at ``prefix_len``."""
+    out = {}
+    for key, bp in big.items():
+        L, nb, bs = bp.k.shape[0], bp.k.shape[1], bp.k.shape[2]
+        src = _pool_rows(block_ids, torch.arange(prefix_len,
+                                                 device=bp.k.device), bs)
+
+        def gather(pool):
+            flat = pool.view((L, nb * bs) + tuple(pool.shape[3:]))
+            buf = torch.zeros((L, 1, small_len) + tuple(pool.shape[3:]),
+                              dtype=pool.dtype, device=pool.device)
+            buf[:, 0, :prefix_len] = flat[:, src]
+            return buf
+
+        out[key] = KVCache(gather(bp.k), gather(bp.v), torch.full(
+            (L, 1), prefix_len, dtype=torch.int32, device=bp.k.device))
+    return out
+
+
+def copy_pool_block(big, dst: int, src: int):
+    """Device-side copy-on-write: pool block ``src``'s rows into ``dst``
+    across every layer of every stack, IN PLACE (the allocator's side is
+    :meth:`BlockAllocator.fork`). Queued on the current stream, so it
+    lands before any later work on that stream reads block ``dst``."""
+    for bp in big.values():
+        bp.k[:, dst] = bp.k[:, src]
+        bp.v[:, dst] = bp.v[:, src]
     return big

@@ -54,11 +54,13 @@ def block_init(rng, cfg: ArchConfig, kind: str, dtype, device):
 
 def block_fwd(params, x, positions, cfg: ArchConfig, kind: str, cache=None,
               active: Optional[torch.Tensor] = None, block_tables=None,
-              advance=None, attn_kernel: str = "gather"):
+              advance=None, attn_kernel: str = "gather",
+              continuation: bool = False):
     """Returns (x, new_cache, aux). ``active`` (f32 (B,), serving only)
     gates every residual delta, so a dead slot's residual stream stays
     identically zero through the stack and its MLP gate tiles are
-    all-zero (dead) tiles."""
+    all-zero (dead) tiles. ``continuation`` marks a prefix-cache suffix
+    prefill (see ``attention.gqa_forward``)."""
 
     def gate(h):
         if active is None:
@@ -71,6 +73,7 @@ def block_fwd(params, x, positions, cfg: ArchConfig, kind: str, cache=None,
         params["attn"], rmsnorm(params["attn_norm"], x, cfg.norm_eps),
         positions, cfg, cache=cache, block_tables=block_tables,
         advance=advance, attn_kernel=attn_kernel, active=active,
+        continuation=continuation,
     )
     x = x + gate(h)
     hn = rmsnorm(params["mlp_norm"], x, cfg.norm_eps)
@@ -91,7 +94,7 @@ def stack_init(rng, cfg: ArchConfig, n_layers: int, kind: str, dtype,
 
 def stack_fwd(layers, x, positions, cfg: ArchConfig, kind: str,
               caches=None, active=None, block_tables=None, advance=None,
-              attn_kernel: str = "gather"):
+              attn_kernel: str = "gather", continuation: bool = False):
     """Python loop over the layers. ``caches`` is a layer-stacked
     KVCache/PagedKVCache (leading layer axis on every field)."""
     aux = aux_zero(x.device)
@@ -103,7 +106,7 @@ def stack_fwd(layers, x, positions, cfg: ArchConfig, kind: str,
         x, nc, a = block_fwd(
             lp, x, positions, cfg, kind, cache=lc, active=active,
             block_tables=block_tables, advance=advance,
-            attn_kernel=attn_kernel,
+            attn_kernel=attn_kernel, continuation=continuation,
         )
         aux = {k: aux[k] + a[k] for k in aux}
         if caches is not None:

@@ -24,8 +24,21 @@ clock (``core/cost_model.py``: modeled costs, not measurements), so on
 the same trace and weights the port admits, decodes and releases in the
 reference's order and reports the same integer and skip metrics.
 
+Prefix-cache block sharing (``ServeConfig.prefix_cache``, the dense
+family): after every prefill the prompt's FULL blocks are chain-hashed
+into a :class:`~repro_torch.runtime.paging.PrefixCache`; a later
+admission whose prompt shares a cached prefix maps those pool blocks
+into its table READ-ONLY (one allocator reference each; the shared run
+first, owned blocks after it, so decode writes never reach them),
+prefills only the bucketed suffix (``_prefill_suffix``: the prefix
+gathered from the pool, the suffix run with ``continuation=True``), and
+on a full-prompt match forks the last block copy-on-write, since the
+last prompt row must re-run for its logits. A hit is priced at the
+suffix bucket and the commitment shrinks by the shared blocks; tokens
+stay those of the cache-off engine.
+
 Not ported yet (``ServeConfig`` rejects them with NotImplementedError):
-the prefix cache, SLO scheduling and ``AsyncServer``/``serve_trace``,
+SLO scheduling and ``AsyncServer``/``serve_trace``,
 preemption/cancel/deadlines/shedding/fault injection, the SPMD mesh and
 the contiguous (``kv_block_size=0``) layout.
 
@@ -49,7 +62,7 @@ from repro_torch.kernels.paged_decode_attn import decode_attn_block_counts
 from repro_torch.models import model as model_lib
 from repro_torch.runtime.metrics import ServeMetrics
 from repro_torch.runtime.paging import (
-    BlockAllocator, blocks_needed, pick_bucket, resolve_buckets,
+    BlockAllocator, PrefixCache, blocks_needed, pick_bucket, resolve_buckets,
 )
 from repro_torch.runtime.queueing import QueuedRequest, RequestQueue
 from repro_torch.runtime.scheduler import Scheduler
@@ -113,9 +126,13 @@ class ServeConfig:
             raise ValueError(
                 f"ServeConfig.attn_kernel must be 'gather' or 'paged', "
                 f"got {self.attn_kernel!r}")
+        if self.prefix_cache and self.kv_block_size <= 0:
+            raise ValueError(
+                "ServeConfig.prefix_cache=True needs the paged KV "
+                "layout: shared prefixes are pool blocks mapped into "
+                "several tables, so set kv_block_size > 0")
         unported = {
             "kv_block_size=0 (contiguous layout)": self.kv_block_size == 0,
-            "prefix_cache": self.prefix_cache,
             "mesh (SPMD serving)": self.mesh is not None,
             "slo (SLO scheduling)": self.slo is not None,
             "max_queue_depth (load shedding)": self.max_queue_depth is not None,
@@ -139,6 +156,10 @@ class _Slot:
     ticks: int = 0
     cache_len: int = 0  # rows currently in this slot's cache
     blocks: List[int] = dataclasses.field(default_factory=list)
+    # Prefix-cache blocks mapped READ-ONLY into this slot's table (one
+    # allocator reference each, released with the slot); they sit before
+    # ``blocks`` in the table, so decode writes never touch them.
+    shared: List[int] = dataclasses.field(default_factory=list)
     commit: int = 0  # worst-case pool blocks promised to this request
     admit_vt: float = 0.0
     first_vt: float = 0.0
@@ -174,6 +195,20 @@ class Server:
         if serve_cfg.sparsity is not None:
             cfg = dataclasses.replace(cfg, sparsity=serve_cfg.sparsity)
         self.cfg, self.params, self.sc = cfg, params, serve_cfg
+        # Value checks of the family (no params touched), the reference's.
+        if serve_cfg.prefix_cache:
+            if cfg.family in ("ssm", "hybrid"):
+                raise ValueError(
+                    "prefix_cache=True needs the paged KV layout (set "
+                    "kv_block_size > 0; ssm/hybrid families have no "
+                    "per-token rows to share)")
+            if (cfg.family not in model_lib.bucketable_families()
+                    or cfg.frontend == "patches"):
+                raise ValueError(
+                    f"prefix_cache=True is not supported for family "
+                    f"{cfg.family!r}: suffix-only prefill needs bucketed "
+                    "(masked-tail) prefill to be exact and a token-only "
+                    "cache prefix (patch rows are per-request)")
         if model_lib.params_device(params).type != self.device.type:
             raise ValueError(
                 f"params live on {model_lib.params_device(params)}, the "
@@ -193,6 +228,12 @@ class Server:
         self._buckets = (
             resolve_buckets(serve_cfg.prefill_buckets, serve_cfg.max_len)
             if cfg.family in model_lib.bucketable_families() else ())
+        # Suffix-prefill scratch rows: a bucketed suffix behind a
+        # near-full prefix reaches prefix + bucket rows, so the scratch is
+        # oversized by the largest bucket (rows past the table land in
+        # the null block on insert).
+        self._ext_rows = self._max_rows + (
+            max(self._buckets) if self._buckets else self._max_rows)
         self._ema = sasa.SparsityEMA()
         self._rng = np.random.default_rng(serve_cfg.seed)
         # Distinct prefill shapes served: the port runs eagerly, so this
@@ -209,11 +250,14 @@ class Server:
         self._itl_ticks_all: deque = deque(maxlen=500_000)
         self.admitted_uids: deque = deque(maxlen=100_000)
         self._st: Optional[_EngineState] = None
+        # The run's prefix index (built in start_engine when enabled).
+        self._prefix: Optional[PrefixCache] = None
         self.metrics = ServeMetrics(
             kv_paged=1.0,
             kv_block_size=float(serve_cfg.kv_block_size),
             kv_pool_blocks=float(self._pool_usable),
             attn_kernel_paged=float(serve_cfg.attn_kernel == "paged"),
+            prefix_cache_enabled=float(serve_cfg.prefix_cache),
         )
         self._frag_sum = 0.0
         self._frag_ticks = 0
@@ -300,6 +344,46 @@ class Server:
         self.metrics.prefill_skipped_tile_dots += float(skip[0])
         self.metrics.prefill_total_tile_dots += float(skip[1])
 
+    def _prefill_suffix(self, r: Request, slot: int, caches,
+                        table_row: np.ndarray, prefix_len: int, rows0: int):
+        """Continuation prefill: run only the suffix of a prompt whose
+        first ``prefix_len`` rows already sit in pool blocks mapped
+        read-only into ``table_row``. The prefix is gathered out of the
+        pool into a batch=1 scratch of ``_ext_rows`` rows pinned at length
+        ``prefix_len``; the suffix, padded to its own bucket, runs with
+        ``continuation=True``; only its rows are scattered back (the
+        shared rows' writes go to the null block)."""
+        prompt = np.asarray(r.prompt).reshape(-1)
+        n_suffix = rows0 - prefix_len
+        S_pad = (pick_bucket(n_suffix, self._buckets) if self._buckets
+                 else n_suffix)
+        toks = np.zeros((1, S_pad), np.int64)
+        toks[0, :n_suffix] = prompt[prefix_len:]
+        dev = self.device
+        batch = {"tokens": torch.from_numpy(toks).to(dev),
+                 "advance": torch.tensor([n_suffix], dtype=torch.int32,
+                                         device=dev)}
+        t0 = time.perf_counter()
+        ids = torch.from_numpy(np.asarray(table_row, np.int64)).to(dev)
+        small = model_lib.paged_prefix_caches(caches, ids, prefix_len,
+                                              self._ext_rows)
+        with torch.no_grad():
+            logits, small, aux = model_lib.forward(
+                self.params, self.cfg, batch, small, last_only=True,
+                continuation=True)
+        self._prefill_shapes.add(("suffix", S_pad))
+        caches = model_lib.insert_slot_paged_from(caches, small, slot, ids,
+                                                  rows0, prefix_len)
+        last = logits[0, 0].float().cpu().numpy()  # (V,)
+        skip = aux["skip"].double().cpu().numpy()
+        self.metrics.prefill_s += time.perf_counter() - t0
+        # Only the suffix ran; the matched rows are counted in
+        # prefix_matched_tokens.
+        self.metrics.prefill_tokens += n_suffix
+        self.metrics.admitted += 1
+        self._count_prefill_skip(skip)
+        return last, caches
+
     def _finish(self, s: _Slot, t_now: float) -> None:
         r = s.req
         item = s.item
@@ -358,8 +442,12 @@ class Server:
                 "discard the previous run first")
         self._queue = RequestQueue()
         self._vt = 0.0
+        alloc = BlockAllocator(self._pool_usable)
+        # A fresh index per run: its blocks belong to this run's pool.
+        self._prefix = (PrefixCache(alloc, sc.kv_block_size)
+                        if sc.prefix_cache else None)
         self._st = _EngineState(
-            caches=caches, alloc=BlockAllocator(self._pool_usable),
+            caches=caches, alloc=alloc,
             tables=np.zeros((B, self._max_blocks), np.int32),
             slots=[None] * B, cur_tok=np.zeros((B,), np.int64),
             completed=[],
@@ -399,8 +487,13 @@ class Server:
         s.released = True
         if s.blocks:
             st.alloc.release(s.blocks)
+        if s.shared:
+            # This slot's references on the read-only prefix blocks; the
+            # index's own (and other sharers') keep them in the pool.
+            st.alloc.release(s.shared)
+            s.shared = []
         # Return the UNUSED tail of the worst-case commitment (raises on
-        # a double count).
+        # a double count); shared blocks were never part of it.
         st.alloc.unreserve(s.commit - len(s.blocks))
         s.commit = len(s.blocks)
         st.tables[i, :] = 0
@@ -433,36 +526,104 @@ class Server:
         r = item.req
         rows0, worst = self._request_need(r)
         bs = sc.kv_block_size
-        alloc = st.alloc
-        commit = blocks_needed(worst, bs)
+        alloc, prefix = st.alloc, self._prefix
+        # Prefix-cache probe. lookup() RETAINS every matched block for
+        # this request, so every bail-out below releases them.
+        keys: List[bytes] = []
+        shared: List[int] = []
+        cow = False
+        if prefix is not None:
+            keys = PrefixCache.chain_keys(np.asarray(r.prompt), bs)
+            shared = prefix.lookup(keys)
+            self.metrics.prefix_lookups += 1
+            if shared:
+                self.metrics.prefix_hits += 1
+            # Full-prompt match: the last prompt row must re-run for its
+            # logits and needs a writable home, so the block holding it
+            # is forked copy-on-write below.
+            cow = bool(shared) and len(shared) * bs == rows0
+        # Shared blocks are never allocated, so they drop out of the
+        # worst-case commitment (the CoW fork stays in: it is owned).
+        commit = blocks_needed(worst, bs) - (
+            len(shared) - 1 if cow else len(shared))
         if not alloc.can_reserve(commit):
-            return "full"
+            # Evict blocks only the index holds; the matched ones hold
+            # our reference too, so eviction cannot take them.
+            if prefix is not None:
+                prefix.evict_for(commit)
+            if not alloc.can_reserve(commit):
+                if shared:
+                    alloc.release(shared)
+                return "full"
         n_active = sum(1 for s in st.slots if s is not None)
-        pt = self._costs.prefill_ticks(self._bucket_rows(r))
+        pt_full = self._costs.prefill_ticks(self._bucket_rows(r))
+        n_suffix, prefix_len = rows0, 0
+        if shared:
+            n_suffix = 1 if cow else rows0 - len(shared) * bs
+            prefix_len = rows0 - n_suffix
+        suffix_rows = (pick_bucket(n_suffix, self._buckets) if self._buckets
+                       else n_suffix)
+        # A hit is priced at the suffix bucket: the work that runs.
+        pt = self._costs.prefill_ticks(suffix_rows) if prefix_len else pt_full
         # Drain mode: the scheduler admits greedily (kept for its
         # decision counters and the shared policy surface).
         self._sched.admit_head(
             wait_ticks=self._vt - item.arrival_vt, prefill_ticks=pt,
             n_active=n_active, deadline_ticks=item.deadline_ticks)
         if not alloc.try_reserve(commit):
+            if shared:
+                alloc.release(shared)
             return "full"
-        block_ids = alloc.alloc(blocks_needed(rows0, bs), reserved=True)
-        st.tables[i, : len(block_ids)] = block_ids
+        if cow:
+            # The allocator's fork first, then the device copy: queued on
+            # the current stream before the suffix prefill, which gathers
+            # the prefix through the table on the same stream.
+            block_ids = [alloc.fork(shared[-1], reserved=True)]
+            st.caches = model_lib.copy_pool_block(st.caches, block_ids[0],
+                                                  shared.pop())
+            self.metrics.prefix_cow_forks += 1
+        else:
+            block_ids = alloc.alloc(blocks_needed(rows0, bs) - len(shared),
+                                    reserved=True)
+        # The read-only shared run first, owned blocks after it.
+        st.tables[i, : len(shared)] = shared
+        st.tables[i, len(shared): len(shared) + len(block_ids)] = block_ids
         self.metrics.kv_blocks_peak_in_use = max(
             self.metrics.kv_blocks_peak_in_use, float(alloc.in_use))
         self._queue.pop_expected(item)
         t0 = time.perf_counter()
         admit_vt = self._vt
-        last_logits, st.caches = self._prefill_one(r, i, st.caches,
-                                                   block_ids)
+        if prefix_len:
+            last_logits, st.caches = self._prefill_suffix(
+                r, i, st.caches, st.tables[i], prefix_len, rows0)
+        else:
+            last_logits, st.caches = self._prefill_one(r, i, st.caches,
+                                                       block_ids)
         self._vt += pt
         self._vt_prefill += pt
+        if prefix is not None:
+            # pt_full is what the cache-off engine spends on every
+            # admission; a hit keeps pt_full - pt off the virtual clock.
+            self.metrics.prefill_ticks_nocache += pt_full
+            if prefix_len:
+                self.metrics.prefix_matched_tokens += prefix_len
+                self.metrics.prefix_blocks_shared += len(shared)
+                self.metrics.prefill_ticks_saved += pt_full - pt
+                self.metrics.prefill_flops_saved += (
+                    self._costs.prefill_flops(self._bucket_rows(r))
+                    - self._costs.prefill_flops(suffix_rows))
+            # Publish the prompt's full blocks; register() keeps the
+            # incumbent of a known key, so a CoW fork stays private.
+            n_full = rows0 // bs
+            if n_full:
+                prefix.register(keys[:n_full],
+                                [int(b) for b in st.tables[i, :n_full]])
         first = self._sample(last_logits)
         s = _Slot(
             req=r, item=item, produced=[np.asarray(first)], t_admit=t0,
             t_first=time.perf_counter(), cache_len=rows0, blocks=block_ids,
-            commit=commit, admit_vt=admit_vt, first_vt=self._vt,
-            last_token_vt=self._vt,
+            shared=shared, commit=commit, admit_vt=admit_vt,
+            first_vt=self._vt, last_token_vt=self._vt,
         )
         st.slots[i] = s
         st.cur_tok[i] = first
@@ -489,7 +650,7 @@ class Server:
             if s is None:
                 continue
             blk_idx = s.cache_len // sc.kv_block_size
-            if blk_idx >= len(s.blocks):
+            if blk_idx >= len(s.shared) + len(s.blocks):
                 (new_blk,) = st.alloc.alloc(1, reserved=True)
                 s.blocks.append(new_blk)
                 st.tables[i, blk_idx] = new_blk
@@ -501,7 +662,8 @@ class Server:
                 f"{self._outstanding_commit()} outstanding, allocator "
                 f"holds {st.alloc.reserved}")
         used_rows = sum(s.cache_len + 1 for s in st.slots if s is not None)
-        cap_rows = sum(len(s.blocks) * sc.kv_block_size
+        # Each slot's MAPPED blocks: a shared block once per sharer.
+        cap_rows = sum((len(s.shared) + len(s.blocks)) * sc.kv_block_size
                        for s in st.slots if s is not None)
         if cap_rows:
             self._frag_sum += 1.0 - used_rows / cap_rows
@@ -600,6 +762,14 @@ class Server:
         if vt_total > 0:
             m.prefill_tick_share = self._vt_prefill / vt_total
             m.decode_tick_share = self._vt_decode / vt_total
+        if self._prefix is not None:
+            m.prefix_evicted_blocks = float(self._prefix.evicted)
+            m.prefix_cache_blocks = float(len(self._prefix))
+        if m.prefix_lookups > 0:
+            m.prefix_hit_rate = m.prefix_hits / m.prefix_lookups
+        if m.prefill_ticks_nocache > 0:
+            m.prefill_ticks_saved_frac = (
+                m.prefill_ticks_saved / m.prefill_ticks_nocache)
         return m
 
     def _account_kv_bytes(self) -> None:

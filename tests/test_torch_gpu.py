@@ -574,6 +574,44 @@ def test_reduced_engine_on_gpu_matches_cpu(cuda):
     assert metrics["cuda"].skipped_tile_dots > 0
 
 
+def test_reduced_prefix_cache_engine_on_gpu_matches_cpu(cuda):
+    """The prefix cache on the card: shared-prefix prompts and a
+    byte-identical re-prompt (a copy-on-write fork) give the CPU's tokens
+    and counters, through the paged GQA kernel over tables whose slots
+    share blocks; only the index holds blocks afterwards."""
+    cfg = get_config("smollm-135m").reduced()
+    rng = np.random.default_rng(9)
+    prefix = rng.integers(0, cfg.vocab_size, 16)
+    prompts = [np.concatenate([prefix, rng.integers(0, cfg.vocab_size, n)])
+               for n in (8, 3, 5, 12, 1)]
+    prompts.append(prompts[0].copy())  # 24 rows: 3 whole blocks
+    outs, metrics = {}, {}
+    for dev in ("cpu", cuda):
+        params = model_lib.init_params(cfg, seed=0, device=dev)
+        srv = Server(cfg, params, ServeConfig(
+            batch_slots=3, max_len=48, kv_block_size=8, attn_kernel="paged",
+            prefix_cache=True, sparsity=SparsityConfig(
+                enabled=True, mode="fused", gate_threshold=0.0)), device=dev)
+        before = pda.paged_gqa_decode_attn.launches
+        done = srv.generate([Request(uid=i, prompt=p, max_new=6)
+                             for i, p in enumerate(prompts)])
+        key = torch.device(dev).type
+        if key == "cuda":
+            assert pda.paged_gqa_decode_attn.launches > before
+        outs[key] = {r.uid: r.out.tolist() for r in done}
+        metrics[key] = srv.metrics
+        alloc = srv._st.alloc
+        assert alloc.in_use == len(srv._prefix) and alloc.reserved == 0
+        alloc.check(expect_reserved=0)
+    assert outs["cuda"] == outs["cpu"]
+    for name in ("prefix_hits", "prefix_matched_tokens",
+                 "prefix_blocks_shared", "prefix_cow_forks", "ticks",
+                 "decode_tokens", "prefill_tokens", "attn_blocks_fetched"):
+        assert getattr(metrics["cuda"], name) == getattr(metrics["cpu"], name)
+    assert metrics["cuda"].prefix_hits == 5
+    assert metrics["cuda"].prefix_cow_forks == 1
+
+
 @pytest.mark.parametrize("mode", ["fused", "kernel"])
 def test_reduced_relu_engine_on_gpu_matches_cpu(cuda, mode):
     """The relu MLP (``--sparce``) in both kernel modes: the same tokens
@@ -1052,9 +1090,10 @@ def test_relu_bwd_kernel_matches_plain(cuda, shape, block, dtype):
     assert bool(torch.isnan(gx).sum() == 1)
 
 
-def test_relu_bwd_with_bitmap_pads_on_gpu(cuda):
-    """Ragged rows and columns through ops: padding tiles get bit 1;
-    equal to the CPU plain version."""
+def test_relu_bwd_with_bitmap_unpadded_on_gpu(cuda):
+    """Ragged rows and columns through ops, nothing padded: edge tiles
+    get the padded reference's bits, gx comes back dense; equal to the
+    CPU plain version."""
     rng = np.random.default_rng(23)
     x = rng.standard_normal((10, 300)).astype(np.float32)
     g = rng.standard_normal((10, 300)).astype(np.float32)
@@ -1062,10 +1101,52 @@ def test_relu_bwd_with_bitmap_pads_on_gpu(cuda):
     xt, gt = torch.from_numpy(x), torch.from_numpy(g)
     gx, bmp = kops.relu_bwd_with_bitmap(xt.to(cuda), gt.to(cuda), (8, 128))
     gx0, bmp0 = kops.relu_bwd_with_bitmap(xt, gt, (8, 128))
-    assert tuple(gx.shape) == (10, 300)
+    assert tuple(gx.shape) == (10, 300) and gx.is_contiguous()
     assert torch.equal(gx.cpu(), gx0) and torch.equal(bmp.bits.cpu(),
                                                       bmp0.bits)
     assert bool(bmp.bits[1].all()) and bmp.bits.shape == (2, 3)
+
+
+def relu_bwd_ragged_operands(shape, block, seed):
+    """x and g (f32 numpy) for a relu backward at a ragged shape: tile
+    (0, 0) has x <= 0 under a NaN g (dropped: dead), a second tile (the
+    next one of row tile 0, else of column tile 0) has g = -0.0 (dead),
+    and the last tile's only nonzero gx is a NaN (live)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape).astype(np.float32)
+    g = rng.standard_normal(shape).astype(np.float32)
+    (br, bc), (r, c) = block, shape
+    x[:br, :bc], g[:br, :bc] = -1.0, np.nan
+    second = (0, 1) if c > bc else (1, 0)
+    g[second[0] * br:(second[0] + 1) * br,
+      second[1] * bc:(second[1] + 1) * bc] = -0.0
+    lr, lc = (r - 1) // br * br, (c - 1) // bc * bc
+    x[lr:, lc:], g[lr:, lc:] = 1.0, 0.0
+    g[-1, -1] = np.nan
+    return x, g, second
+
+
+RELU_BWD_RAGGED = [((7, 300), (1, 128)), ((10, 300), (8, 128)),
+                   ((3025, 96), (8, 128)), ((3025, 96), (256, 128))]
+
+
+@pytest.mark.parametrize("shape,block", RELU_BWD_RAGGED)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_relu_bwd_kernel_takes_ragged_shapes(cuda, shape, block, dtype):
+    """Unpadded ragged operands: gx equal to the plain version's bit for
+    bit (NaN in the same place), bits exactly equal, the NaN and -0.0
+    tiles flagged; and one launch."""
+    x, g, second = relu_bwd_ragged_operands(shape, block, seed=53)
+    xt, gt = (torch.from_numpy(a).to(cuda, dtype) for a in (x, g))
+    br, bc = block
+    before = rb.relu_bwd_bitmap.launches
+    gx, bits = rb.relu_bwd_bitmap(xt, gt, block_r=br, block_c=bc)
+    assert rb.relu_bwd_bitmap.launches == before + 1
+    gx0, bits0 = rb.relu_bwd_bitmap_plain(xt, gt, block_r=br, block_c=bc)
+    assert torch.equal(bits, bits0)
+    assert torch.equal(torch.nan_to_num(gx, 7.0), torch.nan_to_num(gx0, 7.0))
+    assert bits[0, 0] == 1 and bits[second] == 1 and bits[-1, -1] == 0
+    assert int(torch.isnan(gx).sum()) == 1
 
 
 @pytest.mark.parametrize("bench,layer_name", [

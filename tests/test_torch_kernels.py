@@ -30,6 +30,7 @@ from repro_torch.kernels import relu_bitmap as rb
 from repro_torch.kernels import sparce_gemm as sg
 from repro_torch.kernels import sparce_glu_mlp as sgm
 from repro_torch.kernels import sparce_mlp as sm
+from test_torch_gpu import relu_bwd_ragged_operands
 
 BS = 4  # pool rows per block in the attention tests
 F32_TOL = dict(rtol=1e-5, atol=1e-5)  # f32, sums in another order
@@ -607,23 +608,30 @@ def test_relu_bitmap_plain_passes_nan_and_negative_zero():
 
 
 def test_relu_bitmap_grid_covers_several_tiles_a_cta():
-    """The forward kernel's launch is a function of the shapes: a CTA
-    takes the tiles of one tile row that one 16-byte vector a thread
-    covers, so the 96 one-row tiles of the decode shape go to 16 CTAs of
-    up to 8 and the 3072 of a 256-row prefill to 512 (one CTA a tile
-    made 3072); the bit grid is ceil(R/br) x ceil(C/bc)."""
+    """The kernel's launch (relu and its backward) is a function of the
+    shapes: a CTA takes the elements one 16-byte vector a thread covers,
+    so the 96 one-row tiles of the decode shape go to 16 CTAs of up to 8
+    and the 3072 of a 256-row prefill to 512 (one CTA a tile made 3072);
+    a larger tile goes in slabs of rows, one a CTA (alexnet conv1's
+    3025 x 96 f32 output at tile (256, 128): 768 CTAs of 4 rows, where
+    one CTA a tile made 12); the bit grid is ceil(R/br) x ceil(C/bc)."""
     bf16 = torch.bfloat16
     assert rb.relu_bitmap_grid(8, 1536, 1, 128, bf16) == dict(
-        bits=(8, 12), tiles_per_cta=8, ctas=16)
+        bits=(8, 12), tiles_per_cta=8, rows_per_cta=1, ctas=16)
     assert rb.relu_bitmap_grid(256, 1536, 1, 128, bf16) == dict(
-        bits=(256, 12), tiles_per_cta=8, ctas=512)
+        bits=(256, 12), tiles_per_cta=8, rows_per_cta=1, ctas=512)
     assert rb.relu_bitmap_grid(256, 1536, 1, 128, torch.float32) == dict(
-        bits=(256, 12), tiles_per_cta=4, ctas=768)
+        bits=(256, 12), tiles_per_cta=4, rows_per_cta=1, ctas=768)
     assert rb.relu_bitmap_grid(7, 300, 1, 128, bf16) == dict(
-        bits=(7, 3), tiles_per_cta=3, ctas=7)
+        bits=(7, 3), tiles_per_cta=3, rows_per_cta=1, ctas=7)
     assert rb.relu_bitmap_grid(1, 128, 1, 128, bf16) == dict(
-        bits=(1, 1), tiles_per_cta=1, ctas=1)
-    assert rb.relu_bitmap_grid(130, 200, 64, 128, bf16)["ctas"] == 6
+        bits=(1, 1), tiles_per_cta=1, rows_per_cta=1, ctas=1)
+    assert rb.relu_bitmap_grid(130, 200, 64, 128, bf16) == dict(
+        bits=(3, 2), tiles_per_cta=1, rows_per_cta=8, ctas=48)
+    assert rb.relu_bitmap_grid(3025, 96, 256, 128, torch.float32) == dict(
+        bits=(12, 1), tiles_per_cta=1, rows_per_cta=4, ctas=768)
+    assert rb.relu_bitmap_grid(64, 256, 4, 128, bf16) == dict(
+        bits=(16, 2), tiles_per_cta=2, rows_per_cta=4, ctas=16)
     wide = rb.relu_bitmap_grid(1, 1 << 20, 1, 1, bf16)
     assert wide["tiles_per_cta"] == rb.RELU_MAX_TILES_PER_CTA
 
@@ -650,10 +658,53 @@ def test_relu_ops_wrapper_hands_the_kernel_unpadded_operands(monkeypatch):
     assert (bmp.block, bmp.shape) == ((64, 128), (8, 200))
 
 
-def test_relu_bwd_still_takes_padded_dims_only():
-    x = torch.ones((7, 300))
-    with pytest.raises(ValueError, match="padded dims required"):
-        rb.relu_bwd_bitmap(x, x, block_r=1, block_c=128)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,block", [
+    ((7, 300), (1, 128)), ((10, 300), (8, 128)), ((3025, 96), (8, 128)),
+])
+def test_relu_bwd_takes_ragged_shapes_like_the_padded_reference(
+        shape, block, dtype):
+    """The backward takes any shape unpadded: gx and the bits equal the
+    reference's padded ``ops.relu_bwd_with_bitmap`` (its Pallas kernel
+    in interpret mode): NaN in g dropped where x <= 0 and passed where
+    x > 0, -0.0 counted as zero, edge tiles' padding as zero."""
+    x, g, second = relu_bwd_ragged_operands(shape, block, seed=53)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    want_gx, want = ref_ops.relu_bwd_with_bitmap(
+        jnp.asarray(x, jdt), jnp.asarray(g, jdt), block)
+    xt, gt = (torch.from_numpy(a).to(getattr(torch, dtype)) for a in (x, g))
+    gx, bmp = kops.relu_bwd_with_bitmap(xt, gt, block)
+    assert gx.dtype == gt.dtype and tuple(gx.shape) == shape
+    np.testing.assert_array_equal(bmp.bits.numpy(), np.asarray(want.bits))
+    np.testing.assert_array_equal(gx.float().numpy(),
+                                  np.asarray(want_gx, np.float32))
+    assert (bmp.block, bmp.shape) == (want.block, want.shape)
+    assert bmp.bits[0, 0] == 1 and bmp.bits[second] == 1
+    assert bmp.bits[-1, -1] == 0 and int(torch.isnan(gx).sum()) == 1
+
+
+def test_relu_bwd_ops_wrapper_hands_the_kernel_unpadded_operands(
+        monkeypatch):
+    """ops.relu_bwd_with_bitmap pads and slices nothing: the kernel entry
+    gets x and g at their own shape (10 rows under 8-row tiles, 300
+    columns under 128-column tiles), and gx comes back dense, as the
+    entry made it."""
+    x, g, _ = relu_bwd_ragged_operands((10, 300), (8, 128), seed=54)
+    xt, gt = torch.from_numpy(x), torch.from_numpy(g)
+    seen = []
+
+    def entry(x, g, **kw):
+        seen.append((tuple(x.shape), tuple(g.shape), kw))
+        return rb.relu_bwd_bitmap_plain(x, g, **kw)
+
+    monkeypatch.setattr(rb, "relu_bwd_bitmap", entry)
+    gx, bmp = kops.relu_bwd_with_bitmap(xt, gt, (8, 128))
+    assert seen == [((10, 300), (10, 300), dict(block_r=8, block_c=128))]
+    assert gx.is_contiguous() and tuple(gx.shape) == (10, 300)
+    want, want_bits = rb.relu_bwd_bitmap_plain(xt, gt, block_r=8,
+                                               block_c=128)
+    assert torch.equal(torch.nan_to_num(gx, 7.0), torch.nan_to_num(want, 7.0))
+    assert torch.equal(bmp.bits, want_bits) and bmp.bits.shape == (2, 3)
 
 
 def test_relu_with_bitmap_pads_like_reference():

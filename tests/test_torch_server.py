@@ -224,7 +224,7 @@ def test_gather_and_paged_attention_serve_identically():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(kv_block_size=0), dict(prefix_cache=True), dict(mesh=(1, 2)),
+    dict(kv_block_size=0), dict(mesh=(1, 2)),
     dict(slo=object()), dict(max_queue_depth=4), dict(preempt=True),
     dict(faults=object()),
 ])

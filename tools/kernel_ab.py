@@ -1,7 +1,7 @@
-"""Device times of the paged GQA attention, relu_bitmap, fused relu
-MLP, paged MLA and gated GLU kernels of one source tree, beside the
-library calls computing the same functions, on one GPU; for comparing
-two trees in turns in one call.
+"""Device times of the paged GQA attention, relu_bitmap, relu backward,
+fused relu MLP, paged MLA and gated GLU kernels of one source tree,
+beside the library calls computing the same functions, on one GPU; for
+comparing two trees in turns in one call.
 
     python tools/kernel_ab.py --src SRC [--label NAME]
 
@@ -12,12 +12,15 @@ SRC is the ``src`` directory of a checkout (this one's by default); its
 heads of 3 query rows, head dim 64, 16-row blocks, 32 entries, bf16) and
 with every slot at 512 rows; relu_bitmap at the relu decode tick's h (8
 x 1536, tile (1, 128)), a 256-row prefill bucket and one (1, 128) tile;
-the relu MLP at the relu decode tick's operands (8 rows, block (1, 128),
-bf16) and at a 256-row prefill bucket with the same tiles; the MLA
+relu_bwd_bitmap at the same decode and prefill operands and at alexnet
+conv1's output (3025 x 96, f32, tile (256, 128), through
+``ops.relu_bwd_with_bitmap``); the relu MLP at the relu decode tick's
+operands (8 rows, block (1, 128), bf16) and at a 256-row prefill bucket
+with the same tiles; the MLA
 kernel at ``time_mla``'s operands (8 slots of the trace's lengths, 128
 heads, R 512, ROPE 64, 16-row blocks); the GLU at ``time_glu``'s decode
 operands. Each kernel is called through its module's entry (so neither
-tree pads). Times per call: CUDA events around 200 calls, the
+tree pads), conv1's relu backward through ``ops``. Times per call: CUDA events around 200 calls, the
 profiler's device time of every kernel the call launches
 (``chip_smoke.device_time_ms``) and a replayed CUDA graph of 20 calls
 (``chip_smoke.graph_time_ms``). Prints one JSON line with the card's
@@ -87,6 +90,28 @@ def main():
         out[name] = witnesses(
             cs, lambda: rb.relu_bitmap(x, block_r=1, block_c=bc))
         out[name + "_library"] = witnesses(cs, cs.relu_library(torch, x, bc))
+
+    # relu_bwd_bitmap at the same decode and prefill operands (the kernel
+    # alone), then at phase 7's largest operand, alexnet conv1's output
+    # (3025 x 96, f32) at its plan's tile (256, 128), through
+    # ops.relu_bwd_with_bitmap (so a tree that pads pays its copies).
+    from repro_torch.kernels import ops as kops
+    gen = torch.Generator(device=dev).manual_seed(15)
+    y1 = torch.randn((3025, 96), generator=gen, device=dev)
+    cases = (("relu_bwd_decode", h, (1, bc), rb.relu_bwd_bitmap),
+             ("relu_bwd_prefill", hp, (1, bc), rb.relu_bwd_bitmap),
+             ("relu_bwd_conv1", y1, (256, 128), None))
+    for name, x, (br, bcc), fn in cases:
+        g = torch.randn(x.shape, generator=gen, device=dev).to(x.dtype)
+
+        def run():
+            if fn is None:
+                return kops.relu_bwd_with_bitmap(x, g, (br, bcc))
+            return fn(x, g, block_r=br, block_c=bcc)
+
+        out[name] = witnesses(cs, run)
+        out[name + "_library"] = witnesses(
+            cs, cs.relu_bwd_library(torch, x, g, br, bcc))
 
     # The relu MLP: decode, then the 256-row prefill bucket.
     x, wi, wo, _, _ = cs.relu_decode_operands(torch, dev)
