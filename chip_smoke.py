@@ -46,7 +46,22 @@ is printed only when all of them pass):
      prefill tokens, only the index holding blocks afterwards, and its
      kernels' launch counts read around the cache-on run; then f32
      2-layer greedy streams at full width equal with the cache off and
-     on. Phase 2 holds the paged GQA kernel over such aliased tables.
+     on. Phase 2 holds the paged GQA kernel over such aliased tables;
+  9. the live engine: (a) ``Server.serve_trace`` of a seeded open-loop
+     trace (52 requests: Poisson arrivals, a burst, a shared prefix,
+     priorities with TTFT deadlines, max_ticks deadlines) on the full-width bf16 GLU engine
+     under a TTFT/ITL SLO with preemption, a bounded queue and a seeded
+     fault plan, twice: equal schedules, every uid completed, failed or
+     shed once, preemption, shedding, SLO defers and faults all seen, a
+     clean pool; ms per tick, the virtual TTFT/ITL percentiles and the
+     GQA and GLU launch counts; (b) the same trace on the f32 2-layer
+     relu engine (``mode="kernel"``) at full width, kernels on the card
+     against plain versions on the CPU: equal token streams, schedules
+     and metrics, a preempted request restored; (c) ``AsyncServer``:
+     two client threads submit 24 requests at wall-clock Poisson gaps, a
+     third streams every handle, a live and a queued request are
+     cancelled, then ``shutdown``: streams equal results, the wall-clock
+     TTFT and inter-token gap percentiles in ms.
 
 After phases 4-7, each of the nine kernels' time at its path's shapes
 beside its plain version, a library yardstick and its bound.
@@ -1550,6 +1565,385 @@ def check_prefix_f32(torch, dev, cfg, params, reqs):
         " -> ok")
 
 
+# ------------------------------------------------ phase 9: the live engine
+# Phase 9's open-loop trace (virtual ticks): Poisson arrivals at 0.25 a
+# tick, a burst of 20 more at tick 40, prompts of 16-256 tokens (every
+# other one behind one seeded 128-token prefix, as the launcher's
+# --shared-prefix-len prepends it), budgets from [8, 32], a quarter at
+# priority 1.0 with a TTFT deadline of 2 ticks, 4 requests with a
+# max_ticks deadline. (A burst of 12 into an empty queue never reaches
+# the 16-deep bound, so nothing would shed; without deadlines no head is
+# TTFT-forced within 48 ticks, so nothing would be preempted.)
+LIVE = dict(requests=32, rate=0.25, burst_at=40.0, burst_n=20,
+            prompt_lo=16, prompt_hi=256, prefix_len=128, new_lo=8,
+            new_hi=32, max_ticks=4, max_ticks_uids=(5, 14, 27, 38),
+            priority_deadline=2.0, seed=0)
+# Every ServeMetrics field but the wall-clock ones is a function of the
+# schedule and the skip pattern.
+WALL_FIELDS = ("prefill_s", "decode_s", "ttft_s_p50", "ttft_s_p99")
+WAIT_S = 300  # a bound on every blocking call of phase 9
+
+
+def live_config(sparsity):
+    """Phase 9's engine: 8 slots over a 96-block pool (the worst case is
+    256), the prefix cache, preemption, a 16-deep queue, a TTFT / ITL
+    SLO of 48 / 3 ticks and a seeded fault plan."""
+    from repro_torch.runtime.faults import FaultPlan
+    from repro_torch.runtime.scheduler import SLOConfig
+    from repro_torch.runtime.server import ServeConfig
+    return ServeConfig(
+        batch_slots=ENGINE["slots"], max_len=ENGINE["max_len"],
+        kv_block_size=ENGINE["block_size"], kv_pool_blocks=96,
+        attn_kernel="paged", sparsity=sparsity, prefix_cache=True,
+        preempt=True, max_queue_depth=16,
+        slo=SLOConfig(target_ttft_ticks=48, target_itl_ticks=3),
+        faults=FaultPlan(seed=0, step_fault_rate=0.002,
+                         alloc_exhaust_rate=0.02, transient_alloc_rate=0.05,
+                         transient_fails=2, poison_uids={3, 17}))
+
+
+def live_trace(vocab):
+    """(trace, serve_trace's keywords): ``[(arrival tick, Request)]``
+    made with numpy from LIVE's seed; priority 1.0 and a TTFT deadline
+    for every fourth uid."""
+    from repro_torch.runtime.server import Request
+    rng = np.random.default_rng(LIVE["seed"])
+    n = LIVE["requests"] + LIVE["burst_n"]
+    prefix = rng.integers(0, vocab, LIVE["prefix_len"])
+    arrivals = np.cumsum(rng.exponential(1.0 / LIVE["rate"],
+                                         LIVE["requests"])).tolist()
+    arrivals += [LIVE["burst_at"]] * LIVE["burst_n"]
+    trace = []
+    for uid in range(n):
+        prompt = rng.integers(0, vocab, int(rng.integers(
+            LIVE["prompt_lo"], LIVE["prompt_hi"] + 1)))
+        if uid % 2 == 0:
+            prompt = np.concatenate([prefix, prompt])
+        trace.append((float(arrivals[uid]), Request(
+            uid=uid, prompt=prompt,
+            max_new=int(rng.integers(LIVE["new_lo"], LIVE["new_hi"] + 1)),
+            max_ticks=(LIVE["max_ticks"] if uid in LIVE["max_ticks_uids"]
+                       else None))))
+    urgent = range(1, n, 4)
+    return trace, dict(
+        priorities={uid: 1.0 for uid in urgent},
+        deadlines={uid: LIVE["priority_deadline"] for uid in urgent})
+
+
+def live_server(cfg, params, sc, dev):
+    from repro_torch.runtime.server import Server
+    return Server(cfg, params, sc, device=dev)
+
+
+def serve_live(torch, dev, cfg, params, sc, trace, kw):
+    """One ``serve_trace`` of fresh copies of ``trace``; the launch counts
+    are read around it. Returns (server, requests, launches, wall)."""
+    srv = live_server(cfg, params, sc, dev)
+    fresh = [(a, dataclasses.replace(r, out=None, error=None, stats={}))
+             for a, r in trace]
+    wrappers = counters()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    srv.serve_trace(fresh, **kw)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (srv, [r for _, r in fresh],
+            {n: f.launches for n, f in wrappers.items()}, wall)
+
+
+def live_schedule(srv, reqs):
+    """What the run decided, all of it a function of (trace, config,
+    fault plan) with no EOS: the admission order, each request's outcome
+    (completed, failed or shed, by error type) and token count, and
+    every ServeMetrics field but the wall-clock ones."""
+    outcome = {r.uid: ("completed" if r.error is None
+                       else type(r.error).__name__, len(r.out))
+               for r in reqs}
+    metrics = {f.name: getattr(srv.metrics, f.name)
+               for f in dataclasses.fields(srv.metrics)
+               if f.name not in WALL_FIELDS}
+    return dict(admitted=list(srv.admitted_uids), outcome=outcome,
+                metrics=metrics)
+
+
+def check_live_run(srv, reqs, label):
+    """Every uid counted once (completed, failed or shed); preemption,
+    shedding, SLO defers and faults all seen; afterwards only the prefix
+    index holds pool blocks."""
+    m = srv.metrics
+    done = {r.uid for r in srv._st.completed}
+    failed = {r.uid for r in srv.failed}
+    shed = {r.uid for r in reqs if r.error is not None
+            and type(r.error).__name__ == "ServerOverloaded"}
+    if (done & failed or done & shed or failed & shed
+            or done | failed | shed != {r.uid for r in reqs}):
+        raise AssertionError(f"{label}: uids not counted once: {len(done)} "
+                             f"completed, {len(failed)} failed, {len(shed)} "
+                             f"shed of {len(reqs)}")
+    if (m.completed, m.shed_requests, m.cancelled + m.failed_requests) != (
+            len(done), len(shed), len(failed)):
+        raise AssertionError(f"{label}: counters disagree with the uids")
+    for name in ("preemptions", "shed_requests", "sched_deferred",
+                 "faults_injected"):
+        if not getattr(m, name) > 0:
+            raise AssertionError(f"{label}: {name} = {getattr(m, name)}")
+    for r in srv._st.completed:
+        if len(r.out) != r.max_new:
+            raise AssertionError(f"{label}: uid={r.uid} {len(r.out)} tokens")
+    st = srv._st
+    if (any(s is not None for s in st.slots) or srv.queue_depth()
+            or st.alloc.reserved or st.alloc.in_use != len(srv._prefix)):
+        raise AssertionError(f"{label}: pool not clean: {st.alloc.in_use} "
+                             f"in use, {len(srv._prefix)} indexed, "
+                             f"{st.alloc.reserved} reserved")
+    st.alloc.check(expect_reserved=0)
+    return done, failed, shed
+
+
+def run_live_engine(torch, dev):
+    """Phase 9 (a): ``serve_trace`` of the live trace on the full-width
+    bf16 GLU engine, twice; the two schedules must be equal."""
+    from repro_torch.core.sparse_ops import SparsityConfig
+    cfg = arch_config()
+    params = full_width_params(torch, cfg, dev)
+    sc = live_config(SparsityConfig(enabled=True, mode="fused",
+                                    gate_threshold=0.0, autotune=False))
+    trace, kw = live_trace(cfg.vocab_size)
+    serve_live(torch, dev, cfg, params, sc, trace[:4], {})  # warm-up
+    runs = [serve_live(torch, dev, cfg, params, sc, trace, kw)
+            for _ in range(2)]
+    scheds = [live_schedule(srv, reqs) for srv, reqs, _, _ in runs]
+    for key in scheds[0]:
+        if scheds[0][key] != scheds[1][key]:
+            raise AssertionError(f"phase 9 schedules differ in {key}")
+    for k, (srv, reqs, launches, wall) in enumerate(runs):
+        done, failed, shed = check_live_run(srv, reqs, f"run {k}")
+        m = srv.metrics
+        for name in ("paged_gqa_decode_attn", "sparce_glu_mlp_fused"):
+            if launches[name] <= 0:
+                raise AssertionError(f"{name} was not launched in phase 9")
+        log(f"  run {k}: {len(reqs)} requests: {len(done)} completed, "
+            f"{len(failed)} failed, {len(shed)} shed; "
+            f"{int(m.decode_tokens)} decode tokens in {int(m.ticks)} ticks, "
+            f"{1e3 * m.decode_s / m.ticks:.3f} ms per decode tick, "
+            f"{m.decode_tokens / m.decode_s:.1f} decode tokens/s; prefill "
+            f"{int(m.prefill_tokens)} tokens in {m.prefill_s:.3f}s; wall "
+            f"{wall:.3f}s")
+        log(f"  run {k}: launches: paged_gqa_decode_attn "
+            f"{launches['paged_gqa_decode_attn']}, sparce_glu_mlp_fused "
+            f"{launches['sparce_glu_mlp_fused']}")
+    srv, reqs, launches, _ = runs[0]
+    m = srv.metrics
+    kinds = {}
+    for r in srv.failed:
+        kinds[type(r.error).__name__] = kinds.get(type(r.error).__name__,
+                                                  0) + 1
+    log(f"  virtual ticks: TTFT p50/p99 {m.ttft_ticks_p50:.2f}/"
+        f"{m.ttft_ticks_p99:.2f}, ITL p50/p99 {m.itl_ticks_p50:.2f}/"
+        f"{m.itl_ticks_p99:.2f}; SLO violations ttft="
+        f"{int(m.slo_ttft_violations)} itl={int(m.slo_itl_violations)}")
+    log(f"  wall clock: TTFT p50/p99 {1e3 * m.ttft_s_p50:.1f}/"
+        f"{1e3 * m.ttft_s_p99:.1f} ms (queue wait included)")
+    log(f"  admission {int(m.sched_admitted)} / deferred "
+        f"{int(m.sched_deferred)} / forced {int(m.sched_forced)}; "
+        f"preemptions {int(m.preemptions)}, restore ticks "
+        f"{m.preempt_restore_ticks:.2f}; shed {int(m.shed_requests)}; "
+        f"faults injected {int(m.faults_injected)}, recovered "
+        f"{int(m.faults_recovered)}; failed by type {kinds}; prefix hits "
+        f"{int(m.prefix_hits)}/{int(m.prefix_lookups)}, evicted "
+        f"{int(m.prefix_evicted_blocks)}")
+    same = sum(a.out.tolist() == b.out.tolist()
+               for a, b in zip(runs[0][1], runs[1][1]))
+    log(f"  schedules of the two runs equal (admission order, outcomes, "
+        f"every non-wall metric) -> ok; token streams equal: "
+        f"{same}/{len(reqs)}")
+    return launches
+
+
+def check_live_f32(torch, dev):
+    """Phase 9 (b): the live trace and config on the relu engine
+    (``--sparce``, ``mode="kernel"``) at full width, 2 layers, f32: the
+    kernels on the card against the plain versions on the CPU. Token
+    streams, admission order, outcomes and every non-wall metric equal;
+    a preempted request was restored."""
+    from repro_torch.core.sparse_ops import SparsityConfig
+    from repro_torch.models import model as model_lib
+    cfg = dataclasses.replace(relu_config(), num_layers=2, dtype="float32")
+    sc = live_config(SparsityConfig(enabled=True, mode="kernel",
+                                    autotune=False, **SPARCE_BLOCKS))
+    params = model_lib.init_params(cfg, seed=ENGINE["seed"], device=dev)
+    trace, kw = live_trace(cfg.vocab_size)
+    cpu = torch.device("cpu")
+    (gs, greqs, glaunch, gwall), (cs, creqs, _, cwall) = [
+        serve_live(torch, where, cfg, p, sc, trace, kw)
+        for where, p in ((dev, params), (cpu, to_device(params, cpu)))]
+    check_live_run(gs, greqs, "f32 card")
+    check_live_run(cs, creqs, "f32 CPU")
+    want, got = live_schedule(cs, creqs), live_schedule(gs, greqs)
+    for key in want:
+        if got[key] != want[key]:
+            diff = ({k: (got[key][k], want[key][k]) for k in want[key]
+                     if got[key][k] != want[key][k]}
+                    if isinstance(want[key], dict) else "order")
+            raise AssertionError(f"f32 card vs CPU: {key} differs: {diff}")
+    streams = {r.uid: r.out.tolist() for r in greqs}
+    if streams != {r.uid: r.out.tolist() for r in creqs}:
+        raise AssertionError("f32 token streams differ, card vs CPU")
+    restored = [r.uid for r in gs._st.completed
+                if r.stats.get("preemptions", 0) >= 1]
+    if not restored:
+        raise AssertionError("no preempted request was restored")
+    for name in ("relu_bitmap", "sparce_gemm_gated",
+                 "paged_gqa_decode_attn"):
+        if glaunch[name] <= 0:
+            raise AssertionError(f"{name} was not launched in phase 9 (b)")
+    log(f"  f32 2-layer relu kernel engine: token streams, admission order, "
+        f"outcomes and every non-wall metric equal card vs CPU "
+        f"({int(gs.metrics.ticks)} ticks, {int(gs.metrics.preemptions)} "
+        f"preemptions, restored uids {restored}) -> ok; wall card "
+        f"{gwall:.3f}s, CPU {cwall:.3f}s; launches "
+        f"{ {k: v for k, v in glaunch.items() if v} }")
+
+
+def run_live_async(torch, dev):
+    """Phase 9 (c): ``AsyncServer`` on the full-width bf16 GLU engine.
+    Two client threads submit 24 requests at Poisson wall-clock gaps
+    while a third streams every handle; one live and one queued request
+    are cancelled; then ``shutdown``. Streamed tokens equal each
+    result's, the cancelled handles raise ``RequestCancelled``, the pool
+    is clean. Prints the wall-clock TTFT and inter-token gaps."""
+    import queue
+    import threading
+    from repro_torch.core.sparse_ops import SparsityConfig
+    from repro_torch.runtime.errors import RequestCancelled
+    from repro_torch.runtime.server import AsyncServer
+    cfg = arch_config()
+    params = full_width_params(torch, cfg, dev)
+    sc = dataclasses.replace(
+        live_config(SparsityConfig(enabled=True, mode="fused",
+                                   gate_threshold=0.0, autotune=False)),
+        faults=None, max_queue_depth=None)
+    trace, _ = live_trace(cfg.vocab_size)
+    reqs = [r for _, r in trace[:24]]
+    asrv = AsyncServer(cfg, params, sc, device=dev, start=False)
+    srv = asrv.server
+    # The live cancel: a priority-1.0 request (no victim of a
+    # preemption), cancelled from the token hook at its second token.
+    cancel_live, cancel_queued = 1, reqs[-1].uid
+    stamps, emit, live_cancelled = {}, srv.on_token, []
+
+    def stamped(r, tok):
+        stamps.setdefault(r.uid, []).append(time.perf_counter())
+        emit(r, tok)
+        if r.uid == cancel_live and len(stamps[r.uid]) == 2:
+            with asrv._lock:
+                h = asrv._handles[r.uid]
+            live_cancelled.append(asrv.cancel(h))
+
+    srv.on_token = stamped
+    handles: "queue.Queue" = queue.Queue()
+    errors, streamed, outcome = [], {}, {}
+
+    def client(part, seed):
+        rng = np.random.default_rng(seed)
+        for r in part:
+            time.sleep(float(rng.exponential(0.02)))
+            h = asrv.submit(r.prompt, max_new=r.max_new, uid=r.uid,
+                            priority=1.0 if r.uid % 4 == 1 else 0.0)
+            if r.uid == cancel_queued:
+                asrv.cancel(h)  # 23 requests ahead of it, 8 slots
+            handles.put(h)
+
+    def streamer():
+        for _ in reqs:
+            h = handles.get(timeout=WAIT_S)
+            toks = []
+            try:
+                for tok in asrv.stream(h, timeout=WAIT_S):
+                    toks.append(int(tok))
+                outcome[h.uid] = "completed"
+            except RequestCancelled as e:
+                outcome[h.uid] = str(e)
+            streamed[h.uid] = (h, toks)
+
+    def guarded(fn, *a):
+        try:
+            fn(*a)
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    wrappers = counters()
+    for fn in wrappers.values():
+        fn.launches = 0
+    first = [r for r in reqs if r.uid != cancel_queued]
+    threads = [threading.Thread(target=guarded, args=a, daemon=True) for a in
+               ((client, first[0::2], 1), (client, first[1::2] + [reqs[-1]],
+                                           2), (streamer,))]
+    t0 = time.perf_counter()
+    asrv.start()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=WAIT_S)
+        if t.is_alive():
+            raise AssertionError("a phase 9 (c) thread hung")
+    if errors:
+        raise errors[0]
+    asrv.drain(timeout=WAIT_S)
+    wall = time.perf_counter() - t0
+    asrv.shutdown(timeout=WAIT_S)
+    if asrv._thread.is_alive():
+        raise AssertionError("the engine thread did not stop")
+    launches = {n: f.launches for n, f in wrappers.items()}
+    for uid, (h, toks) in streamed.items():
+        out = h.request.out.tolist()
+        if toks != out:
+            raise AssertionError(f"uid={uid}: streamed {toks} != out {out}")
+        if uid in (cancel_live, cancel_queued):
+            try:
+                h.result(timeout=WAIT_S)
+                raise AssertionError(f"uid={uid} was not cancelled")
+            except RequestCancelled:
+                pass
+        elif len(h.result(timeout=WAIT_S).out) != h.request.max_new:
+            raise AssertionError(f"uid={uid}: budget not served")
+    if "queued" not in outcome[cancel_queued] or streamed[cancel_queued][1]:
+        raise AssertionError(f"uid={cancel_queued}: "
+                             f"{outcome[cancel_queued]}")
+    if (live_cancelled != [True] or "mid-decode" not in outcome[cancel_live]
+            or len(streamed[cancel_live][1]) < 2):
+        raise AssertionError(f"uid={cancel_live}: {outcome[cancel_live]}")
+    m = asrv.metrics
+    if m.cancelled != 2 or m.completed != len(reqs) - 2:
+        raise AssertionError(f"{int(m.completed)} completed, "
+                             f"{int(m.cancelled)} cancelled")
+    st = srv._st
+    if (st.alloc.reserved or st.alloc.in_use != len(srv._prefix)
+            or any(s is not None for s in st.slots)):
+        raise AssertionError("AsyncServer: pool not clean")
+    st.alloc.check(expect_reserved=0)
+    for name in ("paged_gqa_decode_attn", "sparce_glu_mlp_fused"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched in phase 9 (c)")
+    gaps = [1e3 * (b - a) for ts in stamps.values()
+            for a, b in zip(ts, ts[1:])]
+    log(f"  AsyncServer: {len(reqs)} submitted from 2 threads, "
+        f"{int(m.completed)} completed, 2 cancelled (one queued, one "
+        f"mid-decode); streams equal results; pool clean -> ok; "
+        f"{int(m.decode_tokens)} decode tokens in {int(m.ticks)} ticks, "
+        f"{1e3 * m.decode_s / m.ticks:.3f} ms per decode tick, wall "
+        f"{wall:.3f}s; preemptions {int(m.preemptions)}")
+    log(f"  AsyncServer wall clock: TTFT p50/p99 {1e3 * m.ttft_s_p50:.1f}/"
+        f"{1e3 * m.ttft_s_p99:.1f} ms; inter-token gap p50/p99 "
+        f"{np.percentile(gaps, 50):.1f}/{np.percentile(gaps, 99):.1f} ms "
+        f"({len(gaps)} gaps)")
+    log(f"  AsyncServer launches: "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
 def deepseek_config():
     """DeepSeek-V3 at its published widths, cut to 4 layers: the 3 dense
     MLA + GLU layers (first_k_dense as published) and 1 MLA + MoE layer."""
@@ -2397,7 +2791,7 @@ def run_phase7(torch, dev, errs):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
                     help="comma-separated subset of phases to run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -2488,6 +2882,16 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             run_prefix_engine(torch, dev)
             log(f"phase 8: {time.perf_counter() - t0:.1f}s")
+        if 9 in phases:
+            log("phase 9: the live engine: serve_trace of an open-loop "
+                "trace under the SLO scheduler with preemption, shedding "
+                "and faults (full-width bf16 GLU, twice), then f32 2-layer "
+                "relu kernel engine card vs CPU, then AsyncServer")
+            t0 = time.perf_counter()
+            run_live_engine(torch, dev)
+            check_live_f32(torch, dev)
+            run_live_async(torch, dev)
+            log(f"phase 9: {time.perf_counter() - t0:.1f}s")
         torch.cuda.synchronize()
     except Exception:  # noqa: BLE001 - report and fail the run
         traceback.print_exc()

@@ -10,6 +10,9 @@ import torch
 
 
 def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on; ``"cuda"`` without an index is
+    the calling thread's current card, made explicit (a thread launching
+    for it later, such as an engine thread, selects it by index)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -17,4 +20,6 @@ def resolve_device(device="cuda") -> torch.device:
             "CPU (where every kernel runs its plain PyTorch version)")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

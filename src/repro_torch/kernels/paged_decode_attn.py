@@ -28,6 +28,7 @@ reference's, unchanged, so the engine's metrics stay equal to it.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import List, Optional
 
 import numpy as np
@@ -206,8 +207,11 @@ def gqa_chunk_walk(block_tables: np.ndarray, lengths: np.ndarray,
 # The arrival counters of the last-arriving merge, one int32 per (slot,
 # head group), per device, stream and shape: zeroed once, and every call
 # that runs to its end leaves them at zero. Calls on one stream run in
-# order, so they never share a counter at once.
+# order, so they never share a counter at once, whichever host thread
+# launched them (engine threads of two servers share the default
+# stream); the first fill of a key is made under a lock.
 _GQA_COUNTS: dict = {}
+_GQA_COUNTS_LOCK = threading.Lock()
 
 
 def _gqa_counts(device: torch.device, stream: int, batch: int,
@@ -221,8 +225,11 @@ def _gqa_counts(device: torch.device, stream: int, batch: int,
     key = (device, stream, shape)
     counts = _GQA_COUNTS.get(key)
     if counts is None:
-        counts = torch.zeros(shape, dtype=torch.int32, device=device)
-        _GQA_COUNTS[key] = counts
+        with _GQA_COUNTS_LOCK:
+            counts = _GQA_COUNTS.get(key)
+            if counts is None:
+                counts = torch.zeros(shape, dtype=torch.int32, device=device)
+                _GQA_COUNTS[key] = counts
     return counts
 
 

@@ -6,14 +6,20 @@
         [--sparce] [--sparce-mode reference|kernel|fused] \
         [--sparce-autotune] [--sparce-gate-threshold TAU] \
         [--prefill-buckets 16,32,64|off] [--prefix-cache] \
-        [--shared-prefix-len N]
+        [--shared-prefix-len N] [--open-loop] [--arrival-rate 8] \
+        [--slo-ttft-ticks 64] [--slo-itl-ticks 8]
 
 ``--arch`` names any arch of the port's registry: ``smollm-135m``
 (dense, GQA) or ``deepseek-v3-671b`` (moe, MLA; its full config holds
-671 B parameters, so run it ``--reduced``). The subset of
-``repro/launch/serve.py``'s flags that the port supports (no
-``--mesh``, SLO or open-loop flags), over the paged KV pool with the
-paged decode kernel by default (``--attn-kernel paged``).
+671 B parameters, so run it ``--reduced``). The flags of
+``repro/launch/serve.py`` but ``--mesh``, over the paged KV pool with
+the paged decode kernel by default (``--attn-kernel paged``).
+``--open-loop`` serves through ``AsyncServer``: a background engine
+thread drains the live queue while this process submits the requests
+with Poisson wall-clock gaps (``--arrival-rate``, mean requests per
+second). ``--slo-ttft-ticks``/``--slo-itl-ticks`` set the latency SLO
+(in decode ticks) the scheduler holds admission to; without them it
+admits greedily.
 ``--prefix-cache`` shares identical prompt prefixes across requests as
 read-only pool blocks (dense family); ``--shared-prefix-len N`` prepends
 one seeded prefix of N tokens to every prompt (a shared system prompt),
@@ -88,6 +94,19 @@ def main(argv=None):
                          "every request (a shared system prompt)")
     ap.add_argument("--attn-kernel", default="paged",
                     choices=("gather", "paged"))
+    ap.add_argument("--open-loop", action="store_true",
+                    help="serve via AsyncServer: a background engine "
+                         "thread drains the live queue while requests "
+                         "arrive with Poisson wall-clock gaps")
+    ap.add_argument("--arrival-rate", type=float, default=8.0,
+                    help="--open-loop mean arrival rate, requests/second")
+    ap.add_argument("--slo-ttft-ticks", type=float, default=None,
+                    help="time-to-first-token budget in decode ticks; "
+                         "enables SLO-aware admission scheduling")
+    ap.add_argument("--slo-itl-ticks", type=float, default=None,
+                    help="inter-token latency budget in decode ticks; "
+                         "prefills only interleave when they fit this "
+                         "gap (or TTFT forces them)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu' (plain kernel versions)")
     args = ap.parse_args(argv)
@@ -95,7 +114,10 @@ def main(argv=None):
     from repro_torch.configs import get_config
     from repro_torch.core.sparse_ops import SparsityConfig
     from repro_torch.models import model as model_lib
-    from repro_torch.runtime.server import Request, ServeConfig, Server
+    from repro_torch.runtime.scheduler import SLOConfig
+    from repro_torch.runtime.server import (
+        AsyncServer, Request, ServeConfig, Server,
+    )
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -121,12 +143,23 @@ def main(argv=None):
         buckets = (
             () if args.prefill_buckets.strip().lower() == "off"
             else tuple(int(b) for b in args.prefill_buckets.split(",")))
+    slo = None
+    if args.slo_ttft_ticks is not None or args.slo_itl_ticks is not None:
+        defaults = SLOConfig()
+        slo = SLOConfig(
+            target_ttft_ticks=(args.slo_ttft_ticks
+                               if args.slo_ttft_ticks is not None
+                               else defaults.target_ttft_ticks),
+            target_itl_ticks=(args.slo_itl_ticks
+                              if args.slo_itl_ticks is not None
+                              else defaults.target_itl_ticks))
     serve_cfg = ServeConfig(
         batch_slots=args.batch_slots, max_len=args.max_len,
         temperature=args.temperature, eos_id=args.eos_id, seed=args.seed,
         sparsity=sparsity, kv_block_size=args.kv_block_size,
         kv_pool_blocks=args.kv_pool_blocks, prefill_buckets=buckets,
-        attn_kernel=args.attn_kernel, prefix_cache=args.prefix_cache)
+        attn_kernel=args.attn_kernel, prefix_cache=args.prefix_cache,
+        slo=slo)
 
     rng = np.random.default_rng(args.seed)
     # One seeded prefix shared by every request, drawn first, as the
@@ -146,10 +179,26 @@ def main(argv=None):
             prompt = np.concatenate([shared_prefix, prompt])
         reqs.append(Request(uid=i, prompt=prompt, max_new=max_new))
 
-    srv = Server(cfg, params, serve_cfg, device=args.device)
-    t0 = time.perf_counter()
-    done = srv.generate(reqs)
-    dt = time.perf_counter() - t0
+    if args.open_loop:
+        # Live queue: Poisson-spaced submissions against the background
+        # engine thread, then a drain and a shutdown.
+        asrv = AsyncServer(cfg, params, serve_cfg, device=args.device)
+        gaps = rng.exponential(1.0 / max(args.arrival_rate, 1e-6),
+                               size=len(reqs))
+        t0 = time.perf_counter()
+        for r, gap in zip(reqs, gaps):
+            time.sleep(float(gap))
+            asrv.submit(r.prompt, max_new=r.max_new, eos_id=r.eos_id,
+                        uid=r.uid)
+        done = asrv.drain()
+        asrv.shutdown()
+        dt = time.perf_counter() - t0
+        srv = asrv.server
+    else:
+        srv = Server(cfg, params, serve_cfg, device=args.device)
+        t0 = time.perf_counter()
+        done = srv.generate(reqs)
+        dt = time.perf_counter() - t0
     m = srv.metrics
     tok = m.decode_tokens
     print(f"served {len(done)} requests, {tok} decode tokens in "
@@ -197,6 +246,20 @@ def main(argv=None):
               f"{m.prefill_ticks_saved:.2f}/{m.prefill_ticks_nocache:.2f} "
               f"prefill ticks ({m.prefill_ticks_saved_frac:.1%}), "
               f"{m.prefill_flops_saved/1e9:.2f} GFLOP of prefill skipped")
+    if args.open_loop or slo is not None:
+        print(f"  queue: depth peak {int(m.queue_depth_peak)}, "
+              f"admission {int(m.sched_admitted)} admitted / "
+              f"{int(m.sched_deferred)} deferred / "
+              f"{int(m.sched_forced)} TTFT-forced; "
+              f"prefill tick share {m.prefill_tick_share:.2f}")
+        print(f"  latency (virtual ticks): TTFT p50/p99 "
+              f"{m.ttft_ticks_p50:.1f}/{m.ttft_ticks_p99:.1f}, "
+              f"ITL p50/p99 "
+              f"{m.itl_ticks_p50:.1f}/{m.itl_ticks_p99:.1f}; "
+              f"SLO violations ttft={int(m.slo_ttft_violations)} "
+              f"itl={int(m.slo_itl_violations)}")
+        print(f"  latency (wall clock): TTFT p50/p99 "
+              f"{m.ttft_s_p50 * 1e3:.1f}/{m.ttft_s_p99 * 1e3:.1f} ms")
     for r in done[:3]:
         s = r.stats
         print(f"  req {r.uid}: ttft={s['ttft_s']*1e3:.1f}ms "

@@ -3,7 +3,7 @@
 Port of ``repro/models/modules.py``. Initialisers draw from a seeded
 ``numpy.random.Generator`` (f32 normals, then cast), with the
 reference's shapes, dtypes and scales; the numbers differ from the
-reference's ``jax.random`` ones. Weights that must equal the
+reference's (its framework's counter-based generator). Weights that must equal the
 reference's come across through :mod:`repro_torch.bridge` instead.
 """
 from __future__ import annotations

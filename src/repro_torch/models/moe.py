@@ -7,8 +7,8 @@ the compiler) -> gate-weighted combine. The expert-parallel shard_map
 path of the reference waits for the multi-device port; :func:`moe_forward`
 runs the global path.
 
-Routing follows the reference exactly, ties included: ``jax.lax.top_k``
-puts the lower expert index first among equal probabilities (a dead
+Routing follows the reference exactly, ties included: the reference's
+``top_k`` puts the lower expert index first among equal probabilities (a dead
 serving slot's zeroed residual stream gives all-equal router logits on
 every tick), so the top k come from a stable descending sort. The
 dropping scatter writes dropped assignments into a spare row ``E * C``

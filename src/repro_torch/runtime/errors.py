@@ -67,13 +67,18 @@ def is_request_scoped(exc: BaseException) -> bool:
     (its prefill, its block growth): can the engine contain it to that
     request alone?
 
-    Deliberately conservative: ``ValueError``/``FloatingPointError``
-    from a single-request host path are prompt-shaped problems
-    (malformed input, bad lengths) that cannot have touched other
-    slots' state. Everything else -- allocator invariant violations,
-    CUDA runtime errors from fused multi-slot computations,
-    MemoryError -- escalates to the engine-fatal fail-all path. (The
-    reference's seeded fault injector, whose faults carry their own
-    scope, is not ported yet.)
+    Deliberately conservative: injected faults (``runtime/faults.py``)
+    carry their scope explicitly, and ``ValueError``/
+    ``FloatingPointError`` from a single-request host path are
+    prompt-shaped problems (malformed input, bad lengths) that cannot
+    have touched other slots' state. Everything else -- allocator
+    invariant violations, CUDA runtime errors from fused multi-slot
+    computations (a CUDA error is sticky: the context is unusable for
+    every slot), MemoryError -- escalates to the engine-fatal fail-all
+    path.
     """
+    from repro_torch.runtime.faults import InjectedFault  # leaf-local
+
+    if isinstance(exc, InjectedFault):
+        return exc.request_scoped
     return isinstance(exc, (ValueError, FloatingPointError))

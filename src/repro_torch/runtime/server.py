@@ -1,28 +1,50 @@
-"""Continuous-batching serving engine, drain mode, over the paged KV pool.
+"""Continuous-batching serving engine over the paged KV pool, with live
+admission, preemption, cancellation and fault containment.
 
-Port of the single-host drain-mode engine of ``repro/runtime/server.py``.
-One ``step()`` is:
+Port of the single-host engine of ``repro/runtime/server.py``. One
+``step()`` is:
 
+  0. **cancellations** -- uids marked by :meth:`Server.cancel` (from any
+     thread) are collected: queued entries are purged, live slots are
+     evicted with their blocks released.
   1. **admission** -- while a slot is free and the queue head's
      worst-case KV-block commitment fits the pool
-     (:meth:`BlockAllocator.try_reserve`), prefill the head alone
-     (batch=1, prompt padded up to a power-of-two bucket, logits taken
-     at the last REAL position; the moe family, whose capacity routing
-     depends on the batch shape, at exact length) and scatter its rows
-     into pool blocks; its first token comes from the prefill logits.
-  2. **decode tick** -- one :func:`model.serving_decode_step` for all
-     slots with the live-slot mask. Dead slots' embeddings are zeroed,
-     so their MLP gate tiles are all-zero (dead) tiles; with
+     (:meth:`BlockAllocator.try_reserve`), the
+     :class:`~repro_torch.runtime.scheduler.Scheduler` decides whether
+     to spend the gap on a prefill or defer to the decode tick
+     (``ServeConfig.slo``; greedy without one). An admitted head
+     prefills alone (batch=1, prompt padded up to a power-of-two bucket,
+     logits taken at the last REAL position; the moe family, whose
+     capacity routing depends on the batch shape, at exact length) and
+     scatters its rows into pool blocks; its first token comes from the
+     prefill logits. With ``ServeConfig.preempt`` a TTFT-forced head
+     that finds no slot, or no blocks, may evict one lower-priority
+     victim (requeued with its tokens as resume state; its restore
+     prefill runs prompt ++ produced). A request-scoped fault in a
+     head's prefill (an injected poison, a prompt-shaped ``ValueError``)
+     fails that request only: its blocks and commitment roll back.
+  2. **decode tick** -- injected step faults first, then lazy block
+     growth (through the fault injector's allocator gate with bounded
+     retries), then one :func:`model.serving_decode_step` for all slots
+     with the live-slot mask. Dead slots' embeddings are zeroed, so
+     their MLP gate tiles are all-zero (dead) tiles; with
      ``attn_kernel="paged"`` their KV blocks, and every block past each
      live length, are never read.
   3. **release** -- a slot frees the moment its request hits EOS or its
-     ``max_new`` budget: blocks return to the pool, the unused
-     commitment is un-reserved, and the ledger is re-checked.
+     ``max_new`` budget (or fails its ``max_ticks`` deadline): blocks
+     return to the pool, the unused commitment is un-reserved, and the
+     ledger is re-checked.
 
-The admission order runs on the reference's deterministic virtual tick
-clock (``core/cost_model.py``: modeled costs, not measurements), so on
-the same trace and weights the port admits, decodes and releases in the
-reference's order and reports the same integer and skip metrics.
+Three front doors drive that step: :meth:`Server.generate` (a fixed
+list, drained), :meth:`Server.serve_trace` (an open-loop arrival trace
+on the virtual clock, with priorities and TTFT deadlines) and
+:class:`AsyncServer` (a background engine thread fed by client threads
+through :meth:`AsyncServer.submit`). Every scheduling decision runs on
+the reference's deterministic virtual tick clock (``core/cost_model.py``:
+modeled costs, not measurements), so on the same trace, weights and
+fault plan the port admits, preempts, sheds, fails and releases in the
+reference's order and reports the same integer and skip metrics; wall
+clock times are reported beside them and never consulted.
 
 Prefix-cache block sharing (``ServeConfig.prefix_cache``, the dense
 family): after every prefill the prompt's FULL blocks are chain-hashed
@@ -33,23 +55,29 @@ first, owned blocks after it, so decode writes never reach them),
 prefills only the bucketed suffix (``_prefill_suffix``: the prefix
 gathered from the pool, the suffix run with ``continuation=True``), and
 on a full-prompt match forks the last block copy-on-write, since the
-last prompt row must re-run for its logits. A hit is priced at the
-suffix bucket and the commitment shrinks by the shared blocks; tokens
-stay those of the cache-off engine.
+last prompt row must re-run for its logits. A preempted victim's written
+full blocks are registered too, so its restore is suffix-only while they
+survive.
 
 Not ported yet (``ServeConfig`` rejects them with NotImplementedError):
-SLO scheduling and ``AsyncServer``/``serve_trace``,
-preemption/cancel/deadlines/shedding/fault injection, the SPMD mesh and
-the contiguous (``kv_block_size=0``) layout.
+the SPMD mesh and the contiguous (``kv_block_size=0``) layout.
 
-Single-threaded: one thread calls ``start_engine``/``step``/``generate``.
+Threads: ``Server`` is single-threaded -- one thread calls
+``start_engine``/``step``/``generate``/``serve_trace``; ``enqueue`` and
+``cancel`` are safe from any thread. ``AsyncServer`` runs all engine work
+(every kernel launch) on its one background thread, on that thread's
+current CUDA stream; only numpy arrays and host scalars cross to client
+threads.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import queue as _queue_mod
+import threading
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,12 +88,23 @@ from repro_torch.core.sparse_ops import SparsityConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.paged_decode_attn import decode_attn_block_counts
 from repro_torch.models import model as model_lib
+from repro_torch.runtime.errors import (
+    EngineFatal, RequestCancelled, RequestFailed, ServerOverloaded,
+    ServingError, is_request_scoped,
+)
+from repro_torch.runtime.faults import FaultInjector, FaultPlan, InjectedFault
 from repro_torch.runtime.metrics import ServeMetrics
 from repro_torch.runtime.paging import (
     BlockAllocator, PrefixCache, blocks_needed, pick_bucket, resolve_buckets,
 )
 from repro_torch.runtime.queueing import QueuedRequest, RequestQueue
-from repro_torch.runtime.scheduler import Scheduler
+from repro_torch.runtime.scheduler import Scheduler, SLOConfig
+
+# Lazy block-growth alloc attempts per growth event: attempt 0 plus this
+# many retries. A transient alloc fault clearing within the bound
+# recovers in place (faults_recovered); anything past it fails the ONE
+# request whose growth it was (request-scoped, never engine-fatal).
+_GROW_RETRIES = 3
 
 
 @dataclasses.dataclass
@@ -74,9 +113,19 @@ class Request:
     prompt: np.ndarray  # (S,)
     max_new: int = 32
     eos_id: Optional[int] = None  # overrides ServeConfig.eos_id
+    # Per-request decode deadline: cancel after this many decode ticks
+    # of progress (across preemptions) even if max_new was not reached.
+    # The partial output lands on ``out``; waiters see RequestCancelled.
+    max_ticks: Optional[int] = None
     out: Optional[np.ndarray] = None
+    # Set when the request failed (RequestCancelled / RequestFailed /
+    # ServerOverloaded); ``out`` then holds the tokens produced before.
+    error: Optional[BaseException] = None
+    # Preemption state: every token produced before the last preemption
+    # (set on requeue). The restore prefills prompt ++ resume_tokens.
+    resume_tokens: Optional[List[np.ndarray]] = None
     # Filled by the engine: ttft_s, latency_s, tokens, decode_ticks,
-    # queue_ticks, ttft_ticks, itl_ticks_max.
+    # queue_ticks, ttft_ticks, itl_ticks_max (+ preemptions when > 0).
     stats: Dict[str, float] = dataclasses.field(default_factory=dict)
 
 
@@ -101,10 +150,17 @@ class ServeConfig:
     attn_kernel: str = "gather"
     prefix_cache: bool = False
     mesh: Optional[Tuple[int, int]] = None
-    slo: Optional[Any] = None
+    # Latency SLO for admission; None = drain mode (greedy admission).
+    slo: Optional[SLOConfig] = None
+    # Bounded admission queue: pushes past it are shed with
+    # ServerOverloaded. None = unbounded.
     max_queue_depth: Optional[int] = None
+    # Let a TTFT-forced head evict a lower-priority slot (requeued for a
+    # restore prefill). Needs the paged layout.
     preempt: bool = False
-    faults: Optional[Any] = None
+    # Seeded fault-injection plan; None = no injection (containment is
+    # live either way).
+    faults: Optional[FaultPlan] = None
 
     def __post_init__(self) -> None:
         if self.batch_slots < 1:
@@ -131,19 +187,23 @@ class ServeConfig:
                 "ServeConfig.prefix_cache=True needs the paged KV "
                 "layout: shared prefixes are pool blocks mapped into "
                 "several tables, so set kv_block_size > 0")
+        if self.max_queue_depth is not None and self.max_queue_depth < 1:
+            raise ValueError(
+                f"ServeConfig.max_queue_depth must be >= 1 (or None "
+                f"for unbounded), got {self.max_queue_depth}")
+        if self.preempt and self.kv_block_size <= 0:
+            raise ValueError(
+                "ServeConfig.preempt=True needs the paged KV layout "
+                "(reclaim returns pool BLOCKS): set kv_block_size > 0")
         unported = {
             "kv_block_size=0 (contiguous layout)": self.kv_block_size == 0,
             "mesh (SPMD serving)": self.mesh is not None,
-            "slo (SLO scheduling)": self.slo is not None,
-            "max_queue_depth (load shedding)": self.max_queue_depth is not None,
-            "preempt": self.preempt,
-            "faults (fault injection)": self.faults is not None,
         }
         missing = [name for name, on in unported.items() if on]
         if missing:
             raise NotImplementedError(
                 f"ServeConfig: {', '.join(missing)} not ported yet; the "
-                "port serves drain mode over the paged KV pool")
+                "port serves one device over the paged KV pool")
 
 
 @dataclasses.dataclass
@@ -176,6 +236,10 @@ class _EngineState:
     slots: List[Optional[_Slot]]
     cur_tok: np.ndarray
     completed: List[Request]
+    # Requests that FAILED (cancelled / request-scoped fault); like
+    # ``completed``, kept only for sync drivers (an on_error consumer
+    # takes them instead).
+    failed: List[Request] = dataclasses.field(default_factory=list)
 
 
 def _pct(xs, q: float) -> float:
@@ -240,8 +304,17 @@ class Server:
         # is its counterpart of the reference's prefill trace count.
         self._prefill_shapes: set = set()
         self._costs = cost_model.serve_tick_costs(cfg, serve_cfg.batch_slots)
-        self._sched = Scheduler(self._costs, None)
-        self._queue = RequestQueue()
+        self._sched = Scheduler(self._costs, serve_cfg.slo,
+                                max_queue_depth=serve_cfg.max_queue_depth)
+        self._queue = RequestQueue(max_depth=serve_cfg.max_queue_depth)
+        # Cross-thread cancellation: uids marked here are collected by
+        # the engine thread at its next step boundary.
+        self._cancel_lock = threading.Lock()
+        self._cancel_pending: set = set()
+        # Fault injector of the CURRENT run (rebuilt per start_engine, so
+        # a rerun of the same plan injects the same faults).
+        self._inj: Optional[FaultInjector] = None
+        self._inj_seen = 0  # injector events already folded into metrics
         self._vt = 0.0
         self._vt_prefill = 0.0
         self._vt_decode = 0.0
@@ -252,6 +325,13 @@ class Server:
         self._st: Optional[_EngineState] = None
         # The run's prefix index (built in start_engine when enabled).
         self._prefix: Optional[PrefixCache] = None
+        # AsyncServer's hooks, called on the engine thread. on_error fires
+        # for a request that FAILS instead of finishing, after its
+        # resources were released.
+        self.on_token: Optional[Callable[[Request, np.ndarray], None]] = None
+        self.on_finish: Optional[Callable[[Request], None]] = None
+        self.on_error: Optional[
+            Callable[[Request, BaseException], None]] = None
         self.metrics = ServeMetrics(
             kv_paged=1.0,
             kv_block_size=float(serve_cfg.kv_block_size),
@@ -292,22 +372,26 @@ class Server:
     # ----------------------------------------------------------- admission
     def _request_need(self, r: Request) -> Tuple[int, int]:
         """(prompt_rows, worst_case_rows): decode tick j writes token j at
-        row prompt+j-1 and the last sampled token is never written."""
-        rows0 = int(np.asarray(r.prompt).shape[-1])
-        return rows0, rows0 + max(1, r.max_new) - 1
+        row prompt+j-1 and the last sampled token is never written. A
+        preempted request's effective prompt grew by its resume tokens
+        while its remaining budget shrank by as many, so its worst case
+        is that of its first admission."""
+        rows0 = int(self._effective_prompt(r).shape[-1])
+        done = len(r.resume_tokens) if r.resume_tokens else 0
+        return rows0, rows0 + max(1, r.max_new - done) - 1
 
     def _bucket_rows(self, r: Request) -> int:
-        S = int(np.asarray(r.prompt).shape[-1])
+        S = int(self._effective_prompt(r).shape[-1])
         return pick_bucket(S, self._buckets) if self._buckets else S
 
     def _prefill_one(self, r: Request, slot: int, caches,
                      block_ids: List[int]):
-        """Prefill one request alone and scatter it into the pool blocks
-        of ``slot``: padded to its bucket (masked tail, length advanced
-        by the TRUE length) for bucketable families, at exact length for
-        the rest."""
+        """Prefill one request's effective prompt alone and scatter it
+        into the pool blocks of ``slot``: padded to its bucket (masked
+        tail, length advanced by the TRUE length) for bucketable
+        families, at exact length for the rest."""
         cfg = self.cfg
-        prompt = np.asarray(r.prompt).reshape(-1)
+        prompt = self._effective_prompt(r).reshape(-1)
         S = int(prompt.shape[0])
         S_pad = pick_bucket(S, self._buckets) if self._buckets else S
         toks = np.zeros((1, S_pad), np.int64)
@@ -346,14 +430,14 @@ class Server:
 
     def _prefill_suffix(self, r: Request, slot: int, caches,
                         table_row: np.ndarray, prefix_len: int, rows0: int):
-        """Continuation prefill: run only the suffix of a prompt whose
-        first ``prefix_len`` rows already sit in pool blocks mapped
-        read-only into ``table_row``. The prefix is gathered out of the
-        pool into a batch=1 scratch of ``_ext_rows`` rows pinned at length
-        ``prefix_len``; the suffix, padded to its own bucket, runs with
-        ``continuation=True``; only its rows are scattered back (the
-        shared rows' writes go to the null block)."""
-        prompt = np.asarray(r.prompt).reshape(-1)
+        """Continuation prefill: run only the suffix of an effective
+        prompt whose first ``prefix_len`` rows already sit in pool blocks
+        mapped read-only into ``table_row``. The prefix is gathered out
+        of the pool into a batch=1 scratch of ``_ext_rows`` rows pinned
+        at length ``prefix_len``; the suffix, padded to its own bucket,
+        runs with ``continuation=True``; only its rows are scattered
+        back (the shared rows' writes go to the null block)."""
+        prompt = self._effective_prompt(r).reshape(-1)
         n_suffix = rows0 - prefix_len
         S_pad = (pick_bucket(n_suffix, self._buckets) if self._buckets
                  else n_suffix)
@@ -389,6 +473,7 @@ class Server:
         item = s.item
         out = np.array(s.produced[: r.max_new])
         r.out = out
+        prior = r.stats  # preemption bookkeeping stashed by _preempt
         r.stats = {
             "ttft_s": s.t_first - item.arrival_s,
             "latency_s": t_now - item.arrival_s,
@@ -398,6 +483,12 @@ class Server:
             "ttft_ticks": s.first_vt - item.arrival_vt,
             "itl_ticks_max": s.itl_max,
         }
+        if "preemptions" in prior:
+            # TTFT belongs to the first admission, not the restore.
+            r.stats["preemptions"] = prior["preemptions"]
+            r.stats["ttft_ticks"] = prior.get("ttft_ticks",
+                                              r.stats["ttft_ticks"])
+            r.stats["ttft_s"] = prior.get("ttft_s", r.stats["ttft_s"])
         self.metrics.completed += 1
 
     def _hit_eos(self, r: Request, tok: np.ndarray) -> bool:
@@ -430,17 +521,27 @@ class Server:
                     "ServeConfig.kv_pool_blocks")
 
     def start_engine(self) -> None:
-        """(Re)initialize caches, pool, slots and queue for a run."""
+        """(Re)initialize caches, pool, slots, queue, cancel marks, fault
+        injector and virtual clock for a run. Metrics and latency samples
+        accumulate across runs, as the reference's do."""
         cfg, sc = self.cfg, self.sc
         B = sc.batch_slots
-        caches = model_lib.init_paged_caches(
-            cfg, B, self._pool_usable + 1, sc.kv_block_size,
-            device=self.device)
         if self._queue.depth():
             raise RuntimeError(
                 "start_engine() with requests still queued: drain or "
                 "discard the previous run first")
-        self._queue = RequestQueue()
+        caches = model_lib.init_paged_caches(
+            cfg, B, self._pool_usable + 1, sc.kv_block_size,
+            device=self.device)
+        self._queue = RequestQueue(max_depth=sc.max_queue_depth)
+        with self._cancel_lock:
+            self._cancel_pending.clear()
+        # Fresh injector per run: the fault schedule is a function of
+        # (plan, workload), not of how many runs this Server has served.
+        self._inj = FaultInjector(sc.faults) if sc.faults else None
+        self._inj_seen = 0
+        # Fresh virtual clock per run, so a reused Server replays a trace
+        # to the same schedule.
         self._vt = 0.0
         alloc = BlockAllocator(self._pool_usable)
         # A fresh index per run: its blocks belong to this run's pool.
@@ -453,16 +554,57 @@ class Server:
             completed=[],
         )
 
-    def enqueue(self, r: Request) -> QueuedRequest:
-        """Queue a request, its arrival stamped at the virtual time."""
-        return self._queue.push(r, arrival_vt=self._vt)
+    def enqueue(self, r: Request, *, priority: float = 0.0,
+                deadline_ticks: Optional[float] = None,
+                arrival_vt: Optional[float] = None) -> QueuedRequest:
+        """Queue a request (arrival stamped at the current virtual time
+        unless given). Thread-safe. Raises :class:`ServerOverloaded`,
+        counted in ``metrics.shed_requests``, when the shed policy or the
+        queue's depth bound rejects the push; nothing is enqueued."""
+        try:
+            if self._sched.should_shed(self._queue.depth()):
+                raise ServerOverloaded(
+                    f"admission queue at max_depth="
+                    f"{self.sc.max_queue_depth}: request uid={r.uid} "
+                    "shed")
+            return self._queue.push(
+                r, priority=priority, deadline_ticks=deadline_ticks,
+                arrival_vt=self._vt if arrival_vt is None else arrival_vt)
+        except ServerOverloaded:
+            self.metrics.shed_requests += 1
+            raise
+
+    def cancel(self, uid: int) -> None:
+        """Mark a submitted request cancelled. Thread-safe; the engine
+        collects it at its next step boundary (a queued entry is purged,
+        a live slot is evicted with its blocks released). Unknown or
+        finished uids are a no-op."""
+        with self._cancel_lock:
+            self._cancel_pending.add(uid)
 
     def queue_depth(self) -> int:
         return self._queue.depth()
 
+    @property
+    def failed(self) -> List[Request]:
+        """Requests that failed this run (cancelled or request-scoped
+        fault), for sync drivers; empty when an ``on_error`` consumer
+        takes them instead."""
+        return list(self._st.failed) if self._st is not None else []
+
     def any_active(self) -> bool:
         st = self._st
         return st is not None and any(s is not None for s in st.slots)
+
+    @property
+    def vt(self) -> float:
+        """The engine's virtual clock, in decode-tick units."""
+        return self._vt
+
+    def advance_vt(self, to_vt: float) -> None:
+        """Advance the virtual clock across an IDLE gap (open-loop
+        drivers jump to the next arrival); never rewinds."""
+        self._vt = max(self._vt, float(to_vt))
 
     def _outstanding_commit(self) -> int:
         """Blocks promised to live slots but not yet allocated."""
@@ -477,13 +619,16 @@ class Server:
         if ttft > self._sched.ttft_budget(item.deadline_ticks):
             self.metrics.slo_ttft_violations += 1
 
-    def _release(self, i: int) -> None:
+    def _emit_token(self, r: Request, tok: np.ndarray) -> None:
+        if self.on_token is not None:
+            self.on_token(r, tok)
+
+    def _release_slot_resources(self, i: int, s: _Slot) -> None:
+        """Return slot ``i``'s blocks to the pool and clear the slot: the
+        shared tail of every way a slot ends (finish, cancel, fault,
+        preemption). Ends with the allocator's full check against the
+        engine's ledger."""
         st = self._st
-        s = st.slots[i]
-        if s is None or s.released:
-            raise RuntimeError(f"slot {i} released twice")
-        self._finish(s, time.perf_counter())
-        st.completed.append(s.req)
         s.released = True
         if s.blocks:
             st.alloc.release(s.blocks)
@@ -500,40 +645,279 @@ class Server:
         st.slots[i] = None
         st.alloc.check(expect_reserved=self._outstanding_commit())
 
+    def _release(self, i: int) -> None:
+        st = self._st
+        s = st.slots[i]
+        if s is None or s.released:
+            raise RuntimeError(f"slot {i} released twice")
+        self._finish(s, time.perf_counter())
+        if self.on_finish is None:
+            # Sync drivers read completions from the engine state; with
+            # an on_finish consumer nothing accumulates here.
+            st.completed.append(s.req)
+        self._release_slot_resources(i, s)
+        if self.on_finish is not None:
+            self.on_finish(s.req)
+
+    def _record_failure(self, r: Request, err: ServingError) -> None:
+        """Bookkeeping of a request that FAILS instead of finishing: the
+        error and its metric, then the on_error consumer (or the sync
+        ``failed`` list)."""
+        r.error = err
+        if isinstance(err, RequestCancelled):
+            self.metrics.cancelled += 1
+        else:
+            self.metrics.failed_requests += 1
+        if self.on_error is None:
+            self._st.failed.append(r)
+        else:
+            self.on_error(r, err)
+
+    def _fail_slot(self, i: int, err: ServingError) -> None:
+        """Evict a LIVE slot whose request failed (cancel, deadline, a
+        contained fault): resources released, ledger re-checked, partial
+        output attached, waiters notified."""
+        st = self._st
+        s = st.slots[i]
+        if s is None or s.released:
+            raise RuntimeError(f"slot {i} failed after release")
+        r = s.req
+        r.out = np.array(s.produced[: r.max_new])  # partial tokens
+        r.stats = {
+            "tokens": float(len(r.out)),
+            "decode_ticks": float(s.ticks),
+            "queue_ticks": s.admit_vt - s.item.arrival_vt,
+        }
+        self._release_slot_resources(i, s)
+        self._record_failure(r, err)
+
+    def _fail_queued(self, item: QueuedRequest, err: ServingError) -> None:
+        """Fail a request no longer in the queue (popped or removed by
+        the caller): nothing to release, only the bookkeeping."""
+        item.req.out = np.zeros((0,), np.int64)
+        self._record_failure(item.req, err)
+
+    def _process_cancellations(self) -> None:
+        """Collect ``cancel()`` marks at a step boundary, before
+        admission, so a cancelled head never costs a prefill."""
+        with self._cancel_lock:
+            if not self._cancel_pending:
+                return
+            uids, self._cancel_pending = self._cancel_pending, set()
+        for item in self._queue.remove_if(lambda e: e.req.uid in uids):
+            self._fail_queued(item, RequestCancelled(
+                f"request uid={item.req.uid} cancelled while queued"))
+        for i, s in enumerate(self._st.slots):
+            if s is not None and s.req.uid in uids:
+                self._fail_slot(i, RequestCancelled(
+                    f"request uid={s.req.uid} cancelled mid-decode"))
+
+    def _sync_fault_metrics(self) -> None:
+        """Fold the injector's fire count into the metrics (only the
+        delta since the last sync)."""
+        if self._inj is not None and self._inj.injected > self._inj_seen:
+            self.metrics.faults_injected += (
+                self._inj.injected - self._inj_seen)
+            self._inj_seen = self._inj.injected
+
+    def _grow_one(self, i: int, s: _Slot) -> Optional[int]:
+        """One lazy-growth block for slot ``i`` through the injector's
+        allocator gate, with bounded retries: a transient fault that
+        clears within ``_GROW_RETRIES`` retries is recovered; exhaustion
+        (or a transient that outlives the retries) fails the REQUEST and
+        returns None with the slot already evicted."""
+        uid = s.req.uid
+        gidx = len(s.blocks)
+        attempt = 0
+        while True:
+            try:
+                if self._inj is not None:
+                    self._inj.alloc_gate(uid, gidx, attempt)
+                (blk,) = self._st.alloc.alloc(1, reserved=True)
+            except InjectedFault as e:
+                self._sync_fault_metrics()
+                if e.transient and attempt < _GROW_RETRIES:
+                    attempt += 1
+                    continue
+                reason = (f"transient fault outlived {_GROW_RETRIES} "
+                          "retries" if e.transient
+                          else "injected allocator exhaustion")
+                err = RequestFailed(
+                    f"request uid={uid}: KV block growth failed "
+                    f"({reason})")
+                err.__cause__ = e
+                self._fail_slot(i, err)
+                self.metrics.faults_recovered += 1  # contained
+                return None
+            if attempt:
+                # A transient fault cleared within the retry budget.
+                self.metrics.faults_recovered += 1
+            self._sync_fault_metrics()
+            return blk
+
+    # ---------------------------------------------------- preempt/requeue
+    @staticmethod
+    def _full_sequence(r: Request, produced: List[np.ndarray]) -> np.ndarray:
+        """prompt ++ produced: what a preempted request re-prefills."""
+        prompt = np.asarray(r.prompt)
+        if not produced:
+            return prompt
+        return np.concatenate(
+            [prompt.reshape(-1), np.asarray(produced, np.int64).reshape(-1)])
+
+    def _effective_prompt(self, r: Request) -> np.ndarray:
+        """The original prompt, plus every token produced before a
+        preemption (the last of which is the token whose decode tick the
+        preemption squashed: re-running it as the prefill's last row
+        gives the restored next token)."""
+        if r.resume_tokens:
+            return self._full_sequence(r, r.resume_tokens)
+        return np.asarray(r.prompt)
+
+    def _free_wait_ticks(self) -> float:
+        """Ticks until the earliest natural release (a live slot running
+        out of its budget): the stall a reclaim is weighed against."""
+        rem = [s.req.max_new - len(s.produced)
+               for s in self._st.slots if s is not None]
+        return float(min(rem)) + 1.0 if rem else float("inf")
+
+    def _restore_ticks(self, s: _Slot) -> float:
+        """Modeled cost of restoring a victim later: the bucketed
+        re-prefill of its effective prompt, minus the full written blocks
+        the prefix cache keeps from the preemption."""
+        rows_eff = s.cache_len + 1  # written rows + the unwritten token
+        if self._prefix is not None:
+            bs = self.sc.kv_block_size
+            suffix = rows_eff - (s.cache_len // bs) * bs
+        else:
+            suffix = rows_eff
+        rows = pick_bucket(suffix, self._buckets) if self._buckets \
+            else suffix
+        return self._costs.prefill_ticks(rows)
+
+    def _pick_victim(self, head_priority: float) -> Optional[int]:
+        """Among live slots of priority STRICTLY below the head's (a peer
+        is never preempted: the requeue boost would livelock two
+        equals), the lowest-priority, most recently admitted one."""
+        st = self._st
+        best: Optional[int] = None
+        for i, s in enumerate(st.slots):
+            if s is None or s.item.priority >= head_priority:
+                continue
+            if best is None:
+                best = i
+                continue
+            b = st.slots[best]
+            if (s.item.priority, -s.admit_vt) < (b.item.priority,
+                                                 -b.admit_vt):
+                best = i
+        return best
+
+    def _preempt(self, i: int, head_priority: float) -> None:
+        """Evict live slot ``i`` to fund a forced-TTFT admission. Its
+        written full blocks are registered in the prefix cache first (the
+        index's reference keeps them through the release), so its restore
+        is suffix-only unless eviction takes them meanwhile. The victim
+        requeues with its tokens as resume state at a priority between
+        its own and the head's."""
+        st = self._st
+        s = st.slots[i]
+        r = s.req
+        bs = self.sc.kv_block_size
+        if self._prefix is not None:
+            n_full = s.cache_len // bs
+            if n_full:
+                written = self._full_sequence(r, s.produced)[: s.cache_len]
+                keys = PrefixCache.chain_keys(written, bs)
+                self._prefix.register(
+                    keys[:n_full], [int(b) for b in st.tables[i, :n_full]])
+        self._release_slot_resources(i, s)
+        r.resume_tokens = [np.asarray(t) for t in s.produced]
+        boosted = (s.item.priority + head_priority) / 2.0
+        self._queue.push(
+            r, priority=boosted, arrival_vt=s.item.arrival_vt,
+            arrival_s=s.item.arrival_s,
+            deadline_ticks=s.item.deadline_ticks, force=True)
+        r.stats["preemptions"] = r.stats.get("preemptions", 0.0) + 1.0
+        # TTFT is a property of the FIRST admission; a second preemption
+        # must not overwrite it.
+        r.stats.setdefault("ttft_ticks", s.first_vt - s.item.arrival_vt)
+        r.stats.setdefault("ttft_s", s.t_first - s.item.arrival_s)
+        self.metrics.preemptions += 1
+        self.metrics.requeues += 1
+
+    def _maybe_reclaim(self, item: QueuedRequest) -> bool:
+        """Ask the reclaim policy whether to preempt a victim for queue
+        head ``item``; preempt ONE if approved. True when a victim was
+        evicted (the caller retries)."""
+        if not self.sc.preempt:
+            return False
+        v = self._pick_victim(item.priority)
+        if v is None:
+            return False
+        pt = self._costs.prefill_ticks(self._bucket_rows(item.req))
+        if not self._sched.should_reclaim(
+                wait_ticks=self._vt - item.arrival_vt,
+                prefill_ticks=pt,
+                deadline_ticks=item.deadline_ticks,
+                restore_ticks=self._restore_ticks(self._st.slots[v]),
+                free_wait_ticks=self._free_wait_ticks()):
+            return False
+        self._preempt(v, item.priority)
+        return True
+
     def _admission_phase(self) -> int:
-        """Admit queue heads into free slots; a head that does not fit
-        the pool blocks everything behind it (deterministic order)."""
+        """Admit queue heads into free slots, scheduler-gated; a head
+        that does not fit the pool, or that the scheduler defers, blocks
+        everything behind it (deterministic order). With ``preempt`` a
+        forced head finding no free slot may first evict one victim."""
         st = self._st
         self._sched.begin_round()
         admitted = 0
+        if (self.sc.preempt and self._queue.depth()
+                and all(s is not None for s in st.slots)):
+            # No free slot: the slot form of reclaim (the block-pressure
+            # form runs inside the loop below).
+            head = self._queue.peek()
+            if head is not None:
+                self._maybe_reclaim(head)
         for i in range(self.sc.batch_slots):
-            if st.slots[i] is not None:
-                continue
-            res = self._try_admit_head(i)
-            if res == "full":
-                return admitted
-            if res == "admitted":
-                admitted += 1
+            while st.slots[i] is None:
+                res = self._try_admit_head(i)
+                if res == "retry":
+                    continue  # a preemption or a containment changed state
+                if res in ("full", "defer"):
+                    return admitted  # head-of-line: nothing else moves
+                if res == "admitted":
+                    admitted += 1
+                break  # admitted (maybe released at once) or empty
         return admitted
 
     def _try_admit_head(self, i: int) -> str:
         """One attempt to admit the queue head into free slot ``i``:
-        ``"empty"``, ``"full"`` (wait for a release) or ``"admitted"``."""
+        ``"empty"``, ``"defer"`` (the scheduler spends the gap on the
+        decode tick), ``"full"`` (wait for a release), ``"retry"`` (a
+        victim was preempted or a faulted head contained) or
+        ``"admitted"``."""
         st, sc = self._st, self.sc
         item = self._queue.peek()
         if item is None:
             return "empty"
         r = item.req
+        # A preempted request re-prefills its EFFECTIVE prompt; all below
+        # prices and allocates for it.
+        resumed = bool(r.resume_tokens)
         rows0, worst = self._request_need(r)
         bs = sc.kv_block_size
         alloc, prefix = st.alloc, self._prefix
         # Prefix-cache probe. lookup() RETAINS every matched block for
-        # this request, so every bail-out below releases them.
+        # this request, so every bail-out below releases them. A restore
+        # finds the blocks registered at its preemption.
         keys: List[bytes] = []
         shared: List[int] = []
         cow = False
         if prefix is not None:
-            keys = PrefixCache.chain_keys(np.asarray(r.prompt), bs)
+            keys = PrefixCache.chain_keys(self._effective_prompt(r), bs)
             shared = prefix.lookup(keys)
             self.metrics.prefix_lookups += 1
             if shared:
@@ -554,6 +938,9 @@ class Server:
             if not alloc.can_reserve(commit):
                 if shared:
                     alloc.release(shared)
+                # Block pressure: a victim's blocks can fund the head.
+                if self._maybe_reclaim(item):
+                    return "retry"
                 return "full"
         n_active = sum(1 for s in st.slots if s is not None)
         pt_full = self._costs.prefill_ticks(self._bucket_rows(r))
@@ -565,14 +952,17 @@ class Server:
                        else n_suffix)
         # A hit is priced at the suffix bucket: the work that runs.
         pt = self._costs.prefill_ticks(suffix_rows) if prefix_len else pt_full
-        # Drain mode: the scheduler admits greedily (kept for its
-        # decision counters and the shared policy surface).
-        self._sched.admit_head(
-            wait_ticks=self._vt - item.arrival_vt, prefill_ticks=pt,
-            n_active=n_active, deadline_ticks=item.deadline_ticks)
+        if not self._sched.admit_head(
+                wait_ticks=self._vt - item.arrival_vt, prefill_ticks=pt,
+                n_active=n_active, deadline_ticks=item.deadline_ticks):
+            if shared:
+                alloc.release(shared)
+            return "defer"  # SLO: spend the gap on the decode tick
         if not alloc.try_reserve(commit):
             if shared:
                 alloc.release(shared)
+            if self._maybe_reclaim(item):
+                return "retry"
             return "full"
         if cow:
             # The allocator's fork first, then the device copy: queued on
@@ -588,19 +978,49 @@ class Server:
         # The read-only shared run first, owned blocks after it.
         st.tables[i, : len(shared)] = shared
         st.tables[i, len(shared): len(shared) + len(block_ids)] = block_ids
+        # Sampled here too: a request that ends on its prefill token
+        # never reaches a decode tick but held blocks.
         self.metrics.kv_blocks_peak_in_use = max(
             self.metrics.kv_blocks_peak_in_use, float(alloc.in_use))
+        # By identity: a concurrent submit may have pushed a new,
+        # higher-priority head between our peek and now.
         self._queue.pop_expected(item)
         t0 = time.perf_counter()
         admit_vt = self._vt
-        if prefix_len:
-            last_logits, st.caches = self._prefill_suffix(
-                r, i, st.caches, st.tables[i], prefix_len, rows0)
-        else:
-            last_logits, st.caches = self._prefill_one(r, i, st.caches,
-                                                       block_ids)
+        try:
+            if self._inj is not None and self._inj.poison(r.uid):
+                self._sync_fault_metrics()
+                raise InjectedFault("poison_prompt", r.uid)
+            if prefix_len:
+                last_logits, st.caches = self._prefill_suffix(
+                    r, i, st.caches, st.tables[i], prefix_len, rows0)
+            else:
+                last_logits, st.caches = self._prefill_one(
+                    r, i, st.caches, block_ids)
+        except Exception as e:
+            if not is_request_scoped(e):
+                raise  # engine-fatal (a CUDA error is sticky)
+            # Containment: roll back everything this admission took --
+            # owned blocks, shared refs, the commitment tail -- and
+            # re-prove the pool before serving anyone else.
+            if block_ids:
+                alloc.release(block_ids)
+            if shared:
+                alloc.release(shared)
+            alloc.unreserve(commit - len(block_ids))
+            st.tables[i, :] = 0
+            alloc.check(expect_reserved=self._outstanding_commit())
+            err = RequestFailed(f"request uid={r.uid} failed in prefill: {e}")
+            err.__cause__ = e
+            self._fail_queued(item, err)
+            if isinstance(e, InjectedFault):
+                self.metrics.faults_recovered += 1
+            return "retry"
         self._vt += pt
         self._vt_prefill += pt
+        if resumed:
+            # The realized squash penalty the reclaim policy traded.
+            self.metrics.preempt_restore_ticks += pt
         if prefix is not None:
             # pt_full is what the cache-off engine spends on every
             # admission; a hit keeps pt_full - pt off the virtual clock.
@@ -619,16 +1039,26 @@ class Server:
                 prefix.register(keys[:n_full],
                                 [int(b) for b in st.tables[i, :n_full]])
         first = self._sample(last_logits)
+        # A restore carries its earlier tokens back in; its prefill's
+        # last row re-ran the squashed tick, so ``first`` is that tick's
+        # token.
+        carried = ([np.asarray(t) for t in r.resume_tokens]
+                   if resumed else [])
         s = _Slot(
-            req=r, item=item, produced=[np.asarray(first)], t_admit=t0,
-            t_first=time.perf_counter(), cache_len=rows0, blocks=block_ids,
-            shared=shared, commit=commit, admit_vt=admit_vt,
-            first_vt=self._vt, last_token_vt=self._vt,
+            req=r, item=item, produced=carried + [np.asarray(first)],
+            t_admit=t0, t_first=time.perf_counter(), cache_len=rows0,
+            blocks=block_ids, shared=shared, commit=commit,
+            admit_vt=admit_vt, first_vt=self._vt, last_token_vt=self._vt,
         )
         st.slots[i] = s
         st.cur_tok[i] = first
         self.admitted_uids.append(r.uid)
-        self._record_first_token(s)
+        if resumed:
+            r.resume_tokens = None  # consumed: the tokens live in the slot
+        else:
+            # TTFT belongs to the FIRST admission only.
+            self._record_first_token(s)
+        self._emit_token(r, np.asarray(first))
         if len(s.produced) >= r.max_new or self._hit_eos(
                 r, np.asarray(first)):
             self._release(i)  # budget reached / instant EOS: reuse slot
@@ -639,21 +1069,42 @@ class Server:
         number of live slots decoded (0 = no-op)."""
         st, sc = self._st, self.sc
         B = sc.batch_slots
-        active = np.array([s is not None for s in st.slots], np.float32)
-        n_active = int(active.sum())
-        if n_active == 0:
+        if self._inj is not None:
+            # Request-scoped step faults: that slot is evicted (resources
+            # back, ledger re-proved) and the tick goes on for the rest.
+            for i, s in enumerate(st.slots):
+                if s is None:
+                    continue
+                if self._inj.step_fault_one(s.req.uid, s.ticks):
+                    self._sync_fault_metrics()
+                    err = RequestFailed(
+                        f"request uid={s.req.uid} hit an injected step "
+                        f"fault at decode tick {s.ticks}")
+                    err.__cause__ = InjectedFault("step", s.req.uid)
+                    self._fail_slot(i, err)
+                    self.metrics.faults_recovered += 1
+        if not any(s is not None for s in st.slots):
             return 0
         # Lazy growth: a slot crossing a block edge claims its next pool
         # block when the write reaches it; the admission commitment
-        # guarantees the free list covers it.
+        # guarantees the free list covers it, so only an injected
+        # allocator fault can fail it.
         for i, s in enumerate(st.slots):
             if s is None:
                 continue
             blk_idx = s.cache_len // sc.kv_block_size
             if blk_idx >= len(s.shared) + len(s.blocks):
-                (new_blk,) = st.alloc.alloc(1, reserved=True)
+                new_blk = self._grow_one(i, s)
+                if new_blk is None:
+                    continue  # growth failed: the slot was evicted
                 s.blocks.append(new_blk)
                 st.tables[i, blk_idx] = new_blk
+        # The mask after growth: a growth fault may have evicted a slot.
+        active = np.array([s is not None for s in st.slots], np.float32)
+        n_active = int(active.sum())
+        if n_active == 0:
+            return 0
+        slo = sc.slo
         self.metrics.kv_blocks_peak_in_use = max(
             self.metrics.kv_blocks_peak_in_use, float(st.alloc.in_use))
         if st.alloc.reserved != self._outstanding_commit():
@@ -712,21 +1163,74 @@ class Server:
             s.last_token_vt = self._vt
             s.itl_max = max(s.itl_max, gap)
             self._itl_ticks_all.append(gap)
+            if slo is not None and gap > slo.target_itl_ticks:
+                self.metrics.slo_itl_violations += 1
             st.cur_tok[i] = tok
+            self._emit_token(s.req, tok)
             if len(s.produced) >= s.req.max_new or self._hit_eos(s.req, tok):
                 self._release(i)
+            elif (s.req.max_ticks is not None
+                  and len(s.produced) - 1 >= s.req.max_ticks):
+                # The decode deadline. len(produced) - 1 counts progress
+                # past the first token and does not change under a
+                # preemption (the restore re-produces the squashed
+                # tick's token). Finishing (EOS/budget) wins above.
+                self._fail_slot(i, RequestCancelled(
+                    f"request uid={s.req.uid}: max_ticks="
+                    f"{s.req.max_ticks} decode budget exhausted"))
         return n_active
 
     def step(self) -> Dict[str, int]:
-        """One engine iteration: admission, then one decode tick."""
+        """One engine iteration: cancellations, an admission phase, then
+        (if anything is live) one decode tick."""
         if self._st is None:
             raise RuntimeError("start_engine() before step()")
+        self._process_cancellations()
         admitted = self._admission_phase()
         decoded = self._decode_tick()
         return {"admitted": admitted, "decoded": decoded}
 
+    def serve_trace(self, trace, *, priorities=None,
+                    deadlines=None) -> List[Request]:
+        """Serve an open-loop arrival trace ``[(arrival_vt, Request)]``
+        on the virtual clock: each request is enqueued when the clock
+        reaches its arrival (idle gaps fast-forward), so the run --
+        admission order, TTFT/ITL percentiles, SLO violations,
+        preemptions, sheds -- is a function of the trace, the config and
+        the fault plan. ``priorities``/``deadlines`` map uid -> priority
+        / TTFT deadline in ticks. A shed arrival gets ``out = []`` and
+        its ``ServerOverloaded`` on ``error``."""
+        self._validate([r for _, r in trace])
+        self.start_engine()
+        items = sorted(enumerate(trace), key=lambda e: (e[1][0], e[0]))
+        i = 0
+        while True:
+            while i < len(items) and items[i][1][0] <= self._vt + 1e-9:
+                _, (avt, r) = items[i]
+                try:
+                    self.enqueue(
+                        r, arrival_vt=float(avt),
+                        priority=(priorities or {}).get(r.uid, 0.0),
+                        deadline_ticks=(deadlines or {}).get(r.uid))
+                except ServerOverloaded as e:
+                    # Shed under the depth bound: counted, and the trace
+                    # drives on.
+                    r.out = np.zeros((0,), np.int64)
+                    r.error = e
+                i += 1
+            if self.queue_depth() == 0 and not self.any_active():
+                if i >= len(items):
+                    break
+                self.advance_vt(items[i][1][0])  # idle to next arrival
+                continue
+            self.step()
+        self.finalize_metrics()
+        return list(self._st.completed)
+
     def generate(self, requests: List[Request]) -> List[Request]:
-        """Serve a fixed request list through the engine and drain it."""
+        """Serve a fixed request list through the engine and drain it
+        (drain mode without an SLO; with one, admission interleaves
+        under it)."""
         self._validate(requests)
         self.start_engine()
         for r in requests:
@@ -744,6 +1248,7 @@ class Server:
     def finalize_metrics(self) -> ServeMetrics:
         """Fold the run's accumulators into ``metrics``."""
         m = self.metrics
+        self._sync_fault_metrics()
         if m.total_tile_dots > 0:
             m.mlp_skip_fraction = m.skipped_tile_dots / m.total_tile_dots
         self._account_modeled_bytes()
@@ -838,3 +1343,310 @@ class Server:
         saved = (by["unfused"] if glu else by["two_kernel"]) - by["fused"]
         self.metrics.modeled_hbm_bytes_saved = float(
             saved * cfg.num_layers * self.metrics.ticks)
+
+
+# ------------------------------------------------------------ async facade
+_STREAM_END = object()
+
+
+class Submission:
+    """Handle of one :meth:`AsyncServer.submit`: stream tokens as they
+    are produced, or block for the finished :class:`Request`.
+
+    Thread-safe: the engine thread feeds ``_tokens``/``_done`` (numpy
+    tokens only); any one client thread consumes :meth:`stream` or
+    :meth:`result` (tokens are handed out once)."""
+
+    def __init__(self, request: Request):
+        self.request = request
+        self._tokens: _queue_mod.Queue = _queue_mod.Queue()
+        self._done = threading.Event()
+        self._error: Optional[BaseException] = None
+
+    @property
+    def uid(self) -> int:
+        return self.request.uid
+
+    @property
+    def done(self) -> bool:
+        return self._done.is_set()
+
+    def stream(self, timeout: Optional[float] = None) -> Iterator[np.ndarray]:
+        """Yield tokens as the engine produces them; returns at EOS or
+        budget, raises the request's error if it failed. ``timeout``
+        bounds the wait for EACH token (``TimeoutError``)."""
+        while True:
+            try:
+                tok = self._tokens.get(timeout=timeout)
+            except _queue_mod.Empty:
+                raise TimeoutError(
+                    f"request uid={self.request.uid}: no token within "
+                    f"{timeout}s") from None
+            if tok is _STREAM_END:
+                if self._error is not None:
+                    raise self._error
+                return
+            yield tok
+
+    def result(self, timeout: Optional[float] = None) -> Request:
+        """Block until the request finishes; returns it with ``out`` and
+        ``stats`` filled, or raises its error."""
+        if not self._done.wait(timeout=timeout):
+            raise TimeoutError(
+                f"request uid={self.request.uid} not finished in time")
+        if self._error is not None:
+            raise self._error
+        return self.request
+
+
+class AsyncServer:
+    """Live-queue serving: a background engine thread drains the
+    thread-safe admission queue while clients ``submit()`` concurrently.
+
+    * :meth:`submit` validates, enqueues and returns a
+      :class:`Submission` (from any thread);
+    * :meth:`stream` / ``Submission.stream`` yield tokens as decode
+      ticks produce them;
+    * :meth:`cancel` fails an outstanding submission with
+      :class:`RequestCancelled`;
+    * :meth:`drain` blocks until everything submitted so far finished
+      and returns the requests completed since the last drain;
+    * :meth:`shutdown` (or ``with AsyncServer(...) as srv:``) drains and
+      stops the engine thread.
+
+    All model, cache and device state belongs to the one engine thread,
+    which makes every kernel launch (on its own current stream); the
+    shared surfaces are the queue, the handle table (under ``_lock``),
+    the cancel marks and the allocator's atomic reservations. An
+    exception escaping the engine's step is engine-fatal: every
+    outstanding handle fails with :class:`EngineFatal` and the engine
+    stops.
+    """
+
+    def __init__(self, cfg: ArchConfig, params, serve_cfg: ServeConfig,
+                 *, device="cuda", start: bool = True):
+        self._srv = Server(cfg, params, serve_cfg, device=device)
+        self._srv.start_engine()
+        self._srv.on_token = self._on_token
+        self._srv.on_finish = self._on_finish
+        self._srv.on_error = self._on_error
+        self._lock = threading.RLock()
+        self._wake = threading.Condition(self._lock)
+        self._handles: Dict[int, Submission] = {}
+        self._completed: List[Request] = []
+        self._failed: List[Request] = []
+        self._stop = False
+        self._started = False
+        self._engine_error: Optional[BaseException] = None
+        self._auto_uid = itertools.count()
+        self._thread = threading.Thread(
+            target=self._engine_loop, name="serve-engine", daemon=True)
+        if start:
+            self.start()
+
+    # Engine lifecycle -----------------------------------------------------
+    def start(self) -> None:
+        with self._lock:
+            if self._started:
+                return
+            self._started = True
+        self._thread.start()
+
+    def _work_pending(self) -> bool:
+        return self._srv.queue_depth() > 0 or self._srv.any_active()
+
+    def _engine_loop(self) -> None:
+        try:
+            if self._srv.device.type == "cuda":
+                # The current device is per thread; launch on the
+                # server's.
+                torch.cuda.set_device(self._srv.device)
+            while True:
+                with self._wake:
+                    while not self._stop and not self._work_pending():
+                        self._wake.wait(timeout=0.05)
+                    if self._stop:
+                        # shutdown(drain=True) already drained;
+                        # drain=False fails the outstanding handles after
+                        # joining us.
+                        return
+                self._srv.step()
+                with self._wake:
+                    self._wake.notify_all()
+        except BaseException as e:  # noqa: BLE001 - fail all waiters
+            # Whatever escapes step() is ENGINE-fatal: request-scoped
+            # faults were contained inside it.
+            if isinstance(e, EngineFatal):
+                fatal: BaseException = e
+            else:
+                fatal = EngineFatal(
+                    f"engine thread died: {type(e).__name__}: {e}")
+                fatal.__cause__ = e
+            with self._wake:
+                self._engine_error = fatal
+                self._stop = True
+                for h in self._handles.values():
+                    h._error = fatal
+                    h._done.set()
+                    h._tokens.put(_STREAM_END)
+                self._handles.clear()
+                self._wake.notify_all()
+
+    # Engine-thread callbacks ---------------------------------------------
+    def _on_token(self, req: Request, tok: np.ndarray) -> None:
+        with self._lock:
+            h = self._handles.get(req.uid)
+        if h is not None:
+            h._tokens.put(np.asarray(tok))
+
+    def _on_finish(self, req: Request) -> None:
+        with self._lock:
+            h = self._handles.pop(req.uid, None)
+            self._completed.append(req)
+        if h is not None:
+            h._done.set()
+            h._tokens.put(_STREAM_END)
+
+    def _on_error(self, req: Request, err: BaseException) -> None:
+        """A request FAILED (cancelled, deadline, contained fault): its
+        waiters get the typed error; the engine keeps serving."""
+        with self._lock:
+            h = self._handles.pop(req.uid, None)
+            self._failed.append(req)
+        if h is not None:
+            h._error = err
+            h._done.set()
+            h._tokens.put(_STREAM_END)
+
+    # Client surface -------------------------------------------------------
+    def submit(self, prompt, max_new: int = 32, *,
+               eos_id: Optional[int] = None, priority: float = 0.0,
+               deadline_ticks: Optional[float] = None,
+               max_ticks: Optional[int] = None,
+               uid: Optional[int] = None) -> Submission:
+        """Enqueue one request; returns its :class:`Submission`.
+
+        Raises ``ValueError`` at once (nothing enqueued) if the request
+        could never be served or its uid is in flight, and
+        :class:`ServerOverloaded` (nothing enqueued) when the shed policy
+        rejects it. ``priority`` orders admission (higher first, FIFO
+        within a class); ``deadline_ticks`` is a per-request TTFT budget;
+        ``max_ticks`` a per-request decode budget, past which the handle
+        fails with :class:`RequestCancelled`."""
+        r = Request(
+            uid=next(self._auto_uid) if uid is None else uid,
+            prompt=np.asarray(prompt), max_new=max_new, eos_id=eos_id,
+            max_ticks=max_ticks)
+        self._srv._validate([r])
+        h = Submission(r)
+        with self._wake:
+            if self._stop or self._engine_error is not None:
+                raise RuntimeError("AsyncServer is shut down")
+            if r.uid in self._handles:
+                # Overwriting would orphan the first handle's waiter.
+                raise ValueError(f"request uid={r.uid} is already in flight")
+            self._handles[r.uid] = h
+            try:
+                self._srv.enqueue(
+                    r, priority=priority, deadline_ticks=deadline_ticks)
+            except ServerOverloaded:
+                del self._handles[r.uid]  # shed at the door
+                raise
+            self._wake.notify_all()
+        return h
+
+    def cancel(self, handle: Submission) -> bool:
+        """Cancel an outstanding submission from any thread. True when it
+        was still in flight (its waiters get :class:`RequestCancelled`
+        with any partial output on ``handle.request.out``); False when it
+        already finished."""
+        with self._wake:
+            if self._handles.get(handle.uid) is not handle:
+                return False
+            self._srv.cancel(handle.uid)
+            self._wake.notify_all()
+        return True
+
+    def stream(self, handle: Submission,
+               timeout: Optional[float] = None) -> Iterator[np.ndarray]:
+        return handle.stream(timeout=timeout)
+
+    def drain(self, timeout: Optional[float] = None) -> List[Request]:
+        """Block until all submitted requests finish; returns the ones
+        completed since the last drain, with ``metrics`` finalized.
+        Assumes no concurrent submits while draining."""
+        deadline = None if timeout is None else time.perf_counter() + timeout
+        with self._wake:
+            while self._handles or self._work_pending():
+                if self._engine_error is not None:
+                    raise self._engine_error
+                left = None if deadline is None else (
+                    deadline - time.perf_counter())
+                if left is not None and left <= 0:
+                    raise TimeoutError("drain() timed out")
+                self._wake.wait(timeout=0.05 if left is None
+                                else min(0.05, left))
+            if self._engine_error is not None:
+                raise self._engine_error
+            out, self._completed = self._completed, []
+        self._srv.finalize_metrics()
+        return out
+
+    def shutdown(self, *, drain: bool = True,
+                 timeout: Optional[float] = None) -> None:
+        """Stop: optionally drain, then stop and join the engine thread;
+        with ``drain=False`` the engine stops after its current step and
+        unfinished submissions fail with ``RuntimeError``. Idempotent.
+        ``timeout`` bounds the WHOLE call: drain and join share one
+        deadline."""
+        deadline = (None if timeout is None
+                    else time.perf_counter() + timeout)
+        if drain and self._started and self._engine_error is None:
+            try:
+                self.drain(timeout=timeout)
+            except TimeoutError:
+                pass  # stop anyway
+        with self._wake:
+            self._stop = True
+            # Latch the queue: a submit racing the teardown fails in
+            # RequestQueue.push instead of feeding a dead engine.
+            self._srv._queue.close()
+            self._wake.notify_all()
+        if self._started:
+            left = (None if deadline is None
+                    else max(0.0, deadline - time.perf_counter()))
+            self._thread.join(timeout=left)
+        with self._wake:
+            if self._handles:
+                err = RuntimeError("AsyncServer shut down before completion")
+                for h in self._handles.values():
+                    h._error = err
+                    h._done.set()
+                    h._tokens.put(_STREAM_END)
+                self._handles.clear()
+
+    close = shutdown
+
+    def __enter__(self) -> "AsyncServer":
+        self.start()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.shutdown(drain=exc_type is None)
+
+    @property
+    def metrics(self) -> ServeMetrics:
+        return self._srv.metrics
+
+    @property
+    def failed(self) -> List[Request]:
+        """Requests that failed (cancelled, deadline, contained fault)
+        since construction; their typed errors sit on ``.error``."""
+        with self._lock:
+            return list(self._failed)
+
+    @property
+    def server(self) -> Server:
+        """The wrapped engine (read-only use: metrics, config); do not
+        call its stepwise methods while the engine thread runs."""
+        return self._srv

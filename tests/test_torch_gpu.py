@@ -1189,3 +1189,130 @@ def test_ops_sparce_gemm_on_alexnet_layers_at_full_shape(cuda, bench,
         block_m=plan.block_m, block_k=plan.block_k, block_n=plan.block_n)
     torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(y, x @ w, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------ the live engine
+def _live_trace(vocab, seed=0, n=12):
+    """A small open-loop trace made with numpy: Poisson arrivals, a burst,
+    every other prompt behind one 16-token prefix, one max_ticks
+    deadline; priority 1.0 and a 2-tick TTFT deadline for every third."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, 16)
+    arrivals = np.cumsum(rng.exponential(1.0, n)).tolist()
+    arrivals[-4:] = [arrivals[4]] * 4  # a burst
+    trace = []
+    for uid in range(n):
+        prompt = rng.integers(0, vocab, int(rng.integers(4, 20)))
+        if uid % 2 == 0:
+            prompt = np.concatenate([prefix, prompt])
+        trace.append((arrivals[uid], Request(
+            uid=uid, prompt=prompt, max_new=int(rng.integers(3, 10)),
+            max_ticks=2 if uid == 5 else None)))
+    urgent = range(0, n, 3)
+    return trace, dict(priorities={u: 1.0 for u in urgent},
+                       deadlines={u: 2.0 for u in urgent})
+
+
+def _live_run(cfg, sc, dev, trace, kw):
+    import dataclasses
+    params = model_lib.init_params(cfg, seed=0, device=dev)
+    srv = Server(cfg, params, sc, device=dev)
+    fresh = [(a, dataclasses.replace(r, out=None, error=None, stats={}))
+             for a, r in trace]
+    srv.serve_trace(fresh, **kw)
+    m = srv.metrics
+    return srv, dict(
+        admitted=list(srv.admitted_uids),
+        outcome={r.uid: (type(r.error).__name__ if r.error else None,
+                         r.out.tolist()) for _, r in fresh},
+        metrics={k: v for k, v in vars(m).items()
+                 if k not in ("prefill_s", "decode_s", "ttft_s_p50",
+                              "ttft_s_p99")})
+
+
+def test_reduced_live_engine_on_gpu_matches_cpu(cuda):
+    """Phase 9 (b) at a small size: ``serve_trace`` under the SLO with
+    preemption, a bounded queue, the prefix cache and every fault kind,
+    on the relu engine in ``mode="kernel"``: the card's tokens,
+    admission order, outcomes and every non-wall metric equal the
+    CPU's; a preempted request was restored; the kernels launched."""
+    import dataclasses
+    from repro_torch.runtime.faults import FaultPlan
+    from repro_torch.runtime.scheduler import SLOConfig
+    cfg = dataclasses.replace(get_config("smollm-135m").reduced(),
+                              mlp_act="relu")
+    sc = ServeConfig(
+        batch_slots=3, max_len=64, kv_block_size=8, kv_pool_blocks=14,
+        attn_kernel="paged", prefix_cache=True, preempt=True,
+        max_queue_depth=5,
+        slo=SLOConfig(target_ttft_ticks=12.0, target_itl_ticks=2.0),
+        sparsity=SparsityConfig(enabled=True, mode="kernel", block_m=1,
+                                block_k=32),
+        faults=FaultPlan(seed=0, step_fault_rate=0.02,
+                         alloc_exhaust_rate=0.05, transient_alloc_rate=0.2,
+                         poison_uids={7}))
+    trace, kw = _live_trace(cfg.vocab_size)
+    counted = [pda.paged_gqa_decode_attn, rb.relu_bitmap,
+               sg.sparce_gemm_gated]
+    before = [f.launches for f in counted]
+    gpu_srv, got = _live_run(cfg, sc, cuda, trace, kw)
+    assert all(f.launches > b for f, b in zip(counted, before))
+    _, want = _live_run(cfg, sc, "cpu", trace, kw)
+    assert got == want
+    m = gpu_srv.metrics
+    assert m.preemptions > 0 and m.shed_requests > 0
+    assert m.faults_injected > 0
+    assert any(r.stats.get("preemptions", 0) >= 1
+               for r in gpu_srv._st.completed)
+    alloc = gpu_srv._st.alloc
+    assert alloc.in_use == len(gpu_srv._prefix) and alloc.reserved == 0
+    alloc.check(expect_reserved=0)
+
+
+def test_two_async_servers_at_once_on_one_card(cuda):
+    """Two AsyncServers serve at the same time on one card, each engine
+    thread launching the GQA kernel on its own default stream: each
+    gives the tokens the CPU engine gives, and every GQA arrival counter
+    is back at zero afterwards (no call saw another's counters)."""
+    import threading
+    from repro_torch.runtime.server import AsyncServer
+    cfg = get_config("smollm-135m").reduced()
+    sc = ServeConfig(batch_slots=3, max_len=64, kv_block_size=8,
+                     attn_kernel="paged", sparsity=SparsityConfig(
+                         enabled=True, mode="fused", gate_threshold=0.0))
+    rng = np.random.default_rng(5)
+    reqs = [(u, rng.integers(0, cfg.vocab_size, int(rng.integers(3, 30))),
+             int(rng.integers(4, 16))) for u in range(10)]
+    cpu = Server(cfg, model_lib.init_params(cfg, seed=0, device="cpu"), sc,
+                 device="cpu")
+    want = {r.uid: r.out.tolist() for r in cpu.generate(
+        [Request(uid=u, prompt=p, max_new=n) for u, p, n in reqs])}
+    params = model_lib.init_params(cfg, seed=0, device=cuda)
+    servers = [AsyncServer(cfg, params, sc, device=cuda) for _ in range(2)]
+    before = pda.paged_gqa_decode_attn.launches
+    results, errors = [{}, {}], []
+
+    def client(k):
+        try:
+            hs = [servers[k].submit(p, max_new=n, uid=u)
+                  for u, p, n in reqs]
+            for h in hs:
+                results[k][h.uid] = [int(t) for t in h.stream(timeout=120)]
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        assert not t.is_alive()
+    for s in servers:
+        s.shutdown(timeout=120)
+    assert not errors, errors
+    assert results == [want, want]
+    assert pda.paged_gqa_decode_attn.launches > before
+    torch.cuda.synchronize()
+    for key, counts in pda._GQA_COUNTS.items():
+        assert int(counts.abs().sum()) == 0, key

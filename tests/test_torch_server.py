@@ -25,6 +25,8 @@ from repro_torch.bridge import params_from_reference
 from repro_torch.configs import get_config
 from repro_torch.core.sparse_ops import SparsityConfig
 from repro_torch.runtime import server as port_server
+from repro_torch.runtime.faults import FaultPlan
+from repro_torch.runtime.scheduler import SLOConfig
 from serving_harness import Traffic, make_traffic
 
 # ServeMetrics fields that must match exactly: counts, skip counters,
@@ -150,14 +152,10 @@ def _launch_lines(main, argv, capsys):
     return capsys.readouterr().out.splitlines()
 
 
-def test_launcher_sparce_flags_match_reference_launcher(capsys,
-                                                        monkeypatch):
-    """``--sparce --sparce-mode fused`` on the reduced config: the port's
-    launcher (on the CPU, with the reference's weights through the
-    bridge) prints the same tokens and skip counters as the reference
-    launcher, and serves the relu MLP the flag swaps in."""
-    from repro.launch import serve as ref_serve
-    from repro_torch.launch import serve as port_serve
+def _bridge_launcher_weights(monkeypatch):
+    """Make the port's launcher serve the reference launcher's weights
+    (the reduced config's, through the bridge); returns the list of the
+    MLP activations it built."""
     from repro_torch.models import model as port_model
     built = []
 
@@ -171,6 +169,18 @@ def test_launcher_sparce_flags_match_reference_launcher(capsys,
             jax.tree_util.tree_map(np.asarray, ref_params), device=device)
 
     monkeypatch.setattr(port_model, "init_params", bridged_init)
+    return built
+
+
+def test_launcher_sparce_flags_match_reference_launcher(capsys,
+                                                        monkeypatch):
+    """``--sparce --sparce-mode fused`` on the reduced config: the port's
+    launcher (on the CPU, with the reference's weights through the
+    bridge) prints the same tokens and skip counters as the reference
+    launcher, and serves the relu MLP the flag swaps in."""
+    from repro.launch import serve as ref_serve
+    from repro_torch.launch import serve as port_serve
+    built = _bridge_launcher_weights(monkeypatch)
     argv = ["--arch", "smollm-135m", "--reduced", "--requests", "3",
             "--prompt-len", "8", "--max-new", "4", "--batch-slots", "2",
             "--max-len", "32", "--attn-kernel", "gather", "--sparce",
@@ -191,6 +201,52 @@ def test_launcher_sparce_flags_match_reference_launcher(capsys,
     assert len(ref_skip) == 1 and len(ref_outs) == 3
     assert port_skip == ref_skip
     assert port_outs == ref_outs
+
+
+def test_launcher_slo_flags_match_reference_launcher(capsys, monkeypatch):
+    """``--slo-ttft-ticks/--slo-itl-ticks`` on the reduced config: the
+    port's launcher prints the reference launcher's queue and
+    virtual-tick latency lines and tokens; ``--open-loop`` serves the
+    same requests through ``AsyncServer`` to the same tokens."""
+    from repro.launch import serve as ref_serve
+    from repro_torch.launch import serve as port_serve
+    _bridge_launcher_weights(monkeypatch)
+    argv = ["--arch", "smollm-135m", "--reduced", "--requests", "5",
+            "--mixed", "--prompt-len", "10", "--max-new", "8",
+            "--batch-slots", "2", "--max-len", "32", "--attn-kernel",
+            "paged", "--slo-ttft-ticks", "12", "--slo-itl-ticks", "2"]
+    ref_lines = _launch_lines(ref_serve.main, argv, capsys)
+    port_lines = _launch_lines(port_serve.main, argv + ["--device", "cpu"],
+                               capsys)
+
+    def picked(lines):
+        slo = [ln for ln in lines if ln.startswith(("  queue:",
+                                                    "  latency (virtual"))]
+        outs = [re.search(r"tokens=.*", ln).group(0) for ln in lines
+                if "out=" in ln]
+        return slo, outs
+
+    assert len(picked(ref_lines)[0]) == 2
+    assert picked(port_lines) == picked(ref_lines)
+    assert any("deferred" in ln and " 0 deferred" not in ln
+               for ln in port_lines)
+    open_lines = _launch_lines(
+        port_serve.main, argv + ["--device", "cpu", "--open-loop",
+                                 "--arrival-rate", "200"], capsys)
+
+    def by_uid(lines):
+        return dict(re.search(r"req (\d+): .*(tokens=.*)", ln).groups()
+                    for ln in lines if "out=" in ln)
+
+    def served(lines):
+        return re.search(r"served \d+ requests, \S+ decode tokens",
+                         lines[0]).group(0)
+
+    # Wall-clock arrivals change the completion order, not the tokens.
+    want, got = by_uid(ref_lines), by_uid(open_lines)
+    assert len(got) == 3 and all(got[u] == want[u] for u in got if u in want)
+    assert served(open_lines) == served(ref_lines)
+    assert any(ln.startswith("  latency (wall clock)") for ln in open_lines)
 
 
 def test_gather_and_paged_attention_serve_identically():
@@ -225,12 +281,21 @@ def test_gather_and_paged_attention_serve_identically():
 
 @pytest.mark.parametrize("kwargs", [
     dict(kv_block_size=0), dict(mesh=(1, 2)),
-    dict(slo=object()), dict(max_queue_depth=4), dict(preempt=True),
-    dict(faults=object()),
+    dict(slo=SLOConfig(target_ttft_ticks=16.0, target_itl_ticks=2.0)),
+    dict(max_queue_depth=4), dict(preempt=True),
+    dict(faults=FaultPlan(seed=1, step_fault_rate=0.1)),
 ])
 def test_serve_config_rejects_unported_paths(kwargs):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        port_server.ServeConfig(**kwargs)
+    """Only the paths not ported yet (the contiguous layout, the SPMD
+    mesh) are refused; the live engine's fields build, as the
+    reference's do."""
+    (name, value), = kwargs.items()
+    if name in ("kv_block_size", "mesh"):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            port_server.ServeConfig(**kwargs)
+        return
+    assert getattr(port_server.ServeConfig(**kwargs), name) == value
+    ref_server.ServeConfig(**kwargs)
 
 
 def test_serve_config_validates_values():
@@ -238,6 +303,10 @@ def test_serve_config_validates_values():
         port_server.ServeConfig(batch_slots=0)
     with pytest.raises(ValueError, match="attn_kernel"):
         port_server.ServeConfig(attn_kernel="flash")
+    with pytest.raises(ValueError, match="max_queue_depth"):
+        port_server.ServeConfig(max_queue_depth=0)
+    with pytest.raises(ValueError, match="preempt"):
+        port_server.ServeConfig(kv_block_size=0, preempt=True)
 
 
 def test_validate_rejects_requests_that_never_fit():
