@@ -61,9 +61,22 @@ is printed only when all of them pass):
      two client threads submit 24 requests at wall-clock Poisson gaps, a
      third streams every handle, a live and a queued request are
      cancelled, then ``shutdown``: streams equal results, the wall-clock
-     TTFT and inter-token gap percentiles in ms.
+     TTFT and inter-token gap percentiles in ms;
+ 10. the contiguous KV layout (``kv_block_size=0``; the ssm and hybrid
+     families always): phase 4's engine and trace on contiguous caches
+     (the gather path), its ticks, decode tokens and skip counters equal
+     to phase 4's; ``mamba2-2.7b`` whole and ``zamba2-7b`` at its
+     published widths cut to 15 layers, bf16 engines on phase 5's
+     mixed-budget trace (ms per tick, tokens/s, prefill s, peak memory,
+     launch counts), then an f32 2-layer ``serving_decode_step`` of each
+     on the card against the CPU; then ``smollm-360m`` whole,
+     ``mistral-nemo-12b`` (4 layers), ``qwen1.5-110b`` (2 layers) and
+     ``qwen2-moe-a2.7b`` (4 layers) as bf16 paged engines on a short
+     seeded trace, with the planner's MLP variant and the paged GQA
+     kernel's launches. Phase 2 holds the GQA and GLU kernels at these
+     configs' shapes.
 
-After phases 4-7, each of the nine kernels' time at its path's shapes
+Every phase prints its seconds. After phases 4-7, each of the nine kernels' time at its path's shapes
 beside its plain version, a library yardstick and its bound.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -358,6 +371,13 @@ def attn_case(torch, dev, dtype, seed, *, B=8, KV=3, g=3, D=64, bs=16,
                 live_ids=set(ids[:nxt].tolist()), nb=nb)
 
 
+# (KV heads, group, head_dim) of the GQA kernel's checks: smollm-135m's,
+# then smollm-360m's, mistral-nemo-12b's, qwen1.5-110b's (the kernel's
+# limits, group 8 and head_dim 128) and qwen2-moe-a2.7b's.
+ATTN_SHAPES = ((3, 3, 64), (5, 3, 64), (8, 4, 128), (8, 8, 128),
+               (16, 1, 128))
+
+
 def check_attention(torch, dev):
     from repro_torch.kernels import paged_decode_attn as pda
     from repro_torch.kernels import ref as kref
@@ -368,15 +388,17 @@ def check_attention(torch, dev):
                          "plain version; bf16 output rounding"),
     }
     errs = {}
-    for dtype, (atol, rtol, why) in tols.items():
-        c = attn_case(torch, dev, dtype, seed=1)
+    for (KV, g, D), (dtype, (atol, rtol, why)) in (
+            (shape, tol) for shape in ATTN_SHAPES for tol in tols.items()):
+        c = attn_case(torch, dev, dtype, seed=1, KV=KV, g=g, D=D)
         args = (c["q"], c["k"], c["v"], c["tables"], c["lengths"])
         got = pda.paged_gqa_decode_attn(*args)
         want = pda.paged_gqa_decode_attn_plain(*args)
         torch.cuda.synchronize()
-        name = f"paged_gqa_decode_attn {str(dtype)[6:]}"
-        errs[dtype] = check_close(name, got, want, atol=atol, rtol=rtol,
-                                  why=why)
+        name = f"paged_gqa_decode_attn {str(dtype)[6:]} KV={KV} g={g} D={D}"
+        err = check_close(name, got, want, atol=atol, rtol=rtol, why=why)
+        if (KV, g, D) == ATTN_SHAPES[0]:
+            errs[dtype] = err
         live = c["lengths"] > 0
         oracle = kref.paged_gqa_decode_attn_ref(*args)
         check_close(name + " vs gather oracle (live slots)", got[live],
@@ -608,6 +630,13 @@ def glu_case(torch, dev, dtype, seed, *, M=8, K=576, F=1536, N=576,
     return t(x), t(wg), t(wi), t(wo)
 
 
+# (K, F, N, row counts) of the GLU kernel's checks: smollm-135m's MLP at
+# decode, a ragged and a full prefill bucket; smollm-360m's and zamba2-7b's
+# shared block at decode and a 256-row prefill.
+GLU_SHAPES = ((576, 1536, 576, (8, 100, 256)), (960, 2560, 960, (8, 256)),
+              (3584, 14336, 3584, (8, 256)))
+
+
 def check_glu(torch, dev):
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import sparce_glu_mlp as sgm
@@ -623,44 +652,47 @@ def check_glu(torch, dev):
     for dtype, (atol, rtol, why) in tols.items():
         # Decode slots, a ragged prefill bucket (2 row tiles) and a full
         # one, unpadded: the kernel masks rows past M itself.
-        for M in (8, 100, 256):
-            for tau in (0.0, 0.05):
-                x, wg, wi, wo = glu_case(torch, dev, dtype, seed=2, M=M)
-                y, bits = sgm.sparce_glu_mlp_fused(
-                    x, wg, wi, wo, block_m=bm, block_f=bf, tau=tau)
-                y0, bits0 = sgm.sparce_glu_mlp_fused_plain(
-                    x, wg, wi, wo, block_m=bm, block_f=bf, tau=tau)
-                torch.cuda.synchronize()
-                name = (f"sparce_glu_mlp_fused {str(dtype)[6:]} M={M} "
-                        f"tau={tau}")
-                if not torch.equal(bits, bits0):
-                    raise AssertionError(f"{name}: bits differ")
-                y1, bits1 = sgm.sparce_glu_mlp_fused(
-                    x, wg, wi, wo, block_m=bm, block_f=bf, tau=tau)
-                if not (same_bits(torch, y1, y)
-                        and torch.equal(bits1, bits)):
-                    raise AssertionError(f"{name}: a second call differs")
-                dead = int(bits.sum())
-                if dead == 0:
-                    raise AssertionError(f"{name}: expected dead stripes")
-                err = check_close(f"{name} ({dead} dead tiles)", y, y0,
-                                  atol=atol, rtol=rtol, why=why)
-                if dtype == torch.bfloat16 and M == 8 and tau == 0.0:
-                    err_main = err
-                # NaN poison the dead stripes' w_in columns and w_out rows
-                # of every row tile that has them dead in ALL row tiles.
-                dead_f = bits.bool().all(dim=0).nonzero().flatten().tolist()
-                wi2, wo2 = wi.clone(), wo.clone()
-                for f in dead_f:
-                    wi2[:, f * bf:(f + 1) * bf] = float("nan")
-                    wo2[f * bf:(f + 1) * bf] = float("nan")
-                y2, bits2 = sgm.sparce_glu_mlp_fused(
-                    x, wg, wi2, wo2, block_m=bm, block_f=bf, tau=tau)
-                torch.cuda.synchronize()
-                if not (torch.isfinite(y2).all() and torch.equal(y2, y)
-                        and torch.equal(bits2, bits)):
-                    raise AssertionError(
-                        f"{name}: NaN-poisoned dead stripes reached y")
+        for K, F, N, M, tau in ((K, F, N, M, tau)
+                                for K, F, N, Ms in GLU_SHAPES for M in Ms
+                                for tau in (0.0, 0.05)):
+            x, wg, wi, wo = glu_case(torch, dev, dtype, seed=2, M=M,
+                                     K=K, F=F, N=N)
+            y, bits = sgm.sparce_glu_mlp_fused(
+                x, wg, wi, wo, block_m=bm, block_f=bf, tau=tau)
+            y0, bits0 = sgm.sparce_glu_mlp_fused_plain(
+                x, wg, wi, wo, block_m=bm, block_f=bf, tau=tau)
+            torch.cuda.synchronize()
+            name = (f"sparce_glu_mlp_fused {str(dtype)[6:]} M={M} "
+                    f"K={K} F={F} tau={tau}")
+            if not torch.equal(bits, bits0):
+                raise AssertionError(f"{name}: bits differ")
+            y1, bits1 = sgm.sparce_glu_mlp_fused(
+                x, wg, wi, wo, block_m=bm, block_f=bf, tau=tau)
+            if not (same_bits(torch, y1, y)
+                    and torch.equal(bits1, bits)):
+                raise AssertionError(f"{name}: a second call differs")
+            dead = int(bits.sum())
+            if dead == 0:
+                raise AssertionError(f"{name}: expected dead stripes")
+            err = check_close(f"{name} ({dead} dead tiles)", y, y0,
+                              atol=atol, rtol=rtol, why=why)
+            if (dtype == torch.bfloat16 and M == 8 and tau == 0.0
+                    and K == GLU_SHAPES[0][0]):
+                err_main = err
+            # NaN poison the dead stripes' w_in columns and w_out rows
+            # of every row tile that has them dead in ALL row tiles.
+            dead_f = bits.bool().all(dim=0).nonzero().flatten().tolist()
+            wi2, wo2 = wi.clone(), wo.clone()
+            for f in dead_f:
+                wi2[:, f * bf:(f + 1) * bf] = float("nan")
+                wo2[f * bf:(f + 1) * bf] = float("nan")
+            y2, bits2 = sgm.sparce_glu_mlp_fused(
+                x, wg, wi2, wo2, block_m=bm, block_f=bf, tau=tau)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(y2).all() and torch.equal(y2, y)
+                    and torch.equal(bits2, bits)):
+                raise AssertionError(
+                    f"{name}: NaN-poisoned dead stripes reached y")
         # The wrapper the model calls: 8 rows under a 64-row tile, nothing
         # padded.
         x, wg, wi, wo = glu_case(torch, dev, dtype, seed=3, M=8)
@@ -1163,7 +1195,9 @@ def to_device(tree, dev):
         return [to_device(v, dev) for v in tree]
     if isinstance(tree, tuple):
         return type(tree)(*(to_device(v, dev) for v in tree))
-    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+    # A copy even on the same device: a step updates its caches in place.
+    return (tree.to(dev, copy=True) if isinstance(tree, torch.Tensor)
+            else tree)
 
 
 def check_decode_step(torch, dev, base_cfg, sparsity, label):
@@ -1212,20 +1246,20 @@ def compare_decode_step(torch, dev, cfg, params, label, *, why):
 
 
 # ------------------------------------------------------------ the engine
-def engine_requests(cfg, n, seed, *, mixed=False):
-    """The seeded trace: prompts of ENGINE's lengths, ENGINE["max_new"]
-    tokens each; with ``mixed`` each budget is drawn from
+def engine_requests(cfg, n, seed, *, mixed=False, trace=ENGINE):
+    """The seeded trace: prompts of ``trace``'s lengths, its
+    ``max_new`` tokens each; with ``mixed`` each budget is drawn from
     [max_new // 4, max_new] (the launcher's --mixed rule), so slots free
     at different ticks and the tail runs with dead slots."""
     from repro_torch.runtime.server import Request
     rng = np.random.default_rng(seed)
-    budgets = [ENGINE["max_new"]] * n
+    budgets = [trace["max_new"]] * n
     if mixed:
         budgets = np.random.default_rng(seed + 1).integers(
-            ENGINE["max_new"] // 4, ENGINE["max_new"] + 1, n).tolist()
+            trace["max_new"] // 4, trace["max_new"] + 1, n).tolist()
     return [Request(uid=i, prompt=rng.integers(
-        0, cfg.vocab_size, int(rng.integers(ENGINE["prompt_lo"],
-                                            ENGINE["prompt_hi"] + 1))),
+        0, cfg.vocab_size, int(rng.integers(trace["prompt_lo"],
+                                            trace["prompt_hi"] + 1))),
         max_new=int(budgets[i])) for i in range(n)]
 
 
@@ -1248,21 +1282,28 @@ def counters():
 
 
 def run_engine(torch, dev, cfg, params, sparsity, label, expect, *,
-               mixed=False):
+               mixed=False, trace=ENGINE, kv_block_size=None,
+               profile=True):
     """Serve the seeded trace once on the full-width bf16 engine; every
-    kernel in ``expect`` must have launched during the run. Returns
-    (metrics, {kernel: launches in the run})."""
+    kernel in ``expect`` must have launched during the run. The layout
+    is ``trace``'s paged pool (with the paged attention kernel) unless
+    ``kv_block_size`` is 0: then the contiguous one, with the gather
+    path (the ssm and hybrid families are contiguous whatever the block
+    size). Returns (metrics, {kernel: launches in the run})."""
+    from repro_torch.models import model as model_lib
     from repro_torch.runtime.server import ServeConfig, Server
+    bs = trace["block_size"] if kv_block_size is None else kv_block_size
+    paged = bs > 0 and cfg.family in model_lib.paged_families()
     sc = ServeConfig(
-        batch_slots=ENGINE["slots"], max_len=ENGINE["max_len"],
-        kv_block_size=ENGINE["block_size"], attn_kernel="paged",
+        batch_slots=trace["slots"], max_len=trace["max_len"],
+        kv_block_size=bs, attn_kernel="paged" if paged else "gather",
         sparsity=sparsity)
     # Warm-up run (library loads, allocator, cuBLAS handles).
     Server(cfg, params, sc, device=dev).generate(
-        engine_requests(cfg, 2, seed=99))
+        engine_requests(cfg, 2, seed=99, trace=trace))
     srv = Server(cfg, params, sc, device=dev)
-    reqs = engine_requests(cfg, ENGINE["requests"], seed=ENGINE["seed"],
-                           mixed=mixed)
+    reqs = engine_requests(cfg, trace["requests"], seed=trace["seed"],
+                           mixed=mixed, trace=trace)
     wrappers = counters()
     for fn in wrappers.values():
         fn.launches = 0
@@ -1282,12 +1323,14 @@ def run_engine(torch, dev, cfg, params, sparsity, label, expect, *,
     for name in expect:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
-    if not m.attn_block_skip_fraction > 0:
+    if paged and not m.attn_block_skip_fraction > 0:
         raise AssertionError("no attention block was skipped")
     if not 0 <= m.skipped_tile_dots <= m.total_tile_dots:
         raise AssertionError("inconsistent skip counters")
-    if srv._st.alloc.in_use or srv._st.alloc.reserved:
+    if paged and (srv._st.alloc.in_use or srv._st.alloc.reserved):
         raise AssertionError("KV pool did not drain")
+    if m.kv_paged != float(paged):
+        raise AssertionError(f"kv_paged={m.kv_paged}, expected {paged}")
     decode_tps = m.decode_tokens / m.decode_s
     log(f"  {label}: served {len(done)} requests: {int(m.decode_tokens)} "
         f"decode tokens in {int(m.ticks)} ticks; wall {wall:.3f}s; prefill "
@@ -1301,7 +1344,8 @@ def run_engine(torch, dev, cfg, params, sparsity, label, expect, *,
         f"({int(m.attn_blocks_fetched)}/{int(m.attn_blocks_total)} blocks)")
     log(f"  {label}: launches on the main path: "
         f"{ {k: v for k, v in launches.items() if v} }")
-    profile_engine(torch, cfg, params, sc, dev, label)
+    if profile:
+        profile_engine(torch, cfg, params, sc, dev, label, trace=trace)
     return m, launches
 
 
@@ -1316,16 +1360,21 @@ def full_width_params(torch, cfg, dev):
     return params
 
 
-def run_glu_engine(torch, dev):
+def glu_sparsity():
+    """Phase 4's sparsity: the gated GLU through the fused GLU kernel,
+    exact dead-tile test."""
     from repro_torch.core.sparse_ops import SparsityConfig
+    return SparsityConfig(enabled=True, mode="fused", gate_threshold=0.0,
+                          autotune=False)
+
+
+def run_glu_engine(torch, dev):
+    """Phase 4; returns (metrics, launches)."""
     cfg = arch_config()
     params = full_width_params(torch, cfg, dev)
-    _, launches = run_engine(
-        torch, dev, cfg, params,
-        SparsityConfig(enabled=True, mode="fused", gate_threshold=0.0,
-                       autotune=False),
-        "glu fused", ("paged_gqa_decode_attn", "sparce_glu_mlp_fused"))
-    return launches
+    return run_engine(
+        torch, dev, cfg, params, glu_sparsity(), "glu fused",
+        ("paged_gqa_decode_attn", "sparce_glu_mlp_fused"))
 
 
 SKIP_COUNTERS = ("skipped_tile_dots", "total_tile_dots",
@@ -1944,6 +1993,255 @@ def run_live_async(torch, dev):
     return launches
 
 
+# ------------------------------------------ phase 10: contiguous layout
+# mamba2-2.7b whole (64 layers); zamba2-7b at its published widths cut to
+# 15 of 81 layers: 2 super-groups of 6 mamba2 layers, each followed by
+# the one shared attention+MLP block, and 3 trailing mamba2 layers.
+SSM_DEPTHS = {"mamba2-2.7b": {}, "zamba2-7b": dict(num_layers=15)}
+# The four configs that need no new model code, at their published
+# widths; depth (layers kept) cut to fit one card and the run's time.
+NEW_DEPTHS = {"smollm-360m": None, "mistral-nemo-12b": 4,
+              "qwen1.5-110b": 2, "qwen2-moe-a2.7b": 4}
+# Their short seeded trace: 8 requests, prompts 16-64, 8 new tokens.
+SHORT = dict(ENGINE, requests=8, prompt_lo=16, prompt_hi=64, max_new=8,
+             max_len=128)
+
+
+def glu_variant(cfg, rows):
+    """The planner's variant for ``cfg``'s GLU MLP at ``rows`` rows
+    under phase 4's sparsity (what ``mlp_fwd`` will run)."""
+    from repro_torch.core import sasa
+    sp = glu_sparsity()
+    return sasa.plan_glu_mlp_cached(
+        rows, cfg.d_model, cfg.d_ff, cfg.d_model,
+        measured_block_sparsity=sp.expected_sparsity, dtype=cfg.dtype,
+        block_m=sp.block_m, block_f=sp.block_k,
+        block_n=sp.block_n).variant
+
+
+def peak_gib(torch):
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def run_contiguous_glu(torch, dev, paged_metrics):
+    """Phase 4's config and trace on the contiguous layout (the gather
+    path): its ticks, decode tokens and skip counters must equal phase
+    4's paged engine's (``paged_metrics``; phase 4 runs here when it was
+    not run). Returns the launches."""
+    cfg = arch_config()
+    if paged_metrics is None:
+        paged_metrics, _ = run_glu_engine(torch, dev)
+    params = full_width_params(torch, cfg, dev)
+    m, launches = run_engine(
+        torch, dev, cfg, params, glu_sparsity(), "glu fused contiguous",
+        ("sparce_glu_mlp_fused",), kv_block_size=0)
+    for name in SKIP_COUNTERS:
+        a, b = getattr(paged_metrics, name), getattr(m, name)
+        if a != b:
+            raise AssertionError(f"{name}: paged {a} != contiguous {b}")
+    log(f"  glu contiguous vs paged (phase 4): {', '.join(SKIP_COUNTERS)} "
+        "equal -> ok")
+    return launches
+
+
+def ssm_step_params(cfg, params):
+    """The f32 2-layer step's config and weights, cut from the engine's
+    bf16 weights (upcast afterwards): mamba2's first 2 layers; for
+    zamba2, its first 2 mamba2 layers with ``attn_every`` cut from 6 to
+    1, so the step holds 2 applications of the shared block, each over
+    its own KV cache."""
+    if cfg.family == "ssm":
+        return (dataclasses.replace(cfg, num_layers=2, dtype="float32"),
+                dict(params, stack=params["stack"][:2]))
+    hyb = params["hybrid"]
+    layers = hyb["groups"][0][:2]
+    return (dataclasses.replace(cfg, num_layers=2, attn_every=1,
+                                dtype="float32"),
+            dict(params, hybrid={"groups": [[lp] for lp in layers],
+                                 "shared_attn": hyb["shared_attn"]}))
+
+
+def check_contiguous_step(torch, dev, cfg, params, label):
+    """One f32 ``serving_decode_step`` over contiguous caches (random
+    states and windows, ragged KV lengths, two dead slots) on the card
+    against the same step on a CPU copy: logits of the live slots and
+    every cache leaf within 1e-3."""
+    from repro_torch.models import model as model_lib
+    rng = np.random.default_rng(4)
+    lengths = [0, 3, 16, 31, 64, 100, 0, 127]
+    B = len(lengths)
+    caches = model_lib.init_caches(cfg, B, 128, device=dev)
+    for leaf in model_lib.cache_leaves(caches):
+        if leaf.dtype == torch.int32:  # per-slot lengths
+            leaf.copy_(torch.tensor(lengths, dtype=torch.int32).expand(
+                leaf.shape))
+        else:
+            leaf.copy_(torch.from_numpy(rng.standard_normal(
+                tuple(leaf.shape), dtype=np.float32)))
+    active = np.array([n > 0 for n in lengths], np.float32)
+    toks = rng.integers(0, cfg.vocab_size, (B, 1))
+    cpu = torch.device("cpu")
+    outs = []
+    for where, p, c in ((dev, params, caches),
+                        (cpu, to_device(params, cpu),
+                         to_device(caches, cpu))):
+        with torch.no_grad():
+            logits, nc, _ = model_lib.serving_decode_step(
+                p, cfg, torch.from_numpy(toks).to(where), c,
+                torch.from_numpy(active).to(where))
+        outs.append((logits[:, -1].float().cpu(),
+                     [t.cpu() for t in model_lib.cache_leaves(nc)]))
+    (lg, cg), (lc, cc) = outs
+    live = torch.from_numpy(active).bool()
+    why = "2 layers of f32 sums in another order"
+    check_close(f"{label}: f32 serving_decode_step logits (live slots), "
+                "GPU vs CPU", lg[live], lc[live], atol=1e-3, rtol=1e-3,
+                why=why)
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(cg, cc))
+    if not all(torch.allclose(a.float(), b.float(), atol=1e-3, rtol=1e-3)
+               for a, b in zip(cg, cc)):
+        raise AssertionError(f"{label}: caches differ (max {err:.3e})")
+    log(f"  {label}: {len(cg)} cache leaves equal within 1e-3 "
+        f"(max_abs_err={err:.3e}) -> ok")
+
+
+def run_ssm_engines(torch, dev):
+    """mamba2-2.7b whole and zamba2-7b (15 layers) as full-width bf16
+    engines on the mixed-budget trace (contiguous caches), then an f32
+    2-layer decode step of each, card against CPU. Returns
+    {arch: launches}."""
+    from repro_torch.configs import get_config
+    out = {}
+    for arch, depth in SSM_DEPTHS.items():
+        cfg = dataclasses.replace(get_config(arch), **depth)
+        t0 = time.perf_counter()
+        expect = ()
+        if cfg.family == "hybrid":
+            plans = {rows: glu_variant(cfg, rows) for rows in (8, 256)}
+            log(f"  {arch}: shared block's GLU (K=N={cfg.d_model}, "
+                f"F={cfg.d_ff}): the planner picks {plans[8]!r} at 8 rows, "
+                f"{plans[256]!r} at 256")
+            if plans[8] == "fused":
+                expect = ("sparce_glu_mlp_fused",)
+        torch.cuda.reset_peak_memory_stats()
+        params = full_width_params(torch, cfg, dev)
+        _, launches = run_engine(torch, dev, cfg, params, glu_sparsity(),
+                                 arch, expect, mixed=True)
+        log(f"  {arch}: peak device memory {peak_gib(torch):.2f} GiB")
+        if not expect:
+            if any(launches.values()):
+                raise AssertionError(f"{arch}: a kernel launched: "
+                                     f"{launches}")
+            log(f"  {arch}: no launch of the nine kernels: its path (the "
+                "mamba2 mixer, no attention, no MLP) holds none of them")
+        out[arch] = launches
+        cfg2, params2 = ssm_step_params(cfg, params)
+        del params
+        upcast_in_place(torch, params2)
+        check_contiguous_step(torch, dev, dataclasses.replace(
+            cfg2, sparsity=glu_sparsity()), params2, f"{arch} 2-layer")
+        del params2
+        torch.cuda.empty_cache()
+        log(f"  {arch}: {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def time_new_shapes(torch, dev):
+    """The two kernels at the widest shapes phase 10 gives them, device
+    time by both witnesses beside the library call's and the bound,
+    logged: the gated GLU at zamba2-7b's shared block (a decode tick of
+    8 rows, K = N = 3584, F = 14336, init scales, every stripe live) and
+    the GQA kernel at qwen1.5-110b's heads (8 KV heads of 8 query rows,
+    head_dim 128) at the trace's lengths. Returns {label: device ms over
+    the library's}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import paged_decode_attn as pda
+    rng = np.random.default_rng(6)
+    item, out = 2, {}
+
+    def normal(*shape, scale=1.0):
+        a = rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+        return torch.from_numpy(a).to(dev, torch.bfloat16)
+
+    M, K, F_, N = ENGINE["slots"], 3584, 14336, 3584
+    x = normal(M, K)
+    wg, wi = normal(K, F_, scale=K ** -0.5), normal(K, F_, scale=K ** -0.5)
+    wo = normal(F_, N, scale=F_ ** -0.5)
+    run = lambda: kops.sparce_glu_mlp_fused(  # noqa: E731
+        x, wg, wi, wo, block_m=64, block_f=128)
+    library = lambda: (F.silu(x @ wg) * (x @ wi)) @ wo  # noqa: E731
+    label = "sparce_glu_mlp_fused zamba2-7b decode"
+    dev_ms, _, lib_dev_ms, _ = log_device_witnesses(
+        label, cuda_time_ms(run, 100), run, cuda_time_ms(library, 100),
+        library, GLU_KERNELS)
+    nbytes = (x.numel() + 3 * K * F_ + 2 * M * N) * item
+    bound_ms, by = bound(nbytes, 6 * M * K * F_, "bfloat16")
+    log(f"  {label}: bound {bound_ms:.5f} ms ({by}); device over the "
+        f"library's {dev_ms / lib_dev_ms:.2f}x")
+    out[label] = dev_ms / lib_dev_ms
+
+    bs, max_blocks, KV, g, D = ENGINE["block_size"], 32, 8, 8, 128
+    lengths = np.asarray(trace_lengths())
+    c = attn_case(torch, dev, torch.bfloat16, seed=5,
+                  lengths=lengths.tolist(), max_blocks=max_blocks, KV=KV,
+                  g=g, D=D)
+    args = (c["q"], c["k"], c["v"], c["tables"], c["lengths"])
+    run = lambda: pda.paged_gqa_decode_attn(*args)  # noqa: E731
+    library = gqa_library(torch, c)
+    label = "paged_gqa_decode_attn qwen1.5-110b heads"
+    dev_ms, _, lib_dev_ms, _ = log_device_witnesses(
+        label, cuda_time_ms(run, 200), run, cuda_time_ms(library, 200),
+        library, GQA_KERNELS)
+    live_blocks = int(sum(-(-int(n) // bs) for n in lengths))
+    nbytes = (2 * len(lengths) * KV * g * D * item
+              + 2 * live_blocks * bs * KV * D * item + live_blocks * 4
+              + len(lengths) * 4)
+    bound_ms, by = bound(nbytes, 4 * int(lengths.sum()) * KV * g * D,
+                         "bfloat16")
+    log(f"  {label}: bound {bound_ms:.5f} ms ({by}); device over the "
+        f"library's {dev_ms / lib_dev_ms:.2f}x")
+    out[label] = dev_ms / lib_dev_ms
+    return out
+
+
+def run_new_configs(torch, dev):
+    """The four configs that need no new model code as full-width bf16
+    paged engines (paged GQA kernel) on the short trace: every request
+    completes its budget with in-vocab tokens, the GQA kernel launches.
+    Returns {arch: launches}."""
+    from repro_torch.configs import get_config
+    out = {}
+    for arch, layers in NEW_DEPTHS.items():
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        t0 = time.perf_counter()
+        expect = ("paged_gqa_decode_attn",)
+        if cfg.moe is None:
+            variant = glu_variant(cfg, SHORT["slots"])
+            log(f"  {arch} ({cfg.num_layers} layers): GLU K={cfg.d_model} "
+                f"F={cfg.d_ff}: the planner picks {variant!r} at "
+                f"{SHORT['slots']} rows")
+            if variant == "fused":
+                expect += ("sparce_glu_mlp_fused",)
+        else:
+            log(f"  {arch} ({cfg.num_layers} layers): MoE layers only "
+                f"({cfg.moe.num_experts} routed + "
+                f"{cfg.moe.n_shared_experts} shared experts, top "
+                f"{cfg.moe.top_k})")
+        torch.cuda.reset_peak_memory_stats()
+        params = full_width_params(torch, cfg, dev)
+        _, out[arch] = run_engine(torch, dev, cfg, params, glu_sparsity(),
+                                  arch, expect, trace=SHORT, profile=False)
+        del params
+        torch.cuda.empty_cache()
+        log(f"  {arch}: peak device memory {peak_gib(torch):.2f} GiB; "
+            f"{time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def deepseek_config():
     """DeepSeek-V3 at its published widths, cut to 4 layers: the 3 dense
     MLA + GLU layers (first_k_dense as published) and 1 MLA + MoE layer."""
@@ -2004,14 +2302,14 @@ def upcast_in_place(torch, tree):
             torch.cuda.empty_cache()
 
 
-def profile_engine(torch, cfg, params, sc, dev, label):
+def profile_engine(torch, cfg, params, sc, dev, label, trace=ENGINE):
     """Device time by kernel over a short engine run under the profiler
     (its own overhead lengthens the wall time, so the busy share printed
     is a lower bound)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.runtime.server import Server
     srv = Server(cfg, params, sc, device=dev)
-    reqs = engine_requests(cfg, ENGINE["slots"], seed=7)
+    reqs = engine_requests(cfg, trace["slots"], seed=7, trace=trace)
     for r in reqs:
         r.max_new = 8
     with profile(activities=[ProfilerActivity.CPU,
@@ -2791,10 +3089,11 @@ def run_phase7(torch, dev, errs):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
                     help="comma-separated subset of phases to run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2818,6 +3117,14 @@ def main(argv=None) -> int:
         for name in _build.SOURCES:
             log_kernel_resources(_build, name)
         errs = {}
+        glu_metrics = None
+        t_phase = time.perf_counter()
+
+        def phase_done(n):
+            nonlocal t_phase
+            log(f"phase {n}: {time.perf_counter() - t_phase:.1f}s")
+            t_phase = time.perf_counter()
+
         if 2 in phases:
             log("phase 2: kernels vs plain versions on the card")
             errs["paged_gqa_decode_attn"] = check_attention(torch, dev)
@@ -2830,6 +3137,7 @@ def main(argv=None) -> int:
             errs["sparce_gemm_compacted"] = check_compacted(torch, dev)
             errs["sparce_gemm_gated_both"] = check_both(torch, dev)
             errs["relu_bwd_bitmap"] = check_relu_bwd(torch, dev)
+            phase_done(2)
         if 3 in phases:
             from repro_torch.core.sparse_ops import SparsityConfig
             log("phase 3: f32 full-width decode step, kernels vs plain")
@@ -2840,15 +3148,17 @@ def main(argv=None) -> int:
                 check_decode_step(torch, dev, relu_config(), SparsityConfig(
                     enabled=True, mode=mode, autotune=False,
                     **SPARCE_BLOCKS), f"relu {mode}")
+            phase_done(3)
         rows = []
         if 4 in phases:
             log("phase 4: full-width bf16 gated-GLU engine")
-            launches = run_glu_engine(torch, dev)
+            glu_metrics, launches = run_glu_engine(torch, dev)
             rows += [time_attention(torch, dev,
                                     errs.get("paged_gqa_decode_attn")),
                      time_glu(torch, dev, errs.get("sparce_glu_mlp_fused"))]
             for row in rows:
                 row["launches"] = launches[row["name"]]
+            phase_done(4)
         if 5 in phases:
             log("phase 5: full-width bf16 relu engine (--sparce), fused and "
                 "kernel modes")
@@ -2860,6 +3170,7 @@ def main(argv=None) -> int:
                 row = timer(torch, dev, errs.get(name))
                 row["launches"] = launches[mode][name]
                 rows.append(row)
+            phase_done(5)
         if 6 in phases:
             log("phase 6: full-width bf16 DeepSeek-V3 engine (MLA + MoE, "
                 f"{DEEPSEEK_DEPTH['num_layers']} layers), then an f32 "
@@ -2868,31 +3179,45 @@ def main(argv=None) -> int:
             row = time_mla(torch, dev, errs.get("paged_mla_decode_attn"))
             row["launches"] = launches["paged_mla_decode_attn"]
             rows.append(row)
+            phase_done(6)
         if 7 in phases:
             log("phase 7: the paper's evaluation path: the AlexNet GEMM "
                 "table at its published shapes (f32) under fig14's plans, "
                 "then launch.figures --figs 17,18,demo")
-            t0 = time.perf_counter()
             rows += run_phase7(torch, dev, errs)
-            log(f"phase 7: {time.perf_counter() - t0:.1f}s")
+            phase_done(7)
         if 8 in phases:
             log("phase 8: full-width bf16 prefix-cache engine (GLU fused, "
                 "paged attention) on a shared-prefix trace, cache off then "
                 "on; then f32 2-layer streams, cache off against on")
-            t0 = time.perf_counter()
             run_prefix_engine(torch, dev)
-            log(f"phase 8: {time.perf_counter() - t0:.1f}s")
+            phase_done(8)
         if 9 in phases:
             log("phase 9: the live engine: serve_trace of an open-loop "
                 "trace under the SLO scheduler with preemption, shedding "
                 "and faults (full-width bf16 GLU, twice), then f32 2-layer "
                 "relu kernel engine card vs CPU, then AsyncServer")
-            t0 = time.perf_counter()
             run_live_engine(torch, dev)
             check_live_f32(torch, dev)
             run_live_async(torch, dev)
-            log(f"phase 9: {time.perf_counter() - t0:.1f}s")
+            phase_done(9)
+        if 10 in phases:
+            log("phase 10: the contiguous KV layout: phase 4's GLU engine "
+                "contiguous; mamba2-2.7b and zamba2-7b (15 layers) at full "
+                "width, then their f32 2-layer steps card vs CPU; "
+                "smollm-360m, mistral-nemo-12b, qwen1.5-110b and "
+                "qwen2-moe-a2.7b paged engines at full width")
+            launches = {"smollm-135m contiguous": run_contiguous_glu(
+                torch, dev, glu_metrics)}
+            launches.update(run_ssm_engines(torch, dev))
+            launches.update(run_new_configs(torch, dev))
+            time_new_shapes(torch, dev)
+            for label, counts in launches.items():
+                log(f"  phase 10 launches, {label}: "
+                    f"{ {k: v for k, v in counts.items() if v} }")
+            phase_done(10)
         torch.cuda.synchronize()
+        log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all")
     except Exception:  # noqa: BLE001 - report and fail the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

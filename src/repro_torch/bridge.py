@@ -4,8 +4,11 @@
 as plain numpy arrays (the caller converts the framework arrays, e.g.
 with ``np.asarray``) and returns the port's tree: the same dicts, with
 the layer-stacked ``"stack"`` and ``"dense_stack"`` leaves (MoE layers'
-router, ``(E, d, de)`` expert tensors and shared expert included)
-unstacked into one dict per layer.
+router, ``(E, d, de)`` expert tensors and shared expert included, or
+the ssm family's mamba2 mixers) unstacked into one dict per layer, and
+the hybrid family's ``"hybrid"`` tree carried as the port holds it:
+``"groups"`` (leading dims ``(n_super, every)``) as a list of lists of
+layer dicts, ``"shared_attn"`` as one dict, ``"trailing"`` as a list.
 bfloat16 arrays (numpy dtype name ``"bfloat16"``) are carried over bit
 for bit through their 16-bit patterns. :func:`plan_from_reference` and
 :func:`bitmap_from_reference` carry a reference ``SkipPlan`` and
@@ -63,15 +66,38 @@ def unstack_layers(stacked: Dict[str, Any], device) -> List[Dict[str, Any]]:
     return [_layer(stacked, i, device) for i in range(_n_layers(stacked))]
 
 
+def _index(tree, i: int):
+    """{leaf: (n, ...)} -> {leaf: (...)} at index ``i``, still numpy."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def hybrid_from_reference(tree: Dict[str, Any], device) -> Dict[str, Any]:
+    """The reference's ``"hybrid"`` subtree as the port's."""
+    out: Dict[str, Any] = {
+        "groups": [unstack_layers(_index(tree["groups"], g), device)
+                   for g in range(_n_layers(tree["groups"]))],
+        "shared_attn": _convert(tree["shared_attn"], device),
+    }
+    if "trailing" in tree:
+        out["trailing"] = unstack_layers(tree["trailing"], device)
+    return out
+
+
 def params_from_reference(tree: Dict[str, Any], device="cuda"
                           ) -> Dict[str, Any]:
-    """The reference's dense- or moe-family param tree (numpy leaves) as
-    the port's param tree on ``device``."""
+    """The reference's dense-, moe-, ssm- or hybrid-family param tree
+    (numpy leaves) as the port's param tree on ``device``."""
     dev = resolve_device(device)
     out: Dict[str, Any] = {}
     for key, val in tree.items():
-        out[key] = (unstack_layers(val, dev) if key in STACKS
-                    else _convert(val, dev))
+        if key in STACKS:
+            out[key] = unstack_layers(val, dev)
+        elif key == "hybrid":
+            out[key] = hybrid_from_reference(val, dev)
+        else:
+            out[key] = _convert(val, dev)
     return out
 
 

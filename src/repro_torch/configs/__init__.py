@@ -1,8 +1,9 @@
 """Architecture config registry: ``get_config(name)`` / ``--arch <id>``.
 
-Knows only the archs the port serves so far, plus ``paper-alexnet``
-(the GEMM layer table of the paper's figures), which ``ARCH_NAMES``
-leaves out as the reference's does.
+Knows the archs the port serves so far (the reference's registry but
+the vlm and audio archs, whose frontends are not ported yet), plus
+``paper-alexnet`` (the GEMM layer table of the paper's figures), which
+``ARCH_NAMES`` leaves out as the reference's does.
 """
 from __future__ import annotations
 
@@ -14,8 +15,14 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 
 _ARCH_MODULES: Dict[str, str] = {
+    "mamba2-2.7b": "repro_torch.configs.mamba2_2p7b",
     "smollm-135m": "repro_torch.configs.smollm_135m",
+    "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
+    "qwen1.5-110b": "repro_torch.configs.qwen1p5_110b",
+    "smollm-360m": "repro_torch.configs.smollm_360m",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
     "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
+    "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2p7b",
     "paper-alexnet": "repro_torch.configs.paper_alexnet",
 }
 

@@ -3,17 +3,26 @@
     python -m repro_torch.launch.serve --arch smollm-135m [--reduced] \
         --requests 16 --mixed --batch-slots 8 --max-len 512 \
         --max-new 32 [--prompt-len 256] [--device cuda] \
+        [--kv-block-size 16|0] [--attn-kernel gather|paged] \
         [--sparce] [--sparce-mode reference|kernel|fused] \
         [--sparce-autotune] [--sparce-gate-threshold TAU] \
         [--prefill-buckets 16,32,64|off] [--prefix-cache] \
         [--shared-prefix-len N] [--open-loop] [--arrival-rate 8] \
         [--slo-ttft-ticks 64] [--slo-itl-ticks 8]
 
-``--arch`` names any arch of the port's registry: ``smollm-135m``
-(dense, GQA) or ``deepseek-v3-671b`` (moe, MLA; its full config holds
-671 B parameters, so run it ``--reduced``). The flags of
-``repro/launch/serve.py`` but ``--mesh``, over the paged KV pool with
-the paged decode kernel by default (``--attn-kernel paged``).
+``--arch`` names any of the eight serving archs of the port's registry:
+the dense ``smollm-135m``, ``smollm-360m``, ``mistral-nemo-12b`` and
+``qwen1.5-110b`` (GQA), the moe ``deepseek-v3-671b`` (MLA) and
+``qwen2-moe-a2.7b`` (GQA, shared experts), the ssm ``mamba2-2.7b`` and
+the hybrid ``zamba2-7b`` (mamba2 layers and one shared attention
+block). Full configs are production-sized (DeepSeek-V3 holds 671 B
+parameters), so on the CPU run them ``--reduced``. The flags of
+``repro/launch/serve.py`` but ``--mesh``. The KV layout is the paged
+pool (``--kv-block-size`` rows a block) or, with ``--kv-block-size 0``,
+the contiguous one; the ssm and hybrid archs always serve contiguous
+caches. ``--attn-kernel`` defaults to ``paged`` (the paged decode
+kernel) where the layout is paged and to ``gather`` everywhere else,
+where the paged kernel is refused.
 ``--open-loop`` serves through ``AsyncServer``: a background engine
 thread drains the live queue while this process submits the requests
 with Poisson wall-clock gaps (``--arrival-rate``, mean requests per
@@ -92,8 +101,12 @@ def main(argv=None):
     ap.add_argument("--shared-prefix-len", type=int, default=0,
                     help="prepend a seeded common prefix of N tokens to "
                          "every request (a shared system prompt)")
-    ap.add_argument("--attn-kernel", default="paged",
-                    choices=("gather", "paged"))
+    ap.add_argument("--attn-kernel", default=None,
+                    choices=("gather", "paged"),
+                    help="decode attention: 'paged' = the paged decode "
+                         "kernel (needs the paged layout), 'gather' = the "
+                         "full per-slot view; default 'paged' where the "
+                         "layout is paged, else 'gather'")
     ap.add_argument("--open-loop", action="store_true",
                     help="serve via AsyncServer: a background engine "
                          "thread drains the live queue while requests "
@@ -138,6 +151,11 @@ def main(argv=None):
             enabled=True, mode=args.sparce_mode, block_m=1, block_k=128,
             autotune=args.sparce_autotune, gate_threshold=tau)
     params = model_lib.init_params(cfg, seed=args.seed, device=args.device)
+    attn_kernel = args.attn_kernel
+    if attn_kernel is None:
+        paged = (args.kv_block_size > 0
+                 and cfg.family in model_lib.paged_families())
+        attn_kernel = "paged" if paged else "gather"
     buckets = None
     if args.prefill_buckets is not None:
         buckets = (
@@ -158,7 +176,7 @@ def main(argv=None):
         temperature=args.temperature, eos_id=args.eos_id, seed=args.seed,
         sparsity=sparsity, kv_block_size=args.kv_block_size,
         kv_pool_blocks=args.kv_pool_blocks, prefill_buckets=buckets,
-        attn_kernel=args.attn_kernel, prefix_cache=args.prefix_cache,
+        attn_kernel=attn_kernel, prefix_cache=args.prefix_cache,
         slo=slo)
 
     rng = np.random.default_rng(args.seed)
@@ -213,27 +231,29 @@ def main(argv=None):
         print(f"  SparCE mlp_skip_fraction={m.mlp_skip_fraction:.3f} "
               f"({m.skipped_tile_dots:.0f}/{m.total_tile_dots:.0f} "
               f"tile-dots)")
-    print(f"  paged KV: {int(m.kv_pool_blocks)} blocks x "
-          f"{int(m.kv_block_size)} rows, peak in use "
-          f"{int(m.kv_blocks_peak_in_use)} "
-          f"(occupancy {m.kv_pool_peak_occupancy:.2f}, internal "
-          f"frag {m.kv_internal_frag:.2f})")
-    sf = m.kv_bytes_saved_frac
-    saved = (f"{sf:.1%} saved" if sf >= 0
-             else f"{-sf:.1%} block-rounding overhead; undersize with "
-                  "--kv-pool-blocks to share memory")
-    print(f"  KV reserved (modeled) {m.kv_bytes_reserved/1e6:.2f} MB paged "
-          f"vs {m.kv_bytes_reserved_contiguous/1e6:.2f} MB contiguous "
-          f"({saved}, {m.kv_reserved_bytes_per_token/1e3:.1f} KB/token); "
-          f"{int(m.prefill_traces)} prefill bucket shapes")
-    if m.attn_blocks_total:
-        realized = ("saved" if m.attn_kernel_paged
-                    else "skippable (run --attn-kernel paged)")
-        print(f"  decode attn: {int(m.attn_blocks_fetched)}/"
-              f"{int(m.attn_blocks_total)} pool-block fetches "
-              f"(skip {m.attn_block_skip_fraction:.1%}); "
-              f"{(m.attn_bytes_gather - m.attn_bytes_paged)/1e6:.2f}"
-              f" MB (modeled) {realized} vs full-view gather")
+    if m.kv_paged:
+        print(f"  paged KV: {int(m.kv_pool_blocks)} blocks x "
+              f"{int(m.kv_block_size)} rows, peak in use "
+              f"{int(m.kv_blocks_peak_in_use)} "
+              f"(occupancy {m.kv_pool_peak_occupancy:.2f}, internal "
+              f"frag {m.kv_internal_frag:.2f})")
+        sf = m.kv_bytes_saved_frac
+        saved = (f"{sf:.1%} saved" if sf >= 0
+                 else f"{-sf:.1%} block-rounding overhead; undersize with "
+                      "--kv-pool-blocks to share memory")
+        print(f"  KV reserved (modeled) {m.kv_bytes_reserved/1e6:.2f} MB "
+              f"paged vs {m.kv_bytes_reserved_contiguous/1e6:.2f} MB "
+              f"contiguous ({saved}, "
+              f"{m.kv_reserved_bytes_per_token/1e3:.1f} KB/token); "
+              f"{int(m.prefill_traces)} prefill bucket shapes")
+        if m.attn_blocks_total:
+            realized = ("saved" if m.attn_kernel_paged
+                        else "skippable (run --attn-kernel paged)")
+            print(f"  decode attn: {int(m.attn_blocks_fetched)}/"
+                  f"{int(m.attn_blocks_total)} pool-block fetches "
+                  f"(skip {m.attn_block_skip_fraction:.1%}); "
+                  f"{(m.attn_bytes_gather - m.attn_bytes_paged)/1e6:.2f}"
+                  f" MB (modeled) {realized} vs full-view gather")
     if m.prefix_cache_enabled:
         print(f"  prefix cache: {int(m.prefix_hits)}/"
               f"{int(m.prefix_lookups)} admissions hit "

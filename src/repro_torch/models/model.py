@@ -1,14 +1,19 @@
-"""Top-level language model, dense and moe families: init / forward /
-serving ops.
+"""Top-level language model, dense, moe, ssm and hybrid families: init /
+forward / serving ops.
 
-Port of the dense- and moe-family parts of ``repro/models/model.py``.
+Port of the text-frontend parts of ``repro/models/model.py`` (the vlm
+and audio frontends are not ported yet).
 
 Param tree: ``{"embed": (V, d), "final_norm": {"scale": (d,) f32},
-"stack": [layer dicts]}`` (plus ``"head"`` when embeddings are untied,
-and for the moe family ``"dense_stack"``, the first_k_dense dense
-layers before the moe ``"stack"``) -- the reference's tree with the
-layer-stacked leaves unstacked into a list, one dict per layer. Caches
-are dicts keyed like the stacks. Batch convention: ``tokens`` int (B, S);
+"stack": [layer dicts]}`` (plus ``"head"`` when embeddings are untied;
+for the moe family ``"dense_stack"``, the first_k_dense dense layers
+before the moe ``"stack"``; for the hybrid family ``"hybrid"`` in place
+of ``"stack"``: ``{"groups": [[ssm layer dicts]], "shared_attn": block
+dict, "trailing": [ssm layer dicts]}``) -- the reference's tree with the
+layer-stacked leaves unstacked into lists, one dict per layer. Caches
+are dicts keyed like the stacks; the ssm family's are
+:class:`~repro_torch.models.ssm.SSMCache` states, which only the
+contiguous layout holds. Batch convention: ``tokens`` int (B, S);
 ``active`` f32 (B,) live-slot mask; ``block_tables`` int32
 (B, max_blocks); ``advance`` int32 (B,) bucketed-prefill true lengths.
 """
@@ -22,6 +27,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import modules as nn
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import (
     KVCache, gqa_init_cache, gqa_init_paged_cache, mla_init_cache,
@@ -37,7 +43,11 @@ HEAD_SLICE_VALUES = 1 << 25
 
 def _stacks(cfg: ArchConfig) -> List[Tuple[str, str, int]]:
     """(param/cache key, block kind, layers) of the model's stacks, in
-    forward order."""
+    forward order (the hybrid family has none: see ``tfm.hybrid_fwd``)."""
+    if cfg.family == "hybrid":
+        return []
+    if cfg.family == "ssm":
+        return [("stack", "ssm", cfg.num_layers)]
     if cfg.family == "moe":
         dense = ([("dense_stack", "dense", cfg.first_k_dense)]
                  if cfg.first_k_dense else [])
@@ -45,11 +55,12 @@ def _stacks(cfg: ArchConfig) -> List[Tuple[str, str, int]]:
     return [("stack", "dense", cfg.num_layers)]
 
 
-def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "moe") or cfg.frontend:
+def check_family(cfg: ArchConfig) -> None:
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.frontend:
         raise NotImplementedError(
             f"family {cfg.family!r} (frontend={cfg.frontend!r}) is not "
-            "ported yet; the port serves the dense and moe families")
+            "ported yet; the port serves the dense, moe, ssm and hybrid "
+            "families")
 
 
 # -------------------------------------------------------------------- init
@@ -57,7 +68,7 @@ def init_params(cfg: ArchConfig, seed: int = 0,
                 device="cuda") -> Dict[str, Any]:
     """Seeded random weights with the reference's tree, shapes, dtypes
     and scales (numpy normals, so not the reference's numbers)."""
-    _check_family(cfg)
+    check_family(cfg)
     dev = resolve_device(device)
     dtype = nn.torch_dtype(cfg.dtype)
     rng = np.random.default_rng(seed)
@@ -68,6 +79,8 @@ def init_params(cfg: ArchConfig, seed: int = 0,
     if not cfg.tie_embeddings:
         params["head"] = nn.dense_init(rng, cfg.d_model, cfg.vocab_size,
                                        dtype, dev)
+    if cfg.family == "hybrid":
+        params["hybrid"] = tfm.hybrid_init(rng, cfg, dtype, dev)
     for key, kind, n in _stacks(cfg):
         params[key] = tfm.stack_init(rng, cfg, n, kind, dtype, dev)
     return params
@@ -95,7 +108,15 @@ def _logits(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _cache_length(caches) -> torch.Tensor:
+def _cache_length(cfg: ArchConfig, caches, batch: int, device
+                  ) -> torch.Tensor:
+    """Per-slot positions already in the caches, (B,) int32: layer 0's
+    lengths of ``"stack"`` (the hybrid's first application of its shared
+    block); zeros for the ssm family, whose state has no positions."""
+    if cfg.family == "ssm":
+        return torch.zeros((batch,), dtype=torch.int32, device=device)
+    if cfg.family == "hybrid":
+        return caches["hybrid"]["attn"].length[0]
     return caches["stack"].length[0]  # stacked over layers -> layer 0: (B,)
 
 
@@ -103,6 +124,12 @@ def _backbone(params, cfg: ArchConfig, x, positions, caches, active=None,
               block_tables=None, advance=None, attn_kernel="gather",
               continuation=False):
     """The layer stacks; returns (x, new_caches dict or None, aux)."""
+    if cfg.family == "hybrid":
+        x, nc, aux = tfm.hybrid_fwd(
+            params["hybrid"], x, positions, cfg,
+            None if caches is None else caches["hybrid"], active=active,
+            block_tables=block_tables, advance=advance)
+        return x, (None if nc is None else {"hybrid": nc}), aux
     kw = dict(active=active, block_tables=block_tables, advance=advance,
               attn_kernel=attn_kernel, continuation=continuation)
     aux = tfm.aux_zero(x.device)
@@ -130,7 +157,7 @@ def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     caches already hold a prefix (see :func:`paged_prefix_caches`) and
     attention runs the fresh queries over the whole buffer anchored at
     the cache length. Bucketable families only, like ``advance``."""
-    _check_family(cfg)
+    check_family(cfg)
     tokens = batch["tokens"]
     x = params["embed"][tokens.long()]  # (B, S, d)
     active = batch.get("active")
@@ -138,7 +165,8 @@ def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
         x = x * active.to(x.dtype)[:, None, None]
     B, S = x.shape[0], x.shape[1]
     if caches is not None:
-        offset = torch.broadcast_to(_cache_length(caches), (B,))
+        offset = torch.broadcast_to(
+            _cache_length(cfg, caches, B, x.device), (B,))
     else:
         offset = torch.zeros((B,), dtype=torch.int32, device=x.device)
     positions = offset[:, None] + torch.arange(S, device=x.device,
@@ -188,25 +216,89 @@ def serving_decode_step(params, cfg: ArchConfig, last_tokens, caches,
 
 # ---------------------------------------------------------------- caches
 def paged_families() -> Tuple[str, ...]:
-    """Families whose serving caches can be paged (the port's subset)."""
-    return ("dense", "moe")
+    """Families whose serving caches are pure attention-KV stacks and can
+    be paged (the reference's list; :func:`check_family` refuses the vlm
+    and audio frontends, not ported yet). The ssm and hybrid states are
+    fixed-size recurrences with no per-token rows to page: they keep the
+    contiguous layout."""
+    return ("dense", "vlm", "audio", "moe")
 
 
 def bucketable_families() -> Tuple[str, ...]:
-    """Families for which padded-to-bucket prefill is exact (the port's
-    subset of the reference's)."""
-    return ("dense",)
+    """Families for which padded-to-bucket prefill is exact: every
+    cross-position op is position-causal (the reference's list). MoE is
+    out (capacity routing depends on the batch shape), as are ssm and
+    hybrid (their recurrent prefill state would absorb padded rows)."""
+    return ("dense", "vlm", "audio")
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
                 device="cuda") -> Dict[str, Any]:
-    """Layer-stacked contiguous caches (prefill scratch): GQA k/v, or
-    MLA latents and rope keys."""
-    _check_family(cfg)
-    init = mla_init_cache if cfg.mla is not None else gqa_init_cache
+    """Layer-stacked contiguous caches (the contiguous layout's serving
+    caches, and the prefill scratch): GQA k/v, MLA latents and rope
+    keys, ssm conv windows and states, or the hybrid's tree of both."""
+    check_family(cfg)
     dtype, dev = nn.torch_dtype(cfg.dtype), resolve_device(device)
+    if cfg.family == "hybrid":
+        return {"hybrid": tfm.hybrid_init_caches(cfg, batch, max_len, dtype,
+                                                 dev)}
+    if cfg.family == "ssm":
+        return {"stack": ssm_lib.mamba2_init_cache(
+            cfg, batch, dtype, dev, layers=cfg.num_layers)}
+    init = mla_init_cache if cfg.mla is not None else gqa_init_cache
     return {key: init(cfg, batch, max_len, dtype, dev, layers=n)
             for key, _, n in _stacks(cfg)}
+
+
+def prefill(params, cfg: ArchConfig, batch, max_len: int, *,
+            last_only: bool = False):
+    """Run the prompt through the model into fresh contiguous caches of
+    ``max_len`` rows. Returns (logits, caches)."""
+    caches = init_caches(cfg, batch["tokens"].shape[0], max_len,
+                         device=batch["tokens"].device)
+    logits, new_caches, _ = forward(params, cfg, batch, caches,
+                                    last_only=last_only)
+    return logits, new_caches
+
+
+def decode_step(params, cfg: ArchConfig, last_tokens, caches):
+    """One-token step over contiguous caches. last_tokens: (B, 1)."""
+    logits, new_caches, _ = forward(params, cfg, {"tokens": last_tokens},
+                                    caches)
+    return logits, new_caches
+
+
+def cache_leaves(tree) -> List[torch.Tensor]:
+    """Every tensor of a cache tree (dicts of cache tuples), in a fixed
+    order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in cache_leaves(tree[k])]
+    if isinstance(tree, tuple):
+        return [t for f in tree for t in cache_leaves(f)]
+    return [tree]
+
+
+def insert_slot_caches(big, small, slot: int):
+    """Admission for the contiguous layout: overwrite slot ``slot``'s
+    row of EVERY leaf of ``big`` (k, v, lengths, conv windows, states)
+    with the batch=1 tree ``small`` from the same config and row count,
+    IN PLACE (the reference donates ``big`` for the same effect), and
+    return ``big``. The batch axis of a leaf is the one axis where the
+    two shapes differ, with 1 on the small side; equal shapes (one
+    slot) replace the leaf whole."""
+    for b, s in zip(cache_leaves(big), cache_leaves(small)):
+        if b.shape == s.shape:
+            b.copy_(s)
+            continue
+        diff = [i for i, (db, ds) in enumerate(zip(b.shape, s.shape))
+                if db != ds]
+        if len(b.shape) != len(s.shape) or len(diff) != 1 or (
+                s.shape[diff[0]] != 1):
+            raise ValueError(
+                f"cache leaves differ beyond the batch axis: "
+                f"{tuple(b.shape)} vs {tuple(s.shape)}")
+        b.narrow(diff[0], slot, 1).copy_(s)
+    return big
 
 
 def init_paged_caches(cfg: ArchConfig, batch: int, num_blocks: int,
@@ -214,6 +306,7 @@ def init_paged_caches(cfg: ArchConfig, batch: int, num_blocks: int,
     """Pool-backed serving caches: ``num_blocks`` INCLUDES the reserved
     null block 0 (allocatable ids are 1..num_blocks-1). Every layer owns
     its pool; the block tables are shared across layers and stacks."""
+    check_family(cfg)
     if cfg.family not in paged_families():
         raise ValueError(f"family {cfg.family!r} has no paged KV layout")
     init = (mla_init_paged_cache if cfg.mla is not None

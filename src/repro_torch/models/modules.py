@@ -1,13 +1,16 @@
 """Minimal functional param system: params are nested dicts of tensors.
 
 Port of ``repro/models/modules.py``. Initialisers draw from a seeded
-``numpy.random.Generator`` (f32 normals, then cast), with the
+``numpy.random.Generator`` (f32 normals, then cast; each leaf in chunks
+drawn on several threads, see :func:`normal_init`), with the
 reference's shapes, dtypes and scales; the numbers differ from the
 reference's (its framework's counter-based generator). Weights that must equal the
 reference's come across through :mod:`repro_torch.bridge` instead.
 """
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Iterable
 
 import numpy as np
@@ -20,25 +23,55 @@ def torch_dtype(name: str) -> torch.dtype:
     return DTYPES[name]
 
 
-# Values drawn per slab: bounds the host's f32 staging (256 MB) however
-# large the leaf (a DeepSeek-V3 expert leaf holds 3.76 G values).
+# Values per chunk: a leaf's values, in C order, are chunks of this many,
+# each drawn from its own generator, so threads can draw several at once
+# (numpy fills without the interpreter lock) and the values depend on
+# neither the thread count nor the staging.
+CHUNK_VALUES = 1 << 22
+# Values staged on the host per copy to the device (whole chunks): bounds
+# the f32 staging (256 MB) however large the leaf (a DeepSeek-V3 expert
+# leaf holds 3.76 G values).
 SLAB_VALUES = 1 << 26
+# Threads drawing the chunks of a slab.
+INIT_THREADS = max(1, min(8, os.cpu_count() or 1))
 
 
 def normal_init(rng: np.random.Generator, shape, scale: float, dtype,
                 device) -> torch.Tensor:
-    """Normals * scale, drawn in C-order slabs along the leading dim.
-    The generator fills each slab in C order, so the slabs concatenate
-    to exactly the values one whole-leaf draw would give."""
+    """Normals * scale. The leaf takes one seed from ``rng``; chunk ``c``
+    of its values (C order) is ``default_rng([seed, c])``'s f32 normals,
+    scaled, then cast."""
     shape = tuple(shape)
-    row = int(np.prod(shape[1:], dtype=np.int64))
-    step = max(1, SLAB_VALUES // max(row, 1))
+    n = int(np.prod(shape, dtype=np.int64))
+    seed = int(rng.integers(1 << 63))
     out = torch.empty(shape, dtype=dtype, device=device)
-    for i in range(0, shape[0], step):
-        n = min(step, shape[0] - i)
-        a = rng.standard_normal(size=(n,) + shape[1:], dtype=np.float32)
-        a *= np.float32(scale)
-        out[i:i + n] = torch.from_numpy(a).to(device=device, dtype=dtype)
+    flat = out.view(-1)
+    slab = max(1, SLAB_VALUES // CHUNK_VALUES) * CHUNK_VALUES
+    buf = np.empty((min(slab, n),), np.float32)
+
+    def draw(start: int, view: np.ndarray) -> None:
+        g = np.random.default_rng([seed, start // CHUNK_VALUES])
+        g.standard_normal(dtype=np.float32, out=view)
+        view *= np.float32(scale)
+
+    pool = (ThreadPoolExecutor(INIT_THREADS)
+            if n > CHUNK_VALUES and INIT_THREADS > 1 else None)
+    try:
+        for s0 in range(0, n, slab):
+            m = min(slab, n - s0)
+            jobs = [(s0 + c, buf[c:min(c + CHUNK_VALUES, m)])
+                    for c in range(0, m, CHUNK_VALUES)]
+            if pool is None:
+                for job in jobs:
+                    draw(*job)
+            else:
+                for f in [pool.submit(draw, *job) for job in jobs]:
+                    f.result()
+            flat[s0:s0 + m] = torch.from_numpy(buf[:m]).to(
+                device=device, dtype=dtype)
+    finally:
+        if pool is not None:
+            pool.shutdown()
     return out
 
 

@@ -1,16 +1,22 @@
-"""Block and stack assembly for the dense and moe families.
+"""Block and stack assembly for the dense, moe, ssm and hybrid families.
 
-Port of the dense and moe parts of ``repro/models/transformer.py``:
+Port of ``repro/models/transformer.py``:
 
-  dense : [attn + mlp] * L
-  moe   : [attn + dense-mlp] * first_k_dense, then [attn + moe] * rest
+  dense  : [attn + mlp] * L
+  moe    : [attn + dense-mlp] * first_k_dense, then [attn + moe] * rest
+  ssm    : [mamba2] * L
+  hybrid : [[mamba2] * attn_every + shared attn block] * (L // attn_every)
+           + [mamba2] * (L % attn_every)
 
-where attn is MLA when the config has one, else GQA. The reference
-scans over layer-stacked parameters; here the layers are a Python list
-and the stack is a Python loop. Layer-stacked caches stay stacked: each
-layer works on views ``cache.k[l]`` / ``cache.v[l]`` that its attention
-updates in place, and the stack returns the same buffers with the new
-per-layer lengths.
+where attn is MLA when the config has one, else GQA, and the hybrid's
+one attention+MLP block has ONE set of weights shared by all its
+applications, each with its own KV cache. The reference scans over
+layer-stacked parameters; here the layers are a Python list and the
+stack is a Python loop. Layer-stacked caches stay stacked: each layer
+works on views of them (``cache.k[l]`` / ``cache.v[l]``, which its
+attention updates in place; an ssm layer's new conv window and state
+are copied into ``conv[l]`` / ``h[l]``), and the stack returns the same
+buffers with the new per-layer lengths.
 """
 from __future__ import annotations
 
@@ -20,8 +26,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import (
-    attn_init, gqa_forward, mla_forward, mla_init,
+    KVCache, attn_init, gqa_forward, gqa_init_cache, mla_forward, mla_init,
 )
 from repro_torch.models.layers import (
     mlp_fwd, mlp_init, rmsnorm, rmsnorm_init,
@@ -39,6 +46,9 @@ def aux_zero(device) -> dict:
 
 def block_init(rng, cfg: ArchConfig, kind: str, dtype, device):
     d = cfg.d_model
+    if kind == "ssm":
+        return {"norm": rmsnorm_init(d, dtype, device),
+                "mixer": ssm_lib.mamba2_init(rng, cfg, dtype, device)}
     p = {
         "attn_norm": rmsnorm_init(d, dtype, device),
         "mlp_norm": rmsnorm_init(d, dtype, device),
@@ -68,6 +78,11 @@ def block_fwd(params, x, positions, cfg: ArchConfig, kind: str, cache=None,
         return h * active.to(h.dtype)[:, None, None]
 
     aux = aux_zero(x.device)
+    if kind == "ssm":
+        h, new_cache = ssm_lib.mamba2_forward(
+            params["mixer"], rmsnorm(params["norm"], x, cfg.norm_eps), cfg,
+            cache=cache)
+        return x + gate(h), new_cache, aux
     attn_fn = mla_forward if cfg.mla is not None else gqa_forward
     h, new_cache = attn_fn(
         params["attn"], rmsnorm(params["attn_norm"], x, cfg.norm_eps),
@@ -96,21 +111,107 @@ def stack_fwd(layers, x, positions, cfg: ArchConfig, kind: str,
               caches=None, active=None, block_tables=None, advance=None,
               attn_kernel: str = "gather", continuation: bool = False):
     """Python loop over the layers. ``caches`` is a layer-stacked
-    KVCache/PagedKVCache (leading layer axis on every field)."""
+    KVCache/PagedKVCache/SSMCache (leading layer axis on every field)."""
     aux = aux_zero(x.device)
     lengths = []
+    ssm = isinstance(caches, ssm_lib.SSMCache)
     for i, lp in enumerate(layers):
         lc: Any = None
         if caches is not None:
-            lc = type(caches)(caches.k[i], caches.v[i], caches.length[i])
+            lc = type(caches)(*(f[i] for f in caches))
         x, nc, a = block_fwd(
             lp, x, positions, cfg, kind, cache=lc, active=active,
             block_tables=block_tables, advance=advance,
             attn_kernel=attn_kernel, continuation=continuation,
         )
         aux = {k: aux[k] + a[k] for k in aux}
+        if ssm:
+            lc.conv.copy_(nc.conv)
+            lc.h.copy_(nc.h)
+        elif caches is not None:
+            lengths.append(nc.length)
+    if caches is None or ssm:
+        return x, caches, aux
+    return x, type(caches)(caches.k, caches.v, torch.stack(lengths)), aux
+
+
+# ------------------------------------------------------- zamba2-style hybrid
+def _hybrid_shape(cfg: ArchConfig):
+    """(attn_every, super-groups, trailing ssm layers)."""
+    every = cfg.attn_every
+    n_super = cfg.num_layers // every
+    return every, n_super, cfg.num_layers - n_super * every
+
+
+def hybrid_init(rng, cfg: ArchConfig, dtype, device):
+    """``n_super`` groups of ``attn_every`` ssm layers (a list of lists of
+    layer dicts, the reference's ``(n_super, every)``-stacked leaves),
+    the ONE shared attention+MLP block, and the trailing ssm layers."""
+    every, n_super, trailing = _hybrid_shape(cfg)
+    p = {
+        "groups": [stack_init(rng, cfg, every, "ssm", dtype, device)
+                   for _ in range(n_super)],
+        "shared_attn": block_init(rng, cfg, "dense", dtype, device),
+    }
+    if trailing:
+        p["trailing"] = stack_init(rng, cfg, trailing, "ssm", dtype, device)
+    return p
+
+
+def hybrid_fwd(params, x, positions, cfg: ArchConfig, caches=None,
+               active=None, block_tables=None, advance=None):
+    """caches: ``{"ssm": SSMCache (n_super, every, ...), "attn": KVCache
+    (n_super, ...), "trailing": SSMCache (trailing, ...)}``. Group ``i``
+    runs its ssm layers, then the shared block with the weights every
+    group uses and the KV cache of application ``i``. ``advance`` is
+    accepted for signature uniformity and must be None: forward refuses
+    bucketed prefill for this family."""
+    if advance is not None:
+        raise AssertionError("hybrid prefill is exact-length only")
+    every, n_super, trailing = _hybrid_shape(cfg)
+    shared = params["shared_attn"]
+    aux = aux_zero(x.device)
+    lengths = []
+    for i, group in enumerate(params["groups"]):
+        ssm_c = attn_c = None
+        if caches is not None:
+            ssm_c = ssm_lib.SSMCache(*(f[i] for f in caches["ssm"]))
+            attn_c = KVCache(*(f[i] for f in caches["attn"]))
+        x, _, a1 = stack_fwd(group, x, positions, cfg, "ssm", ssm_c,
+                             active=active)
+        x, nc, a2 = block_fwd(shared, x, positions, cfg, "dense",
+                              cache=attn_c, active=active)
+        aux = {k: aux[k] + a1[k] + a2[k] for k in aux}
         if caches is not None:
             lengths.append(nc.length)
-    if caches is None:
-        return x, None, aux
-    return x, type(caches)(caches.k, caches.v, torch.stack(lengths)), aux
+    new_caches = None
+    if caches is not None:
+        attn = caches["attn"]
+        new_caches = dict(caches, attn=KVCache(attn.k, attn.v,
+                                               torch.stack(lengths)))
+    if trailing:
+        x, _, a = stack_fwd(params["trailing"], x, positions, cfg, "ssm",
+                            None if caches is None else caches["trailing"],
+                            active=active)
+        aux = {k: aux[k] + a[k] for k in aux}
+    return x, new_caches, aux
+
+
+def hybrid_init_caches(cfg: ArchConfig, batch: int, max_len: int, dtype,
+                       device):
+    """The reference's hybrid cache tree: per-group ssm states, one KV
+    cache per application of the shared block, trailing ssm states."""
+    every, n_super, trailing = _hybrid_shape(cfg)
+    ssm_c = ssm_lib.mamba2_init_cache(cfg, batch, dtype, device,
+                                      layers=n_super * every)
+    caches = {
+        "ssm": ssm_lib.SSMCache(*(
+            f.reshape((n_super, every) + tuple(f.shape[1:]))
+            for f in ssm_c)),
+        "attn": gqa_init_cache(cfg, batch, max_len, dtype, device,
+                               layers=n_super),
+    }
+    if trailing:
+        caches["trailing"] = ssm_lib.mamba2_init_cache(
+            cfg, batch, dtype, device, layers=trailing)
+    return caches

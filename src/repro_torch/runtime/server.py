@@ -1,5 +1,6 @@
-"""Continuous-batching serving engine over the paged KV pool, with live
-admission, preemption, cancellation and fault containment.
+"""Continuous-batching serving engine over the paged KV pool or the
+contiguous KV layout, with live admission, preemption, cancellation and
+fault containment.
 
 Port of the single-host engine of ``repro/runtime/server.py``. One
 ``step()`` is:
@@ -59,8 +60,16 @@ last prompt row must re-run for its logits. A preempted victim's written
 full blocks are registered too, so its restore is suffix-only while they
 survive.
 
-Not ported yet (``ServeConfig`` rejects them with NotImplementedError):
-the SPMD mesh and the contiguous (``kv_block_size=0``) layout.
+The contiguous layout (``kv_block_size=0``, and always for the ssm and
+hybrid families, whose recurrent states have no per-token rows to page)
+keeps one ``max_len``-row cache per slot: admission prefills into a
+batch=1 scratch of the same row count and overwrites the slot's row of
+every cache leaf (:func:`model.insert_slot_caches`); there is no pool,
+so no block growth, no prefix sharing and no preemption, and the paged
+decode kernel is refused, as the reference refuses them.
+
+Not ported yet (``ServeConfig`` rejects it with NotImplementedError):
+the SPMD mesh.
 
 Threads: ``Server`` is single-threaded -- one thread calls
 ``start_engine``/``step``/``generate``/``serve_trace``; ``enqueue`` and
@@ -182,6 +191,10 @@ class ServeConfig:
             raise ValueError(
                 f"ServeConfig.attn_kernel must be 'gather' or 'paged', "
                 f"got {self.attn_kernel!r}")
+        if self.attn_kernel == "paged" and self.kv_block_size <= 0:
+            raise ValueError(
+                "ServeConfig.attn_kernel='paged' needs the paged KV "
+                "layout: set kv_block_size > 0")
         if self.prefix_cache and self.kv_block_size <= 0:
             raise ValueError(
                 "ServeConfig.prefix_cache=True needs the paged KV "
@@ -195,15 +208,10 @@ class ServeConfig:
             raise ValueError(
                 "ServeConfig.preempt=True needs the paged KV layout "
                 "(reclaim returns pool BLOCKS): set kv_block_size > 0")
-        unported = {
-            "kv_block_size=0 (contiguous layout)": self.kv_block_size == 0,
-            "mesh (SPMD serving)": self.mesh is not None,
-        }
-        missing = [name for name, on in unported.items() if on]
-        if missing:
+        if self.mesh is not None:
             raise NotImplementedError(
-                f"ServeConfig: {', '.join(missing)} not ported yet; the "
-                "port serves one device over the paged KV pool")
+                "ServeConfig: mesh (SPMD serving) not ported yet; the "
+                "port serves one device")
 
 
 @dataclasses.dataclass
@@ -231,8 +239,10 @@ class _Slot:
 @dataclasses.dataclass
 class _EngineState:
     caches: Any
-    alloc: BlockAllocator
-    tables: np.ndarray
+    # The pool's allocator and block tables; None in the contiguous
+    # layout.
+    alloc: Optional[BlockAllocator]
+    tables: Optional[np.ndarray]
     slots: List[Optional[_Slot]]
     cur_tok: np.ndarray
     completed: List[Request]
@@ -247,7 +257,9 @@ def _pct(xs, q: float) -> float:
 
 
 class Server:
-    """Fixed-slot continuous batcher over the paged KV pool.
+    """Fixed-slot continuous batcher over the paged KV pool (or the
+    contiguous layout: ``kv_block_size=0``, and the ssm and hybrid
+    families whatever the block size).
 
     ``device`` defaults to ``"cuda"`` and raises on a host without a GPU
     unless ``device="cpu"`` is passed; ``params`` must live on it.
@@ -259,9 +271,18 @@ class Server:
         if serve_cfg.sparsity is not None:
             cfg = dataclasses.replace(cfg, sparsity=serve_cfg.sparsity)
         self.cfg, self.params, self.sc = cfg, params, serve_cfg
+        # The ssm and hybrid families fall back to the contiguous layout
+        # whatever the block size.
+        self._paged = (serve_cfg.kv_block_size > 0
+                       and cfg.family in model_lib.paged_families())
         # Value checks of the family (no params touched), the reference's.
+        if serve_cfg.attn_kernel == "paged" and not self._paged:
+            raise ValueError(
+                "attn_kernel='paged' needs the paged KV layout (set "
+                "kv_block_size > 0; ssm/hybrid families fall back to "
+                "contiguous caches and must keep attn_kernel='gather')")
         if serve_cfg.prefix_cache:
-            if cfg.family in ("ssm", "hybrid"):
+            if not self._paged:
                 raise ValueError(
                     "prefix_cache=True needs the paged KV layout (set "
                     "kv_block_size > 0; ssm/hybrid families have no "
@@ -273,20 +294,27 @@ class Server:
                     f"{cfg.family!r}: suffix-only prefill needs bucketed "
                     "(masked-tail) prefill to be exact and a token-only "
                     "cache prefix (patch rows are per-request)")
+        if serve_cfg.preempt and not self._paged:
+            raise ValueError(
+                "preempt=True needs the paged KV layout (set "
+                "kv_block_size > 0; ssm/hybrid families fall back to "
+                "contiguous caches, which have no blocks to reclaim)")
         if model_lib.params_device(params).type != self.device.type:
             raise ValueError(
                 f"params live on {model_lib.params_device(params)}, the "
                 f"server runs on {self.device}")
-        if cfg.family not in model_lib.paged_families():
-            raise NotImplementedError(
-                f"family {cfg.family!r}: the port serves the paged dense "
-                "and moe families only")
+        model_lib.check_family(cfg)
         self._max_rows = serve_cfg.max_len
-        self._max_blocks = blocks_needed(self._max_rows,
-                                         serve_cfg.kv_block_size)
-        self._pool_usable = (
-            serve_cfg.kv_pool_blocks if serve_cfg.kv_pool_blocks is not None
-            else serve_cfg.batch_slots * self._max_blocks)
+        if self._paged:
+            self._max_blocks = blocks_needed(self._max_rows,
+                                             serve_cfg.kv_block_size)
+            self._pool_usable = (
+                serve_cfg.kv_pool_blocks
+                if serve_cfg.kv_pool_blocks is not None
+                else serve_cfg.batch_slots * self._max_blocks)
+        else:
+            self._max_blocks = 0
+            self._pool_usable = 0
         # Padded (bucketed) prefill is exact only for bucketable
         # families; the rest (moe) prefill at exact length.
         self._buckets = (
@@ -333,8 +361,9 @@ class Server:
         self.on_error: Optional[
             Callable[[Request, BaseException], None]] = None
         self.metrics = ServeMetrics(
-            kv_paged=1.0,
-            kv_block_size=float(serve_cfg.kv_block_size),
+            kv_paged=float(self._paged),
+            kv_block_size=float(
+                serve_cfg.kv_block_size if self._paged else 0),
             kv_pool_blocks=float(self._pool_usable),
             attn_kernel_paged=float(serve_cfg.attn_kernel == "paged"),
             prefix_cache_enabled=float(serve_cfg.prefix_cache),
@@ -386,10 +415,13 @@ class Server:
 
     def _prefill_one(self, r: Request, slot: int, caches,
                      block_ids: List[int]):
-        """Prefill one request's effective prompt alone and scatter it
-        into the pool blocks of ``slot``: padded to its bucket (masked
-        tail, length advanced by the TRUE length) for bucketable
-        families, at exact length for the rest."""
+        """Prefill one request's effective prompt alone and put it in
+        ``slot``: padded to its bucket (masked tail, length advanced by
+        the TRUE length) for bucketable families, at exact length for the
+        rest. The paged layout prefills into a scratch of the prompt's
+        rows and scatters them into the pool blocks ``block_ids``; the
+        contiguous one into a scratch of the slot cache's row count,
+        whose every leaf then overwrites the slot's row."""
         cfg = self.cfg
         prompt = self._effective_prompt(r).reshape(-1)
         S = int(prompt.shape[0])
@@ -404,16 +436,20 @@ class Server:
             batch["advance"] = torch.tensor([S], dtype=torch.int32,
                                             device=dev)
         t0 = time.perf_counter()
-        small = model_lib.init_caches(cfg, 1, S_pad, device=dev)
+        small = model_lib.init_caches(
+            cfg, 1, S_pad if self._paged else self._max_rows, device=dev)
         with torch.no_grad():
             logits, small, aux = model_lib.forward(
                 self.params, cfg, batch, small, last_only=True)
         skip = aux["skip"]
         self._prefill_shapes.add(S_pad)
-        ids = np.zeros((self._max_blocks,), np.int64)
-        ids[: len(block_ids)] = block_ids
-        caches = model_lib.insert_slot_paged(
-            caches, small, slot, torch.from_numpy(ids).to(dev), S)
+        if self._paged:
+            ids = np.zeros((self._max_blocks,), np.int64)
+            ids[: len(block_ids)] = block_ids
+            caches = model_lib.insert_slot_paged(
+                caches, small, slot, torch.from_numpy(ids).to(dev), S)
+        else:
+            caches = model_lib.insert_slot_caches(caches, small, slot)
         last = logits[0, 0].float().cpu().numpy()  # (V,)
         skip = skip.double().cpu().numpy()
         self.metrics.prefill_s += time.perf_counter() - t0
@@ -512,6 +548,8 @@ class Server:
                     f"request uid={r.uid}: prompt + max_new = {need} "
                     f"tokens do not fit a max_len={self.sc.max_len} cache "
                     "slot; raise ServeConfig.max_len or lower max_new")
+            if not self._paged:
+                continue
             _, worst = self._request_need(r)
             nb = blocks_needed(worst, self.sc.kv_block_size)
             if nb > self._pool_usable:
@@ -530,9 +568,18 @@ class Server:
             raise RuntimeError(
                 "start_engine() with requests still queued: drain or "
                 "discard the previous run first")
-        caches = model_lib.init_paged_caches(
-            cfg, B, self._pool_usable + 1, sc.kv_block_size,
-            device=self.device)
+        if self._paged:
+            caches = model_lib.init_paged_caches(
+                cfg, B, self._pool_usable + 1, sc.kv_block_size,
+                device=self.device)
+            alloc: Optional[BlockAllocator] = BlockAllocator(
+                self._pool_usable)
+            tables: Optional[np.ndarray] = np.zeros(
+                (B, self._max_blocks), np.int32)
+        else:
+            caches = model_lib.init_caches(cfg, B, self._max_rows,
+                                           device=self.device)
+            alloc = tables = None
         self._queue = RequestQueue(max_depth=sc.max_queue_depth)
         with self._cancel_lock:
             self._cancel_pending.clear()
@@ -543,13 +590,11 @@ class Server:
         # Fresh virtual clock per run, so a reused Server replays a trace
         # to the same schedule.
         self._vt = 0.0
-        alloc = BlockAllocator(self._pool_usable)
         # A fresh index per run: its blocks belong to this run's pool.
         self._prefix = (PrefixCache(alloc, sc.kv_block_size)
                         if sc.prefix_cache else None)
         self._st = _EngineState(
-            caches=caches, alloc=alloc,
-            tables=np.zeros((B, self._max_blocks), np.int32),
+            caches=caches, alloc=alloc, tables=tables,
             slots=[None] * B, cur_tok=np.zeros((B,), np.int64),
             completed=[],
         )
@@ -624,12 +669,15 @@ class Server:
             self.on_token(r, tok)
 
     def _release_slot_resources(self, i: int, s: _Slot) -> None:
-        """Return slot ``i``'s blocks to the pool and clear the slot: the
-        shared tail of every way a slot ends (finish, cancel, fault,
-        preemption). Ends with the allocator's full check against the
-        engine's ledger."""
+        """Return slot ``i``'s blocks to the pool (paged layout) and clear
+        the slot: the shared tail of every way a slot ends (finish,
+        cancel, fault, preemption). The paged layout ends with the
+        allocator's full check against the engine's ledger."""
         st = self._st
         s.released = True
+        st.slots[i] = None
+        if not self._paged:
+            return
         if s.blocks:
             st.alloc.release(s.blocks)
         if s.shared:
@@ -642,7 +690,6 @@ class Server:
         st.alloc.unreserve(s.commit - len(s.blocks))
         s.commit = len(s.blocks)
         st.tables[i, :] = 0
-        st.slots[i] = None
         st.alloc.check(expect_reserved=self._outstanding_commit())
 
     def _release(self, i: int) -> None:
@@ -926,22 +973,24 @@ class Server:
             # logits and needs a writable home, so the block holding it
             # is forked copy-on-write below.
             cow = bool(shared) and len(shared) * bs == rows0
-        # Shared blocks are never allocated, so they drop out of the
-        # worst-case commitment (the CoW fork stays in: it is owned).
-        commit = blocks_needed(worst, bs) - (
-            len(shared) - 1 if cow else len(shared))
-        if not alloc.can_reserve(commit):
-            # Evict blocks only the index holds; the matched ones hold
-            # our reference too, so eviction cannot take them.
-            if prefix is not None:
-                prefix.evict_for(commit)
+        commit = 0
+        if self._paged:
+            # Shared blocks are never allocated, so they drop out of the
+            # worst-case commitment (the CoW fork stays in: it is owned).
+            commit = blocks_needed(worst, bs) - (
+                len(shared) - 1 if cow else len(shared))
             if not alloc.can_reserve(commit):
-                if shared:
-                    alloc.release(shared)
-                # Block pressure: a victim's blocks can fund the head.
-                if self._maybe_reclaim(item):
-                    return "retry"
-                return "full"
+                # Evict blocks only the index holds; the matched ones
+                # hold our reference too, so eviction cannot take them.
+                if prefix is not None:
+                    prefix.evict_for(commit)
+                if not alloc.can_reserve(commit):
+                    if shared:
+                        alloc.release(shared)
+                    # Block pressure: a victim's blocks can fund the head.
+                    if self._maybe_reclaim(item):
+                        return "retry"
+                    return "full"
         n_active = sum(1 for s in st.slots if s is not None)
         pt_full = self._costs.prefill_ticks(self._bucket_rows(r))
         n_suffix, prefix_len = rows0, 0
@@ -958,30 +1007,34 @@ class Server:
             if shared:
                 alloc.release(shared)
             return "defer"  # SLO: spend the gap on the decode tick
-        if not alloc.try_reserve(commit):
-            if shared:
-                alloc.release(shared)
-            if self._maybe_reclaim(item):
-                return "retry"
-            return "full"
-        if cow:
-            # The allocator's fork first, then the device copy: queued on
-            # the current stream before the suffix prefill, which gathers
-            # the prefix through the table on the same stream.
-            block_ids = [alloc.fork(shared[-1], reserved=True)]
-            st.caches = model_lib.copy_pool_block(st.caches, block_ids[0],
-                                                  shared.pop())
-            self.metrics.prefix_cow_forks += 1
-        else:
-            block_ids = alloc.alloc(blocks_needed(rows0, bs) - len(shared),
-                                    reserved=True)
-        # The read-only shared run first, owned blocks after it.
-        st.tables[i, : len(shared)] = shared
-        st.tables[i, len(shared): len(shared) + len(block_ids)] = block_ids
-        # Sampled here too: a request that ends on its prefill token
-        # never reaches a decode tick but held blocks.
-        self.metrics.kv_blocks_peak_in_use = max(
-            self.metrics.kv_blocks_peak_in_use, float(alloc.in_use))
+        block_ids: List[int] = []
+        if self._paged:
+            if not alloc.try_reserve(commit):
+                if shared:
+                    alloc.release(shared)
+                if self._maybe_reclaim(item):
+                    return "retry"
+                return "full"
+            if cow:
+                # The allocator's fork first, then the device copy:
+                # queued on the current stream before the suffix prefill,
+                # which gathers the prefix through the table on the same
+                # stream.
+                block_ids = [alloc.fork(shared[-1], reserved=True)]
+                st.caches = model_lib.copy_pool_block(
+                    st.caches, block_ids[0], shared.pop())
+                self.metrics.prefix_cow_forks += 1
+            else:
+                block_ids = alloc.alloc(
+                    blocks_needed(rows0, bs) - len(shared), reserved=True)
+            # The read-only shared run first, owned blocks after it.
+            st.tables[i, : len(shared)] = shared
+            st.tables[i, len(shared): len(shared) + len(block_ids)] = (
+                block_ids)
+            # Sampled here too: a request that ends on its prefill token
+            # never reaches a decode tick but held blocks.
+            self.metrics.kv_blocks_peak_in_use = max(
+                self.metrics.kv_blocks_peak_in_use, float(alloc.in_use))
         # By identity: a concurrent submit may have pushed a new,
         # higher-priority head between our peek and now.
         self._queue.pop_expected(item)
@@ -1003,13 +1056,14 @@ class Server:
             # Containment: roll back everything this admission took --
             # owned blocks, shared refs, the commitment tail -- and
             # re-prove the pool before serving anyone else.
-            if block_ids:
-                alloc.release(block_ids)
-            if shared:
-                alloc.release(shared)
-            alloc.unreserve(commit - len(block_ids))
-            st.tables[i, :] = 0
-            alloc.check(expect_reserved=self._outstanding_commit())
+            if self._paged:
+                if block_ids:
+                    alloc.release(block_ids)
+                if shared:
+                    alloc.release(shared)
+                alloc.unreserve(commit - len(block_ids))
+                st.tables[i, :] = 0
+                alloc.check(expect_reserved=self._outstanding_commit())
             err = RequestFailed(f"request uid={r.uid} failed in prefill: {e}")
             err.__cause__ = e
             self._fail_queued(item, err)
@@ -1085,47 +1139,13 @@ class Server:
                     self.metrics.faults_recovered += 1
         if not any(s is not None for s in st.slots):
             return 0
-        # Lazy growth: a slot crossing a block edge claims its next pool
-        # block when the write reaches it; the admission commitment
-        # guarantees the free list covers it, so only an injected
-        # allocator fault can fail it.
-        for i, s in enumerate(st.slots):
-            if s is None:
-                continue
-            blk_idx = s.cache_len // sc.kv_block_size
-            if blk_idx >= len(s.shared) + len(s.blocks):
-                new_blk = self._grow_one(i, s)
-                if new_blk is None:
-                    continue  # growth failed: the slot was evicted
-                s.blocks.append(new_blk)
-                st.tables[i, blk_idx] = new_blk
-        # The mask after growth: a growth fault may have evicted a slot.
+        if self._paged:
+            self._grow_and_account()
         active = np.array([s is not None for s in st.slots], np.float32)
         n_active = int(active.sum())
         if n_active == 0:
-            return 0
+            return 0  # a growth fault evicted the last live slot
         slo = sc.slo
-        self.metrics.kv_blocks_peak_in_use = max(
-            self.metrics.kv_blocks_peak_in_use, float(st.alloc.in_use))
-        if st.alloc.reserved != self._outstanding_commit():
-            raise AssertionError(
-                f"commitment ledger mismatch: engine expects "
-                f"{self._outstanding_commit()} outstanding, allocator "
-                f"holds {st.alloc.reserved}")
-        used_rows = sum(s.cache_len + 1 for s in st.slots if s is not None)
-        # Each slot's MAPPED blocks: a shared block once per sharer.
-        cap_rows = sum((len(s.shared) + len(s.blocks)) * sc.kv_block_size
-                       for s in st.slots if s is not None)
-        if cap_rows:
-            self._frag_sum += 1.0 - used_rows / cap_rows
-            self._frag_ticks += 1
-        self._occ_sum += st.alloc.in_use / max(1, self._pool_usable)
-        # Attention fetch accounting in block-table units.
-        eff = [0 if s is None else s.cache_len + 1 for s in st.slots]
-        fetched, total = decode_attn_block_counts(
-            eff, self._max_blocks, sc.kv_block_size)
-        self._attn_fetched += fetched
-        self._attn_total += total
 
         step = np.where(active.astype(bool), st.cur_tok, 0)
         dev = self.device
@@ -1135,7 +1155,8 @@ class Server:
                 self.params, self.cfg,
                 torch.from_numpy(step[:, None]).to(dev), st.caches,
                 torch.from_numpy(active).to(dev),
-                torch.from_numpy(st.tables).to(dev),
+                None if st.tables is None
+                else torch.from_numpy(st.tables).to(dev),
                 attn_kernel=sc.attn_kernel,
             )
             last = logits[:, -1].float().cpu().numpy()  # synchronises
@@ -1179,6 +1200,51 @@ class Server:
                     f"request uid={s.req.uid}: max_ticks="
                     f"{s.req.max_ticks} decode budget exhausted"))
         return n_active
+
+    def _grow_and_account(self) -> None:
+        """The paged layout's part of a decode tick before the step: lazy
+        block growth, then the pool's peak, ledger, fragmentation,
+        occupancy and attention-fetch accounting."""
+        st, sc = self._st, self.sc
+        # Lazy growth: a slot crossing a block edge claims its next pool
+        # block when the write reaches it; the admission commitment
+        # guarantees the free list covers it, so only an injected
+        # allocator fault can fail it.
+        for i, s in enumerate(st.slots):
+            if s is None:
+                continue
+            blk_idx = s.cache_len // sc.kv_block_size
+            if blk_idx >= len(s.shared) + len(s.blocks):
+                new_blk = self._grow_one(i, s)
+                if new_blk is None:
+                    continue  # growth failed: the slot was evicted
+                s.blocks.append(new_blk)
+                st.tables[i, blk_idx] = new_blk
+        # The accounting after growth: a growth fault may have evicted a
+        # slot.
+        if not any(s is not None for s in st.slots):
+            return
+        self.metrics.kv_blocks_peak_in_use = max(
+            self.metrics.kv_blocks_peak_in_use, float(st.alloc.in_use))
+        if st.alloc.reserved != self._outstanding_commit():
+            raise AssertionError(
+                f"commitment ledger mismatch: engine expects "
+                f"{self._outstanding_commit()} outstanding, allocator "
+                f"holds {st.alloc.reserved}")
+        used_rows = sum(s.cache_len + 1 for s in st.slots if s is not None)
+        # Each slot's MAPPED blocks: a shared block once per sharer.
+        cap_rows = sum((len(s.shared) + len(s.blocks)) * sc.kv_block_size
+                       for s in st.slots if s is not None)
+        if cap_rows:
+            self._frag_sum += 1.0 - used_rows / cap_rows
+            self._frag_ticks += 1
+        self._occ_sum += st.alloc.in_use / max(1, self._pool_usable)
+        # Attention fetch accounting in block-table units.
+        eff = [0 if s is None else s.cache_len + 1 for s in st.slots]
+        fetched, total = decode_attn_block_counts(
+            eff, self._max_blocks, sc.kv_block_size)
+        self._attn_fetched += fetched
+        self._attn_total += total
 
     def step(self) -> Dict[str, int]:
         """One engine iteration: cancellations, an admission phase, then
@@ -1282,7 +1348,8 @@ class Server:
         row_b = cost_model.kv_row_bytes(self.cfg)
         res = cost_model.kv_reservation_bytes(
             self.sc.batch_slots, self._max_rows, row_b,
-            pool_blocks=self._pool_usable, block_size=self.sc.kv_block_size)
+            pool_blocks=self._pool_usable if self._paged else None,
+            block_size=self.sc.kv_block_size if self._paged else 0)
         m = self.metrics
         m.kv_bytes_reserved = float(res["paged"])
         m.kv_bytes_reserved_contiguous = float(res["contiguous"])

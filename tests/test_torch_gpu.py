@@ -116,6 +116,13 @@ GQA_CASES = [
                  id="rows_across_blocks"),
     pytest.param((0, 70, 33, 128), 16, 8, 8, 8, 128, id="wide_heads"),
     pytest.param((0, 70, 33, 128), 16, 8, 2, 5, 20, id="unaligned_rows"),
+    # The new configs' head groups: smollm-360m (KV 5, group 3, D 64),
+    # mistral-nemo (group 4, D 128), qwen1.5-110b (group 8, D 128: the
+    # kernel's limit on both), qwen2-moe (16 KV heads of group 1).
+    pytest.param(_TRACE_LENGTHS, 16, 32, 5, 3, 64, id="smollm_360m"),
+    pytest.param(_TRACE_LENGTHS, 16, 32, 8, 4, 128, id="mistral_nemo"),
+    pytest.param(_TRACE_LENGTHS, 16, 32, 8, 8, 128, id="qwen1p5_110b"),
+    pytest.param(_TRACE_LENGTHS, 16, 32, 16, 1, 128, id="qwen2_moe"),
 ]
 
 
@@ -279,7 +286,12 @@ def _nan_tail(a, dev, dtype, pad=4096):
 # and row tiles of 128 and 256 rows (walked in chunks of 64).
 GLU_CASES = [(8, 576, 1536, 576, 64, 128), (8, 576, 1536, 576, 1, 128),
              (256, 576, 1536, 576, 64, 128), (40, 200, 320, 70, 16, 128),
-             (300, 192, 320, 96, 256, 128), (130, 64, 256, 48, 128, 64)]
+             (300, 192, 320, 96, 256, 128), (130, 64, 256, 48, 128, 64),
+             # smollm-360m's MLP and zamba2-7b's shared block, at a
+             # decode tick and a 256-row prefill.
+             (8, 960, 2560, 960, 64, 128), (256, 960, 2560, 960, 64, 128),
+             (8, 3584, 14336, 3584, 64, 128),
+             (256, 3584, 14336, 3584, 64, 128)]
 
 
 @pytest.mark.parametrize("M,K,F,N,bm,bf", GLU_CASES)
@@ -572,6 +584,39 @@ def test_reduced_engine_on_gpu_matches_cpu(cuda):
                  "ticks", "attn_blocks_fetched", "kv_blocks_peak_in_use"):
         assert getattr(metrics["cuda"], name) == getattr(metrics["cpu"], name)
     assert metrics["cuda"].skipped_tile_dots > 0
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-2.7b",
+                                  "zamba2-7b"])
+def test_reduced_contiguous_engine_on_gpu_matches_cpu(cuda, arch):
+    """The contiguous layout (``kv_block_size=0``; the ssm and hybrid
+    families always) on the card gives the CPU's tokens and counters;
+    smollm's GLU runs through the fused GLU kernel there. Prompts stay
+    within one scan chunk (16 in the reduced configs)."""
+    cfg = get_config(arch).reduced()
+    rng = np.random.default_rng(3)
+    reqs = [(i, rng.integers(0, cfg.vocab_size, int(rng.integers(2, 17))),
+             int(rng.integers(2, 9))) for i in range(6)]
+    sp = SparsityConfig(enabled=True, mode="fused", gate_threshold=0.0)
+    outs, metrics = {}, {}
+    for dev in ("cpu", cuda):
+        params = model_lib.init_params(cfg, seed=0, device=dev)
+        srv = Server(cfg, params, ServeConfig(
+            batch_slots=3, max_len=32, kv_block_size=0, sparsity=sp),
+            device=dev)
+        before = sgm.sparce_glu_mlp_fused.launches
+        done = srv.generate([Request(uid=u, prompt=p, max_new=n)
+                             for u, p, n in reqs])
+        key = torch.device(dev).type
+        if key == "cuda" and arch == "smollm-135m":
+            assert sgm.sparce_glu_mlp_fused.launches > before
+        outs[key] = {r.uid: r.out.tolist() for r in done}
+        metrics[key] = srv.metrics
+    assert outs["cuda"] == outs["cpu"]
+    for name in ("skipped_tile_dots", "total_tile_dots", "decode_tokens",
+                 "ticks", "prefill_tokens"):
+        assert getattr(metrics["cuda"], name) == getattr(metrics["cpu"], name)
+    assert metrics["cuda"].kv_paged == 0
 
 
 def test_reduced_prefix_cache_engine_on_gpu_matches_cpu(cuda):

@@ -50,9 +50,10 @@ EXACT_FIELDS = (
 
 
 def _serve_both(sp_kwargs, traffic, *, slots=3, max_len=32,
-                attn_kernel="paged", mode="fused", act=None):
-    ref_cfg = ref_get_config("smollm-135m").reduced()
-    cfg = get_config("smollm-135m").reduced()
+                attn_kernel="paged", mode="fused", act=None,
+                arch="smollm-135m"):
+    ref_cfg = ref_get_config(arch).reduced()
+    cfg = get_config(arch).reduced()
     if act is not None:
         ref_cfg = dataclasses.replace(ref_cfg, mlp_act=act)
         cfg = dataclasses.replace(cfg, mlp_act=act)
@@ -145,6 +146,20 @@ def test_sparce_modes_match_reference_engine(case):
         assert m.replans >= 1  # the EMA crossed a bucket and replanned
     if case["act"] == "relu":
         assert m.modeled_hbm_bytes_saved > 0
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "mistral-nemo-12b",
+                                  "qwen1.5-110b", "qwen2-moe-a2.7b"])
+def test_new_configs_match_reference_engine(arch):
+    """The four configs that need no new model code, reduced, on the
+    paged engine with the paged kernel's plain version: GQA group 3 at
+    head_dim 16 (smollm-360m), an explicit head_dim (mistral-nemo), the
+    QKV bias (qwen1.5), shared experts beside GQA under capacity routing
+    (qwen2-moe, exact-length prefill)."""
+    traffic = Traffic(n_requests=5, prompt_lens=(2, 12), max_new=(1, 8),
+                      seed=6)
+    _assert_engines_equal(*_serve_both(
+        dict(gate_threshold=0.0, autotune=False), traffic, arch=arch))
 
 
 def _launch_lines(main, argv, capsys):
@@ -249,6 +264,41 @@ def test_launcher_slo_flags_match_reference_launcher(capsys, monkeypatch):
     assert any(ln.startswith("  latency (wall clock)") for ln in open_lines)
 
 
+@pytest.mark.parametrize("argv", [
+    ["--arch", "smollm-135m", "--kv-block-size", "0"],
+    ["--arch", "mamba2-2.7b"],
+], ids=["contiguous", "mamba2"])
+def test_launcher_contiguous_matches_reference_launcher(argv, capsys,
+                                                        monkeypatch):
+    """The contiguous layout through the launchers' defaults (the port's
+    attention kernel defaults to ``gather`` there, the reference's
+    everywhere): the same served, occupancy and per-request lines, and
+    no paged-KV lines."""
+    from repro.launch import serve as ref_serve
+    from repro_torch.launch import serve as port_serve
+    _bridge_launcher_weights(monkeypatch)
+    argv = argv + ["--reduced", "--requests", "4", "--mixed",
+                   "--prompt-len", "12", "--max-new", "6",
+                   "--batch-slots", "2", "--max-len", "32"]
+    ref_lines = _launch_lines(ref_serve.main, argv, capsys)
+    port_lines = _launch_lines(port_serve.main, argv + ["--device", "cpu"],
+                               capsys)
+
+    def picked(lines):
+        served = re.search(r"served .* ticks", lines[0]).group(0)
+        occ = re.search(r"slot occupancy \S+ prefill \S+ tok",
+                        lines[1].replace(",", "")).group(0)
+        outs = [re.search(r"req \d+: .*(tokens=.*)", ln).group(0)
+                for ln in lines if "out=" in ln]
+        outs = [re.sub(r"ttft=\S+ latency=\S+ ", "", o) for o in outs]
+        return served, occ, outs
+
+    assert picked(port_lines) == picked(ref_lines)
+    assert len(picked(ref_lines)[2]) == 3
+    for lines in (ref_lines, port_lines):
+        assert not any("paged KV" in ln for ln in lines)
+
+
 def test_gather_and_paged_attention_serve_identically():
     traffic = Traffic(n_requests=4, prompt_lens=(3, 20), max_new=(2, 6),
                       seed=7)
@@ -286,11 +336,11 @@ def test_gather_and_paged_attention_serve_identically():
     dict(faults=FaultPlan(seed=1, step_fault_rate=0.1)),
 ])
 def test_serve_config_rejects_unported_paths(kwargs):
-    """Only the paths not ported yet (the contiguous layout, the SPMD
-    mesh) are refused; the live engine's fields build, as the
+    """Only the path not ported yet (the SPMD mesh) is refused; the
+    contiguous layout and the live engine's fields build, as the
     reference's do."""
     (name, value), = kwargs.items()
-    if name in ("kv_block_size", "mesh"):
+    if name == "mesh":
         with pytest.raises(NotImplementedError, match="not ported yet"):
             port_server.ServeConfig(**kwargs)
         return
