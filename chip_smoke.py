@@ -74,7 +74,28 @@ is printed only when all of them pass):
      ``qwen2-moe-a2.7b`` (4 layers) as bf16 paged engines on a short
      seeded trace, with the planner's MLP variant and the paged GQA
      kernel's launches. Phase 2 holds the GQA and GLU kernels at these
-     configs' shapes.
+     configs' shapes;
+ 11. the vlm and audio frontends: ``musicgen-large`` whole (four
+     codebook streams, multi-head attention, a gelu GLU) and
+     ``pixtral-12b`` at its published widths cut to 8 layers (1024
+     patch rows ahead of every prompt) as bf16 paged engines on the
+     short trace (ms per tick, tokens/s, prefill s, peak memory, the
+     planner's variant, launch counts), then an f32 2-layer decode step
+     of each on the card against the CPU;
+ 12. training: ``Trainer.run`` on ``smollm-135m`` at full width (bf16, 8
+     sequences of 512 tokens, 20 steps) three times -- the GLU's
+     down-projection through the gated GEMM in FP, BP and WG
+     (``mode="kernel"``: exactly 3 launches a layer a step), the relu
+     MLP through the fused kernel (``mode="fused"``: one a layer a step)
+     and dense -- each with ms per step, tokens/s, peak memory and its
+     loss falling over the run; then one f32 2-layer step card against
+     CPU (loss, every gradient, the optimizer's moments and update) and
+     a checkpointed restart after an injected fault whose losses equal
+     an uninterrupted run's. Phase 2 holds the GQA kernel at musicgen's
+     heads, the GLU kernel's gelu at musicgen's widths, the gated GEMM
+     at a training step's FP, BP and WG shapes and the fused relu MLP at
+     its 4096 rows; after phases 11-12 those shapes' times are logged
+     beside the library's and their bounds.
 
 Every phase prints its seconds. After phases 4-7, each of the nine kernels' time at its path's shapes
 beside its plain version, a library yardstick and its bound.
@@ -88,6 +109,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -114,6 +136,15 @@ DEEPSEEK = "deepseek-v3-671b"
 DEEPSEEK_DEPTH = dict(num_layers=4)
 ENGINE = dict(requests=16, prompt_lo=16, prompt_hi=256, max_new=32,
               slots=8, max_len=512, block_size=16, seed=0)
+# Phase 12's training runs: smollm-135m at full width, 8 sequences of
+# 512 tokens a step, from the synthetic corpus over the first ``vocab``
+# token ids (over all 49152 a token recurs ~1.7 times in 20 steps, and
+# the loss stays at ln 49152: nothing to learn that fast).
+TRAIN = dict(batch=8, seq=512, steps=20, seed=0, vocab=4096)
+# Phase 12's loss gate: the last 5 steps' mean within this of ln V, the
+# loss of a model that knows which of the V ids occur (all equally often)
+# and nothing of their order; the runs' init starts ~2.6 above it.
+LOSS_OVER_LN_VOCAB = 0.25
 # The launcher's --sparce tiling: per-slot rows, 128-wide f stripes.
 SPARCE_BLOCKS = dict(block_m=1, block_k=128)
 
@@ -372,10 +403,11 @@ def attn_case(torch, dev, dtype, seed, *, B=8, KV=3, g=3, D=64, bs=16,
 
 
 # (KV heads, group, head_dim) of the GQA kernel's checks: smollm-135m's,
-# then smollm-360m's, mistral-nemo-12b's, qwen1.5-110b's (the kernel's
-# limits, group 8 and head_dim 128) and qwen2-moe-a2.7b's.
+# then smollm-360m's, mistral-nemo-12b's (and pixtral-12b's), qwen1.5-
+# 110b's (the kernel's limits, group 8 and head_dim 128), qwen2-moe-
+# a2.7b's and musicgen-large's (multi-head: 32 KV heads of group 1).
 ATTN_SHAPES = ((3, 3, 64), (5, 3, 64), (8, 4, 128), (8, 8, 128),
-               (16, 1, 128))
+               (16, 1, 128), (32, 1, 64))
 
 
 def check_attention(torch, dev):
@@ -630,11 +662,14 @@ def glu_case(torch, dev, dtype, seed, *, M=8, K=576, F=1536, N=576,
     return t(x), t(wg), t(wi), t(wo)
 
 
-# (K, F, N, row counts) of the GLU kernel's checks: smollm-135m's MLP at
-# decode, a ragged and a full prefill bucket; smollm-360m's and zamba2-7b's
-# shared block at decode and a 256-row prefill.
-GLU_SHAPES = ((576, 1536, 576, (8, 100, 256)), (960, 2560, 960, (8, 256)),
-              (3584, 14336, 3584, (8, 256)))
+# (K, F, N, row counts, act) of the GLU kernel's checks: smollm-135m's
+# MLP at decode, a ragged and a full prefill bucket; smollm-360m's and
+# zamba2-7b's shared block at decode and a 256-row prefill; musicgen-
+# large's gelu GLU at decode and a 256-row prefill.
+GLU_SHAPES = ((576, 1536, 576, (8, 100, 256), "silu"),
+              (960, 2560, 960, (8, 256), "silu"),
+              (3584, 14336, 3584, (8, 256), "silu"),
+              (2048, 8192, 2048, (8, 256), "gelu"))
 
 
 def check_glu(torch, dev):
@@ -652,22 +687,21 @@ def check_glu(torch, dev):
     for dtype, (atol, rtol, why) in tols.items():
         # Decode slots, a ragged prefill bucket (2 row tiles) and a full
         # one, unpadded: the kernel masks rows past M itself.
-        for K, F, N, M, tau in ((K, F, N, M, tau)
-                                for K, F, N, Ms in GLU_SHAPES for M in Ms
-                                for tau in (0.0, 0.05)):
+        for K, F, N, M, act, tau in (
+                (K, F, N, M, act, tau)
+                for K, F, N, Ms, act in GLU_SHAPES for M in Ms
+                for tau in (0.0, 0.05)):
             x, wg, wi, wo = glu_case(torch, dev, dtype, seed=2, M=M,
                                      K=K, F=F, N=N)
-            y, bits = sgm.sparce_glu_mlp_fused(
-                x, wg, wi, wo, block_m=bm, block_f=bf, tau=tau)
-            y0, bits0 = sgm.sparce_glu_mlp_fused_plain(
-                x, wg, wi, wo, block_m=bm, block_f=bf, tau=tau)
+            kw = dict(block_m=bm, block_f=bf, act=act, tau=tau)
+            y, bits = sgm.sparce_glu_mlp_fused(x, wg, wi, wo, **kw)
+            y0, bits0 = sgm.sparce_glu_mlp_fused_plain(x, wg, wi, wo, **kw)
             torch.cuda.synchronize()
-            name = (f"sparce_glu_mlp_fused {str(dtype)[6:]} M={M} "
+            name = (f"sparce_glu_mlp_fused {str(dtype)[6:]} {act} M={M} "
                     f"K={K} F={F} tau={tau}")
             if not torch.equal(bits, bits0):
                 raise AssertionError(f"{name}: bits differ")
-            y1, bits1 = sgm.sparce_glu_mlp_fused(
-                x, wg, wi, wo, block_m=bm, block_f=bf, tau=tau)
+            y1, bits1 = sgm.sparce_glu_mlp_fused(x, wg, wi, wo, **kw)
             if not (same_bits(torch, y1, y)
                     and torch.equal(bits1, bits)):
                 raise AssertionError(f"{name}: a second call differs")
@@ -686,8 +720,7 @@ def check_glu(torch, dev):
             for f in dead_f:
                 wi2[:, f * bf:(f + 1) * bf] = float("nan")
                 wo2[f * bf:(f + 1) * bf] = float("nan")
-            y2, bits2 = sgm.sparce_glu_mlp_fused(
-                x, wg, wi2, wo2, block_m=bm, block_f=bf, tau=tau)
+            y2, bits2 = sgm.sparce_glu_mlp_fused(x, wg, wi2, wo2, **kw)
             torch.cuda.synchronize()
             if not (torch.isfinite(y2).all() and torch.equal(y2, y)
                     and torch.equal(bits2, bits)):
@@ -849,6 +882,96 @@ def check_gemm(torch, dev):
     return err_main
 
 
+def train_gemm_operands(torch, dtype, seed):
+    """A smollm-135m training step's down-projection at full width (8 x
+    512 tokens, d_model 576, d_ff 1536): activations a and an error g,
+    unit normals with 30% of their (64, 128) tiles zero, and w_out at
+    init scale; on the host. (A mean loss's error is M^-1/2 smaller;
+    the checks' limits are shares of the output's scale, so the scale
+    of g does not move them.)"""
+    rng = np.random.default_rng(seed)
+    M, F_, N = TRAIN["batch"] * TRAIN["seq"], 1536, 576
+    bm, bk, bn = 64, 128, 128
+
+    def tiled_zeros(a, br, bc):
+        gr, gc = -(-a.shape[0] // br), -(-a.shape[1] // bc)
+        for i, j in zip(*np.nonzero(rng.random((gr, gc)) < 0.3)):
+            a[i * br:(i + 1) * br, j * bc:(j + 1) * bc] = 0.0
+        return a
+    a = tiled_zeros(rng.standard_normal((M, F_), dtype=np.float32), bm, bk)
+    w = rng.standard_normal((F_, N), dtype=np.float32) / np.sqrt(F_)
+    g = tiled_zeros(rng.standard_normal((M, N), dtype=np.float32), bm, bn)
+    t = lambda x: torch.from_numpy(x).to(dtype)  # noqa: E731
+    return t(a), t(w), t(g), (bm, bk, bn)
+
+
+# Limits of the training GEMMs: max|got - want| as a share of max|want|.
+# An absolute limit is loose on a small output (BP's) and tight on a
+# large one (WG's sums over 4096 rows). f32: 10x the largest share read
+# on the card; bf16: above one rounding of the largest output to bf16
+# (at most 2^-7 of it) after f32 sums.
+TRAIN_GEMM_REL = {
+    "float32": (1e-5, "f32 (split-TF32) sums over K in another order"),
+    "bfloat16": (1e-2, "one bf16 rounding of each output after f32 sums "
+                 "in another order"),
+}
+
+
+def check_train_gemm(torch, dev):
+    """The gated GEMM at the three GEMMs of a training step's
+    down-projection under ``mode="kernel"``, through ``ops.sparce_gemm``
+    as ``sparse_ops``' autograd rule calls it (transposed views, copied
+    to contiguous memory there): FP ``a @ w_out`` gated on a's (64, 128)
+    tiles; BP ``g @ w_out^T`` gated on g's (64, 128) error tiles
+    (block_k = block_n); WG ``a^T @ g`` gated on the transposed feature
+    bits, tiles (128, 64). Each on the card against the same call on
+    the CPU (the plain version), within ``TRAIN_GEMM_REL`` of the
+    output's largest value, then with the gated tiles NaN-poisoned on
+    the card."""
+    from repro_torch.core import sasa, sprf
+    from repro_torch.kernels import ops as kops
+    for dtype in (torch.float32, torch.bfloat16):
+        rel, why = TRAIN_GEMM_REL[str(dtype)[6:]]
+        a, w, g, (bm, bk, bn) = train_gemm_operands(torch, dtype, seed=8)
+        abits = sprf.compute_bitmap(a, (bm, bk)).bits
+        gbits = sprf.compute_bitmap(g, (bm, bn)).bits
+        cases = (("FP", a, w, abits, (bm, bk, bn)),
+                 ("BP", g, w.T, gbits, (bm, bn, bk)),
+                 ("WG", a.T, g, abits.T.contiguous(), (bk, bm, bn)))
+        for label, x, y_rhs, bits, (pm, pk, pn) in cases:
+            plan = sasa.SkipPlan(gate="lhs", variant="gated", block_m=pm,
+                                 block_k=pk, block_n=pn)
+            name = (f"sparce_gemm_gated {str(dtype)[6:]} training {label} "
+                    f"{tuple(x.shape)} @ {tuple(y_rhs.shape)} tiles "
+                    f"({pm}, {pk}) x {pn}")
+
+            def run(x, y_rhs, bits, where):
+                bmp = sprf.TileBitmap(bits.to(where), (pm, pk),
+                                      tuple(x.shape))
+                return kops.sparce_gemm(x.to(where), y_rhs.to(where), plan,
+                                        lhs_bitmap=bmp)
+            got = run(x, y_rhs, bits, dev)
+            want = run(x, y_rhs, bits, torch.device("cpu"))
+            torch.cuda.synchronize()
+            scale = want.float().abs().max().item()
+            err = check_close(f"{name} ({int(bits.sum())} of "
+                              f"{bits.numel()} tiles gated)", got.cpu(), want,
+                              atol=rel * scale, rtol=0.0,
+                              why=f"{rel} of max|want| {scale:.4e}: {why}")
+            log(f"    max_abs_err / max|want| = {err / scale:.3e} "
+                f"(limit {rel})")
+            x2 = x.to(dev).contiguous().clone()
+            for i, j in zip(*np.nonzero(bits.numpy())):
+                x2[i * pm:(i + 1) * pm, j * pk:(j + 1) * pk] = float("nan")
+            got2 = run(x2, y_rhs, bits, dev)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(got2).all() and torch.equal(got2, got)):
+                raise AssertionError(f"{name}: NaN-poisoned gated tiles "
+                                     "reached the output")
+    log("  sparce_gemm_gated at the training step's FP, BP and WG shapes: "
+        "NaN-poisoned gated tiles never read -> ok")
+
+
 def check_mlp(torch, dev):
     """The fused relu MLP kernel against its plain version: bits exactly,
     y within tolerance, at the relu cases, unpadded ragged M and F, f32
@@ -860,9 +983,11 @@ def check_mlp(torch, dev):
     from repro_torch.kernels import sparce_mlp as sm
     bf = 128
     err_main = None
-    # (M, F, block_m): the relu cases at F 1536, then ragged M and F.
+    # (M, F, block_m): the relu cases at F 1536, then ragged M and F, then
+    # a training step's forward (8 x 512 tokens, the default 64-row tiles).
     cases = [(M, 1536, bm) for M, bm in RELU_CASES] + [
-        (37, 1000, 1), (37, 1000, 64), (100, 1000, 64)]
+        (37, 1000, 1), (37, 1000, 64), (100, 1000, 64)] + [
+        (TRAIN["batch"] * TRAIN["seq"], 1536, 64)]
     for dtype in (torch.float32, torch.bfloat16):
         atol, rtol, why = RELU_TOLS[str(dtype)[6:]]
         for M, F_, bm in cases:
@@ -1183,7 +1308,7 @@ def decode_state(torch, cfg, dev, seed, *, B=8, max_blocks=8, bs=16):
         tables[b, :k] = ids[nxt:nxt + k]
         nxt += k
     active = np.array([n > 0 for n in lengths], np.float32)
-    toks = rng.integers(0, cfg.vocab_size, (B, 1))
+    toks = rng.integers(0, cfg.vocab_size, (B,) + codebooks(cfg) + (1,))
     return caches, tables, active, toks
 
 
@@ -1236,16 +1361,21 @@ def compare_decode_step(torch, dev, cfg, params, label, *, why):
     if not torch.equal(sk, skc):
         raise AssertionError(f"{label}: skip stats differ: {sk} vs {skc}")
     top2 = lc[live].topk(2, dim=-1).values
-    clear = (top2[:, 0] - top2[:, 1]) > 2 * atol
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * atol
     same = lg[live].argmax(-1) == lc[live].argmax(-1)
     if not bool(same[clear].all()):
         raise AssertionError("argmax differs where the top-2 gap is clear")
-    log(f"  {label}: argmax equal on {int(clear.sum())}/{int(live.sum())} "
-        f"live slots with a clear top-2 gap; skip stats {sk.tolist()} "
+    log(f"  {label}: argmax equal on {int(clear.sum())}/{clear.numel()} "
+        f"live rows with a clear top-2 gap; skip stats {sk.tolist()} "
         "equal -> ok")
 
 
 # ------------------------------------------------------------ the engine
+def codebooks(cfg):
+    """The leading token dims of the audio frontend's (K, S) streams."""
+    return (cfg.num_codebooks,) if cfg.frontend == "codes" else ()
+
+
 def engine_requests(cfg, n, seed, *, mixed=False, trace=ENGINE):
     """The seeded trace: prompts of ``trace``'s lengths, its
     ``max_new`` tokens each; with ``mixed`` each budget is drawn from
@@ -1258,8 +1388,8 @@ def engine_requests(cfg, n, seed, *, mixed=False, trace=ENGINE):
         budgets = np.random.default_rng(seed + 1).integers(
             trace["max_new"] // 4, trace["max_new"] + 1, n).tolist()
     return [Request(uid=i, prompt=rng.integers(
-        0, cfg.vocab_size, int(rng.integers(trace["prompt_lo"],
-                                            trace["prompt_hi"] + 1))),
+        0, cfg.vocab_size, codebooks(cfg) + (int(rng.integers(
+            trace["prompt_lo"], trace["prompt_hi"] + 1)),)),
         max_new=int(budgets[i])) for i in range(n)]
 
 
@@ -2147,65 +2277,6 @@ def run_ssm_engines(torch, dev):
     return out
 
 
-def time_new_shapes(torch, dev):
-    """The two kernels at the widest shapes phase 10 gives them, device
-    time by both witnesses beside the library call's and the bound,
-    logged: the gated GLU at zamba2-7b's shared block (a decode tick of
-    8 rows, K = N = 3584, F = 14336, init scales, every stripe live) and
-    the GQA kernel at qwen1.5-110b's heads (8 KV heads of 8 query rows,
-    head_dim 128) at the trace's lengths. Returns {label: device ms over
-    the library's}."""
-    import torch.nn.functional as F
-    from repro_torch.kernels import ops as kops
-    from repro_torch.kernels import paged_decode_attn as pda
-    rng = np.random.default_rng(6)
-    item, out = 2, {}
-
-    def normal(*shape, scale=1.0):
-        a = rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
-        return torch.from_numpy(a).to(dev, torch.bfloat16)
-
-    M, K, F_, N = ENGINE["slots"], 3584, 14336, 3584
-    x = normal(M, K)
-    wg, wi = normal(K, F_, scale=K ** -0.5), normal(K, F_, scale=K ** -0.5)
-    wo = normal(F_, N, scale=F_ ** -0.5)
-    run = lambda: kops.sparce_glu_mlp_fused(  # noqa: E731
-        x, wg, wi, wo, block_m=64, block_f=128)
-    library = lambda: (F.silu(x @ wg) * (x @ wi)) @ wo  # noqa: E731
-    label = "sparce_glu_mlp_fused zamba2-7b decode"
-    dev_ms, _, lib_dev_ms, _ = log_device_witnesses(
-        label, cuda_time_ms(run, 100), run, cuda_time_ms(library, 100),
-        library, GLU_KERNELS)
-    nbytes = (x.numel() + 3 * K * F_ + 2 * M * N) * item
-    bound_ms, by = bound(nbytes, 6 * M * K * F_, "bfloat16")
-    log(f"  {label}: bound {bound_ms:.5f} ms ({by}); device over the "
-        f"library's {dev_ms / lib_dev_ms:.2f}x")
-    out[label] = dev_ms / lib_dev_ms
-
-    bs, max_blocks, KV, g, D = ENGINE["block_size"], 32, 8, 8, 128
-    lengths = np.asarray(trace_lengths())
-    c = attn_case(torch, dev, torch.bfloat16, seed=5,
-                  lengths=lengths.tolist(), max_blocks=max_blocks, KV=KV,
-                  g=g, D=D)
-    args = (c["q"], c["k"], c["v"], c["tables"], c["lengths"])
-    run = lambda: pda.paged_gqa_decode_attn(*args)  # noqa: E731
-    library = gqa_library(torch, c)
-    label = "paged_gqa_decode_attn qwen1.5-110b heads"
-    dev_ms, _, lib_dev_ms, _ = log_device_witnesses(
-        label, cuda_time_ms(run, 200), run, cuda_time_ms(library, 200),
-        library, GQA_KERNELS)
-    live_blocks = int(sum(-(-int(n) // bs) for n in lengths))
-    nbytes = (2 * len(lengths) * KV * g * D * item
-              + 2 * live_blocks * bs * KV * D * item + live_blocks * 4
-              + len(lengths) * 4)
-    bound_ms, by = bound(nbytes, 4 * int(lengths.sum()) * KV * g * D,
-                         "bfloat16")
-    log(f"  {label}: bound {bound_ms:.5f} ms ({by}); device over the "
-        f"library's {dev_ms / lib_dev_ms:.2f}x")
-    out[label] = dev_ms / lib_dev_ms
-    return out
-
-
 def run_new_configs(torch, dev):
     """The four configs that need no new model code as full-width bf16
     paged engines (paged GQA kernel) on the short trace: every request
@@ -2240,6 +2311,481 @@ def run_new_configs(torch, dev):
         log(f"  {arch}: peak device memory {peak_gib(torch):.2f} GiB; "
             f"{time.perf_counter() - t0:.1f}s")
     return out
+
+
+# ------------------------------------------------- phase 11: the frontends
+# The vlm and audio archs at their published widths; depth (layers kept)
+# cut where the run's time asks for it.
+FRONTEND_DEPTHS = {"musicgen-large": None, "pixtral-12b": 8}
+
+
+def run_frontends(torch, dev):
+    """musicgen-large whole and pixtral-12b (8 layers) as full-width bf16
+    paged engines on the short trace: musicgen's prompts are 4 codebook
+    streams, pixtral's run behind 1024 patch rows a slot; every request
+    completes its budget with in-vocab tokens, the GQA kernel launches
+    (and the GLU kernel where the planner picks ``fused``). Then an f32
+    2-layer decode step of each, cut from those weights, card against
+    CPU. Returns {arch: launches}."""
+    from repro_torch.configs import get_config
+    out = {}
+    for arch, layers in FRONTEND_DEPTHS.items():
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        t0 = time.perf_counter()
+        patches = cfg.num_patches if cfg.frontend == "patches" else 0
+        rows = (SHORT["slots"], patches + SHORT["prompt_hi"])
+        plans = {r: glu_variant(cfg, r) for r in rows}
+        log(f"  {arch} ({cfg.num_layers} layers, {cfg.mlp_act} GLU "
+            f"K={cfg.d_model} F={cfg.d_ff}; attention {cfg.num_kv_heads} "
+            f"KV heads of group {cfg.num_heads // cfg.num_kv_heads}, "
+            f"head_dim {cfg.resolved_head_dim}; {patches} patch rows, "
+            f"{cfg.num_codebooks} codebooks): the planner picks "
+            f"{plans[rows[0]]!r} at {rows[0]} rows, {plans[rows[1]]!r} at "
+            f"{rows[1]}")
+        expect = ("paged_gqa_decode_attn",)
+        if "fused" in plans.values():
+            expect += ("sparce_glu_mlp_fused",)
+        torch.cuda.reset_peak_memory_stats()
+        params = full_width_params(torch, cfg, dev)
+        _, out[arch] = run_engine(torch, dev, cfg, params, glu_sparsity(),
+                                  arch, expect, trace=SHORT, profile=False)
+        log(f"  {arch}: peak device memory {peak_gib(torch):.2f} GiB")
+        cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32",
+                                   sparsity=glu_sparsity())
+        params2 = dict(params, stack=params["stack"][:2])
+        del params
+        upcast_in_place(torch, params2)
+        compare_decode_step(torch, dev, cfg2, params2, f"{arch} 2-layer",
+                            why="2 layers of f32 sums in another order")
+        del params2
+        torch.cuda.empty_cache()
+        log(f"  {arch}: {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+# ------------------------------------- timing a slice's new kernel shapes
+# A row: (label, kernel call, plain version, library call, the kernel's
+# device names, bytes the call must move, its operations, iterations).
+def time_rows(torch, dev, rows):
+    """Each row's kernel beside its plain version (CUDA events), the
+    library call's device time by both witnesses, and its bound, logged.
+    Returns {label: device ms over the library's}."""
+    out = {}
+    for label, run, plain, library, names, nbytes, ops, iters in rows:
+        plain_ms = cuda_time_ms(plain, 10)
+        dev_ms, _, lib_dev_ms, _ = log_device_witnesses(
+            label, cuda_time_ms(run, iters), run,
+            cuda_time_ms(library, iters), library, names)
+        bound_ms, by = bound(nbytes, ops, "bfloat16")
+        log(f"  {label}: plain {plain_ms:.4f} ms (events); bound "
+            f"{bound_ms:.5f} ms ({by}); device over the library's "
+            f"{dev_ms / lib_dev_ms:.2f}x")
+        out[label] = dev_ms / lib_dev_ms
+    return out
+
+
+def bf16_normal(torch, dev, rng, *shape, scale=1.0):
+    a = rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+    return torch.from_numpy(a).to(dev, torch.bfloat16)
+
+
+def gqa_row(torch, dev, label, *, KV, g, D):
+    """The bf16 GQA kernel at (KV heads, group, head_dim) over the
+    trace's lengths."""
+    from repro_torch.kernels import paged_decode_attn as pda
+    bs, item = ENGINE["block_size"], 2
+    lengths = np.asarray(trace_lengths())
+    c = attn_case(torch, dev, torch.bfloat16, seed=5,
+                  lengths=lengths.tolist(), max_blocks=32, KV=KV, g=g, D=D)
+    args = (c["q"], c["k"], c["v"], c["tables"], c["lengths"])
+    live_blocks = int(sum(-(-int(n) // bs) for n in lengths))
+    return (label, lambda: pda.paged_gqa_decode_attn(*args),
+            lambda: pda.paged_gqa_decode_attn_plain(*args),
+            gqa_library(torch, c), GQA_KERNELS,
+            2 * len(lengths) * KV * g * D * item
+            + 2 * live_blocks * bs * KV * D * item + live_blocks * 4
+            + len(lengths) * 4,
+            4 * int(lengths.sum()) * KV * g * D, 200)
+
+
+def glu_row(torch, dev, rng, label, *, M, K, F_, N, act):
+    """The bf16 gated-GLU kernel at init scales, every stripe live."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import sparce_glu_mlp as sgm
+    x = bf16_normal(torch, dev, rng, M, K)
+    wg = bf16_normal(torch, dev, rng, K, F_, scale=K ** -0.5)
+    wi = bf16_normal(torch, dev, rng, K, F_, scale=K ** -0.5)
+    wo = bf16_normal(torch, dev, rng, F_, N, scale=F_ ** -0.5)
+    kw = dict(block_m=64, block_f=128, act=act)
+    gate = ((lambda h: F.gelu(h, approximate="tanh")) if act == "gelu"
+            else F.silu)
+    return (label, lambda: kops.sparce_glu_mlp_fused(x, wg, wi, wo, **kw),
+            lambda: sgm.sparce_glu_mlp_fused_plain(x, wg, wi, wo, **kw),
+            lambda: (gate(x @ wg) * (x @ wi)) @ wo, GLU_KERNELS,
+            (x.numel() + 3 * K * F_ + 2 * M * N) * 2, 6 * M * K * F_, 100)
+
+
+def phase10_rows(torch, dev):
+    """The two kernels at the widest shapes phase 10 gives them: the
+    gated GLU at zamba2-7b's shared block (a decode tick of 8 rows,
+    K = N = 3584, F = 14336) and the GQA kernel at qwen1.5-110b's heads
+    (8 KV heads of 8 query rows, head_dim 128)."""
+    rng = np.random.default_rng(6)
+    return [glu_row(torch, dev, rng, "sparce_glu_mlp_fused zamba2-7b decode",
+                    M=ENGINE["slots"], K=3584, F_=14336, N=3584, act="silu"),
+            gqa_row(torch, dev, "paged_gqa_decode_attn qwen1.5-110b heads",
+                    KV=8, g=8, D=128)]
+
+
+def slice_rows(torch, dev):
+    """The kernels at the shapes phases 11 and 12 first give them: the
+    GQA kernel at musicgen-large's heads (32 KV heads of group 1,
+    head_dim 64); the GLU kernel's gelu at musicgen's decode (8 rows,
+    K = N = 2048, F = 8192); the fused relu MLP at a training step's
+    8 x 512 rows; the gated GEMM at the step's BP and WG shapes (30% of
+    the gated operand's tiles zero)."""
+    from repro_torch.core import sprf
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import sparce_gemm as sg
+    from repro_torch.kernels import sparce_mlp as sm
+    rng = np.random.default_rng(7)
+    rows = [gqa_row(torch, dev, "paged_gqa_decode_attn musicgen-large heads",
+                    KV=32, g=1, D=64),
+            glu_row(torch, dev, rng,
+                    "sparce_glu_mlp_fused gelu musicgen-large decode",
+                    M=ENGINE["slots"], K=2048, F_=8192, N=2048, act="gelu")]
+
+    M, K, F_, N = TRAIN["batch"] * TRAIN["seq"], 576, 1536, 576
+    x = bf16_normal(torch, dev, rng, M, K)
+    wi = bf16_normal(torch, dev, rng, K, F_, scale=K ** -0.5)
+    wo = bf16_normal(torch, dev, rng, F_, N, scale=F_ ** -0.5)
+    mkw = dict(block_m=64, block_f=128, act="relu")
+    rows.append(("sparce_mlp_fused training forward (8 x 512 rows)",
+                 lambda: kops.sparce_mlp_fused(x, wi, wo, **mkw),
+                 lambda: sm.sparce_mlp_fused_plain(x, wi, wo, **mkw),
+                 lambda: torch.relu(x @ wi) @ wo, MLP_KERNELS,
+                 (M * K + K * F_ + F_ * N + M * N) * 2,
+                 2 * M * K * F_ + 2 * M * F_ * N, 100))
+
+    a, w, gr, (bm, bk, bn) = train_gemm_operands(torch, torch.bfloat16, 9)
+    a, w, gr = a.to(dev), w.to(dev), gr.to(dev)
+    abits = sprf.compute_bitmap(a, (bm, bk)).bits
+    gbits = sprf.compute_bitmap(gr, (bm, bn)).bits
+    for label, lhs, rhs, bits, (pm, pk, pn) in (
+            ("BP", gr, w.T.contiguous(), gbits, (bm, bn, bk)),
+            ("WG", a.T.contiguous(), gr, abits.T.contiguous(),
+             (bk, bm, bn))):
+        kw = dict(block_m=pm, block_k=pk, block_n=pn, gate="lhs")
+        live = int(bits.numel() - bits.sum())
+        Mx, Kx = lhs.shape
+        Nx = rhs.shape[1]
+        rows.append((
+            f"sparce_gemm_gated training {label} {tuple(lhs.shape)} @ "
+            f"{tuple(rhs.shape)}",
+            lambda lhs=lhs, rhs=rhs, bits=bits, kw=kw:
+                sg.sparce_gemm_gated(lhs, rhs, bits, **kw),
+            lambda lhs=lhs, rhs=rhs, bits=bits, kw=kw:
+                sg.sparce_gemm_gated_plain(lhs, rhs, bits, **kw),
+            lambda lhs=lhs, rhs=rhs: lhs @ rhs, GEMM_KERNELS,
+            (live * pm * pk + Kx * Nx + Mx * Nx) * 2 + bits.numel() * 4,
+            2 * live * pm * pk * Nx, 100))
+    return rows
+
+
+# ------------------------------------------------- phase 12: training
+def value_and_grads(torch, cfg, params, batch):
+    """(loss, aux metrics, [grad of each param leaf]) of ``loss_fn``."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.modules import iter_leaves
+    for p in iter_leaves(params):
+        p.requires_grad_(True)
+        p.grad = None
+    total, metrics = model_lib.loss_fn(params, cfg, batch)
+    total.backward()
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in iter_leaves(params)]
+    for p in iter_leaves(params):
+        p.grad = None
+        p.requires_grad_(False)
+    return total.detach(), grads
+
+
+def train_config(act, sparsity, **fields):
+    from repro_torch.core.sparse_ops import SparsityConfig
+    return dataclasses.replace(arch_config(), mlp_act=act,
+                               sparsity=SparsityConfig(**sparsity), **fields)
+
+
+# (label, MLP activation, sparsity, the kernel the run must launch, its
+# launches per layer and step): the GLU's down-projection through the
+# gated GEMM in FP, BP and WG; the relu MLP's fused forward; dense.
+TRAIN_RUNS = (
+    ("glu kernel", "silu", dict(enabled=True, mode="kernel"),
+     "sparce_gemm_gated", 3),
+    ("relu fused", "relu", dict(enabled=True, mode="fused"),
+     "sparce_mlp_fused", 1),
+    ("dense", "silu", dict(enabled=False), None, 0),
+)
+
+
+def train_data(seed=0, vocab=None):
+    """Step-keyed batches of ``TRAIN``'s shape from the synthetic corpus
+    over ``vocab`` token ids (``TRAIN["vocab"]`` by default)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    corpus = SyntheticCorpus(vocab or TRAIN["vocab"],
+                             DataConfig(seed=seed, noise=0.05))
+    step = 0
+    while True:
+        yield {"tokens": corpus.batch(step, TRAIN["batch"], TRAIN["seq"])}
+        step += 1
+
+
+def run_training(torch, dev):
+    """``Trainer.run`` on smollm-135m at full width (30 layers, bf16), 8
+    sequences of 512 tokens (ids below ``TRAIN["vocab"]``), 20 steps,
+    once per ``TRAIN_RUNS`` entry:
+    ms per step, tokens/s, peak memory, the loss at first and last; the
+    last 5 steps' mean loss below the first 5's and within
+    ``LOSS_OVER_LN_VOCAB`` of ln V (what a model that has learned which
+    ids occur reaches; the tokens are uniform over V ids); every weight
+    matrix of every layer moved from its init; the run's kernel
+    launches exactly its per-layer count x layers x steps, no other
+    kernel. Returns {label: launches}."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.modules import iter_leaves
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime.trainer import TrainConfig, Trainer
+    shape = ShapeConfig("chip_smoke", TRAIN["seq"], TRAIN["batch"], "train")
+    steps, out = TRAIN["steps"], {}
+    floor = math.log(TRAIN["vocab"])
+    for label, act, sp, kernel, per_layer in TRAIN_RUNS:
+        cfg = train_config(act, sp)
+        tr = Trainer(cfg, shape, AdamW(lr=1e-3),
+                     TrainConfig(steps=steps, log_every=1,
+                                 seed=TRAIN["seed"]), device=dev)
+        init = [p.clone() for p in iter_leaves(model_lib.init_params(
+            cfg, seed=TRAIN["seed"], device=dev)) if p.dim() >= 2]
+        data = train_data()
+        wrappers = counters()
+        for fn in wrappers.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = tr.run(data)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        out[label] = launches
+        hist = [h for h in res["history"] if "loss" in h]
+        losses = np.array([h["loss"] for h in hist])
+        dts = np.array([h["dt"] for h in hist])
+        if len(hist) != steps or not np.isfinite(losses).all():
+            raise AssertionError(f"{label}: history {losses}")
+        want = {} if kernel is None else {
+            kernel: per_layer * cfg.num_layers * steps}
+        got = {k: v for k, v in launches.items() if v}
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, expected {want}")
+        first, last = losses[:5].mean(), losses[-5:].mean()
+        if not last < first:
+            raise AssertionError(f"{label}: mean loss of the last 5 steps "
+                                 f"{last:.4f} not below the first 5's "
+                                 f"{first:.4f}")
+        if not last < floor + LOSS_OVER_LN_VOCAB:
+            raise AssertionError(f"{label}: mean loss of the last 5 steps "
+                                 f"{last:.4f} not within "
+                                 f"{LOSS_OVER_LN_VOCAB} of ln V {floor:.4f}")
+        mats = [p for p in iter_leaves(res["params"]) if p.dim() >= 2]
+        still = sum(torch.equal(a, b) for a, b in zip(mats, init))
+        if len(mats) != len(init) or still:
+            raise AssertionError(f"{label}: {still} of {len(mats)} weight "
+                                 "matrices never moved from their init")
+        n_mats = len(mats)
+        del init, mats
+        steady = dts[1:].mean()
+        tokens = TRAIN["batch"] * TRAIN["seq"]
+        log(f"  train {label}: {steps} steps in {wall:.2f}s wall (init "
+            f"included); step 0 {1e3 * dts[0]:.1f} ms, steps 1-{steps - 1} "
+            f"{1e3 * steady:.2f} ms per step ({tokens / steady:.0f} "
+            f"tokens/s); peak device memory {peak_gib(torch):.2f} GiB")
+        log(f"  train {label}: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+            f"(mean of the first 5 {first:.4f}, of the last 5 {last:.4f}; "
+            f"ln V {floor:.4f}); every one of {n_mats} weight "
+            f"matrices moved; launches {got} -> ok")
+        if kernel == "sparce_gemm_gated":  # the slice's kernel path
+            profile_train(torch, tr, res, label)
+        del tr, res
+        torch.cuda.empty_cache()
+    return out
+
+
+def profile_train(torch, tr, res, label, steps=2):
+    """Two more steps of a finished run under the profiler, device
+    activity only (tracing the host's ops too took ~20 s a window; the
+    profiler's overhead still lengthens the wall time, so the busy share
+    printed is a lower bound)."""
+    from torch.profiler import ProfilerActivity, profile
+    params, state = res["params"], res["opt_state"]
+    data = train_data(seed=1)
+    batches = [tr.to_device(next(data)) for _ in range(steps)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            params, state, m = tr.step_fn(params, state, b)
+            float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    log_busy(torch, prof, wall, f"train {label} profiler ({steps} steps)")
+
+
+def train_batch(torch, cfg, where, seed):
+    """A 2 x 256-token batch of the synthetic corpus with the last 64
+    positions out of the loss (their error tiles are all zero: the BP
+    gate skips them)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, make_batch_iterator
+    b = next(make_batch_iterator(cfg, ShapeConfig("f32", 256, 2, "train"),
+                                 DataConfig(seed=seed)))
+    mask = np.ones((2, 256), np.float32)
+    mask[:, -64:] = 0.0
+    b["loss_mask"] = mask
+    return {k: torch.from_numpy(v).to(where) for k, v in b.items()}
+
+
+def check_train_step_f32(torch, dev):
+    """One f32 training step of smollm-135m at full width cut to 2 layers
+    (the GLU's gated GEMM in FP, BP and WG), kernels on the card against
+    plain versions on the CPU: the loss, every gradient, the optimizer's
+    moments, the update wherever the gradient is not near zero (Adam's
+    first update is about the gradient's sign there), and the loss
+    after it."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.modules import iter_leaves
+    from repro_torch.optim.adamw import AdamW
+    cfg = train_config("silu", dict(enabled=True, mode="kernel"),
+                       num_layers=2, dtype="float32")
+    params = model_lib.init_params(cfg, seed=3, device=dev)
+    cpu = torch.device("cpu")
+    opt, lr = AdamW(lr=1e-3), 1e-3
+    res = []
+    for where, p in ((dev, params), (cpu, to_device(params, cpu))):
+        sg = counters()["sparce_gemm_gated"]
+        sg.launches = 0
+        batch = train_batch(torch, cfg, where, seed=1)
+        loss, grads = value_and_grads(torch, cfg, p, batch)
+        new, state, _ = opt.update(grads_tree(p, grads), opt.init(p), p)
+        loss2, _ = value_and_grads(torch, cfg, new, batch)
+        res.append(dict(loss=float(loss), loss2=float(loss2),
+                        grads=[g.cpu() for g in grads],
+                        mu=[m.cpu() for m in iter_leaves(state.mu)],
+                        nu=[v.cpu() for v in iter_leaves(state.nu)],
+                        step=[(a - b).cpu() for a, b in zip(
+                            iter_leaves(new), iter_leaves(p))],
+                        launches=sg.launches))
+    card, host = res
+    why = ("2 layers of f32 sums in another order (split-TF32 in the "
+           "gated GEMM)")
+    if card["launches"] != 3 * 2 * 2:
+        raise AssertionError(f"gated GEMM launched {card['launches']} times "
+                             "on the card, expected 12 (3 a layer, 2 passes)")
+    for key in ("loss", "loss2"):
+        err = abs(card[key] - host[key]) / abs(host[key])
+        log(f"  f32 step: {key} card {card[key]:.6f} cpu {host[key]:.6f} "
+            f"(rel err {err:.2e}, limit 1e-5: {why})")
+        if err > 1e-5:
+            raise AssertionError(f"f32 step: {key} differs")
+    worst = {}
+    for key in ("grads", "mu", "nu"):
+        for i, (a, b) in enumerate(zip(card[key], host[key])):
+            scale = float(b.abs().max()) or 1.0
+            err = float((a - b).abs().max()) / scale
+            worst[key] = max(worst.get(key, 0.0), err)
+            if err > 1e-3:
+                raise AssertionError(f"f32 step: {key} leaf {i} differs "
+                                     f"(max err {err:.2e} of its scale)")
+    for i, (a, b, g) in enumerate(zip(card["step"], host["step"],
+                                      host["grads"])):
+        sure = g.abs() >= 1e-3 * max(float(g.abs().max()), 1e-30)
+        err = float((a - b)[sure].abs().max()) if bool(sure.any()) else 0.0
+        worst["update"] = max(worst.get("update", 0.0), err / lr)
+        if err > 1e-3 * lr:
+            raise AssertionError(f"f32 step: update of leaf {i} differs "
+                                 f"by {err:.2e}")
+    log(f"  f32 step: every gradient, moment and update within 1e-3 of its "
+        f"scale (worst {worst}; {why}); gated GEMM launched "
+        f"{card['launches']} times on the card -> ok")
+
+
+def grads_tree(params, grads):
+    """A list of leaf gradients as a tree shaped like ``params``."""
+    from repro_torch.models.modules import tree_map
+    it = iter(grads)
+    return tree_map(lambda _: next(it), params)
+
+
+def check_restart(torch, dev):
+    """The Trainer's checkpoint and in-loop restart on the card: the f32
+    2-layer config, 8 steps with checkpoints (async) every 4, a
+    RuntimeError injected at step 6; the data keyed by step, so after
+    the restore from step 4 the losses must equal an uninterrupted
+    run's, within 1e-4 (the embedding's backward adds with atomics, in an
+    order the card picks)."""
+    import shutil
+    import tempfile
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, make_batch_iterator
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime.trainer import TrainConfig, Trainer
+    cfg = train_config("silu", dict(enabled=True, mode="kernel"),
+                       num_layers=2, dtype="float32")
+    shape = ShapeConfig("restart", 256, 2, "train")
+    it = make_batch_iterator(cfg, shape, DataConfig(seed=2))
+    batches = [next(it) for _ in range(8)]
+
+    class Keyed:
+        def __init__(self):
+            self.pos = 0
+
+        def __next__(self):
+            self.pos += 1
+            return batches[self.pos - 1]
+
+    def losses(res):
+        return [h["loss"] for h in res["history"] if "loss" in h]
+
+    whole = Trainer(cfg, shape, AdamW(lr=1e-3), TrainConfig(
+        steps=8, log_every=1, seed=3), device=dev).run(Keyed())
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        data, crashed = Keyed(), []
+
+        def fault(step):
+            if step == 6 and not crashed:
+                crashed.append(step)
+                data.pos = 4  # the restart re-reads from the restored step
+                raise RuntimeError("injected fault")
+        res = Trainer(cfg, shape, AdamW(lr=1e-3), TrainConfig(
+            steps=8, log_every=1, ckpt_every=4, ckpt_dir=d, async_ckpt=True,
+            seed=3), device=dev).run(data, fault_hook=fault)
+        saved = sorted(os.listdir(d))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    events = [h for h in res["history"] if h.get("event") == "restart"]
+    a, b = losses(whole), losses(res)
+    if len(events) != 1 or res["final_step"] != 8 or len(b) != 6 + 4:
+        raise AssertionError(f"restart: events {events}, losses {b}")
+    want = np.array(a[:6] + a[4:])
+    err = float(np.max(np.abs(np.array(b) - want) / np.abs(want)))
+    if err > 1e-4:
+        raise AssertionError(f"restart: losses {b} vs uninterrupted {a}")
+    log(f"  restart: checkpoints {saved}; fault at step 6, restored step "
+        f"4; the 10 logged losses equal the uninterrupted run's (steps 0-5, "
+        f"4-7) within {err:.2e} (limit 1e-4) -> ok")
 
 
 def deepseek_config():
@@ -2318,7 +2864,14 @@ def profile_engine(torch, cfg, params, sc, dev, label, trace=ENGINE):
         srv.generate(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    log_busy(torch, prof, wall, f"{label} profiler ("
+             f"{int(srv.metrics.ticks)} ticks, {int(srv.metrics.admitted)} "
+             "prefills)")
 
+
+def log_busy(torch, prof, wall, what):
+    """The device's busy share of a profiled window and its ten largest
+    device items by total time."""
     # Device-side events only (kernels, memcpy/memset); the CPU-side
     # aten ops that launched them would count the same time again.
     events = [e for e in prof.key_averages()
@@ -2328,10 +2881,8 @@ def profile_engine(torch, cfg, params, sc, dev, label, trace=ENGINE):
     if not events:
         log("  profiler: no device time recorded")
         return
-    log(f"  {label} profiler ({int(srv.metrics.ticks)} ticks, "
-        f"{int(srv.metrics.admitted)} prefills): device busy "
-        f"{total_us / 1e3:.3f} ms of {wall * 1e3:.3f} ms wall "
-        f"({total_us / 1e4 / wall:.1f}%)")
+    log(f"  {what}: device busy {total_us / 1e3:.3f} ms of "
+        f"{wall * 1e3:.3f} ms wall ({total_us / 1e4 / wall:.1f}%)")
     for e in sorted(events, key=_dev_us, reverse=True)[:10]:
         log(f"    {_dev_us(e) / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:70]}")
 
@@ -3089,7 +3640,7 @@ def run_phase7(torch, dev, errs):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
                     help="comma-separated subset of phases to run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -3132,6 +3683,7 @@ def main(argv=None) -> int:
             errs["sparce_glu_mlp_fused"] = check_glu(torch, dev)
             errs["relu_bitmap"] = check_relu_bitmap(torch, dev)
             errs["sparce_gemm_gated"] = check_gemm(torch, dev)
+            check_train_gemm(torch, dev)
             errs["sparce_mlp_fused"] = check_mlp(torch, dev)
             errs["paged_mla_decode_attn"] = check_mla(torch, dev)
             errs["sparce_gemm_compacted"] = check_compacted(torch, dev)
@@ -3211,11 +3763,33 @@ def main(argv=None) -> int:
                 torch, dev, glu_metrics)}
             launches.update(run_ssm_engines(torch, dev))
             launches.update(run_new_configs(torch, dev))
-            time_new_shapes(torch, dev)
+            time_rows(torch, dev, phase10_rows(torch, dev))
             for label, counts in launches.items():
                 log(f"  phase 10 launches, {label}: "
                     f"{ {k: v for k, v in counts.items() if v} }")
             phase_done(10)
+        if 11 in phases:
+            log("phase 11: the vlm and audio frontends: musicgen-large "
+                "whole and pixtral-12b (8 layers) at full width as bf16 "
+                "paged engines, then their f32 2-layer steps card vs CPU")
+            for label, counts in run_frontends(torch, dev).items():
+                log(f"  phase 11 launches, {label}: "
+                    f"{ {k: v for k, v in counts.items() if v} }")
+            phase_done(11)
+        if 12 in phases:
+            log("phase 12: training: Trainer.run on smollm-135m at full "
+                "width (bf16, 8 x 512 tokens, 20 steps), GLU kernel, relu "
+                "fused and dense; then an f32 2-layer step card vs CPU and "
+                "a checkpointed restart")
+            for label, counts in run_training(torch, dev).items():
+                log(f"  phase 12 launches, {label}: "
+                    f"{ {k: v for k, v in counts.items() if v} }")
+            check_train_step_f32(torch, dev)
+            check_restart(torch, dev)
+            phase_done(12)
+        if phases & {11, 12}:
+            time_rows(torch, dev, slice_rows(torch, dev))
+            phase_done("11-12 timing")
         torch.cuda.synchronize()
         log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all")
     except Exception:  # noqa: BLE001 - report and fail the run

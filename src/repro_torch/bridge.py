@@ -87,8 +87,9 @@ def hybrid_from_reference(tree: Dict[str, Any], device) -> Dict[str, Any]:
 
 def params_from_reference(tree: Dict[str, Any], device="cuda"
                           ) -> Dict[str, Any]:
-    """The reference's dense-, moe-, ssm- or hybrid-family param tree
-    (numpy leaves) as the port's param tree on ``device``."""
+    """The reference's param tree of any family (numpy leaves) as the
+    port's param tree on ``device``; the audio frontend's ``embed``
+    (K, V, d) and ``heads`` (K, d, V) come across as they are."""
     dev = resolve_device(device)
     out: Dict[str, Any] = {}
     for key, val in tree.items():

@@ -1,9 +1,8 @@
 """Architecture config registry: ``get_config(name)`` / ``--arch <id>``.
 
-Knows the archs the port serves so far (the reference's registry but
-the vlm and audio archs, whose frontends are not ported yet), plus
-``paper-alexnet`` (the GEMM layer table of the paper's figures), which
-``ARCH_NAMES`` leaves out as the reference's does.
+The reference's registry: the ten serving archs, plus ``paper-alexnet``
+(the GEMM layer table of the paper's figures), which ``ARCH_NAMES``
+leaves out as the reference's does.
 """
 from __future__ import annotations
 
@@ -11,7 +10,8 @@ import importlib
 from typing import Dict
 
 from repro_torch.configs.base import (  # noqa: F401
-    ArchConfig, MLAConfig, MoEConfig, SSMConfig,
+    ALL_SHAPES, ArchConfig, MLAConfig, MoEConfig, ShapeConfig, SSMConfig,
+    shape_by_name,
 )
 
 _ARCH_MODULES: Dict[str, str] = {
@@ -23,6 +23,8 @@ _ARCH_MODULES: Dict[str, str] = {
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
     "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
     "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2p7b",
+    "pixtral-12b": "repro_torch.configs.pixtral_12b",
+    "musicgen-large": "repro_torch.configs.musicgen_large",
     "paper-alexnet": "repro_torch.configs.paper_alexnet",
 }
 

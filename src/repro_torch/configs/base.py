@@ -1,4 +1,4 @@
-"""Architecture configuration dataclasses.
+"""Architecture / shape configuration dataclasses.
 
 Field-for-field mirrors of the reference ``repro/configs/base.py`` (the
 reference module pulls its framework in through ``SparsityConfig``, so
@@ -8,7 +8,7 @@ its own module; reduced smoke variants come from ``ArchConfig.reduced()``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 from repro_torch.core.sparse_ops import SparsityConfig
 
@@ -172,3 +172,26 @@ class ArchConfig:
         if self.attn_every:
             kw["attn_every"] = 2
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+ALL_SHAPES: Tuple[ShapeConfig, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K,
+                                       LONG_500K)
+
+
+def shape_by_name(name: str) -> ShapeConfig:
+    for s in ALL_SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)

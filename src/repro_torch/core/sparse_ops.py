@@ -1,7 +1,6 @@
-"""High-level SparCE ops used by the model layers (forward only).
+"""High-level SparCE ops used by the model layers.
 
-Port of the forward paths of the reference ``repro/core/sparse_ops.py``
-that serving runs:
+Port of the reference ``repro/core/sparse_ops.py``:
 
   * :class:`SparsityConfig` -- the technique's config, field for field,
     including the snap of ``expected_sparsity`` to the 1/8 EMA grid;
@@ -19,7 +18,16 @@ that serving runs:
   * :func:`relu_with_bitmap`, :func:`relu2_with_bitmap`,
     :func:`glu_act_with_bitmap` and :func:`gemm_skip_stats`.
 
-The backwards (the reference's ``custom_vjp`` rules) are not ported.
+The reference's three ``custom_vjp`` rules are ``torch.autograd``
+Functions with the same math: :func:`sparce_matmul`'s backward gates the
+BP GEMM ``dx = g @ w^T`` on the error bitmap of ``g`` and the WG GEMM
+``dw = x^T @ g`` on the transposed feature bitmap, through the gated
+GEMM kernel under ``mode="kernel"`` (the paper's training-time story:
+errors are sparser than features); the relu-family and GLU MLPs
+recompute the dense gradient in f32 from ``x`` (the GLU's ignores the
+forward's threshold drop). No gradient flows into the int32 bits. The
+relu-bitmap kernel has no backward, in the reference as here:
+:func:`relu_with_bitmap` under ``mode="kernel"`` refuses one.
 """
 from __future__ import annotations
 
@@ -103,6 +111,42 @@ def _run_matmul(x, w, lbits, rbits, plan: sasa.SkipPlan, mode: str,
     )
 
 
+class _SparceMatmul(torch.autograd.Function):
+    """y = x @ w under ``plan``; the reference's ``_sparce_matmul``."""
+
+    @staticmethod
+    def forward(ctx, x, w, lbits, rbits, plan: sasa.SkipPlan, mode: str):
+        ctx.save_for_backward(x, w, lbits)
+        ctx.plan, ctx.mode = plan, mode
+        return _run_matmul(x, w, lbits, rbits, plan, mode, x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, lbits = ctx.saved_tensors
+        plan, mode = ctx.plan, ctx.mode
+        g = g.contiguous()
+        gated = mode != "off" and plan.gate in ("lhs", "both")
+        # BP: dx = g @ w^T, gated on the ERROR bitmap (tiles of g).
+        gbits = (sprf.compute_bitmap(g, (plan.block_m, plan.block_n)).bits
+                 if gated else None)
+        dx_plan = sasa.SkipPlan(
+            gate="lhs" if gated else "none",
+            variant="gated" if gated else "dense",
+            block_m=plan.block_m, block_k=plan.block_n,
+            block_n=plan.block_k)
+        dx = _run_matmul(g, w.T, gbits, None, dx_plan, mode, x.dtype)
+        # WG: dw = x^T @ g, gated on the FEATURE bitmap, transposed.
+        wg = gated and lbits is not None
+        dw_plan = sasa.SkipPlan(
+            gate="lhs" if wg else "none",
+            variant="gated" if wg else "dense",
+            block_m=plan.block_k, block_k=plan.block_m,
+            block_n=plan.block_n)
+        dw = _run_matmul(x.T, g, lbits.T.contiguous() if wg else None,
+                         None, dw_plan, mode, w.dtype)
+        return dx, dw, None, None, None, None
+
+
 def sparce_matmul(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -135,7 +179,7 @@ def sparce_matmul(
             )
     lbits = lhs_bitmap.bits if lhs_bitmap is not None else None
     rbits = rhs_bitmap.bits if rhs_bitmap is not None else None
-    return _run_matmul(x, w, lbits, rbits, plan, cfg.mode, x.dtype)
+    return _SparceMatmul.apply(x, w, lbits, rbits, plan, cfg.mode)
 
 
 # ------------------------------------------------------------- relu MLP
@@ -155,6 +199,46 @@ def two_kernel_mlp(x, w_in, w_out, plan: sasa.MlpPlan, act: str = "relu"
     )
     y = kops.sparce_gemm(a, w_out, gplan, lhs_bitmap=bmp, out_dtype=x.dtype)
     return y, bmp.bits
+
+
+class _SparceMlp(torch.autograd.Function):
+    """(y, bits) of the relu-family MLP under ``plan``; the backward is the
+    reference's dense f32 recompute from x (``_sparce_mlp``)."""
+
+    @staticmethod
+    def forward(ctx, x, w_in, w_out, plan: sasa.MlpPlan, act: str):
+        ctx.save_for_backward(x, w_in, w_out)
+        ctx.act = act
+        if plan.variant == "fused":
+            y, bmp = kops.sparce_mlp_fused(
+                x, w_in, w_out, block_m=plan.block_m, block_f=plan.block_f,
+                act=act)
+            bits = bmp.bits
+        elif plan.variant == "two_kernel":
+            y, bits = two_kernel_mlp(x, w_in, w_out, plan, act)
+        else:
+            a = torch.clamp_min(x @ w_in, 0.0)
+            if act == "relu2":
+                a = a * a
+            bits = sprf.compute_bitmap(a, (plan.block_m, plan.block_f)).bits
+            y = a @ w_out
+        ctx.mark_non_differentiable(bits)
+        return y, bits
+
+    @staticmethod
+    def backward(ctx, g, _bits_grad):
+        x, w_in, w_out = ctx.saved_tensors
+        h = x.float() @ w_in.float()
+        r = torch.clamp_min(h, 0.0)
+        a = r * r if ctx.act == "relu2" else r
+        gf = g.float()
+        da = gf @ w_out.float().T
+        dw_out = (a.T @ gf).to(w_out.dtype)
+        # d(act)/dh: relu -> 1[h > 0]; relu2 -> 2 relu(h) (0 for h <= 0).
+        dh = da * ((2.0 * r) if ctx.act == "relu2" else (h > 0).float())
+        dx = (dh @ w_in.float().T).to(x.dtype)
+        dw_in = (x.float().T @ dh).to(w_in.dtype)
+        return dx, dw_in, dw_out, None, None
 
 
 def sparce_mlp(
@@ -179,19 +263,8 @@ def sparce_mlp(
         dtype=dtype_name(x.dtype),
         block_m=cfg.block_m, block_f=cfg.block_k, block_n=cfg.block_n,
     )
-    if plan.variant == "fused":
-        y, bmp = kops.sparce_mlp_fused(
-            x, w_in, w_out, block_m=plan.block_m, block_f=plan.block_f,
-            act=act)
-        return y, bmp.bits, plan
-    if plan.variant == "two_kernel":
-        y, bits = two_kernel_mlp(x, w_in, w_out, plan, act)
-        return y, bits, plan
-    a = torch.clamp_min(x @ w_in, 0.0)
-    if act == "relu2":
-        a = a * a
-    bits = sprf.compute_bitmap(a, (plan.block_m, plan.block_f)).bits
-    return a @ w_out, bits, plan
+    y, bits = _SparceMlp.apply(x, w_in, w_out, plan, act)
+    return y, bits, plan
 
 
 # ------------------------------------------------------------- GLU MLP
@@ -215,6 +288,58 @@ def unfused_glu_mlp(x, w_gate, w_in, w_out, plan: sasa.MlpPlan, act: str,
     )
     y = kops.sparce_gemm(a, w_out, gplan, lhs_bitmap=bmp, out_dtype=x.dtype)
     return y, bits
+
+
+class _SparceGluMlp(torch.autograd.Function):
+    """(y, bits) of the gated-GLU MLP under ``plan``; the backward is the
+    reference's exact GLU gradient in f32, ignoring the forward's
+    threshold drop (at tau 0 the dropped tiles are exactly zero; above it
+    this is the straight-through treatment of the approximation)."""
+
+    @staticmethod
+    def forward(ctx, x, w_gate, w_in, w_out, plan: sasa.MlpPlan, act: str,
+                tau: float):
+        ctx.save_for_backward(x, w_gate, w_in, w_out)
+        ctx.act = act
+        if plan.variant == "fused":
+            y, bmp = kops.sparce_glu_mlp_fused(
+                x, w_gate, w_in, w_out, block_m=plan.block_m,
+                block_f=plan.block_f, act=act, tau=tau)
+            bits = bmp.bits
+        elif plan.variant == "unfused":
+            y, bits = unfused_glu_mlp(x, w_gate, w_in, w_out, plan, act,
+                                      tau)
+        else:
+            # dense fallback: plain GLU; the bitmap rides along (report
+            # only).
+            g = x @ w_gate
+            ga = kref.glu_act_ref(g, act)
+            bits = kref.gate_bitmap_ref(ga, (plan.block_m, plan.block_f),
+                                        tau)
+            a = (ga.float() * (x @ w_in).float()).to(x.dtype)
+            y = a @ w_out
+        ctx.mark_non_differentiable(bits)
+        return y, bits
+
+    @staticmethod
+    def backward(ctx, gy, _bits_grad):
+        x, w_gate, w_in, w_out = ctx.saved_tensors
+        xf = x.float()
+        g = xf @ w_gate.float()
+        h = xf @ w_in.float()
+        with torch.enable_grad():
+            gl = g.detach().requires_grad_()
+            ga_t = kref.glu_act_ref(gl, ctx.act)
+        ga = ga_t.detach()
+        gyf = gy.float()
+        da = gyf @ w_out.float().T
+        dw_out = ((ga * h).T @ gyf).to(w_out.dtype)
+        dh = da * ga
+        (dg,) = torch.autograd.grad(ga_t, gl, da * h)
+        dx = (dh @ w_in.float().T + dg @ w_gate.float().T).to(x.dtype)
+        dw_in = (xf.T @ dh).to(w_in.dtype)
+        dw_gate = (xf.T @ dg).to(w_gate.dtype)
+        return dx, dw_gate, dw_in, dw_out, None, None, None
 
 
 def sparce_glu_mlp(
@@ -241,23 +366,9 @@ def sparce_glu_mlp(
         dtype=dtype_name(x.dtype),
         block_m=cfg.block_m, block_f=cfg.block_k, block_n=cfg.block_n,
     )
-    tau = float(cfg.gate_threshold)
-    if plan.variant == "fused":
-        y, bmp = kops.sparce_glu_mlp_fused(
-            x, w_gate, w_in, w_out, block_m=plan.block_m,
-            block_f=plan.block_f, act=act, tau=tau,
-        )
-        return y, bmp.bits, plan
-    if plan.variant == "unfused":
-        y, bits = unfused_glu_mlp(x, w_gate, w_in, w_out, plan, act, tau)
-        return y, bits, plan
-    # dense fallback: plain GLU; the bitmap rides along (report only).
-    g = x @ w_gate
-    ga = kref.glu_act_ref(g, act)
-    bits = kref.gate_bitmap_ref(ga, (plan.block_m, plan.block_f), tau)
-    h = x @ w_in
-    a = (ga.float() * h.float()).to(x.dtype)
-    return a @ w_out, bits, plan
+    y, bits = _SparceGluMlp.apply(x, w_gate, w_in, w_out, plan, act,
+                                  float(cfg.gate_threshold))
+    return y, bits, plan
 
 
 def glu_act_with_bitmap(
@@ -288,19 +399,41 @@ def gemm_skip_stats(bitmap: Optional[sprf.TileBitmap], n: int,
     return torch.stack([skipped, torch.full_like(skipped, float(total))])
 
 
+class _KernelRelu(torch.autograd.Function):
+    """The relu-bitmap kernel's (y, bits). It has no reverse rule, in the
+    reference as here: a backward through it raises."""
+
+    @staticmethod
+    def forward(ctx, x2, block):
+        y, bmp = kops.relu_with_bitmap(x2, block)
+        ctx.mark_non_differentiable(bmp.bits)
+        return y, bmp.bits
+
+    @staticmethod
+    def backward(ctx, gy, _bits_grad):
+        raise ValueError(
+            "relu_with_bitmap under mode='kernel' is not differentiable: "
+            "the relu-bitmap kernel has no backward rule (nor has the "
+            "reference's); train the relu MLP with mode='fused' or "
+            "'reference'")
+
+
 def relu_with_bitmap(
     x: torch.Tensor, cfg: SparsityConfig
 ) -> Tuple[torch.Tensor, Optional[sprf.TileBitmap]]:
     """relu + SpRF tile bitmap in one pass (the relu-bitmap kernel with
-    ``mode="kernel"``). Accepts (..., features); the bitmap is over the
-    flattened-2D view, the layout the consuming matmul sees."""
+    ``mode="kernel"``, which cannot be differentiated). Accepts
+    (..., features); the bitmap is over the flattened-2D view, the layout
+    the consuming matmul sees."""
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
     if not cfg.enabled or cfg.mode == "off":
         return torch.clamp_min(x, 0), None
     if cfg.mode == "kernel":
-        y2, bmp = kops.relu_with_bitmap(x2, (cfg.block_m, cfg.block_k))
-        return y2.reshape(shape), bmp
+        block = (cfg.block_m, cfg.block_k)
+        y2, bits = _KernelRelu.apply(x2, block)
+        return y2.reshape(shape), sprf.TileBitmap(
+            bits=bits, block=block, shape=tuple(x2.shape))
     y2 = torch.clamp_min(x2, 0)
     return y2.reshape(shape), sprf.compute_bitmap(
         y2, (cfg.block_m, cfg.block_k))

@@ -26,7 +26,8 @@ fields are the reference cost model's accounting (the paper's simulated
 core, the roofline of the accelerator the reference was written for;
 ``core/cost_model.py``), not measurements of this card. The run uses
 the card unless ``--device cpu`` is given; on the CPU every kernel runs
-its plain version. Training (quickstart part 2) is not ported yet.
+its plain version. Quickstart part 2 (training a tiny relu LM) is
+``runtime/trainer.py``'s, run by ``launch/train.py``.
 """
 from __future__ import annotations
 

@@ -182,7 +182,10 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     # One seeded prefix shared by every request, drawn first, as the
     # reference launcher draws it.
-    shared_prefix = (rng.integers(0, cfg.vocab_size, args.shared_prefix_len)
+    # Audio prompts are (K, plen) codebook streams.
+    lead = (cfg.num_codebooks,) if cfg.frontend == "codes" else ()
+    shared_prefix = (rng.integers(0, cfg.vocab_size,
+                                  lead + (args.shared_prefix_len,))
                      if args.shared_prefix_len > 0 else None)
     reqs = []
     for i in range(args.requests):
@@ -192,9 +195,9 @@ def main(argv=None):
                                     args.prompt_len + 1))
             max_new = int(rng.integers(max(1, args.max_new // 4),
                                        args.max_new + 1))
-        prompt = rng.integers(0, cfg.vocab_size, plen)
+        prompt = rng.integers(0, cfg.vocab_size, lead + (plen,))
         if shared_prefix is not None:
-            prompt = np.concatenate([shared_prefix, prompt])
+            prompt = np.concatenate([shared_prefix, prompt], axis=-1)
         reqs.append(Request(uid=i, prompt=prompt, max_new=max_new))
 
     if args.open_loop:

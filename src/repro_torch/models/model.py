@@ -1,11 +1,11 @@
-"""Top-level language model, dense, moe, ssm and hybrid families: init /
-forward / serving ops.
-
-Port of the text-frontend parts of ``repro/models/model.py`` (the vlm
-and audio frontends are not ported yet).
+"""Top-level language model for every family the reference defines
+(dense, moe, ssm, hybrid, vlm, audio): init / forward / loss / serving
+ops. Port of ``repro/models/model.py``.
 
 Param tree: ``{"embed": (V, d), "final_norm": {"scale": (d,) f32},
 "stack": [layer dicts]}`` (plus ``"head"`` when embeddings are untied;
+for the audio frontend (``frontend="codes"``) ``"embed"`` is (K, V, d),
+one table per codebook, and ``"heads"`` (K, d, V) replaces ``"head"``;
 for the moe family ``"dense_stack"``, the first_k_dense dense layers
 before the moe ``"stack"``; for the hybrid family ``"hybrid"`` in place
 of ``"stack"``: ``{"groups": [[ssm layer dicts]], "shared_attn": block
@@ -13,9 +13,14 @@ dict, "trailing": [ssm layer dicts]}``) -- the reference's tree with the
 layer-stacked leaves unstacked into lists, one dict per layer. Caches
 are dicts keyed like the stacks; the ssm family's are
 :class:`~repro_torch.models.ssm.SSMCache` states, which only the
-contiguous layout holds. Batch convention: ``tokens`` int (B, S);
-``active`` f32 (B,) live-slot mask; ``block_tables`` int32
-(B, max_blocks); ``advance`` int32 (B,) bucketed-prefill true lengths.
+contiguous layout holds. Batch convention: ``tokens`` int (B, S)
+(audio: (B, K, S) codebook streams); ``patch_embeds`` (B, P, d), vlm
+only, prepended in prefill and training (decode steps pass tokens
+only); ``loss_mask`` f32 (B, S), optional (1 = the position counts in
+the loss); ``active`` f32 (B,) live-slot mask; ``block_tables`` int32
+(B, max_blocks); ``advance`` int32 (B,) bucketed-prefill true lengths
+(counting the patch rows). Targets are ``tokens`` shifted left by one
+inside the loss.
 """
 from __future__ import annotations
 
@@ -55,12 +60,16 @@ def _stacks(cfg: ArchConfig) -> List[Tuple[str, str, int]]:
     return [("stack", "dense", cfg.num_layers)]
 
 
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+FRONTENDS = (None, "patches", "codes")
+
+
 def check_family(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.frontend:
-        raise NotImplementedError(
-            f"family {cfg.family!r} (frontend={cfg.frontend!r}) is not "
-            "ported yet; the port serves the dense, moe, ssm and hybrid "
-            "families")
+    if cfg.family not in FAMILIES or cfg.frontend not in FRONTENDS:
+        raise ValueError(
+            f"family {cfg.family!r} (frontend={cfg.frontend!r}) is not one "
+            f"the model defines: families {FAMILIES}, frontends "
+            f"{FRONTENDS}")
 
 
 # -------------------------------------------------------------------- init
@@ -73,12 +82,17 @@ def init_params(cfg: ArchConfig, seed: int = 0,
     dtype = nn.torch_dtype(cfg.dtype)
     rng = np.random.default_rng(seed)
     params: Dict[str, Any] = {
-        "final_norm": rmsnorm_init(cfg.d_model, dtype, dev),
-        "embed": nn.embed_init(rng, cfg.vocab_size, cfg.d_model, dtype, dev),
-    }
-    if not cfg.tie_embeddings:
-        params["head"] = nn.dense_init(rng, cfg.d_model, cfg.vocab_size,
-                                       dtype, dev)
+        "final_norm": rmsnorm_init(cfg.d_model, dtype, dev)}
+    d, V = cfg.d_model, cfg.vocab_size
+    if cfg.frontend == "codes":
+        K = cfg.num_codebooks
+        params["embed"] = nn.normal_init(rng, (K, V, d), 0.02, dtype, dev)
+        params["heads"] = nn.normal_init(rng, (K, d, V), d ** -0.5, dtype,
+                                         dev)
+    else:
+        params["embed"] = nn.embed_init(rng, V, d, dtype, dev)
+        if not cfg.tie_embeddings:
+            params["head"] = nn.dense_init(rng, d, V, dtype, dev)
     if cfg.family == "hybrid":
         params["hybrid"] = tfm.hybrid_init(rng, cfg, dtype, dev)
     for key, kind, n in _stacks(cfg):
@@ -91,10 +105,33 @@ def params_device(params) -> torch.device:
 
 
 # ----------------------------------------------------------------- forward
+def _embed(params, cfg: ArchConfig, tokens: torch.Tensor,
+           patch_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    """(B, S, d) input rows. Audio: the K codebooks' embeddings summed in
+    codebook order. Vlm: the patch embeddings prepended when given
+    (prefill and training; decode steps pass tokens only)."""
+    if cfg.frontend == "codes":
+        emb = params["embed"]  # (K, V, d)
+        x = torch.zeros((tokens.shape[0], tokens.shape[2], cfg.d_model),
+                        dtype=emb.dtype, device=emb.device)
+        for k in range(cfg.num_codebooks):
+            x = x + emb[k][tokens[:, k, :].long()]
+        return x
+    x = params["embed"][tokens.long()]  # (B, S, d)
+    if cfg.frontend == "patches" and patch_embeds is not None:
+        x = torch.cat([patch_embeds.to(device=x.device, dtype=x.dtype), x],
+                      dim=1)
+    return x
+
+
 def _logits(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     """f32 logits ``x @ head`` with the head upcast to f32, as in the
     reference, one slice of vocab columns at a time so the f32 copy of a
-    low-precision head never exists whole."""
+    low-precision head never exists whole. Audio: (B, S, K, V) from the
+    K heads, the reference's f32 ``bskv`` einsum."""
+    if cfg.frontend == "codes":
+        return torch.einsum("bsd,kdv->bskv", x.float(),
+                            params["heads"].float())
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
     xf = x.float()
     if head.dtype == torch.float32:
@@ -158,8 +195,7 @@ def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     attention runs the fresh queries over the whole buffer anchored at
     the cache length. Bucketable families only, like ``advance``."""
     check_family(cfg)
-    tokens = batch["tokens"]
-    x = params["embed"][tokens.long()]  # (B, S, d)
+    x = _embed(params, cfg, batch["tokens"], batch.get("patch_embeds"))
     active = batch.get("active")
     if active is not None:
         x = x * active.to(x.dtype)[:, None, None]
@@ -201,9 +237,44 @@ def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     return logits, new_caches, aux
 
 
+def loss_fn(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy over the text positions (audio: the mean
+    over codebooks of each stream's), weighted by ``batch["loss_mask"]``
+    when given, plus the MoE router aux loss. Returns (total, {"loss",
+    "aux_loss", "total_loss"})."""
+    logits, _, aux = forward(params, cfg, batch)
+    tokens = batch["tokens"].long()
+    if cfg.frontend == "codes":
+        targets = tokens[:, :, 1:]  # (B, K, S-1)
+        lse = torch.log_softmax(logits[:, :-1], dim=-1)  # (B, S-1, K, V)
+        ll = torch.gather(lse, -1, targets.permute(0, 2, 1)[..., None]
+                          )[..., 0]  # (B, S-1, K)
+        mask = torch.ones(ll.shape[:2], dtype=torch.float32,
+                          device=ll.device)
+        if "loss_mask" in batch:
+            mask = mask * batch["loss_mask"][:, 1:]
+        loss = -torch.sum(ll.mean(-1) * mask) / torch.clamp_min(
+            mask.sum(), 1.0)
+    else:
+        if cfg.frontend == "patches":
+            logits = logits[:, batch["patch_embeds"].shape[1]:]  # text
+        targets = tokens[:, 1:]
+        lse = torch.log_softmax(logits[:, :-1], dim=-1)
+        ll = torch.gather(lse, -1, targets[..., None])[..., 0]
+        mask = torch.ones_like(ll)
+        if "loss_mask" in batch:
+            mask = batch["loss_mask"][:, 1:].to(ll.dtype)
+        loss = -torch.sum(ll * mask) / torch.clamp_min(mask.sum(), 1.0)
+    total = loss + aux["loss"]
+    return total, {"loss": loss, "aux_loss": aux["loss"],
+                   "total_loss": total}
+
+
 def serving_decode_step(params, cfg: ArchConfig, last_tokens, caches,
                         active, block_tables=None, attn_kernel="gather"):
-    """Continuous-batching decode tick. last_tokens: (B, 1); active: f32
+    """Continuous-batching decode tick. last_tokens: (B, 1) or (B, K, 1)
+    for audio; active: f32
     (B,); block_tables: int32 (B, max_blocks) when the caches are paged.
     Returns (logits, new_caches, skip_stats f32[2])."""
     batch = {"tokens": last_tokens, "active": active}
@@ -217,8 +288,7 @@ def serving_decode_step(params, cfg: ArchConfig, last_tokens, caches,
 # ---------------------------------------------------------------- caches
 def paged_families() -> Tuple[str, ...]:
     """Families whose serving caches are pure attention-KV stacks and can
-    be paged (the reference's list; :func:`check_family` refuses the vlm
-    and audio frontends, not ported yet). The ssm and hybrid states are
+    be paged (the reference's list). The ssm and hybrid states are
     fixed-size recurrences with no per-token rows to page: they keep the
     contiguous layout."""
     return ("dense", "vlm", "audio", "moe")
@@ -262,7 +332,8 @@ def prefill(params, cfg: ArchConfig, batch, max_len: int, *,
 
 
 def decode_step(params, cfg: ArchConfig, last_tokens, caches):
-    """One-token step over contiguous caches. last_tokens: (B, 1)."""
+    """One-token step over contiguous caches. last_tokens: (B, 1) or
+    (B, K, 1) for audio."""
     logits, new_caches, _ = forward(params, cfg, {"tokens": last_tokens},
                                     caches)
     return logits, new_caches

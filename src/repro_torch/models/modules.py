@@ -101,5 +101,21 @@ def iter_leaves(tree) -> Iterable[torch.Tensor]:
         yield tree
 
 
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts / lists / tuples (named
+    tuples kept), ``rest`` trees of the same structure alongside; leaves
+    are visited in :func:`iter_leaves` order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        out = [tree_map(fn, v, *(r[i] for r in rest))
+               for i, v in enumerate(tree)]
+        if isinstance(tree, list):
+            return out
+        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
+    return fn(tree, *rest)
+
+
 def param_count(params) -> int:
     return sum(p.numel() for p in iter_leaves(params))

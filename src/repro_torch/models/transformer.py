@@ -17,12 +17,20 @@ works on views of them (``cache.k[l]`` / ``cache.v[l]``, which its
 attention updates in place; an ssm layer's new conv window and state
 are copied into ``conv[l]`` / ``h[l]``), and the stack returns the same
 buffers with the new per-layer lengths.
+
+Activation checkpointing (``cfg.remat``, training only: no caches, grad
+enabled): ``"full"`` recomputes each block's forward in the backward,
+``"dots"`` keeps only its 2-D matmul outputs (the reference's
+``checkpoint_dots_with_no_batch_dims``) and recomputes the rest. Neither
+changes a value.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Optional
 
 import torch
+from torch.utils import checkpoint as torch_ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import moe as moe_lib
@@ -42,6 +50,31 @@ def aux_zero(device) -> dict:
         "loss": torch.zeros((), dtype=torch.float32, device=device),
         "skip": torch.zeros((2,), dtype=torch.float32, device=device),
     }
+
+
+# The matmuls the "dots" policy keeps (2-D: no batch dims).
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (torch_ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else torch_ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, cfg: ArchConfig, caches):
+    """``fn`` under ``cfg.remat`` when training (no caches, grad on)."""
+    if cfg.remat == "none" or caches is not None or (
+            not torch.is_grad_enabled()):
+        return fn
+    if cfg.remat == "full":
+        kw = {}
+    elif cfg.remat == "dots":
+        kw = {"context_fn": functools.partial(
+            torch_ckpt.create_selective_checkpoint_contexts, _save_dots)}
+    else:
+        raise ValueError(f"remat must be none|full|dots, got {cfg.remat!r}")
+    return functools.partial(torch_ckpt.checkpoint, fn, use_reentrant=False,
+                             **kw)
 
 
 def block_init(rng, cfg: ArchConfig, kind: str, dtype, device):
@@ -115,11 +148,12 @@ def stack_fwd(layers, x, positions, cfg: ArchConfig, kind: str,
     aux = aux_zero(x.device)
     lengths = []
     ssm = isinstance(caches, ssm_lib.SSMCache)
+    block = _remat(block_fwd, cfg, caches)
     for i, lp in enumerate(layers):
         lc: Any = None
         if caches is not None:
             lc = type(caches)(*(f[i] for f in caches))
-        x, nc, a = block_fwd(
+        x, nc, a = block(
             lp, x, positions, cfg, kind, cache=lc, active=active,
             block_tables=block_tables, advance=advance,
             attn_kernel=attn_kernel, continuation=continuation,
@@ -170,6 +204,7 @@ def hybrid_fwd(params, x, positions, cfg: ArchConfig, caches=None,
         raise AssertionError("hybrid prefill is exact-length only")
     every, n_super, trailing = _hybrid_shape(cfg)
     shared = params["shared_attn"]
+    shared_fwd = _remat(block_fwd, cfg, caches)
     aux = aux_zero(x.device)
     lengths = []
     for i, group in enumerate(params["groups"]):
@@ -179,8 +214,8 @@ def hybrid_fwd(params, x, positions, cfg: ArchConfig, caches=None,
             attn_c = KVCache(*(f[i] for f in caches["attn"]))
         x, _, a1 = stack_fwd(group, x, positions, cfg, "ssm", ssm_c,
                              active=active)
-        x, nc, a2 = block_fwd(shared, x, positions, cfg, "dense",
-                              cache=attn_c, active=active)
+        x, nc, a2 = shared_fwd(shared, x, positions, cfg, "dense",
+                               cache=attn_c, active=active)
         aux = {k: aux[k] + a1[k] + a2[k] for k in aux}
         if caches is not None:
             lengths.append(nc.length)

@@ -68,6 +68,12 @@ every cache leaf (:func:`model.insert_slot_caches`); there is no pool,
 so no block growth, no prefix sharing and no preemption, and the paged
 decode kernel is refused, as the reference refuses them.
 
+The vlm frontend puts ``num_patches`` patch rows (zero embeddings, the
+frontend's stand-in) ahead of every prompt, and they count in every row
+and block count; the audio frontend's prompts are (K, S) codebook
+streams, its decode tokens (B, K, 1), and a request stops at EOS only
+when every codebook samples it.
+
 Not ported yet (``ServeConfig`` rejects it with NotImplementedError):
 the SPMD mesh.
 
@@ -97,6 +103,7 @@ from repro_torch.core.sparse_ops import SparsityConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.paged_decode_attn import decode_attn_block_counts
 from repro_torch.models import model as model_lib
+from repro_torch.models import modules as nn
 from repro_torch.runtime.errors import (
     EngineFatal, RequestCancelled, RequestFailed, ServerOverloaded,
     ServingError, is_request_scoped,
@@ -276,11 +283,15 @@ class Server:
         self._paged = (serve_cfg.kv_block_size > 0
                        and cfg.family in model_lib.paged_families())
         # Value checks of the family (no params touched), the reference's.
+        model_lib.check_family(cfg)
         if serve_cfg.attn_kernel == "paged" and not self._paged:
             raise ValueError(
                 "attn_kernel='paged' needs the paged KV layout (set "
                 "kv_block_size > 0; ssm/hybrid families fall back to "
                 "contiguous caches and must keep attn_kernel='gather')")
+        # Prompt rows share the cache with the (constant) patch prefix.
+        self._patch_rows = (cfg.num_patches if cfg.frontend == "patches"
+                            else 0)
         if serve_cfg.prefix_cache:
             if not self._paged:
                 raise ValueError(
@@ -288,7 +299,7 @@ class Server:
                     "kv_block_size > 0; ssm/hybrid families have no "
                     "per-token rows to share)")
             if (cfg.family not in model_lib.bucketable_families()
-                    or cfg.frontend == "patches"):
+                    or self._patch_rows):
                 raise ValueError(
                     f"prefix_cache=True is not supported for family "
                     f"{cfg.family!r}: suffix-only prefill needs bucketed "
@@ -303,8 +314,7 @@ class Server:
             raise ValueError(
                 f"params live on {model_lib.params_device(params)}, the "
                 f"server runs on {self.device}")
-        model_lib.check_family(cfg)
-        self._max_rows = serve_cfg.max_len
+        self._max_rows = serve_cfg.max_len + self._patch_rows
         if self._paged:
             self._max_blocks = blocks_needed(self._max_rows,
                                              serve_cfg.kv_block_size)
@@ -401,17 +411,34 @@ class Server:
     # ----------------------------------------------------------- admission
     def _request_need(self, r: Request) -> Tuple[int, int]:
         """(prompt_rows, worst_case_rows): decode tick j writes token j at
-        row prompt+j-1 and the last sampled token is never written. A
-        preempted request's effective prompt grew by its resume tokens
-        while its remaining budget shrank by as many, so its worst case
-        is that of its first admission."""
-        rows0 = int(self._effective_prompt(r).shape[-1])
+        row prompt+j-1 and the last sampled token is never written (the
+        vlm patch prefix counts in both). A preempted request's effective
+        prompt grew by its resume tokens while its remaining budget shrank
+        by as many, so its worst case is that of its first admission."""
+        rows0 = (int(self._effective_prompt(r).shape[-1])
+                 + self._patch_rows)
         done = len(r.resume_tokens) if r.resume_tokens else 0
         return rows0, rows0 + max(1, r.max_new - done) - 1
 
     def _bucket_rows(self, r: Request) -> int:
+        """Padded prompt rows the request's prefill runs at."""
         S = int(self._effective_prompt(r).shape[-1])
-        return pick_bucket(S, self._buckets) if self._buckets else S
+        S_pad = pick_bucket(S, self._buckets) if self._buckets else S
+        return S_pad + self._patch_rows
+
+    def _prompt_tokens(self, prompt: np.ndarray, start: int, n: int,
+                       S_pad: int) -> np.ndarray:
+        """Columns ``start..start+n`` of a prompt ((S,), or (K, S) for
+        audio) as a batch of one padded with zeros to ``S_pad``."""
+        cfg = self.cfg
+        if cfg.frontend == "codes":
+            K = cfg.num_codebooks
+            toks = np.zeros((1, K, S_pad), np.int64)
+            toks[0, :, :n] = prompt.reshape(K, -1)[:, start:start + n]
+        else:
+            toks = np.zeros((1, S_pad), np.int64)
+            toks[0, :n] = prompt.reshape(-1)[start:start + n]
+        return toks
 
     def _prefill_one(self, r: Request, slot: int, caches,
                      block_ids: List[int]):
@@ -421,23 +448,30 @@ class Server:
         rest. The paged layout prefills into a scratch of the prompt's
         rows and scatters them into the pool blocks ``block_ids``; the
         contiguous one into a scratch of the slot cache's row count,
-        whose every leaf then overwrites the slot's row."""
+        whose every leaf then overwrites the slot's row. A vlm prompt
+        runs behind zero patch embeddings (the frontend's stand-in), in
+        the config's dtype."""
         cfg = self.cfg
-        prompt = self._effective_prompt(r).reshape(-1)
-        S = int(prompt.shape[0])
+        prompt = self._effective_prompt(r)
+        S = int(prompt.shape[-1])
         S_pad = pick_bucket(S, self._buckets) if self._buckets else S
-        toks = np.zeros((1, S_pad), np.int64)
-        toks[0, :S] = prompt
+        rows0 = S + self._patch_rows
         dev = self.device
-        batch = {"tokens": torch.from_numpy(toks).to(dev)}
+        batch = {"tokens": torch.from_numpy(
+            self._prompt_tokens(prompt, 0, S, S_pad)).to(dev)}
         if cfg.family in model_lib.bucketable_families():
             # Exact-length families never pad: their prefill advances by
             # S implicitly, and forward rejects 'advance' for them.
-            batch["advance"] = torch.tensor([S], dtype=torch.int32,
+            batch["advance"] = torch.tensor([rows0], dtype=torch.int32,
                                             device=dev)
+        if cfg.frontend == "patches":
+            batch["patch_embeds"] = torch.zeros(
+                (1, cfg.num_patches, cfg.d_model),
+                dtype=nn.torch_dtype(cfg.dtype), device=dev)
         t0 = time.perf_counter()
         small = model_lib.init_caches(
-            cfg, 1, S_pad if self._paged else self._max_rows, device=dev)
+            cfg, 1, S_pad + self._patch_rows if self._paged
+            else self._max_rows, device=dev)
         with torch.no_grad():
             logits, small, aux = model_lib.forward(
                 self.params, cfg, batch, small, last_only=True)
@@ -447,10 +481,10 @@ class Server:
             ids = np.zeros((self._max_blocks,), np.int64)
             ids[: len(block_ids)] = block_ids
             caches = model_lib.insert_slot_paged(
-                caches, small, slot, torch.from_numpy(ids).to(dev), S)
+                caches, small, slot, torch.from_numpy(ids).to(dev), rows0)
         else:
             caches = model_lib.insert_slot_caches(caches, small, slot)
-        last = logits[0, 0].float().cpu().numpy()  # (V,)
+        last = logits[0, 0].float().cpu().numpy()  # (V,) or (K, V)
         skip = skip.double().cpu().numpy()
         self.metrics.prefill_s += time.perf_counter() - t0
         self.metrics.prefill_tokens += S
@@ -472,13 +506,13 @@ class Server:
         of the pool into a batch=1 scratch of ``_ext_rows`` rows pinned
         at length ``prefix_len``; the suffix, padded to its own bucket,
         runs with ``continuation=True``; only its rows are scattered
-        back (the shared rows' writes go to the null block)."""
-        prompt = self._effective_prompt(r).reshape(-1)
+        back (the shared rows' writes go to the null block). Never for
+        the vlm frontend: its patch rows are per-request."""
         n_suffix = rows0 - prefix_len
         S_pad = (pick_bucket(n_suffix, self._buckets) if self._buckets
                  else n_suffix)
-        toks = np.zeros((1, S_pad), np.int64)
-        toks[0, :n_suffix] = prompt[prefix_len:]
+        toks = self._prompt_tokens(self._effective_prompt(r), prefix_len,
+                                   n_suffix, S_pad)
         dev = self.device
         batch = {"tokens": torch.from_numpy(toks).to(dev),
                  "advance": torch.tensor([n_suffix], dtype=torch.int32,
@@ -494,7 +528,7 @@ class Server:
         self._prefill_shapes.add(("suffix", S_pad))
         caches = model_lib.insert_slot_paged_from(caches, small, slot, ids,
                                                   rows0, prefix_len)
-        last = logits[0, 0].float().cpu().numpy()  # (V,)
+        last = logits[0, 0].float().cpu().numpy()  # (V,) or (K, V)
         skip = aux["skip"].double().cpu().numpy()
         self.metrics.prefill_s += time.perf_counter() - t0
         # Only the suffix ran; the matched rows are counted in
@@ -531,17 +565,22 @@ class Server:
         eos = r.eos_id if r.eos_id is not None else self.sc.eos_id
         if eos is None:
             return False
+        if self.cfg.frontend == "codes":
+            return bool(np.all(tok == eos))  # every codebook at EOS
         return int(tok) == eos
 
     # -------------------------------------------------------------- engine
     def _validate(self, requests: List[Request]) -> None:
         """Reject requests that can never fit before admitting any."""
+        want = 2 if self.cfg.frontend == "codes" else 1
         for r in requests:
             prompt = np.asarray(r.prompt)
-            if prompt.ndim != 1:
+            if prompt.ndim != want:
                 raise ValueError(
-                    f"request uid={r.uid}: prompt must be 1-D token ids, "
-                    f"got shape {prompt.shape}")
+                    f"request uid={r.uid}: prompt must be "
+                    + ("(K, S) codebook ids" if want == 2
+                       else "1-D token ids")
+                    + f", got shape {prompt.shape}")
             need = int(prompt.shape[-1]) + max(1, r.max_new)
             if need > self.sc.max_len:
                 raise ValueError(
@@ -595,7 +634,9 @@ class Server:
                         if sc.prefix_cache else None)
         self._st = _EngineState(
             caches=caches, alloc=alloc, tables=tables,
-            slots=[None] * B, cur_tok=np.zeros((B,), np.int64),
+            slots=[None] * B,
+            cur_tok=np.zeros((B, cfg.num_codebooks) if cfg.frontend
+                             == "codes" else (B,), np.int64),
             completed=[],
         )
 
@@ -803,12 +844,18 @@ class Server:
             return blk
 
     # ---------------------------------------------------- preempt/requeue
-    @staticmethod
-    def _full_sequence(r: Request, produced: List[np.ndarray]) -> np.ndarray:
-        """prompt ++ produced: what a preempted request re-prefills."""
+    def _full_sequence(self, r: Request,
+                       produced: List[np.ndarray]) -> np.ndarray:
+        """prompt ++ produced, in the prompt's layout ((S,), or (K, S) for
+        audio): what a preempted request re-prefills."""
         prompt = np.asarray(r.prompt)
         if not produced:
             return prompt
+        if self.cfg.frontend == "codes":
+            K = self.cfg.num_codebooks
+            return np.concatenate(
+                [prompt.reshape(K, -1)]
+                + [np.asarray(t).reshape(K, 1) for t in produced], axis=-1)
         return np.concatenate(
             [prompt.reshape(-1), np.asarray(produced, np.int64).reshape(-1)])
 
@@ -874,7 +921,8 @@ class Server:
         if self._prefix is not None:
             n_full = s.cache_len // bs
             if n_full:
-                written = self._full_sequence(r, s.produced)[: s.cache_len]
+                written = self._full_sequence(
+                    r, s.produced)[..., : s.cache_len]
                 keys = PrefixCache.chain_keys(written, bs)
                 self._prefix.register(
                     keys[:n_full], [int(b) for b in st.tables[i, :n_full]])
@@ -1147,19 +1195,23 @@ class Server:
             return 0  # a growth fault evicted the last live slot
         slo = sc.slo
 
-        step = np.where(active.astype(bool), st.cur_tok, 0)
+        live = active.astype(bool)
+        step = np.where(live[:, None] if st.cur_tok.ndim > 1 else live,
+                        st.cur_tok, 0)
         dev = self.device
         t0 = time.perf_counter()
         with torch.no_grad():
             logits, st.caches, skip = model_lib.serving_decode_step(
                 self.params, self.cfg,
-                torch.from_numpy(step[:, None]).to(dev), st.caches,
+                torch.from_numpy(step[..., None]).to(dev), st.caches,
                 torch.from_numpy(active).to(dev),
                 None if st.tables is None
                 else torch.from_numpy(st.tables).to(dev),
                 attn_kernel=sc.attn_kernel,
             )
-            last = logits[:, -1].float().cpu().numpy()  # synchronises
+            # (B, V), or (B, K, V) for audio; synchronises.
+            last = (logits[:, 0] if self.cfg.frontend == "codes"
+                    else logits[:, -1]).float().cpu().numpy()
             skip = skip.double().cpu().numpy()
         self.metrics.decode_s += time.perf_counter() - t0
         self.metrics.ticks += 1
@@ -1171,7 +1223,7 @@ class Server:
         self._ema.update(float(skip[0]), float(skip[1]))
         self._maybe_replan()
 
-        nxt = self._sample(last)  # (B,)
+        nxt = self._sample(last)  # (B,) or (B, K)
         for i in range(B):
             s = st.slots[i]
             if s is None:

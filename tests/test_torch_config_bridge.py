@@ -80,11 +80,45 @@ def test_sparsity_config_fields_and_validation_equal_reference():
 
 
 def test_registry_knows_only_ported_archs():
-    """The vlm and audio archs, whose frontends are not ported, stay out
-    of the registry."""
+    """Every arch of the reference's registry is ported: the registry's
+    names are the reference's, and the vlm and audio configs equal the
+    reference's field for field (full and reduced)."""
+    from repro.configs import ARCH_NAMES as REF_ARCH_NAMES
+    from repro_torch.configs import ARCH_NAMES
+    assert ARCH_NAMES == REF_ARCH_NAMES
     for name in ("pixtral-12b", "musicgen-large"):
-        with pytest.raises(KeyError, match="serves"):
-            get_config(name)
+        for port, ref in ((get_config(name), ref_get_config(name)),
+                          (get_config(name).reduced(),
+                           ref_get_config(name).reduced())):
+            assert _as_dict(port) == _as_dict(ref)
+            assert port.n_params() == ref.n_params()
+    with pytest.raises(KeyError, match="serves"):
+        get_config("no-such-arch")
+
+
+@pytest.mark.parametrize("name", ["pixtral-12b", "musicgen-large"])
+def test_bridged_frontend_trees_exact(name):
+    """The audio frontend's per-codebook ``embed`` (K, V, d) and
+    ``heads`` (K, d, V), and the vlm's text tree, cross the bridge bit
+    for bit with the shapes and dtypes of the port's own init."""
+    ref_cfg = dataclasses.replace(ref_get_config(name).reduced(),
+                                  dtype="bfloat16")
+    cfg = dataclasses.replace(get_config(name).reduced(), dtype="bfloat16")
+    ref_params = jax.tree_util.tree_map(
+        np.asarray, ref_model.init_params(ref_cfg, jax.random.PRNGKey(0)))
+    port = bridge.params_from_reference(ref_params, device="cpu")
+    own = model_lib.init_params(cfg, seed=0, device="cpu")
+    assert sorted(port) == sorted(own)
+    for a, b in zip(modules.iter_leaves(port), modules.iter_leaves(own)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+    if cfg.frontend == "codes":
+        K, V, d = cfg.num_codebooks, cfg.vocab_size, cfg.d_model
+        assert tuple(port["embed"].shape) == (K, V, d)
+        assert tuple(port["heads"].shape) == (K, d, V)
+        assert "head" not in port
+    np.testing.assert_array_equal(
+        port["embed"].view(torch.int16).numpy(),
+        ref_params["embed"].view(np.int16))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -9,6 +9,9 @@ only, so it runs where the reference's framework is not installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -28,6 +31,10 @@ from repro_torch.kernels import sparce_glu_mlp as sgm
 from repro_torch.kernels import sparce_mlp as sm
 from repro_torch.models import model as model_lib
 from repro_torch.runtime.server import Request, ServeConfig, Server
+
+# The chip script's operands and limits for the training GEMMs.
+sys.path.append(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from chip_smoke import TRAIN_GEMM_REL, train_gemm_operands  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -1361,3 +1368,211 @@ def test_two_async_servers_at_once_on_one_card(cuda):
     torch.cuda.synchronize()
     for key, counts in pda._GQA_COUNTS.items():
         assert int(counts.abs().sum()) == 0, key
+
+
+# ------------------------------------------- the frontends and training
+@pytest.mark.parametrize("KV,g,D", [(32, 1, 64), (8, 4, 128)],
+                         ids=["musicgen-large", "pixtral-12b"])
+@pytest.mark.parametrize("dtype,tol", [
+    (torch.float32, 1e-5),   # f32 sums in another order
+    (torch.bfloat16, 2e-2),  # p rounded vs a running max; bf16 output
+])
+def test_gqa_kernel_at_frontend_heads(cuda, KV, g, D, dtype, tol):
+    """musicgen's multi-head attention (group 1) and pixtral's GQA."""
+    q, kp, vp, tables, lengths, live_ids = _attn_case(
+        cuda, dtype, KV=KV, g=g, D=D)
+    got = pda.paged_gqa_decode_attn(q, kp, vp, tables, lengths)
+    want = pda.paged_gqa_decode_attn_plain(q, kp, vp, tables, lengths)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    dead = [i for i in range(kp.shape[0]) if i not in live_ids]
+    kp2, vp2 = kp.clone(), vp.clone()
+    kp2[dead] = float("nan")
+    vp2[dead] = float("nan")
+    assert torch.equal(pda.paged_gqa_decode_attn(q, kp2, vp2, tables,
+                                                 lengths), got)
+
+
+@pytest.mark.parametrize("M", [8, 256])
+@pytest.mark.parametrize("dtype,tol", [
+    (torch.float32, 1e-4),   # f32 sums over K and F in another order
+    (torch.bfloat16, 2e-2),  # g rounded to bf16; bf16 output rounding
+])
+def test_glu_kernel_gelu_at_musicgen_widths(cuda, M, dtype, tol):
+    """The gelu GLU (musicgen-large: K = N = 2048, F = 8192) with zero
+    rows and zero gate stripes: bits exact, y close, the dead stripes'
+    w_in / w_out NaN-poisoned never read."""
+    rng = np.random.default_rng(11)
+    K, F, N, bm, bf = 2048, 8192, 2048, 64, 128
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    x[M // 2:] = 0.0
+    wg = (rng.standard_normal((K, F)) / np.sqrt(K)).astype(np.float32)
+    wg[:, 3 * bf:5 * bf] = 0.0
+    wi = (rng.standard_normal((K, F)) / np.sqrt(K)).astype(np.float32)
+    wo = (rng.standard_normal((F, N)) / np.sqrt(F)).astype(np.float32)
+    x, wg, wi, wo = (torch.from_numpy(a).to(cuda, dtype)
+                     for a in (x, wg, wi, wo))
+    kw = dict(block_m=bm, block_f=bf, act="gelu")
+    y, bits = sgm.sparce_glu_mlp_fused(x, wg, wi, wo, **kw)
+    y0, bits0 = sgm.sparce_glu_mlp_fused_plain(x, wg, wi, wo, **kw)
+    assert torch.equal(bits, bits0) and bool(bits[:, 3:5].all())
+    torch.testing.assert_close(y.float(), y0.float(), rtol=tol, atol=tol)
+    wi2, wo2 = wi.clone(), wo.clone()
+    wi2[:, 3 * bf:5 * bf] = float("nan")
+    wo2[3 * bf:5 * bf] = float("nan")
+    y2, _ = sgm.sparce_glu_mlp_fused(x, wg, wi2, wo2, **kw)
+    assert torch.equal(y2, y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gated_gemm_at_training_shapes(cuda, dtype):
+    """FP, BP and WG of the GLU's down-projection under mode="kernel",
+    through ``ops.sparce_gemm`` on the transposed views the autograd
+    rule passes, against the same calls on the CPU, within the chip
+    script's share of the output's largest value (an absolute limit
+    is loose on BP's small outputs and tight on WG's large ones)."""
+    rel, _ = TRAIN_GEMM_REL[str(dtype)[6:]]
+    a, w, g, _ = train_gemm_operands(torch, dtype, seed=3)
+    abits = sprf.compute_bitmap(a, (64, 128)).bits
+    gbits = sprf.compute_bitmap(g, (64, 128)).bits
+    for x, rhs, bits, (bm, bk, bn) in (
+            (a, w, abits, (64, 128, 128)), (g, w.T, gbits, (64, 128, 128)),
+            (a.T, g, abits.T.contiguous(), (128, 64, 128))):
+        plan = sasa.SkipPlan(gate="lhs", variant="gated", block_m=bm,
+                             block_k=bk, block_n=bn)
+
+        def run(dev):
+            return kops.sparce_gemm(
+                x.to(dev), rhs.to(dev), plan, lhs_bitmap=sprf.TileBitmap(
+                    bits.to(dev), (bm, bk), tuple(x.shape)))
+        before = sg.sparce_gemm_gated.launches
+        got = run(cuda)
+        assert sg.sparce_gemm_gated.launches == before + 1
+        want = run("cpu").float()
+        torch.testing.assert_close(got.cpu().float(), want, rtol=0.0,
+                                   atol=rel * want.abs().max().item())
+
+
+@pytest.mark.parametrize("act", ["relu", "relu2"])
+def test_fused_mlp_kernel_at_training_rows(cuda, act):
+    """The relu MLP's training forward: 8 x 512 rows, 64-row tiles."""
+    rng = np.random.default_rng(4)
+    M, K, F, N = 4096, 576, 1536, 576
+    x = np.abs(rng.standard_normal((M, K))).astype(np.float32)
+    x[1024:1088] = 0.0  # one dead row tile
+    wi = (rng.standard_normal((K, F)) / np.sqrt(K)).astype(np.float32)
+    wo = (rng.standard_normal((F, N)) / np.sqrt(F)).astype(np.float32)
+    x, wi, wo = (torch.from_numpy(v).to(cuda, torch.bfloat16)
+                 for v in (x, wi, wo))
+    kw = dict(block_m=64, block_f=128, act=act)
+    y, bits = sm.sparce_mlp_fused(x, wi, wo, **kw)
+    y0, bits0 = sm.sparce_mlp_fused_plain(x, wi, wo, **kw)
+    assert torch.equal(bits, bits0) and bool(bits[16].all())
+    torch.testing.assert_close(y.float(), y0.float(), rtol=2e-2, atol=2e-2)
+
+
+def _grads_on(dev, fn, *tensors):
+    ts = [t.detach().to(dev).requires_grad_(t.is_floating_point())
+          for t in tensors]
+    y = fn(*ts)
+    y = y[0] if isinstance(y, tuple) else y
+    gy = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        tuple(y.shape)).astype(np.float32)).to(dev, y.dtype)
+    gy[: gy.shape[0] // 2] = 0.0  # zero error rows: gated BP tiles
+    y.backward(gy)
+    return [y.detach().cpu()] + [t.grad.cpu() for t in ts
+                                 if t.is_floating_point()]
+
+
+def test_autograd_functions_on_gpu_match_cpu(cuda):
+    """The three backward rules (the gated BP and WG GEMMs of
+    ``sparce_matmul`` under mode="kernel", the relu MLP's and the GLU's
+    dense recompute) on the card against the CPU, f32; the relu-bitmap
+    kernel refuses a backward on the card too."""
+    from repro_torch.core import sparse_ops
+    rng = np.random.default_rng(8)
+    M, K, F, N = 256, 576, 1536, 576
+    t = lambda *s: torch.from_numpy(  # noqa: E731
+        (rng.standard_normal(s) / np.sqrt(s[0])).astype(np.float32))
+    x, wg, wi, wo = t(M, K), t(K, F), t(K, F), t(F, N)
+    a = torch.relu(t(M, F))
+    a[:64, :128] = 0.0
+    cfg = SparsityConfig(enabled=True, mode="kernel", block_m=64,
+                         block_k=128, block_n=128)
+
+    def matmul(a, w):
+        bmp = sprf.compute_bitmap(a.detach(), (64, 128))
+        return sparse_ops.sparce_matmul(a, w, cfg, lhs_bitmap=bmp)
+    fused = SparsityConfig(enabled=True, mode="fused", block_m=64,
+                           block_k=128, block_n=128)
+    cases = [
+        (matmul, (a, wo)),
+        (lambda x, wi, wo: sparse_ops.sparce_mlp(x, wi, wo, "relu", fused),
+         (x, wi, wo)),
+        (lambda x, wi, wo: sparse_ops.sparce_mlp(x, wi, wo, "relu2", fused),
+         (x, wi, wo)),
+        (lambda x, wg, wi, wo: sparse_ops.sparce_glu_mlp(
+            x, wg, wi, wo, "gelu", fused), (x, wg, wi, wo)),
+    ]
+    for fn, args in cases:
+        for got, want in zip(_grads_on(cuda, fn, *args),
+                             _grads_on("cpu", fn, *args)):
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    h = t(8, F).to(cuda).requires_grad_()
+    y, _ = sparse_ops.relu_with_bitmap(h, cfg)
+    with pytest.raises(ValueError, match="not differentiable"):
+        y.sum().backward()
+
+
+@pytest.mark.parametrize("arch", ["pixtral-12b", "musicgen-large"])
+def test_reduced_frontend_engine_on_gpu_matches_cpu(cuda, arch):
+    """The vlm (patch rows in every slot) and audio (codebook streams)
+    engines, reduced, f32, paged, the GLU fused: the card's tokens and
+    counters equal the CPU's."""
+    cfg = get_config(arch).reduced()
+    rng = np.random.default_rng(3)
+    lead = (cfg.num_codebooks,) if cfg.frontend == "codes" else ()
+    reqs = [(i, rng.integers(0, cfg.vocab_size,
+                             lead + (int(rng.integers(3, 14)),)),
+             int(rng.integers(2, 9))) for i in range(5)]
+    outs, metrics = {}, {}
+    for dev in ("cpu", cuda):
+        params = model_lib.init_params(cfg, seed=0, device=dev)
+        srv = Server(cfg, params, ServeConfig(
+            batch_slots=3, max_len=32, attn_kernel="paged",
+            sparsity=SparsityConfig(enabled=True, mode="fused")), device=dev)
+        done = srv.generate([Request(uid=u, prompt=p, max_new=n)
+                             for u, p, n in reqs])
+        key = torch.device(dev).type
+        outs[key] = {r.uid: np.asarray(r.out).tolist() for r in done}
+        metrics[key] = srv.metrics
+    assert outs["cuda"] == outs["cpu"]
+    for name in ("decode_tokens", "ticks", "attn_blocks_fetched",
+                 "kv_blocks_peak_in_use", "total_tile_dots"):
+        assert getattr(metrics["cuda"], name) == getattr(metrics["cpu"], name)
+
+
+def test_reduced_training_on_gpu_matches_cpu(cuda):
+    """Five Trainer steps of the reduced smollm (f32, the GLU's gated
+    GEMM in FP, BP and WG) on the card and on the CPU: the same losses
+    within f32 tolerance, 3 gated launches a layer a step on the card."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, make_batch_iterator
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime.trainer import TrainConfig, Trainer
+    import dataclasses
+    cfg = dataclasses.replace(get_config("smollm-135m").reduced(),
+                              sparsity=SparsityConfig(
+                                  enabled=True, mode="kernel", block_m=8,
+                                  block_k=32, block_n=32))
+    shape = ShapeConfig("t", 32, 4, "train")
+    losses = {}
+    for dev in ("cpu", cuda):
+        before = sg.sparce_gemm_gated.launches
+        out = Trainer(cfg, shape, AdamW(lr=3e-3), TrainConfig(
+            steps=5, log_every=1), device=dev).run(
+                make_batch_iterator(cfg, shape, DataConfig()))
+        losses[torch.device(dev).type] = [h["loss"] for h in out["history"]]
+        if torch.device(dev).type == "cuda":
+            assert sg.sparce_gemm_gated.launches - before == \
+                3 * cfg.num_layers * 5
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
