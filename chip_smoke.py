@@ -405,9 +405,10 @@ def attn_case(torch, dev, dtype, seed, *, B=8, KV=3, g=3, D=64, bs=16,
 # (KV heads, group, head_dim) of the GQA kernel's checks: smollm-135m's,
 # then smollm-360m's, mistral-nemo-12b's (and pixtral-12b's), qwen1.5-
 # 110b's (the kernel's limits, group 8 and head_dim 128), qwen2-moe-
-# a2.7b's and musicgen-large's (multi-head: 32 KV heads of group 1).
+# a2.7b's and musicgen-large's (multi-head: 32 KV heads of group 1);
+# then a tensor-parallel shard's of smollm-135m at tp 3 (1 KV head).
 ATTN_SHAPES = ((3, 3, 64), (5, 3, 64), (8, 4, 128), (8, 8, 128),
-               (16, 1, 128), (32, 1, 64))
+               (16, 1, 128), (32, 1, 64), (1, 3, 64))
 
 
 def check_attention(torch, dev):
@@ -665,11 +666,13 @@ def glu_case(torch, dev, dtype, seed, *, M=8, K=576, F=1536, N=576,
 # (K, F, N, row counts, act) of the GLU kernel's checks: smollm-135m's
 # MLP at decode, a ragged and a full prefill bucket; smollm-360m's and
 # zamba2-7b's shared block at decode and a 256-row prefill; musicgen-
-# large's gelu GLU at decode and a 256-row prefill.
+# large's gelu GLU at decode and a 256-row prefill; smollm-135m's at a
+# tensor-parallel shard's F (tp 3: 512 columns) at decode.
 GLU_SHAPES = ((576, 1536, 576, (8, 100, 256), "silu"),
               (960, 2560, 960, (8, 256), "silu"),
               (3584, 14336, 3584, (8, 256), "silu"),
-              (2048, 8192, 2048, (8, 256), "gelu"))
+              (2048, 8192, 2048, (8, 256), "gelu"),
+              (576, 512, 576, (8,), "silu"))
 
 
 def check_glu(torch, dev):
@@ -711,7 +714,7 @@ def check_glu(torch, dev):
             err = check_close(f"{name} ({dead} dead tiles)", y, y0,
                               atol=atol, rtol=rtol, why=why)
             if (dtype == torch.bfloat16 and M == 8 and tau == 0.0
-                    and K == GLU_SHAPES[0][0]):
+                    and (K, F) == GLU_SHAPES[0][:2]):
                 err_main = err
             # NaN poison the dead stripes' w_in columns and w_out rows
             # of every row tile that has them dead in ALL row tiles.
@@ -765,8 +768,9 @@ def check_glu(torch, dev):
 
 # --------------------------------------------------- relu-family kernels
 # (M, block_m) of the checks: a decode tick of 8 slots and a 256-row
-# prefill bucket at the launcher's per-slot tiles, and 64-row tiles.
-RELU_CASES = ((8, 1), (256, 1), (256, 64))
+# prefill bucket at the launcher's per-slot tiles, and 64-row tiles; a
+# data shard's 4 slots (dp 2).
+RELU_CASES = ((8, 1), (256, 1), (256, 64), (4, 1))
 RELU_TOLS = {
     "float32": (1e-4, 1e-4, "f32 sums over K (and F) in another order"),
     "bfloat16": (2e-2, 2e-2, "bf16 output rounding after f32 sums in "
@@ -2495,6 +2499,229 @@ def slice_rows(torch, dev):
     return rows
 
 
+# ------------------------------------------ phase 13: serving on a mesh
+# Every rank on card 0 over gloo: the machine has one card, and NCCL
+# refuses two ranks on one device. Each rank waits at most this long in
+# any collective; a spawn at most MESH_DEADLINE_S.
+MESH_TIMEOUT_S = 60.0
+MESH_DEADLINE_S = 400.0
+# (label, mesh, engine): the bf16 GLU engine (phase 4's) on (1, 3), the
+# bf16 --sparce relu engine (phase 5's, both modes) on (2, 1); then each
+# mesh's f32 2-layer engine, held to the single-rank one bit for bit.
+MESH_RUNS = (
+    ((1, 3), ("glu", "glu f32")),
+    ((2, 1), ("relu fused", "relu kernel", "relu kernel f32")),
+)
+# Each engine's kernels: every rank launches each of them in its run.
+MESH_EXPECT = {
+    "glu": ("paged_gqa_decode_attn", "sparce_glu_mlp_fused"),
+    "relu fused": ("paged_gqa_decode_attn", "sparce_mlp_fused"),
+    "relu kernel": ("paged_gqa_decode_attn", "relu_bitmap",
+                    "sparce_gemm_gated"),
+}
+MESH_PARITY_KEYS = (
+    "prefill_tokens", "decode_tokens", "ticks", "admitted", "completed",
+    "skipped_tile_dots", "total_tile_dots", "mlp_skip_fraction",
+    "attn_blocks_fetched", "attn_blocks_total", "attn_block_skip_fraction",
+    "kv_blocks_peak_in_use", "modeled_hbm_bytes_saved",
+    "modeled_attn_bytes_saved",
+)
+
+
+def mesh_engine(name):
+    """(cfg, sparsity, mixed budgets) of a phase 13 engine: full width in
+    bf16; the ``f32`` ones at 2 layers."""
+    from repro_torch.core.sparse_ops import SparsityConfig
+    kind = name.replace(" f32", "")
+    if kind == "glu":
+        cfg, sp, mixed = arch_config(), glu_sparsity(), False
+    else:
+        cfg, mixed = relu_config(), True
+        sp = SparsityConfig(enabled=True, mode=kind.split()[1],
+                            autotune=False, **SPARCE_BLOCKS)
+    if name.endswith("f32"):
+        cfg = dataclasses.replace(cfg, dtype="float32", num_layers=2)
+    return cfg, sp, mixed
+
+
+def serve_mesh_engine(name, mesh, device):
+    """Serve phase 13's trace on engine ``name`` (phase 4's requests;
+    phase 5's mixed budgets for relu) on this process (``mesh`` None) or
+    as rank 0 of a running mesh. Returns the tokens, metrics, this
+    process's launches and (on a mesh) collectives' counters, and the
+    wall time of the run."""
+    import torch
+    from repro_torch.models import model as model_lib
+    from repro_torch.parallel import collectives
+    from repro_torch.runtime.server import ServeConfig, Server
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    cfg, sp, mixed = mesh_engine(name)
+    params = model_lib.init_params(cfg, seed=ENGINE["seed"], device=dev)
+    sc = ServeConfig(batch_slots=ENGINE["slots"], max_len=ENGINE["max_len"],
+                     kv_block_size=ENGINE["block_size"], attn_kernel="paged",
+                     sparsity=sp, mesh=mesh)
+    srv = Server(cfg, params, sc, device=dev)
+    reqs = engine_requests(cfg, ENGINE["requests"], seed=ENGINE["seed"],
+                           mixed=mixed)
+    wrappers = counters()
+    for fn in wrappers.values():
+        fn.launches = 0
+    if mesh is not None:
+        collectives.reset_stats()
+    t0 = time.perf_counter()
+    done = srv.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(
+        name=name, tokens={r.uid: np.asarray(r.out).tolist() for r in done},
+        metrics=dataclasses.asdict(srv.metrics),
+        launches={k: fn.launches for k, fn in wrappers.items()},
+        collectives=collectives.stats() if mesh is not None else None,
+        wall=wall)
+
+
+def mesh_driver(names, mesh, device):
+    """Rank 0 of a phase 13 mesh (or the single rank, ``mesh`` None): a
+    short warm-up engine (library loads, cuBLAS handles, the collectives'
+    first connections), then each engine in turn."""
+    import torch
+    from repro_torch.models import model as model_lib
+    from repro_torch.runtime.server import ServeConfig, Server
+    cfg, sp, _ = mesh_engine(names[0])
+    dev = torch.device(device)
+    Server(cfg, model_lib.init_params(cfg, seed=1, device=dev), ServeConfig(
+        batch_slots=ENGINE["slots"], max_len=ENGINE["max_len"],
+        kv_block_size=ENGINE["block_size"], attn_kernel="paged",
+        sparsity=sp, mesh=mesh), device=dev).generate(
+            engine_requests(cfg, 2, seed=99))
+    return [serve_mesh_engine(n, mesh, device) for n in names]
+
+
+def log_collectives(label, who, c, ticks):
+    secs = sum(c["seconds"].values())
+    log(f"  {label} {who} collectives: "
+        + ", ".join(f"{k} {c['counts'][k]} calls / {c[k]} B / "
+                    f"{c['seconds'][k]:.3f}s" for k in c["counts"]
+                    if c["counts"][k])
+        + f"; {secs:.3f}s in all, {1e3 * secs / max(ticks, 1):.3f} ms "
+          "per decode tick")
+
+
+def run_mesh_engines(torch, dev):
+    """Phase 13: the single-rank engines on this process, then each mesh
+    of MESH_RUNS spawned on card 0 (gloo) with its engines served by rank
+    0; returns {label: {rank: launches}}."""
+    from repro_torch.launch.mesh import spawn_mesh
+    from repro_torch.parallel.worker import serve_rank
+    single = {}
+    for _, names in MESH_RUNS:
+        for got in mesh_driver(names, None, str(dev)):
+            single[got["name"]] = got
+            m = got["metrics"]
+            log(f"  {got['name']} single rank: {int(m['ticks'])} ticks, "
+                f"{int(m['decode_tokens'])} decode tokens, "
+                f"{1e3 * m['decode_s'] / m['ticks']:.3f} ms per decode tick")
+    torch.cuda.synchronize()
+    launches = {}
+    rank_dev = str(dev) if dev.type == "cpu" else f"cuda:{dev.index or 0}"
+    for mesh, names in MESH_RUNS:
+        t0 = time.perf_counter()
+        outs = spawn_mesh(serve_rank, mesh,
+                          (mesh_driver, (names, mesh, rank_dev), rank_dev),
+                          device=rank_dev, backend="gloo",
+                          timeout_s=MESH_TIMEOUT_S,
+                          deadline_s=MESH_DEADLINE_S)
+        log(f"  mesh {mesh}: {mesh[0] * mesh[1]} ranks on card 0 (gloo), "
+            f"spawn to exit {time.perf_counter() - t0:.1f}s")
+        for i, (got, name) in enumerate(zip(outs[0], names)):
+            check_mesh_engine(got, single[name], mesh, outs, i)
+            label = f"{name} {mesh}"
+            launches[label] = {0: got["launches"]}
+            launches[label].update({r: outs[r][i + 1]["launches"]
+                                    for r in range(1, len(outs))})
+    return launches
+
+
+def check_mesh_engine(got, want, mesh, outs, i):
+    """One phase 13 engine against its single-rank run: the schedule
+    (ticks, admissions, decode tokens) always; f32: every token and
+    parity counter. Every rank launched the engine's kernels, the GQA
+    kernel exactly once a layer a decode tick."""
+    name, m, w = got["name"], got["metrics"], want["metrics"]
+    label = f"{name} {mesh}"
+    for k in (MESH_PARITY_KEYS if name.endswith("f32")
+              else ("ticks", "admitted", "decode_tokens", "completed")):
+        if m[k] != w[k]:
+            raise AssertionError(f"{label}: {k} {m[k]} != single rank {w[k]}")
+    if name.endswith("f32"):
+        if got["tokens"] != want["tokens"]:
+            bad = [u for u in want["tokens"]
+                   if got["tokens"].get(u) != want["tokens"][u]]
+            raise AssertionError(f"{label}: streams differ for uids {bad}")
+        log(f"  {label}: {len(got['tokens'])} f32 streams and "
+            f"{', '.join(MESH_PARITY_KEYS)} equal the single rank's -> ok")
+    if (m["mesh_data"], m["mesh_model"]) != tuple(map(float, mesh)):
+        raise AssertionError(f"{label}: mesh metrics {m['mesh_data']}, "
+                             f"{m['mesh_model']}")
+    cfg, _, _ = mesh_engine(name)
+    per_rank = [got["launches"]] + [o[i + 1]["launches"] for o in outs[1:]]
+    for r, lz in enumerate(per_rank):
+        for k in MESH_EXPECT[name.replace(" f32", "")]:
+            if lz[k] <= 0:
+                raise AssertionError(f"{label}: rank {r} never launched {k}")
+        if lz["paged_gqa_decode_attn"] != m["ticks"] * cfg.num_layers:
+            raise AssertionError(
+                f"{label}: rank {r} launched the GQA kernel "
+                f"{lz['paged_gqa_decode_attn']} times, not "
+                f"{int(m['ticks'])} ticks x {cfg.num_layers} layers")
+    ticks = int(m["ticks"])
+    log(f"  {label}: {ticks} ticks, {int(m['admitted'])} admitted, "
+        f"{int(m['decode_tokens'])} decode tokens (equal to the single "
+        f"rank's); {1e3 * m['decode_s'] / ticks:.3f} ms per decode tick "
+        f"(single rank {1e3 * want['metrics']['decode_s'] / ticks:.3f}); "
+        f"prefill {m['prefill_s']:.3f}s (single rank "
+        f"{want['metrics']['prefill_s']:.3f}s); wall {got['wall']:.3f}s; "
+        f"mlp_skip_fraction {m['mlp_skip_fraction']:.4f} "
+        f"(single rank {w['mlp_skip_fraction']:.4f})")
+    log_collectives(label, "rank 0", got["collectives"], ticks)
+    for r, o in enumerate(outs[1:], start=1):
+        log_collectives(label, f"rank {r}", o[i + 1]["collectives"], ticks)
+    for r, lz in enumerate(per_rank):
+        log(f"  {label} rank {r} launches: "
+            f"{ {k: v for k, v in lz.items() if v} }")
+
+
+def phase13_rows(torch, dev):
+    """The path's kernels at the shapes a mesh shard gives them: the GQA
+    kernel at 1 KV head of group 3 (smollm-135m at tp 3), the gated GLU
+    at 8 rows and F 512, and the fused relu MLP at 4 rows (a data
+    shard's slots at dp 2, block_m 1)."""
+    from repro_torch.kernels import sparce_mlp as sm
+    rng = np.random.default_rng(8)
+    rows = [gqa_row(torch, dev, "paged_gqa_decode_attn tp 3 shard (1 KV "
+                    "head of 3)", KV=1, g=3, D=64),
+            glu_row(torch, dev, rng, "sparce_glu_mlp_fused tp 3 shard decode",
+                    M=ENGINE["slots"], K=576, F_=512, N=576, act="silu")]
+    x, wi, wo, _, _ = relu_decode_operands(torch, dev)
+    x = x[: ENGINE["slots"] // 2].contiguous()  # rows 0 and 2 of 4 dead
+    M, K = x.shape
+    F_, N = wo.shape
+    bf = SPARCE_BLOCKS["block_k"]
+    kw = dict(block_m=1, block_f=bf)
+    _, bits = sm.sparce_mlp_fused(x, wi, wo, **kw)
+    live = int((bits == 0).sum())
+    live_stripes = int((bits == 0).any(dim=0).sum())
+    rows.append(("sparce_mlp_fused dp 2 shard decode (4 rows)",
+                 lambda: sm.sparce_mlp_fused(x, wi, wo, **kw),
+                 lambda: sm.sparce_mlp_fused_plain(x, wi, wo, **kw),
+                 lambda: torch.relu(x @ wi) @ wo, MLP_KERNELS,
+                 2 * (x.numel() + wi.numel() + live_stripes * bf * N
+                      + M * N) + 4 * bits.numel(),
+                 2 * M * K * F_ + live * 2 * bf * N, 200))
+    return rows
+
+
 # ------------------------------------------------- phase 12: training
 def value_and_grads(torch, cfg, params, batch):
     """(loss, aux metrics, [grad of each param leaf]) of ``loss_fn``."""
@@ -3640,7 +3867,7 @@ def run_phase7(torch, dev, errs):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
                     help="comma-separated subset of phases to run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -3790,6 +4017,14 @@ def main(argv=None) -> int:
         if phases & {11, 12}:
             time_rows(torch, dev, slice_rows(torch, dev))
             phase_done("11-12 timing")
+        if 13 in phases:
+            log("phase 13: serving on a (data, model) mesh, every rank on "
+                "card 0 over gloo: the bf16 GLU engine on (1, 3), the bf16 "
+                "--sparce relu engine (fused, kernel) on (2, 1), then f32 "
+                "2-layer engines on both against the single rank")
+            run_mesh_engines(torch, dev)
+            time_rows(torch, dev, phase13_rows(torch, dev))
+            phase_done(13)
         torch.cuda.synchronize()
         log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all")
     except Exception:  # noqa: BLE001 - report and fail the run

@@ -8,7 +8,8 @@
         [--sparce-autotune] [--sparce-gate-threshold TAU] \
         [--prefill-buckets 16,32,64|off] [--prefix-cache] \
         [--shared-prefix-len N] [--open-loop] [--arrival-rate 8] \
-        [--slo-ttft-ticks 64] [--slo-itl-ticks 8]
+        [--slo-ttft-ticks 64] [--slo-itl-ticks 8] \
+        [--mesh DP,TP --backend gloo|nccl] [--mesh-timeout 60]
 
 ``--arch`` names any of the eight serving archs of the port's registry:
 the dense ``smollm-135m``, ``smollm-360m``, ``mistral-nemo-12b`` and
@@ -17,7 +18,7 @@ the dense ``smollm-135m``, ``smollm-360m``, ``mistral-nemo-12b`` and
 the hybrid ``zamba2-7b`` (mamba2 layers and one shared attention
 block). Full configs are production-sized (DeepSeek-V3 holds 671 B
 parameters), so on the CPU run them ``--reduced``. The flags of
-``repro/launch/serve.py`` but ``--mesh``. The KV layout is the paged
+``repro/launch/serve.py``. The KV layout is the paged
 pool (``--kv-block-size`` rows a block) or, with ``--kv-block-size 0``,
 the contiguous one; the ssm and hybrid archs always serve contiguous
 caches. ``--attn-kernel`` defaults to ``paged`` (the paged decode
@@ -47,6 +48,17 @@ prompt lengths from ``[prompt_len // 2, prompt_len]`` and budgets from
 ``[max_new // 4, max_new]``, as the reference launcher does. Prints the
 metrics the reference launcher prints for these flags, plus the wall
 clock decode rate on the device it ran on.
+``--mesh DP,TP`` serves on a (data, model) mesh of DP x TP ranks
+(``launch/mesh.py:spawn_mesh``; the paged layout of a dense, vlm or
+audio arch): batch slots and the KV pool shard over DP data shards,
+heads and FFN columns over TP model shards. Rank 0 runs the engine and
+prints; the other ranks run its commands. ``--backend`` is the device
+collectives' (``gloo``, the default, takes every rank on one device --
+``--device cuda`` puts them all on card 0 -- or on the CPU; ``nccl``
+takes one card per rank, rank r on card r); ``--mesh-timeout`` bounds
+every collective's wait, in seconds. With ``--sparce`` under ``--mesh``
+the f-tile halves from 128 until it divides the per-shard d_ff, as the
+reference launcher's does.
 """
 from __future__ import annotations
 
@@ -57,7 +69,7 @@ import time
 import numpy as np
 
 
-def main(argv=None):
+def _parse(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--requests", type=int, default=8)
@@ -122,7 +134,41 @@ def main(argv=None):
                          "gap (or TTFT forces them)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu' (plain kernel versions)")
-    args = ap.parse_args(argv)
+    ap.add_argument("--mesh", default=None,
+                    help="'DP,TP' serving mesh: shard batch slots + KV "
+                         "pool over DP data shards and heads/FFN over TP "
+                         "model shards (DP x TP ranks; needs "
+                         "--kv-block-size > 0)")
+    ap.add_argument("--backend", default="gloo", choices=("gloo", "nccl"),
+                    help="--mesh device collectives: 'gloo' (every rank "
+                         "on --device) or 'nccl' (rank r on card r)")
+    ap.add_argument("--mesh-timeout", type=float, default=60.0,
+                    help="--mesh: seconds any collective may wait")
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    args = _parse(argv)
+    if args.mesh is None:
+        return serve(args)
+    from repro_torch.launch.mesh import spawn_mesh
+    from repro_torch.parallel.worker import serve_rank
+
+    dp, tp = (int(x) for x in args.mesh.split(","))
+    n = dp * tp
+    if args.backend == "nccl":
+        devices = [f"cuda:{r}" for r in range(n)]
+    else:
+        devices = ["cuda:0" if args.device == "cuda" else args.device] * n
+    outs = spawn_mesh(serve_rank, (dp, tp), (serve, (args,), devices[0]),
+                      device=devices, backend=args.backend,
+                      timeout_s=args.mesh_timeout)
+    return outs[0]
+
+
+def serve(args):
+    """Build the engine the flags describe and serve their requests (on
+    rank 0 of the mesh with ``--mesh``); returns the completed requests."""
 
     from repro_torch.configs import get_config
     from repro_torch.core.sparse_ops import SparsityConfig
@@ -146,11 +192,21 @@ def main(argv=None):
             cfg = dataclasses.replace(cfg, mlp_act="relu")
             tau = 0.0
         # block_m=1: decode rows are slots, so each freed slot's MLP work
-        # is individually skippable.
+        # is individually skippable. Under --mesh the f-tile must divide
+        # the per-shard d_ff (the engine refuses tilings that would break
+        # exact skip-counter parity).
+        block_k = 128
+        if args.mesh is not None:
+            tp = int(args.mesh.split(",")[1])
+            while (cfg.d_ff // max(tp, 1)) % block_k:
+                block_k //= 2
         sparsity = SparsityConfig(
-            enabled=True, mode=args.sparce_mode, block_m=1, block_k=128,
+            enabled=True, mode=args.sparce_mode, block_m=1, block_k=block_k,
             autotune=args.sparce_autotune, gate_threshold=tau)
-    params = model_lib.init_params(cfg, seed=args.seed, device=args.device)
+    device = args.device
+    if args.mesh is not None and device == "cuda":
+        device = "cuda:0" if args.backend == "gloo" else "cuda"
+    params = model_lib.init_params(cfg, seed=args.seed, device=device)
     attn_kernel = args.attn_kernel
     if attn_kernel is None:
         paged = (args.kv_block_size > 0
@@ -171,13 +227,15 @@ def main(argv=None):
             target_itl_ticks=(args.slo_itl_ticks
                               if args.slo_itl_ticks is not None
                               else defaults.target_itl_ticks))
+    mesh = (None if args.mesh is None
+            else tuple(int(x) for x in args.mesh.split(",")))
     serve_cfg = ServeConfig(
         batch_slots=args.batch_slots, max_len=args.max_len,
         temperature=args.temperature, eos_id=args.eos_id, seed=args.seed,
         sparsity=sparsity, kv_block_size=args.kv_block_size,
         kv_pool_blocks=args.kv_pool_blocks, prefill_buckets=buckets,
         attn_kernel=attn_kernel, prefix_cache=args.prefix_cache,
-        slo=slo)
+        slo=slo, mesh=mesh)
 
     rng = np.random.default_rng(args.seed)
     # One seeded prefix shared by every request, drawn first, as the
@@ -203,7 +261,7 @@ def main(argv=None):
     if args.open_loop:
         # Live queue: Poisson-spaced submissions against the background
         # engine thread, then a drain and a shutdown.
-        asrv = AsyncServer(cfg, params, serve_cfg, device=args.device)
+        asrv = AsyncServer(cfg, params, serve_cfg, device=device)
         gaps = rng.exponential(1.0 / max(args.arrival_rate, 1e-6),
                                size=len(reqs))
         t0 = time.perf_counter()
@@ -216,7 +274,7 @@ def main(argv=None):
         dt = time.perf_counter() - t0
         srv = asrv.server
     else:
-        srv = Server(cfg, params, serve_cfg, device=args.device)
+        srv = Server(cfg, params, serve_cfg, device=device)
         t0 = time.perf_counter()
         done = srv.generate(reqs)
         dt = time.perf_counter() - t0
@@ -225,6 +283,16 @@ def main(argv=None):
     print(f"served {len(done)} requests, {tok} decode tokens in "
           f"{m.ticks} ticks, {dt:.2f}s ({tok / max(dt, 1e-9):.1f} tok/s) "
           f"on {srv.device}")
+    if m.mesh_data or m.mesh_model:
+        from repro_torch.parallel import collectives
+        c = collectives.stats()
+        print(f"  SPMD mesh: data={int(m.mesh_data)} x "
+              f"model={int(m.mesh_model)} "
+              f"(slots+KV pool sharded over data, heads/FFN over model; "
+              f"skip stats below are summed across shards); rank 0's "
+              f"collectives: {sum(c['counts'].values())} calls, "
+              f"{c['total'] / 1e6:.2f} MB, "
+              f"{sum(c['seconds'].values()):.2f}s")
     occ = tok / max(1, m.ticks * args.batch_slots)
     print(f"  slot occupancy {occ:.2f}, prefill {m.prefill_tokens} tok "
           f"/ {m.prefill_s:.2f}s, decode {m.decode_s:.2f}s "

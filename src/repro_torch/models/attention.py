@@ -52,6 +52,14 @@ class PagedKVCache(NamedTuple):
         return self.k.shape[1]
 
 
+def _psum(y: torch.Tensor, axis: str) -> torch.Tensor:
+    """Sum of y over the mesh axis ``axis`` (serving tensor parallelism);
+    the collectives are imported only on a mesh."""
+    from repro_torch.parallel import collectives  # noqa: PLC0415
+
+    return collectives.psum(y, axis)
+
+
 def _slot_lengths(cache, batch: int) -> torch.Tensor:
     """Per-slot lengths (B,), int32."""
     return torch.broadcast_to(cache.length.to(torch.int32), (batch,))
@@ -304,6 +312,11 @@ def gqa_forward(
         new_cache = KVCache(ck, cv, _advance_by(idx, S, advance))
 
     y = out.reshape(B, S, h * hd) @ params["wo"]
+    if cfg.tp_axis is not None:
+        # Serving TP: the heads above are this shard's 1/tp slice and wo
+        # is row-sharded to match, so y is a partial sum -- the single
+        # Megatron-style psum per attention block.
+        y = _psum(y, cfg.tp_axis)
     return y, new_cache
 
 
@@ -465,6 +478,8 @@ def mla_forward(
         out = out[:, None].to(x.dtype)  # (B, 1, h, vd)
 
     y = out.reshape(B, S, h * vd).to(x.dtype) @ params["wo"]
+    if cfg.tp_axis is not None:
+        y = _psum(y, cfg.tp_axis)  # as in gqa_forward
     return y, new_cache
 
 

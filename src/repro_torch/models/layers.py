@@ -72,11 +72,29 @@ def _activate(h: torch.Tensor, act: str, scfg: sparse_ops.SparsityConfig
 
 
 def mlp_fwd(params, x: torch.Tensor, act: str,
-            scfg: sparse_ops.SparsityConfig
+            scfg: sparse_ops.SparsityConfig,
+            tp_axis: Optional[str] = None,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (..., d). Returns (y, skip_stats) with skip_stats f32[2] =
     [skipped_tile_dots, total_tile_dots] of the down-projection (zeros
-    when the SparCE path is off or the plan computes every tile)."""
+    when the SparCE path is off or the plan computes every tile).
+
+    Under serving tensor parallelism (``tp_axis`` set) the params hold a
+    1/tp column slice of w_in/w_gate and the matching row slice of
+    w_out, so ``y`` is a partial sum closed here with one psum; the skip
+    stats stay PER SHARD (each shard's bitmap gates its own stripes --
+    the paper's per-core SpRF) and the engine sums them."""
+    y, stats = _mlp_local(params, x, act, scfg)
+    if tp_axis is not None:
+        from repro_torch.parallel import collectives  # noqa: PLC0415
+        y = collectives.psum(y, tp_axis)
+    return y, stats
+
+
+def _mlp_local(params, x: torch.Tensor, act: str,
+               scfg: sparse_ops.SparsityConfig
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`mlp_fwd` on this shard's weights, before the psum."""
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
     no_stats = torch.zeros((2,), dtype=torch.float32, device=x.device)

@@ -129,7 +129,8 @@ def block_fwd(params, x, positions, cfg: ArchConfig, kind: str, cache=None,
         h, moe_aux, _occ = moe_lib.moe_forward(params["moe"], hn, cfg)
         aux["loss"] = aux["loss"] + moe_aux
     else:
-        h, skip = mlp_fwd(params["mlp"], hn, cfg.mlp_act, cfg.sparsity)
+        h, skip = mlp_fwd(params["mlp"], hn, cfg.mlp_act, cfg.sparsity,
+                          tp_axis=cfg.tp_axis)
         aux["skip"] = aux["skip"] + skip
     return x + gate(h), new_cache, aux
 

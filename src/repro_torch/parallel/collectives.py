@@ -1,0 +1,207 @@
+"""Collectives over a :class:`~repro_torch.parallel.sharding.Mesh`, with
+byte accounting.
+
+The reference reads its collective traffic out of compiled HLO
+(``repro/parallel/collectives.py:parse_collective_bytes``); the port has
+no HLO, so every call here adds its OPERAND bytes to a per-kind counter
+on the mesh (``mesh.stats``), with the reference's five kinds and its
+operand-byte convention:
+
+    psum        all-reduce          operand == result
+    all_gather  all-gather          operand == result / n
+    broadcast   collective-permute  operand == the tensor (counted on
+                                    every rank: the root's sends, the
+                                    others' receives)
+    send, recv  collective-permute  operand == the tensor (each rank
+                                    counts its own end)
+
+(reduce-scatter and all-to-all have no caller yet.) Beside the bytes it
+counts the calls and the seconds spent in them, host clock around the
+blocking call (for a CUDA tensor that includes the wait for the work
+queued before it on the stream). A group of one rank costs nothing and
+counts nothing.
+
+The process's mesh is set once per rank (:func:`set_mesh`, by
+``launch/mesh.py``); model code reaches it through ``cfg.tp_axis``
+(:func:`psum` with an axis name). Nothing here runs on a single host:
+the model imports this module only when ``tp_axis`` is set.
+
+Backends: with ``nccl`` every device collective takes CUDA tensors. With
+``gloo``, ``all_reduce`` and ``broadcast`` take CUDA tensors themselves
+(gloo stages them through host memory inside the call), while its
+``all_gather``, ``send`` and ``recv`` take CPU tensors only: for those
+the wrappers here copy a CUDA tensor to the host and back, and the
+counted seconds include those copies.
+"""
+from __future__ import annotations
+
+import pickle
+import time
+from typing import Any, Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.parallel.sharding import Mesh
+
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+         "collective-permute")
+
+_MESH: Optional[Mesh] = None
+
+
+def set_mesh(mesh: Optional[Mesh]) -> None:
+    """Make ``mesh`` this process's mesh (one process is one rank)."""
+    global _MESH
+    _MESH = mesh
+
+
+def get_mesh() -> Optional[Mesh]:
+    """This process's mesh, or None off a mesh."""
+    return _MESH
+
+
+def _mesh(mesh: Optional[Mesh]) -> Mesh:
+    m = mesh if mesh is not None else _MESH
+    if m is None:
+        raise RuntimeError(
+            "no mesh in this process: collectives need "
+            "launch/mesh.py:make_mesh on an initialized world")
+    return m
+
+
+def reset_stats(mesh: Optional[Mesh] = None) -> None:
+    m = _mesh(mesh)
+    m.stats.clear()
+
+
+def stats(mesh: Optional[Mesh] = None) -> dict:
+    """{kind: operand bytes, ..., "total": bytes, "counts": {kind: n},
+    "seconds": {kind: s}} -- ``parse_collective_bytes``'s layout plus the
+    seconds."""
+    m = _mesh(mesh)
+    b = m.stats.get("bytes", {})
+    out = {k: int(b.get(k, 0)) for k in KINDS}
+    out["total"] = sum(out[k] for k in KINDS)
+    out["counts"] = {k: int(m.stats.get("counts", {}).get(k, 0))
+                     for k in KINDS}
+    out["seconds"] = {k: float(m.stats.get("seconds", {}).get(k, 0.0))
+                      for k in KINDS}
+    return out
+
+
+def _count(m: Mesh, kind: str, nbytes: int, seconds: float) -> None:
+    for key, val in (("bytes", nbytes), ("counts", 1), ("seconds", seconds)):
+        d = m.stats.setdefault(key, {})
+        d[kind] = d.get(kind, 0) + val
+
+
+def _group(m: Mesh, axes):
+    names = m.axes_of(axes)
+    return m.groups[names], m.group_size(names)
+
+
+def _host_staged(m: Mesh, x: torch.Tensor) -> bool:
+    return x.is_cuda and m.backend == "gloo"
+
+
+def psum(x: torch.Tensor, axes, mesh: Optional[Mesh] = None
+         ) -> torch.Tensor:
+    """Sum of ``x`` over the ranks of ``axes`` (a name or a tuple of
+    names), in x's dtype, IN PLACE where x is contiguous; every rank of
+    the group gets the same bits."""
+    m = _mesh(mesh)
+    group, n = _group(m, axes)
+    if n == 1:
+        return x
+    y = x.contiguous()
+    t0 = time.perf_counter()
+    dist.all_reduce(y, group=group)
+    _count(m, "all-reduce", y.numel() * y.element_size(),
+           time.perf_counter() - t0)
+    return y
+
+
+def all_gather(x: torch.Tensor, axis, mesh: Optional[Mesh] = None
+               ) -> torch.Tensor:
+    """The group's ``x`` concatenated along dim 0 in the order of the
+    ranks' coordinates on ``axis``."""
+    m = _mesh(mesh)
+    group, n = _group(m, axis)
+    if n == 1:
+        return x
+    t0 = time.perf_counter()
+    src = x.contiguous()
+    work = src.cpu() if _host_staged(m, src) else src
+    parts = [torch.empty_like(work) for _ in range(n)]
+    dist.all_gather(parts, work, group=group)
+    out = torch.cat(parts, dim=0)
+    if out.device != x.device:
+        out = out.to(x.device)
+    _count(m, "all-gather", src.numel() * src.element_size(),
+           time.perf_counter() - t0)
+    return out
+
+
+def broadcast(x: torch.Tensor, src: int = 0, axes=None,
+              mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """``x`` of global rank ``src`` on every rank of ``axes`` (default:
+    the whole mesh), IN PLACE; returns x."""
+    m = _mesh(mesh)
+    group, n = _group(m, axes if axes is not None else m.axes)
+    if n == 1:
+        return x
+    t0 = time.perf_counter()
+    # Bytes, whatever the dtype: a broadcast needs no arithmetic.
+    buf = x.view(torch.uint8) if x.is_contiguous() and x.dim() else x
+    dist.broadcast(buf, src=src, group=group)
+    _count(m, "collective-permute", x.numel() * x.element_size(),
+           time.perf_counter() - t0)
+    return x
+
+
+def send(x: torch.Tensor, dst: int, mesh: Optional[Mesh] = None) -> None:
+    """Send ``x`` to global rank ``dst`` (blocking)."""
+    m = _mesh(mesh)
+    t0 = time.perf_counter()
+    src = x.contiguous()
+    dist.send(src.cpu() if _host_staged(m, src) else src, dst=dst)
+    _count(m, "collective-permute", src.numel() * src.element_size(),
+           time.perf_counter() - t0)
+
+
+def recv(x: torch.Tensor, src: int, mesh: Optional[Mesh] = None
+         ) -> torch.Tensor:
+    """Receive into ``x`` from global rank ``src`` (blocking); returns x."""
+    m = _mesh(mesh)
+    t0 = time.perf_counter()
+    if _host_staged(m, x):
+        buf = torch.empty(x.shape, dtype=x.dtype)
+        dist.recv(buf, src=src)
+        x.copy_(buf)
+    else:
+        dist.recv(x, src=src)
+    _count(m, "collective-permute", x.numel() * x.element_size(),
+           time.perf_counter() - t0)
+    return x
+
+
+def broadcast_object(obj: Any, src: int = 0, mesh: Optional[Mesh] = None
+                     ) -> Any:
+    """A picklable object of rank ``src`` on every rank, over the mesh's
+    CPU control group (length, then bytes); counted as collective-permute
+    bytes. Only objects this program's ranks sent are unpickled."""
+    m = _mesh(mesh)
+    t0 = time.perf_counter()
+    if m.rank == src:
+        payload = torch.frombuffer(bytearray(pickle.dumps(obj)),
+                                   dtype=torch.uint8)
+        size = torch.tensor([payload.numel()], dtype=torch.int64)
+    else:
+        size = torch.zeros(1, dtype=torch.int64)
+    dist.broadcast(size, src=src, group=m.control)
+    if m.rank != src:
+        payload = torch.empty(int(size), dtype=torch.uint8)
+    dist.broadcast(payload, src=src, group=m.control)
+    _count(m, "collective-permute", int(size) + 8, time.perf_counter() - t0)
+    return obj if m.rank == src else pickle.loads(payload.numpy().tobytes())

@@ -1,0 +1,415 @@
+"""Sharding rules: DP/TP/EP/SP specs for every arch family, and the mesh.
+
+Port of ``repro/parallel/sharding.py``. Every rule is a pure function
+of leaf names and shapes, as in the reference. A spec is a tuple with
+one entry per dim: an axis name, a tuple of axis names, or None
+(replicated along that dim); ``()`` is the reference's ``P()``.
+
+Mesh axes: ``pod`` (cross-pod), ``data`` (in-pod DP), ``model`` (TP/EP).
+The planner is divisibility-aware per tensor: a dim is sharded on
+'model' only when divisible; otherwise that dim stays replicated and
+the rest of the network still shards (smollm's 9 heads replicate while
+its d_ff=1536 shards 16-way). Param rules match on the parameter's path
+leaf name; leading stack axes (the reference's layer scan) are never
+sharded, and the port's unstacked layers (``stack/<i>/...``) match the
+same rules on their trailing dims.
+
+The serving rules (``serve_*``) are strict: the engine's shard-local
+body runs the unchanged model code on 1/tp of the heads and FFN columns
+(:func:`serve_local_config`), so a matched dim that does not divide
+raises instead of replicating. :func:`shard_params` cuts a full state
+dict into one rank's slices by those rules.
+
+:class:`Mesh` is the port's mesh: an axis -> size map, the row-major
+rank grid (rank 0 is every axis' index 0) and, on an initialized
+``torch.distributed`` world (``launch/mesh.py:make_mesh``), this rank's
+process group for every set of axes. Nothing here touches
+``torch.distributed``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import re
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+
+from repro_torch.configs.base import ArchConfig
+
+DATA_AXES = ("pod", "data")  # batch shards over both by default
+
+SERVE_AXES = ("data", "model")  # serving mesh: slot DP x tensor TP
+
+Spec = Tuple[Any, ...]
+
+
+@dataclasses.dataclass
+class Mesh:
+    """A named device mesh over ranks.
+
+    ``shape`` maps axis -> size in grid order; ``ranks`` is the rank grid
+    (row-major: the last axis varies fastest). ``rank`` is this process's
+    rank; ``groups`` maps a tuple of axes (in grid order) to this rank's
+    process group over them, and ``control`` is the CPU (gloo) group the
+    serving mesh sends its commands on -- all filled by
+    ``launch/mesh.py:make_mesh``, empty on a mesh built for specs only;
+    ``timeout_s`` is every group's timeout. ``stats`` holds the
+    collectives' per-kind counters (``parallel/collectives.py``);
+    ``controller`` rank 0's end of a serving mesh's command channel
+    (``parallel/worker.py``)."""
+
+    shape: Dict[str, int]
+    rank: int = 0
+    groups: Dict[Tuple[str, ...], Any] = dataclasses.field(
+        default_factory=dict)
+    control: Any = None
+    backend: Optional[str] = None
+    timeout_s: float = 60.0
+    controller: Any = None
+    stats: Dict[str, Dict[str, float]] = dataclasses.field(
+        default_factory=dict)
+
+    def __post_init__(self) -> None:
+        self.shape = {str(a): int(n) for a, n in dict(self.shape).items()}
+        if any(n < 1 for n in self.shape.values()):
+            raise ValueError(f"mesh axes must be >= 1, got {self.shape}")
+        self.ranks = np.arange(self.size).reshape(
+            tuple(self.shape.values()))
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        return tuple(self.shape)
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def axes_of(self, axes) -> Tuple[str, ...]:
+        """``axes`` (a name or a tuple of names) in grid order."""
+        names = (axes,) if isinstance(axes, str) else tuple(axes)
+        for a in names:
+            if a not in self.shape:
+                raise ValueError(f"axis {a!r} not in mesh {self.shape}")
+        return tuple(a for a in self.axes if a in names)
+
+    def coords(self, rank: Optional[int] = None) -> Dict[str, int]:
+        r = self.rank if rank is None else rank
+        idx = np.unravel_index(r, tuple(self.shape.values()))
+        return {a: int(i) for a, i in zip(self.axes, idx)}
+
+    def coord(self, axis: str, rank: Optional[int] = None) -> int:
+        return self.coords(rank)[axis]
+
+    def rank_at(self, **coords: int) -> int:
+        """The rank at these axis indices (unnamed axes at 0)."""
+        return int(self.ranks[tuple(coords.get(a, 0) for a in self.axes)])
+
+    def group_size(self, axes) -> int:
+        return math.prod(self.shape[a] for a in self.axes_of(axes))
+
+
+def _mesh_size(mesh: Mesh, axis: str) -> int:
+    return mesh.shape[axis] if axis in mesh.shape else 1
+
+
+def _div(dim: int, mesh: Mesh, axis: str) -> bool:
+    return dim % max(1, _mesh_size(mesh, axis)) == 0
+
+
+# (regex on path-leaf, which trailing dim gets 'model')
+# dim index is relative to the LAST ndims of the tensor (negative index).
+_PARAM_RULES: Tuple[Tuple[str, Optional[int]], ...] = (
+    (r"embed$", -2),          # (V, d) or (K, V, d): shard vocab
+    (r"heads$", -1),          # audio heads (K, d, V): shard vocab
+    (r"head$", -1),           # (d, V)
+    (r"wq$|wk$|wv$|wuq$|wuk$|wuv$|wkr$", -1),
+    (r"bq$|bk$|bv$", -1),
+    (r"wo$", -2),
+    (r"w_in$|w_gate$", -1),   # (d, ff) / (E, d, ff)
+    (r"w_out$", -2),          # (ff, d) / (E, ff, d)
+    (r"router$", None),
+    (r"in_proj$", -1),        # ssm (d, d_in_proj)
+    (r"out_proj$", -2),       # ssm (d_in, d)
+    (r"conv_w$|conv_b$", -1),
+    (r"dt_bias$|A_log$|D$", -1),
+    (r"scale$", None),        # norms
+    (r"wdq$|wdkv$", -1),
+)
+
+_EXPERT_LEAF = re.compile(r"(w_in|w_gate|w_out)$")
+
+
+def _leaf_name(path) -> str:
+    """'/'-joined path of a leaf (a path is a tuple of keys, or already a
+    name)."""
+    if isinstance(path, str):
+        return path
+    return "/".join(str(p) for p in path)
+
+
+def tree_map_with_path(fn: Callable, tree, path: Tuple = ()):
+    """``fn(path, leaf)`` over a tree of dicts, lists, tuples and named
+    tuples (cache tuples), keeping its structure. A path is the tuple of
+    dict keys, list indices and named-tuple field names down to the
+    leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*[tree_map_with_path(fn, getattr(tree, f),
+                                               path + (f,))
+                            for f in tree._fields])
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, path + (str(i),))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def param_spec(path, leaf, mesh: Mesh) -> Spec:
+    """Spec for one parameter (``leaf`` needs ``shape``)."""
+    name = _leaf_name(path)
+    shape = tuple(leaf.shape)
+    ndim = len(shape)
+    spec = [None] * ndim
+    # Expert tensors (path .../moe/w_*): (..., E, d, ff): shard E on model
+    # (EP) when divisible, else fall through to TP on the trailing dim.
+    # The 'moe/' requirement keeps layer-stacked dense MLPs (also ndim>=3)
+    # on the TP rules.
+    if (_EXPERT_LEAF.search(name) and "moe/" in name and "shared" not in name
+            and ndim >= 3):
+        e_dim = ndim - 3
+        if _div(shape[e_dim], mesh, "model"):
+            spec[e_dim] = "model"
+            return tuple(spec)
+    for pat, dim in _PARAM_RULES:
+        if re.search(pat, name):
+            if dim is None:
+                return tuple(spec)
+            d = ndim + dim
+            if 0 <= d < ndim and _div(shape[d], mesh, "model"):
+                spec[d] = "model"
+            return tuple(spec)
+    return tuple(spec)  # default: replicated
+
+
+def param_specs(params: Any, mesh: Mesh, profile: str = "tp") -> Any:
+    """profile='tp': the rule table above. profile='dp': replicate all
+    params and give the batch every mesh axis (models whose per-layer
+    GEMMs are too small to shard)."""
+    if profile == "dp":
+        return tree_map_with_path(
+            lambda p, x: (None,) * len(tuple(x.shape)), params)
+    return tree_map_with_path(lambda p, x: param_spec(p, x, mesh), params)
+
+
+# ----------------------------------------------------------- batch / cache
+def batch_spec(cfg: ArchConfig, shape, mesh: Mesh, batch: Any,
+               profile: str = "tp") -> Any:
+    """Specs for the input batch tree: shard the batch dim over (pod,
+    data), or over EVERY mesh axis for profile='dp'. ``shape`` is a
+    ``ShapeConfig`` (unused, as in the reference)."""
+    batch_axes = DATA_AXES + (("model",) if profile == "dp" else ())
+    dp = 1
+    for a in batch_axes:
+        dp *= _mesh_size(mesh, a)
+
+    def one(path, leaf):
+        dims = tuple(leaf.shape)
+        b = dims[0]
+        axes = tuple(a for a in batch_axes if a in mesh.shape)
+        if b % dp == 0 and b > 0:
+            return (axes,) + (None,) * (len(dims) - 1)
+        return (None,) * len(dims)
+
+    return tree_map_with_path(one, batch)
+
+
+def cache_spec(cfg: ArchConfig, shape, mesh: Mesh, caches: Any) -> Any:
+    """KV/SSM cache specs. Caches are stacked over layers (leading axis).
+
+    Batch-shardable -> shard batch dim (axis 1). long_500k (batch 1) ->
+    shard the sequence axis of attention caches on 'data' (SP) and the
+    head axis of SSM states on 'model'."""
+    dp = _mesh_size(mesh, "pod") * _mesh_size(mesh, "data")
+    data_axes = tuple(a for a in DATA_AXES if a in mesh.shape)
+
+    def one(path, leaf):
+        name = _leaf_name(path)
+        dims = tuple(leaf.shape)
+        ndim = len(dims)
+        spec = [None] * ndim
+        if ndim <= 1:  # legacy scalar lengths per layer
+            return tuple(spec)
+        if name.endswith("length"):  # (layers, B) per-slot lengths
+            if shape.global_batch % dp == 0 and dims[-1] == shape.global_batch:
+                spec[-1] = data_axes
+            return tuple(spec)
+        # leading dim(s) are layer stacks; find batch dim = first dim
+        # whose size == global batch.
+        b_dim = None
+        for i, s in enumerate(dims):
+            if s == shape.global_batch and i >= 1:
+                b_dim = i
+                break
+        last = name.split("/")[-1]
+        if b_dim is not None and shape.global_batch % dp == 0:
+            spec[b_dim] = data_axes
+            # also TP-shard kv-heads / ssm heads when present
+            if last in ("k", "v"):
+                if ndim >= b_dim + 3 and _div(dims[b_dim + 2], mesh, "model"):
+                    spec[b_dim + 2] = "model"
+            if (last == "h" and ndim >= b_dim + 2
+                    and _div(dims[b_dim + 1], mesh, "model")):
+                spec[b_dim + 1] = "model"
+            return tuple(spec)
+        # batch too small: SP on the sequence axis (attention caches) or
+        # TP on heads (ssm states).
+        if name.endswith("/k") or name.endswith("/v"):
+            if ndim >= 3 and _div(dims[2], mesh, "data"):
+                spec[2] = "data"
+            if ndim >= 4 and _div(dims[3], mesh, "model"):
+                spec[3] = "model"
+            return tuple(spec)
+        if name.endswith("/h") and ndim >= 3:
+            if _div(dims[2], mesh, "model"):
+                spec[2] = "model"
+            return tuple(spec)
+        return tuple(spec)
+
+    return tree_map_with_path(one, caches)
+
+
+# ------------------------------------------------------------ SPMD serving
+# The serving engine (runtime/server.py) runs its prefill/decode bodies
+# on every rank of a (data, model) mesh: slots (and their per-slot
+# ``length`` vectors + paged-pool blocks) shard over 'data', attention
+# heads / FFN columns over 'model' (Megatron-style: column-shard the
+# in-projections, row-shard the out-projections, ONE psum per residual
+# write). Skip state is per shard (the paper's per-core SpRF/SASA): every
+# data shard keeps its own null block 0 and clamps against its own table
+# slice, and the summed skip counters are the aggregated telemetry.
+
+# Column-sharded over 'model' on the trailing dim: all Q/K/V in-projections
+# (head-major column layout, so a 1/tp column slice IS a head slice), the
+# MLA up-projections, and both GLU in-projections.
+_SERVE_COL = re.compile(r"(wq|wk|wv|bq|bk|bv|wuq|wuk|wuv|w_in|w_gate)$")
+# Row-sharded (dim -2): the out-projections whose contraction dim is the
+# sharded one -- their product is a partial sum, closed by one psum.
+_SERVE_ROW = re.compile(r"(wo|w_out)$")
+
+
+def serve_local_config(cfg: ArchConfig, tp: int) -> ArchConfig:
+    """The per-shard view of ``cfg`` the shard-local body runs unchanged:
+    1/tp of the heads, kv heads and FFN columns, with ``tp_axis`` set so
+    attention/MLP close their row-sharded out-projections with a psum.
+    The head dim is pinned to the whole model's: a config that leaves it
+    to ``d_model // num_heads`` (smollm-135m's) would otherwise get tp
+    times wider heads on a shard (the reference's rule does not pin it,
+    and its full-width configs with an unset head dim cannot run there
+    for that reason; its reduced configs set the head dim)."""
+    if cfg.num_heads % tp or cfg.num_kv_heads % tp or cfg.d_ff % tp:
+        raise ValueError(
+            f"tensor-parallel degree {tp} must divide num_heads="
+            f"{cfg.num_heads}, num_kv_heads={cfg.num_kv_heads} and "
+            f"d_ff={cfg.d_ff}")
+    return dataclasses.replace(
+        cfg,
+        num_heads=cfg.num_heads // tp,
+        num_kv_heads=cfg.num_kv_heads // tp,
+        head_dim=cfg.resolved_head_dim,
+        d_ff=cfg.d_ff // tp,
+        tp_axis="model",
+    )
+
+
+def serve_param_spec(path, leaf, mesh: Mesh) -> Spec:
+    """Serving-TP spec for one parameter (strict: a matched dim that does
+    not divide raises instead of silently replicating, because the
+    shard-local config assumes exact 1/tp slices)."""
+    name = _leaf_name(path)
+    shape = tuple(leaf.shape)
+    ndim = len(shape)
+    tp = _mesh_size(mesh, "model")
+    for pat, dim in ((_SERVE_COL, -1), (_SERVE_ROW, -2)):
+        if pat.search(name):
+            d = ndim + dim
+            if shape[d] % tp:
+                raise ValueError(
+                    f"serving TP: param {name!r} dim {dim} "
+                    f"({shape[d]}) does not divide over "
+                    f"{tp} model shards")
+            spec = [None] * ndim
+            spec[d] = "model"
+            return tuple(spec)
+    # Everything else (embed/head, norms, MLA down-projections wdq/wdkv/
+    # wkr) is replicated: decode-time logits and the latent KV cache must
+    # be whole on every shard.
+    return (None,) * ndim
+
+
+def serve_param_specs(params: Any, mesh: Mesh) -> Any:
+    return tree_map_with_path(
+        lambda p, x: serve_param_spec(p, x, mesh), params)
+
+
+def serve_paged_cache_specs(cfg: ArchConfig) -> Any:
+    """Spec tree matching the paged caches of ``model.init_paged_caches``
+    for the serving pool: blocks shard over 'data' (each data shard owns
+    its own sub-pool INCLUDING its own null block 0), KV heads over
+    'model' (GQA; the MLA latent/rope pools are 'model'-replicated since
+    wdkv/wkr are), and the per-slot ``length`` vector over 'data'."""
+    from repro_torch.models.attention import PagedKVCache  # noqa: PLC0415
+
+    if cfg.mla is not None:
+        kv = (None, "data", None, None)  # (L, blocks, bs, lat/rope)
+    else:
+        kv = (None, "data", None, "model", None)  # (L, nb, bs, KV, hd)
+    return {"stack": PagedKVCache(kv, kv, (None, "data"))}
+
+
+def serve_prefill_cache_specs(cfg: ArchConfig) -> Any:
+    """Spec tree for the batch=1 contiguous scratch caches a prefill body
+    returns: KV heads over 'model' (GQA), everything else replicated."""
+    from repro_torch.models.attention import KVCache  # noqa: PLC0415
+
+    if cfg.mla is not None:
+        kv = ()
+    else:
+        kv = (None, None, None, "model", None)  # (L, 1, S, KV, hd)
+    return {"stack": KVCache(kv, kv, ())}
+
+
+def shard_of(x, spec: Spec, mesh: Mesh, rank: int):
+    """Rank ``rank``'s block of tensor ``x`` under ``spec``: every dim
+    named by axes is cut into equal contiguous chunks, chunk index the
+    rank's (row-major) coordinate over those axes; a contiguous copy."""
+    coords = mesh.coords(rank)
+    out = x
+    for d, axes in enumerate(spec):
+        if axes is None:
+            continue
+        names = mesh.axes_of(axes)
+        n, idx = 1, 0
+        for a in names:
+            n *= mesh.shape[a]
+            idx = idx * mesh.shape[a] + coords[a]
+        if n == 1:
+            continue
+        size = x.shape[d]
+        if size % n:
+            raise ValueError(
+                f"dim {d} ({size}) does not divide over {n} shards {names}")
+        step = size // n
+        out = out.narrow(d, idx * step, step)
+    return out.contiguous()
+
+
+def shard_params(params: Any, mesh: Mesh, rank: Optional[int] = None) -> Any:
+    """The full state dict ``params`` cut to rank ``rank``'s slices by
+    :func:`serve_param_specs` (default: the mesh's own rank); each leaf
+    contiguous. Raises where a matched dim does not divide."""
+    r = mesh.rank if rank is None else rank
+    return tree_map_with_path(
+        lambda p, x: shard_of(x, serve_param_spec(p, x, mesh), mesh, r),
+        params)

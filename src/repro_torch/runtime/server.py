@@ -74,8 +74,20 @@ and block count; the audio frontend's prompts are (K, S) codebook
 streams, its decode tokens (B, K, 1), and a request stops at EOS only
 when every codebook samples it.
 
-Not ported yet (``ServeConfig`` rejects it with NotImplementedError):
-the SPMD mesh.
+The (data, model) serving mesh (``ServeConfig.mesh = (dp, tp)``, the
+paged layout of a bucketable family): slots, their lengths and their
+pool blocks shard over 'data' (slot ``s`` lives on data shard ``s //
+(batch_slots / dp)``), attention heads and FFN columns over 'model'.
+Every data shard keeps its own null block 0, its own
+:class:`~repro_torch.runtime.paging.BlockAllocator` and its own prefix
+index (``st.allocs``, ``_prefixes``; ``st.alloc`` and ``_prefix`` are
+shard 0's), so block ids in the tables are shard-local, a prefix only
+matches blocks of its own shard, and reclaim for block pressure evicts a
+victim of the head's shard. One controller: this ``Server`` runs on rank
+0 of a mesh started by ``launch/mesh.py:spawn_mesh`` and holds all host
+state; its device actions are commands the other ranks run on their
+shards (``parallel/worker.py``). The skip counters are summed over the
+shards, so ``ServeMetrics`` equal the single-host engine's.
 
 Threads: ``Server`` is single-threaded -- one thread calls
 ``start_engine``/``step``/``generate``/``serve_trace``; ``enqueue`` and
@@ -92,7 +104,7 @@ import queue as _queue_mod
 import threading
 import time
 from collections import deque
-from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -103,7 +115,8 @@ from repro_torch.core.sparse_ops import SparsityConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.paged_decode_attn import decode_attn_block_counts
 from repro_torch.models import model as model_lib
-from repro_torch.models import modules as nn
+from repro_torch.parallel.sharding import serve_local_config
+from repro_torch.parallel.worker import ShardEngine
 from repro_torch.runtime.errors import (
     EngineFatal, RequestCancelled, RequestFailed, ServerOverloaded,
     ServingError, is_request_scoped,
@@ -216,9 +229,20 @@ class ServeConfig:
                 "ServeConfig.preempt=True needs the paged KV layout "
                 "(reclaim returns pool BLOCKS): set kv_block_size > 0")
         if self.mesh is not None:
-            raise NotImplementedError(
-                "ServeConfig: mesh (SPMD serving) not ported yet; the "
-                "port serves one device")
+            dp, tp = self.mesh
+            if dp < 1 or tp < 1:
+                raise ValueError(
+                    f"ServeConfig.mesh axes must be >= 1, got {self.mesh}")
+            if self.kv_block_size <= 0:
+                raise ValueError(
+                    "ServeConfig.mesh needs the paged KV layout (the "
+                    "pool blocks are what shards over 'data'): set "
+                    "kv_block_size > 0")
+            if self.batch_slots % dp:
+                raise ValueError(
+                    f"ServeConfig.mesh data axis {dp} must divide "
+                    f"batch_slots={self.batch_slots} (slots shard "
+                    "contiguously over 'data')")
 
 
 @dataclasses.dataclass
@@ -245,9 +269,11 @@ class _Slot:
 
 @dataclasses.dataclass
 class _EngineState:
-    caches: Any
-    # The pool's allocator and block tables; None in the contiguous
-    # layout.
+    # The device side (this rank's caches live on it).
+    engine: ShardEngine
+    # One allocator per data shard (shard-local block ids; one on a
+    # single host) and the block tables; ``alloc`` is shard 0's. None
+    # and [] in the contiguous layout.
     alloc: Optional[BlockAllocator]
     tables: Optional[np.ndarray]
     slots: List[Optional[_Slot]]
@@ -257,6 +283,12 @@ class _EngineState:
     # ``completed``, kept only for sync drivers (an on_error consumer
     # takes them instead).
     failed: List[Request] = dataclasses.field(default_factory=list)
+    allocs: List[BlockAllocator] = dataclasses.field(default_factory=list)
+
+    @property
+    def caches(self):
+        """This rank's KV caches (its sub-pool on a mesh)."""
+        return self.engine.caches
 
 
 def _pct(xs, q: float) -> float:
@@ -336,6 +368,20 @@ class Server:
         # the null block on insert).
         self._ext_rows = self._max_rows + (
             max(self._buckets) if self._buckets else self._max_rows)
+        # The (data, model) mesh: slots shard over 'data' (b_local each,
+        # contiguous), every data shard owns pool_shard usable blocks plus
+        # its own null block 0. A single host is the one-shard case.
+        self._mesh = None
+        self._dp = self._tp = 1
+        self._b_local = serve_cfg.batch_slots
+        self._pool_shard = self._pool_usable
+        layout = dict(paged=self._paged, pool_blocks=self._pool_usable,
+                      max_rows=self._max_rows, ext_rows=self._ext_rows)
+        if serve_cfg.mesh is not None:
+            self._engine = self._init_mesh(layout)
+        else:
+            self._engine = ShardEngine(cfg, params, serve_cfg, self.device,
+                                       **layout)
         self._ema = sasa.SparsityEMA()
         self._rng = np.random.default_rng(serve_cfg.seed)
         # Distinct prefill shapes served: the port runs eagerly, so this
@@ -361,8 +407,10 @@ class Server:
         self._itl_ticks_all: deque = deque(maxlen=500_000)
         self.admitted_uids: deque = deque(maxlen=100_000)
         self._st: Optional[_EngineState] = None
-        # The run's prefix index (built in start_engine when enabled).
+        # The run's prefix indexes, one per data shard (built in
+        # start_engine when enabled); ``_prefix`` is shard 0's.
         self._prefix: Optional[PrefixCache] = None
+        self._prefixes: Optional[List[PrefixCache]] = None
         # AsyncServer's hooks, called on the engine thread. on_error fires
         # for a request that FAILS instead of finishing, after its
         # resources were released.
@@ -377,6 +425,8 @@ class Server:
             kv_pool_blocks=float(self._pool_usable),
             attn_kernel_paged=float(serve_cfg.attn_kernel == "paged"),
             prefix_cache_enabled=float(serve_cfg.prefix_cache),
+            mesh_data=float(self._dp if self._mesh is not None else 0),
+            mesh_model=float(self._tp if self._mesh is not None else 0),
         )
         self._frag_sum = 0.0
         self._frag_ticks = 0
@@ -384,10 +434,78 @@ class Server:
         self._attn_fetched = 0
         self._attn_total = 0
 
+    def _init_mesh(self, layout: dict) -> ShardEngine:
+        """Validate the (data, model) serving mesh and open the engine on
+        it. Refused at construction, as the reference refuses them (all
+        ValueError): the contiguous layout, a family that is not
+        bucketable (moe, ssm, hybrid: the MoE router is not TP-aware),
+        heads/kv heads/d_ff or the usable pool not dividing, and SparCE
+        tiles that do not divide the PER-SHARD dims (the summed tile
+        counts equal the single-host ones only then). Then RuntimeError
+        unless this process is rank 0 of a (dp, tp) mesh."""
+        cfg, sc = self.cfg, self.sc
+        dp, tp = sc.mesh
+        if not self._paged:
+            raise ValueError(
+                f"ServeConfig.mesh needs the paged KV layout, but family "
+                f"{cfg.family!r} fell back to contiguous caches")
+        if cfg.family not in model_lib.bucketable_families():
+            raise ValueError(
+                f"ServeConfig.mesh is not supported for family "
+                f"{cfg.family!r}: tensor-parallel serving covers the "
+                "dense/vlm/audio stacks (the MoE router is not TP-aware)")
+        serve_local_config(cfg, tp)  # raises on non-divisible heads/d_ff
+        if self._pool_usable % dp:
+            raise ValueError(
+                f"serving mesh data axis {dp} must divide the usable "
+                f"pool ({self._pool_usable} blocks): each data shard "
+                "owns an equal sub-pool (set kv_pool_blocks to a "
+                f"multiple of {dp})")
+        sp = cfg.sparsity
+        if sp is not None and sp.enabled:
+            if tp > 1 and (cfg.d_ff // tp) % sp.block_k:
+                raise ValueError(
+                    f"sparsity block_k={sp.block_k} must divide the "
+                    f"per-shard d_ff ({cfg.d_ff}//{tp}="
+                    f"{cfg.d_ff // tp}) for exact skip-stat parity "
+                    "under tensor parallelism")
+            if dp > 1 and (sc.batch_slots // dp) % sp.block_m:
+                raise ValueError(
+                    f"sparsity block_m={sp.block_m} must divide the "
+                    f"per-shard batch_slots ({sc.batch_slots}//"
+                    f"{dp}={sc.batch_slots // dp}) for exact "
+                    "skip-stat parity under data parallelism")
+        from repro_torch.parallel import collectives, worker  # noqa: PLC0415
+        mesh = collectives.get_mesh()
+        if mesh is None or mesh.shape != {"data": dp, "model": tp}:
+            found = "no mesh" if mesh is None else f"mesh {mesh.shape}"
+            raise RuntimeError(
+                f"ServeConfig.mesh {sc.mesh} needs {dp * tp} ranks on a "
+                f"(data, model) mesh, found {found} in this process: start "
+                "them with launch/mesh.py:spawn_mesh and run the Server on "
+                "rank 0 under parallel/worker.serve_rank")
+        self._mesh = mesh
+        self._dp, self._tp = dp, tp
+        self._b_local = sc.batch_slots // dp
+        self._pool_shard = self._pool_usable // dp
+        return worker.open_engine(mesh, cfg, self.params, sc, self.device,
+                                  **layout)
+
+    # Host-side shard bookkeeping: slot s lives on data shard s //
+    # b_local; that shard's allocator hands out LOCAL block ids
+    # 1..pool_shard with 0 its own null block, and the tables hold local
+    # ids. A single host is one shard.
+    def _slot_shard(self, slot: int) -> int:
+        return slot // self._b_local
+
+    def _in_use(self) -> int:
+        return sum(a.in_use for a in self._st.allocs)
+
     def _maybe_replan(self) -> None:
         """Re-bucket the measured sparsity into the planner input (only
         with ``SparsityConfig.autotune``). Plans are looked up per call
-        from the process cache, so a replan only swaps the config."""
+        from the process cache, so a replan only swaps the config (on
+        every rank of a mesh)."""
         sp = self.cfg.sparsity
         if sp is None or not (sp.enabled and sp.autotune):
             return
@@ -396,6 +514,7 @@ class Server:
             self.cfg = dataclasses.replace(
                 self.cfg,
                 sparsity=dataclasses.replace(sp, expected_sparsity=bucket))
+            self._engine.call("replan", expected_sparsity=bucket)
             self.metrics.replans += 1
 
     # ------------------------------------------------------------ sampling
@@ -451,46 +570,27 @@ class Server:
         whose every leaf then overwrites the slot's row. A vlm prompt
         runs behind zero patch embeddings (the frontend's stand-in), in
         the config's dtype."""
-        cfg = self.cfg
         prompt = self._effective_prompt(r)
         S = int(prompt.shape[-1])
         S_pad = pick_bucket(S, self._buckets) if self._buckets else S
         rows0 = S + self._patch_rows
-        dev = self.device
-        batch = {"tokens": torch.from_numpy(
-            self._prompt_tokens(prompt, 0, S, S_pad)).to(dev)}
-        if cfg.family in model_lib.bucketable_families():
-            # Exact-length families never pad: their prefill advances by
-            # S implicitly, and forward rejects 'advance' for them.
-            batch["advance"] = torch.tensor([rows0], dtype=torch.int32,
-                                            device=dev)
-        if cfg.frontend == "patches":
-            batch["patch_embeds"] = torch.zeros(
-                (1, cfg.num_patches, cfg.d_model),
-                dtype=nn.torch_dtype(cfg.dtype), device=dev)
-        t0 = time.perf_counter()
-        small = model_lib.init_caches(
-            cfg, 1, S_pad + self._patch_rows if self._paged
-            else self._max_rows, device=dev)
-        with torch.no_grad():
-            logits, small, aux = model_lib.forward(
-                self.params, cfg, batch, small, last_only=True)
-        skip = aux["skip"]
-        self._prefill_shapes.add(S_pad)
+        toks = self._prompt_tokens(prompt, 0, S, S_pad)
+        ids = None
         if self._paged:
             ids = np.zeros((self._max_blocks,), np.int64)
             ids[: len(block_ids)] = block_ids
-            caches = model_lib.insert_slot_paged(
-                caches, small, slot, torch.from_numpy(ids).to(dev), rows0)
-        else:
-            caches = model_lib.insert_slot_caches(caches, small, slot)
-        last = logits[0, 0].float().cpu().numpy()  # (V,) or (K, V)
-        skip = skip.double().cpu().numpy()
+        t0 = time.perf_counter()
+        # (V,) or (K, V) logits of the last real row; the skip pair.
+        last, skip = self._engine.call(
+            "prefill", slot=slot, toks=toks, rows0=rows0,
+            scratch_rows=(S_pad + self._patch_rows if self._paged
+                          else self._max_rows), block_ids=ids)
+        self._prefill_shapes.add(S_pad)
         self.metrics.prefill_s += time.perf_counter() - t0
         self.metrics.prefill_tokens += S
         self.metrics.admitted += 1
         self._count_prefill_skip(skip)
-        return last, caches
+        return last, self._engine.caches
 
     def _count_prefill_skip(self, skip: np.ndarray) -> None:
         self.metrics.skipped_tile_dots += float(skip[0])
@@ -513,30 +613,19 @@ class Server:
                  else n_suffix)
         toks = self._prompt_tokens(self._effective_prompt(r), prefix_len,
                                    n_suffix, S_pad)
-        dev = self.device
-        batch = {"tokens": torch.from_numpy(toks).to(dev),
-                 "advance": torch.tensor([n_suffix], dtype=torch.int32,
-                                         device=dev)}
         t0 = time.perf_counter()
-        ids = torch.from_numpy(np.asarray(table_row, np.int64)).to(dev)
-        small = model_lib.paged_prefix_caches(caches, ids, prefix_len,
-                                              self._ext_rows)
-        with torch.no_grad():
-            logits, small, aux = model_lib.forward(
-                self.params, self.cfg, batch, small, last_only=True,
-                continuation=True)
+        last, skip = self._engine.call(
+            "suffix", slot=slot, toks=toks, n_suffix=n_suffix,
+            table_row=np.asarray(table_row, np.int64),
+            prefix_len=prefix_len, rows0=rows0)
         self._prefill_shapes.add(("suffix", S_pad))
-        caches = model_lib.insert_slot_paged_from(caches, small, slot, ids,
-                                                  rows0, prefix_len)
-        last = logits[0, 0].float().cpu().numpy()  # (V,) or (K, V)
-        skip = aux["skip"].double().cpu().numpy()
         self.metrics.prefill_s += time.perf_counter() - t0
         # Only the suffix ran; the matched rows are counted in
         # prefix_matched_tokens.
         self.metrics.prefill_tokens += n_suffix
         self.metrics.admitted += 1
         self._count_prefill_skip(skip)
-        return last, caches
+        return last, self._engine.caches
 
     def _finish(self, s: _Slot, t_now: float) -> None:
         r = s.req
@@ -591,10 +680,14 @@ class Server:
                 continue
             _, worst = self._request_need(r)
             nb = blocks_needed(worst, self.sc.kv_block_size)
-            if nb > self._pool_usable:
+            # On a mesh a slot lives inside its data shard's sub-pool.
+            if nb > self._pool_shard:
+                what = (f"{self._pool_shard}-block per-shard pool"
+                        if self._mesh is not None
+                        else f"{self._pool_usable}-block pool")
                 raise ValueError(
                     f"request uid={r.uid}: worst case {nb} KV blocks do "
-                    f"not fit the {self._pool_usable}-block pool; raise "
+                    f"not fit the {what}; raise "
                     "ServeConfig.kv_pool_blocks")
 
     def start_engine(self) -> None:
@@ -607,18 +700,15 @@ class Server:
             raise RuntimeError(
                 "start_engine() with requests still queued: drain or "
                 "discard the previous run first")
+        # Fresh caches on every device: one sub-pool (with its own null
+        # block 0) per data shard, or the contiguous slot caches.
+        self._engine.call("reset")
+        allocs: List[BlockAllocator] = []
+        tables: Optional[np.ndarray] = None
         if self._paged:
-            caches = model_lib.init_paged_caches(
-                cfg, B, self._pool_usable + 1, sc.kv_block_size,
-                device=self.device)
-            alloc: Optional[BlockAllocator] = BlockAllocator(
-                self._pool_usable)
-            tables: Optional[np.ndarray] = np.zeros(
-                (B, self._max_blocks), np.int32)
-        else:
-            caches = model_lib.init_caches(cfg, B, self._max_rows,
-                                           device=self.device)
-            alloc = tables = None
+            allocs = [BlockAllocator(self._pool_shard)
+                      for _ in range(self._dp)]
+            tables = np.zeros((B, self._max_blocks), np.int32)
         self._queue = RequestQueue(max_depth=sc.max_queue_depth)
         with self._cancel_lock:
             self._cancel_pending.clear()
@@ -629,11 +719,14 @@ class Server:
         # Fresh virtual clock per run, so a reused Server replays a trace
         # to the same schedule.
         self._vt = 0.0
-        # A fresh index per run: its blocks belong to this run's pool.
-        self._prefix = (PrefixCache(alloc, sc.kv_block_size)
-                        if sc.prefix_cache else None)
+        # A fresh index per run and data shard: its blocks belong to
+        # this run's (sub-)pool.
+        self._prefixes = ([PrefixCache(a, sc.kv_block_size) for a in allocs]
+                          if sc.prefix_cache else None)
+        self._prefix = self._prefixes[0] if self._prefixes else None
         self._st = _EngineState(
-            caches=caches, alloc=alloc, tables=tables,
+            engine=self._engine, alloc=allocs[0] if allocs else None,
+            tables=tables, allocs=allocs,
             slots=[None] * B,
             cur_tok=np.zeros((B, cfg.num_codebooks) if cfg.frontend
                              == "codes" else (B,), np.int64),
@@ -692,10 +785,13 @@ class Server:
         drivers jump to the next arrival); never rewinds."""
         self._vt = max(self._vt, float(to_vt))
 
-    def _outstanding_commit(self) -> int:
-        """Blocks promised to live slots but not yet allocated."""
+    def _outstanding_commit(self, shard: Optional[int] = None) -> int:
+        """Blocks promised to live slots but not yet allocated (of one
+        data shard's slots, or of all)."""
         return sum(s.commit - len(s.blocks)
-                   for s in self._st.slots if s is not None)
+                   for i, s in enumerate(self._st.slots)
+                   if s is not None
+                   and (shard is None or self._slot_shard(i) == shard))
 
     def _record_first_token(self, s: _Slot) -> None:
         item = s.item
@@ -719,19 +815,23 @@ class Server:
         st.slots[i] = None
         if not self._paged:
             return
+        # Blocks and refs go back to the OWNER shard's allocator, the one
+        # every id in this slot's table is local to.
+        owner = self._slot_shard(i)
+        alloc = st.allocs[owner]
         if s.blocks:
-            st.alloc.release(s.blocks)
+            alloc.release(s.blocks)
         if s.shared:
             # This slot's references on the read-only prefix blocks; the
             # index's own (and other sharers') keep them in the pool.
-            st.alloc.release(s.shared)
+            alloc.release(s.shared)
             s.shared = []
         # Return the UNUSED tail of the worst-case commitment (raises on
         # a double count); shared blocks were never part of it.
-        st.alloc.unreserve(s.commit - len(s.blocks))
+        alloc.unreserve(s.commit - len(s.blocks))
         s.commit = len(s.blocks)
         st.tables[i, :] = 0
-        st.alloc.check(expect_reserved=self._outstanding_commit())
+        alloc.check(expect_reserved=self._outstanding_commit(owner))
 
     def _release(self, i: int) -> None:
         st = self._st
@@ -808,7 +908,8 @@ class Server:
                 self._inj.injected - self._inj_seen)
             self._inj_seen = self._inj.injected
 
-    def _grow_one(self, i: int, s: _Slot) -> Optional[int]:
+    def _grow_one(self, alloc: BlockAllocator, i: int,
+                  s: _Slot) -> Optional[int]:
         """One lazy-growth block for slot ``i`` through the injector's
         allocator gate, with bounded retries: a transient fault that
         clears within ``_GROW_RETRIES`` retries is recovered; exhaustion
@@ -821,7 +922,7 @@ class Server:
             try:
                 if self._inj is not None:
                     self._inj.alloc_gate(uid, gidx, attempt)
-                (blk,) = self._st.alloc.alloc(1, reserved=True)
+                (blk,) = alloc.alloc(1, reserved=True)
             except InjectedFault as e:
                 self._sync_fault_metrics()
                 if e.transient and attempt < _GROW_RETRIES:
@@ -889,14 +990,19 @@ class Server:
             else suffix
         return self._costs.prefill_ticks(rows)
 
-    def _pick_victim(self, head_priority: float) -> Optional[int]:
+    def _pick_victim(self, head_priority: float,
+                     shard: Optional[int] = None) -> Optional[int]:
         """Among live slots of priority STRICTLY below the head's (a peer
         is never preempted: the requeue boost would livelock two
-        equals), the lowest-priority, most recently admitted one."""
+        equals), the lowest-priority, most recently admitted one;
+        ``shard`` keeps to one data shard's slots (blocks are fungible
+        only within a sub-pool)."""
         st = self._st
         best: Optional[int] = None
         for i, s in enumerate(st.slots):
             if s is None or s.item.priority >= head_priority:
+                continue
+            if shard is not None and self._slot_shard(i) != shard:
                 continue
             if best is None:
                 best = i
@@ -918,13 +1024,15 @@ class Server:
         s = st.slots[i]
         r = s.req
         bs = self.sc.kv_block_size
-        if self._prefix is not None:
+        prefix = (self._prefixes[self._slot_shard(i)]
+                  if self._prefixes is not None else None)
+        if prefix is not None:
             n_full = s.cache_len // bs
             if n_full:
                 written = self._full_sequence(
                     r, s.produced)[..., : s.cache_len]
                 keys = PrefixCache.chain_keys(written, bs)
-                self._prefix.register(
+                prefix.register(
                     keys[:n_full], [int(b) for b in st.tables[i, :n_full]])
         self._release_slot_resources(i, s)
         r.resume_tokens = [np.asarray(t) for t in s.produced]
@@ -941,13 +1049,16 @@ class Server:
         self.metrics.preemptions += 1
         self.metrics.requeues += 1
 
-    def _maybe_reclaim(self, item: QueuedRequest) -> bool:
+    def _maybe_reclaim(self, item: QueuedRequest, *,
+                       shard: Optional[int]) -> bool:
         """Ask the reclaim policy whether to preempt a victim for queue
-        head ``item``; preempt ONE if approved. True when a victim was
-        evicted (the caller retries)."""
+        head ``item``; preempt ONE if approved. ``shard=None`` reclaims a
+        slot (any shard); a shard index reclaims BLOCKS, which must come
+        from that shard's sub-pool. True when a victim was evicted (the
+        caller retries)."""
         if not self.sc.preempt:
             return False
-        v = self._pick_victim(item.priority)
+        v = self._pick_victim(item.priority, shard)
         if v is None:
             return False
         pt = self._costs.prefill_ticks(self._bucket_rows(item.req))
@@ -975,7 +1086,7 @@ class Server:
             # form runs inside the loop below).
             head = self._queue.peek()
             if head is not None:
-                self._maybe_reclaim(head)
+                self._maybe_reclaim(head, shard=None)
         for i in range(self.sc.batch_slots):
             while st.slots[i] is None:
                 res = self._try_admit_head(i)
@@ -1004,7 +1115,12 @@ class Server:
         resumed = bool(r.resume_tokens)
         rows0, worst = self._request_need(r)
         bs = sc.kv_block_size
-        alloc, prefix = st.alloc, self._prefix
+        # Everything below runs against the OWNER data shard's allocator
+        # and prefix index: slot i's blocks live in its sub-pool.
+        owner = self._slot_shard(i)
+        alloc = st.allocs[owner] if self._paged else None
+        prefix = (self._prefixes[owner] if self._prefixes is not None
+                  else None)
         # Prefix-cache probe. lookup() RETAINS every matched block for
         # this request, so every bail-out below releases them. A restore
         # finds the blocks registered at its preemption.
@@ -1035,8 +1151,9 @@ class Server:
                 if not alloc.can_reserve(commit):
                     if shared:
                         alloc.release(shared)
-                    # Block pressure: a victim's blocks can fund the head.
-                    if self._maybe_reclaim(item):
+                    # Block pressure: a victim on THIS shard can fund the
+                    # head (its blocks return to the same sub-pool).
+                    if self._maybe_reclaim(item, shard=owner):
                         return "retry"
                     return "full"
         n_active = sum(1 for s in st.slots if s is not None)
@@ -1060,7 +1177,7 @@ class Server:
             if not alloc.try_reserve(commit):
                 if shared:
                     alloc.release(shared)
-                if self._maybe_reclaim(item):
+                if self._maybe_reclaim(item, shard=owner):
                     return "retry"
                 return "full"
             if cow:
@@ -1069,8 +1186,8 @@ class Server:
                 # which gathers the prefix through the table on the same
                 # stream.
                 block_ids = [alloc.fork(shared[-1], reserved=True)]
-                st.caches = model_lib.copy_pool_block(
-                    st.caches, block_ids[0], shared.pop())
+                self._engine.call("copy", slot=i, dst=block_ids[0],
+                                  src=shared.pop())
                 self.metrics.prefix_cow_forks += 1
             else:
                 block_ids = alloc.alloc(
@@ -1082,7 +1199,7 @@ class Server:
             # Sampled here too: a request that ends on its prefill token
             # never reaches a decode tick but held blocks.
             self.metrics.kv_blocks_peak_in_use = max(
-                self.metrics.kv_blocks_peak_in_use, float(alloc.in_use))
+                self.metrics.kv_blocks_peak_in_use, float(self._in_use()))
         # By identity: a concurrent submit may have pushed a new,
         # higher-priority head between our peek and now.
         self._queue.pop_expected(item)
@@ -1093,10 +1210,10 @@ class Server:
                 self._sync_fault_metrics()
                 raise InjectedFault("poison_prompt", r.uid)
             if prefix_len:
-                last_logits, st.caches = self._prefill_suffix(
+                last_logits, _ = self._prefill_suffix(
                     r, i, st.caches, st.tables[i], prefix_len, rows0)
             else:
-                last_logits, st.caches = self._prefill_one(
+                last_logits, _ = self._prefill_one(
                     r, i, st.caches, block_ids)
         except Exception as e:
             if not is_request_scoped(e):
@@ -1111,7 +1228,7 @@ class Server:
                     alloc.release(shared)
                 alloc.unreserve(commit - len(block_ids))
                 st.tables[i, :] = 0
-                alloc.check(expect_reserved=self._outstanding_commit())
+                alloc.check(expect_reserved=self._outstanding_commit(owner))
             err = RequestFailed(f"request uid={r.uid} failed in prefill: {e}")
             err.__cause__ = e
             self._fail_queued(item, err)
@@ -1198,21 +1315,10 @@ class Server:
         live = active.astype(bool)
         step = np.where(live[:, None] if st.cur_tok.ndim > 1 else live,
                         st.cur_tok, 0)
-        dev = self.device
         t0 = time.perf_counter()
-        with torch.no_grad():
-            logits, st.caches, skip = model_lib.serving_decode_step(
-                self.params, self.cfg,
-                torch.from_numpy(step[..., None]).to(dev), st.caches,
-                torch.from_numpy(active).to(dev),
-                None if st.tables is None
-                else torch.from_numpy(st.tables).to(dev),
-                attn_kernel=sc.attn_kernel,
-            )
-            # (B, V), or (B, K, V) for audio; synchronises.
-            last = (logits[:, 0] if self.cfg.frontend == "codes"
-                    else logits[:, -1]).float().cpu().numpy()
-            skip = skip.double().cpu().numpy()
+        # (B, V), or (B, K, V) for audio; the summed skip pair.
+        last, skip = self._engine.call("decode", step=step, active=active,
+                                       tables=st.tables)
         self.metrics.decode_s += time.perf_counter() - t0
         self.metrics.ticks += 1
         self.metrics.decode_tokens += n_active
@@ -1267,7 +1373,8 @@ class Server:
                 continue
             blk_idx = s.cache_len // sc.kv_block_size
             if blk_idx >= len(s.shared) + len(s.blocks):
-                new_blk = self._grow_one(i, s)
+                new_blk = self._grow_one(st.allocs[self._slot_shard(i)],
+                                         i, s)
                 if new_blk is None:
                     continue  # growth failed: the slot was evicted
                 s.blocks.append(new_blk)
@@ -1277,12 +1384,15 @@ class Server:
         if not any(s is not None for s in st.slots):
             return
         self.metrics.kv_blocks_peak_in_use = max(
-            self.metrics.kv_blocks_peak_in_use, float(st.alloc.in_use))
-        if st.alloc.reserved != self._outstanding_commit():
-            raise AssertionError(
-                f"commitment ledger mismatch: engine expects "
-                f"{self._outstanding_commit()} outstanding, allocator "
-                f"holds {st.alloc.reserved}")
+            self.metrics.kv_blocks_peak_in_use, float(self._in_use()))
+        # Each shard allocator's reservation against the engine's ledger
+        # of the slots it owns.
+        for sh, a in enumerate(st.allocs):
+            if a.reserved != self._outstanding_commit(sh):
+                raise AssertionError(
+                    f"commitment ledger mismatch on shard {sh}: engine "
+                    f"expects {self._outstanding_commit(sh)} outstanding, "
+                    f"allocator holds {a.reserved}")
         used_rows = sum(s.cache_len + 1 for s in st.slots if s is not None)
         # Each slot's MAPPED blocks: a shared block once per sharer.
         cap_rows = sum((len(s.shared) + len(s.blocks)) * sc.kv_block_size
@@ -1290,7 +1400,7 @@ class Server:
         if cap_rows:
             self._frag_sum += 1.0 - used_rows / cap_rows
             self._frag_ticks += 1
-        self._occ_sum += st.alloc.in_use / max(1, self._pool_usable)
+        self._occ_sum += self._in_use() / max(1, self._pool_usable)
         # Attention fetch accounting in block-table units.
         eff = [0 if s is None else s.cache_len + 1 for s in st.slots]
         fetched, total = decode_attn_block_counts(
@@ -1385,9 +1495,10 @@ class Server:
         if vt_total > 0:
             m.prefill_tick_share = self._vt_prefill / vt_total
             m.decode_tick_share = self._vt_decode / vt_total
-        if self._prefix is not None:
-            m.prefix_evicted_blocks = float(self._prefix.evicted)
-            m.prefix_cache_blocks = float(len(self._prefix))
+        if self._prefixes is not None:
+            m.prefix_evicted_blocks = float(
+                sum(p.evicted for p in self._prefixes))
+            m.prefix_cache_blocks = float(sum(len(p) for p in self._prefixes))
         if m.prefix_lookups > 0:
             m.prefix_hit_rate = m.prefix_hits / m.prefix_lookups
         if m.prefill_ticks_nocache > 0:

@@ -230,6 +230,9 @@ def test_importing_the_port_leaves_jax_and_reference_out():
         "import repro_torch, repro_torch.bridge, repro_torch.launch.serve\n"
         "import repro_torch.runtime.server, repro_torch.models.model\n"
         "import repro_torch.kernels.ops, repro_torch.configs\n"
+        "import repro_torch.parallel.sharding, repro_torch.launch.mesh\n"
+        "import repro_torch.parallel.collectives\n"
+        "import repro_torch.parallel.worker\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"

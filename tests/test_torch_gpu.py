@@ -130,6 +130,11 @@ GQA_CASES = [
     pytest.param(_TRACE_LENGTHS, 16, 32, 8, 4, 128, id="mistral_nemo"),
     pytest.param(_TRACE_LENGTHS, 16, 32, 8, 8, 128, id="qwen1p5_110b"),
     pytest.param(_TRACE_LENGTHS, 16, 32, 16, 1, 128, id="qwen2_moe"),
+    # A serving mesh's shards of smollm-135m: tp 3 (1 KV head of group
+    # 3, all 8 slots) and dp 2 (3 KV heads, 4 slots).
+    pytest.param(_TRACE_LENGTHS, 16, 32, 1, 3, 64, id="smollm_tp3_shard"),
+    pytest.param(_TRACE_LENGTHS[:4], 16, 32, 3, 3, 64,
+                 id="smollm_dp2_shard"),
 ]
 
 
@@ -298,7 +303,10 @@ GLU_CASES = [(8, 576, 1536, 576, 64, 128), (8, 576, 1536, 576, 1, 128),
              # decode tick and a 256-row prefill.
              (8, 960, 2560, 960, 64, 128), (256, 960, 2560, 960, 64, 128),
              (8, 3584, 14336, 3584, 64, 128),
-             (256, 3584, 14336, 3584, 64, 128)]
+             (256, 3584, 14336, 3584, 64, 128),
+             # smollm-135m's MLP on a tp 3 shard (512 of 1536 columns)
+             # at a decode tick.
+             (8, 576, 512, 576, 64, 128)]
 
 
 @pytest.mark.parametrize("M,K,F,N,bm,bf", GLU_CASES)
@@ -352,6 +360,7 @@ def test_glu_cluster_kernel_at_unpadded_shapes(cuda, M, K, F, N, bm, bf,
 
 @pytest.mark.parametrize("shape,block", [
     ((8, 1536), (1, 128)), ((256, 1536), (1, 128)), ((128, 256), (64, 128)),
+    ((4, 1536), (1, 128)),  # a dp 2 shard's decode rows
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_relu_bitmap_kernel_matches_plain(cuda, shape, block, dtype):
@@ -413,7 +422,8 @@ def test_relu_bitmap_kernel_changes_no_bit(cuda, shape, block, dtype,
 
 
 @pytest.mark.parametrize("gate", ["lhs", "rhs"])
-@pytest.mark.parametrize("M,bm", [(8, 1), (256, 1), (128, 64), (256, 64)])
+@pytest.mark.parametrize("M,bm", [(8, 1), (256, 1), (128, 64), (256, 64),
+                                  (4, 1)])
 @pytest.mark.parametrize("dtype,tol", [
     (torch.float32, 1e-4),   # f32 sums over K in another order
     (torch.bfloat16, 2e-2),  # bf16 output rounding
@@ -450,7 +460,7 @@ def test_gated_gemm_kernel_matches_plain(cuda, gate, M, bm, dtype, tol):
 
 
 @pytest.mark.parametrize("act", ["relu", "relu2"])
-@pytest.mark.parametrize("M,bm", [(8, 1), (256, 1), (128, 64)])
+@pytest.mark.parametrize("M,bm", [(8, 1), (256, 1), (128, 64), (4, 1)])
 @pytest.mark.parametrize("dtype,tol", [
     (torch.float32, 1e-4),   # f32 sums over K and F in another order
     (torch.bfloat16, 2e-2),  # bf16 roundings of a and y
@@ -485,6 +495,7 @@ def test_fused_mlp_kernel_matches_plain(cuda, act, M, bm, dtype, tol):
 # prefill bucket at per-row tiles, ragged M and F unpadded under per-row
 # and 64-row tiles, ragged K and N, and 256-row tiles (chunks of 64).
 MLP_CASES = [(8, 576, 1536, 576, 1, 128), (256, 576, 1536, 576, 1, 128),
+             (4, 576, 1536, 576, 1, 128),  # a dp 2 shard's decode rows
              (37, 576, 1000, 576, 1, 128), (37, 576, 1000, 576, 64, 128),
              (100, 200, 1000, 70, 64, 128), (300, 192, 320, 96, 256, 128)]
 
@@ -1576,3 +1587,36 @@ def test_reduced_training_on_gpu_matches_cpu(cuda):
             assert sg.sparce_gemm_gated.launches - before == \
                 3 * cfg.num_layers * 5
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+@pytest.mark.parametrize("mesh", [(2, 1), (1, 2)])
+def test_reduced_mesh_engine_on_gpu_matches_single_rank(cuda, mesh):
+    """The reduced relu engine (the kernels' path: relu bitmap and gated
+    GEMM, paged GQA) served on a gloo mesh with every rank on card 0:
+    tokens and every exact-parity counter equal the single-rank engine's
+    on the card (f32), and every rank launched the path's kernels."""
+    from repro_torch.launch import mesh as mesh_lib
+    import torch_mesh_scenarios as scen
+    rng = np.random.default_rng(3)
+    reqs = [Request(uid=i, prompt=rng.integers(0, 256, int(n)), max_new=6)
+            for i, n in enumerate(rng.integers(2, 12, 6))]
+    spec = dict(name="relu", act="relu", device="cuda:0", requests=reqs,
+                sc=dict(batch_slots=4, max_len=64, kv_block_size=8,
+                        attn_kernel="paged",
+                        sparsity=dict(enabled=True, mode="kernel",
+                                      block_m=1, block_k=32)))
+    want = scen.run_scenario(spec)
+    outs = mesh_lib.spawn_mesh(scen.rank_main, mesh, ([spec],),
+                               device="cuda:0", backend="gloo",
+                               timeout_s=30.0, deadline_s=240.0)
+    (got,) = outs[0]["out"]
+    assert got["tokens"] == want["tokens"]
+    for k in ("prefill_tokens", "decode_tokens", "ticks", "admitted",
+              "skipped_tile_dots", "total_tile_dots", "attn_blocks_fetched",
+              "attn_blocks_total", "kv_blocks_peak_in_use"):
+        assert got["metrics"][k] == want["metrics"][k], k
+    for o in outs[1:]:
+        (served,) = o["out"]
+        for name in ("paged_gqa_decode_attn", "relu_bitmap",
+                     "sparce_gemm_gated"):
+            assert served["launches"][name] > 0, name

@@ -336,14 +336,10 @@ def test_gather_and_paged_attention_serve_identically():
     dict(faults=FaultPlan(seed=1, step_fault_rate=0.1)),
 ])
 def test_serve_config_rejects_unported_paths(kwargs):
-    """Only the path not ported yet (the SPMD mesh) is refused; the
-    contiguous layout and the live engine's fields build, as the
-    reference's do."""
+    """No path is refused any more: the contiguous layout, the live
+    engine's fields and the serving mesh build, as the reference's do
+    (the mesh's own refusals: tests/test_torch_spmd_serving.py)."""
     (name, value), = kwargs.items()
-    if name == "mesh":
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            port_server.ServeConfig(**kwargs)
-        return
     assert getattr(port_server.ServeConfig(**kwargs), name) == value
     ref_server.ServeConfig(**kwargs)
 
