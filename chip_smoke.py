@@ -95,7 +95,25 @@ is printed only when all of them pass):
      heads, the GLU kernel's gelu at musicgen's widths, the gated GEMM
      at a training step's FP, BP and WG shapes and the fused relu MLP at
      its 4096 rows; after phases 11-12 those shapes' times are logged
-     beside the library's and their bounds.
+     beside the library's and their bounds;
+ 13. serving on a (data, model) mesh, every rank a gloo process on card
+     0: the bf16 GLU engine on (1, 3), the bf16 relu engines on (2, 1),
+     then f32 2-layer engines against the single rank;
+ 14. training on a (data, model) mesh, every rank a gloo process on card
+     0: one f32 full-width step of smollm-135m on (1, 3) and on (2, 1)
+     against a single-rank step (the reference's tolerances: loss rtol
+     1e-4, grad norm 1e-3); phase 12's bf16 GLU kernel run on (1, 3)
+     and relu fused run with ZeRO-1 on (2, 1), 3 steps each (every
+     rank's losses equal, its launches exactly per layer x 30 x 3, its
+     ms per step, collectives, peak memory and moment bytes);
+     qwen2-moe-a2.7b at its published widths cut to 2 layers on (1, 2),
+     30 experts a rank: one MoE layer's forward and gradient for 16
+     tokens through the expert-parallel path against the single-rank
+     global path (f32, nothing dropped), then 2 bf16 training steps
+     (ms per step, each rank's expert bytes). Phase 2 holds the gated
+     GEMM at the tp-3 shard's F 512 and the relu MLP at the dp-2 shard's
+     2048 rows; after phase 14 their times are logged beside the
+     library's and their bounds.
 
 Every phase prints its seconds. After phases 4-7, each of the nine kernels' time at its path's shapes
 beside its plain version, a library yardstick and its bound.
@@ -108,6 +126,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -145,6 +164,7 @@ TRAIN = dict(batch=8, seq=512, steps=20, seed=0, vocab=4096)
 # loss of a model that knows which of the V ids occur (all equally often)
 # and nothing of their order; the runs' init starts ~2.6 above it.
 LOSS_OVER_LN_VOCAB = 0.25
+TP3_F = 512  # smollm-135m's d_ff 1536 over 3 model ranks
 # The launcher's --sparce tiling: per-slot rows, 128-wide f stripes.
 SPARCE_BLOCKS = dict(block_m=1, block_k=128)
 
@@ -886,15 +906,15 @@ def check_gemm(torch, dev):
     return err_main
 
 
-def train_gemm_operands(torch, dtype, seed):
+def train_gemm_operands(torch, dtype, seed, F_=1536):
     """A smollm-135m training step's down-projection at full width (8 x
-    512 tokens, d_model 576, d_ff 1536): activations a and an error g,
-    unit normals with 30% of their (64, 128) tiles zero, and w_out at
-    init scale; on the host. (A mean loss's error is M^-1/2 smaller;
+    512 tokens, d_model 576, d_ff ``F_``: 1536, or a tp-3 shard's 512):
+    activations a and an error g, unit normals with 30% of their (64,
+    128) tiles zero, and w_out at init scale; on the host. (A mean loss's error is M^-1/2 smaller;
     the checks' limits are shares of the output's scale, so the scale
     of g does not move them.)"""
     rng = np.random.default_rng(seed)
-    M, F_, N = TRAIN["batch"] * TRAIN["seq"], 1536, 576
+    M, N = TRAIN["batch"] * TRAIN["seq"], 576
     bm, bk, bn = 64, 128, 128
 
     def tiled_zeros(a, br, bc):
@@ -934,9 +954,11 @@ def check_train_gemm(torch, dev):
     the card."""
     from repro_torch.core import sasa, sprf
     from repro_torch.kernels import ops as kops
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype, F_ in itertools.product((torch.float32, torch.bfloat16),
+                                       (1536, TP3_F)):
         rel, why = TRAIN_GEMM_REL[str(dtype)[6:]]
-        a, w, g, (bm, bk, bn) = train_gemm_operands(torch, dtype, seed=8)
+        a, w, g, (bm, bk, bn) = train_gemm_operands(torch, dtype, seed=8,
+                                                    F_=F_)
         abits = sprf.compute_bitmap(a, (bm, bk)).bits
         gbits = sprf.compute_bitmap(g, (bm, bn)).bits
         cases = (("FP", a, w, abits, (bm, bk, bn)),
@@ -972,8 +994,9 @@ def check_train_gemm(torch, dev):
             if not (torch.isfinite(got2).all() and torch.equal(got2, got)):
                 raise AssertionError(f"{name}: NaN-poisoned gated tiles "
                                      "reached the output")
-    log("  sparce_gemm_gated at the training step's FP, BP and WG shapes: "
-        "NaN-poisoned gated tiles never read -> ok")
+    log("  sparce_gemm_gated at the training step's FP, BP and WG shapes "
+        f"(d_ff 1536, and a tp-3 shard's {TP3_F}): NaN-poisoned gated tiles "
+        "never read -> ok")
 
 
 def check_mlp(torch, dev):
@@ -988,10 +1011,12 @@ def check_mlp(torch, dev):
     bf = 128
     err_main = None
     # (M, F, block_m): the relu cases at F 1536, then ragged M and F, then
-    # a training step's forward (8 x 512 tokens, the default 64-row tiles).
+    # a training step's forward (8 x 512 tokens, the default 64-row tiles)
+    # and a dp-2 shard's (2048 rows).
     cases = [(M, 1536, bm) for M, bm in RELU_CASES] + [
         (37, 1000, 1), (37, 1000, 64), (100, 1000, 64)] + [
-        (TRAIN["batch"] * TRAIN["seq"], 1536, 64)]
+        (TRAIN["batch"] * TRAIN["seq"], 1536, 64),
+        (TRAIN["batch"] * TRAIN["seq"] // 2, 1536, 64)]
     for dtype in (torch.float32, torch.bfloat16):
         atol, rtol, why = RELU_TOLS[str(dtype)[6:]]
         for M, F_, bm in cases:
@@ -3865,9 +3890,397 @@ def run_phase7(torch, dev, errs):
     ]
 
 
+# ------------------------------------------ phase 14: training on a mesh
+# Every rank a gloo process on card 0, as in phase 13. (mesh, jobs):
+# "f32" (and "f32 zero1", its moments cut over 'data') MESH_F32_STEPS
+# f32 steps of smollm-135m at full width (30 layers, phase 12's 8 x 512
+# tokens) held step by step to a single rank's: the later steps' loss and
+# grad norm read the params the earlier updates left; "glu kernel" and "relu
+# fused zero1" phase 12's bf16 runs for TRAIN_MESH_STEPS steps (the GLU's
+# gated GEMM FP/BP/WG at the tp-3 shard's F 512; the fused relu MLP at a
+# dp-2 shard's 2048 rows, moments cut over 'data'); "ep" qwen2-moe-a2.7b's
+# MoE layer and two training steps, 30 of its 60 experts a rank.
+TRAIN_MESH_TIMEOUT_S = 120.0
+TRAIN_MESH_DEADLINE_S = 600.0
+TRAIN_MESH_STEPS = 3
+MESH_F32_STEPS = 2
+TRAIN_MESH_RUNS = (
+    ((1, 3), ("f32", "glu kernel")),
+    ((2, 1), ("f32 zero1", "relu fused zero1")),
+    ((1, 2), ("ep",)),
+)
+# qwen2-moe-a2.7b at its published widths (d 2048, 60 experts of d_expert
+# 1408, top 4, 4 shared), cut from 24 to 2 layers; the layer check's
+# tokens, and the training steps' batch.
+EP_ARCH = "qwen2-moe-a2.7b"
+EP_DEPTH = dict(num_layers=2)
+EP_TOKENS = 16
+EP_TRAIN = dict(batch=2, seq=256, steps=2)
+# The reference's sharded-step tolerances (tests/test_distributed.py).
+MESH_LOSS_RTOL, MESH_GNORM_RTOL = 1e-4, 1e-3
+
+
+def mesh_step_f32(torch, dev, mesh, zero1=False):
+    """MESH_F32_STEPS f32 training steps of smollm-135m at full width on
+    ``dev`` (on this rank of ``mesh``, or alone) on phase 12's batches:
+    each step's global loss and grad norm, and the seconds per step."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime.trainer import TrainConfig, Trainer
+    cfg = dataclasses.replace(arch_config(), dtype="float32")
+    shape = ShapeConfig("chip_smoke", TRAIN["seq"], TRAIN["batch"], "train")
+    tr = Trainer(cfg, shape, AdamW(lr=1e-3), TrainConfig(
+        steps=MESH_F32_STEPS, seed=TRAIN["seed"], zero1=zero1), mesh=mesh,
+        device=dev)
+    params, state = tr.init_state(TRAIN["seed"])
+    data = train_data()
+    out = dict(losses=[], grad_norms=[], step_s=[])
+    for _ in range(MESH_F32_STEPS):
+        batch = tr.to_device(next(data))
+        t0 = time.perf_counter()
+        params, state, m = tr.step_fn(params, state, batch)
+        out["losses"].append(float(m["loss"]))
+        out["grad_norms"].append(float(m["grad_norm"]))
+        out["step_s"].append(time.perf_counter() - t0)
+    return out
+
+
+def mesh_train_run(torch, dev, mesh, job):
+    """Phase 12's bf16 run ``job`` ("glu kernel", "relu fused zero1")
+    for TRAIN_MESH_STEPS steps on this rank: losses, ms per step, the
+    collectives, peak memory, the moments' and params' bytes and the
+    kernels' launches."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.modules import iter_leaves
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.parallel import collectives
+    from repro_torch.runtime.trainer import TrainConfig, Trainer
+    label = job.replace(" zero1", "")
+    _, act, sp, kernel, per_layer = next(r for r in TRAIN_RUNS
+                                         if r[0] == label)
+    cfg = train_config(act, sp)
+    shape = ShapeConfig("chip_smoke", TRAIN["seq"], TRAIN["batch"], "train")
+    tr = Trainer(cfg, shape, AdamW(lr=1e-3), TrainConfig(
+        steps=TRAIN_MESH_STEPS, log_every=1, seed=TRAIN["seed"],
+        zero1=job.endswith("zero1")), mesh=mesh, device=dev)
+    wrappers = counters()
+    for fn in wrappers.values():
+        fn.launches = 0
+    collectives.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    res = tr.run(train_data())
+    torch.cuda.synchronize()
+    hist = [h for h in res["history"] if "loss" in h]
+    state = res["opt_state"]
+    return dict(
+        losses=[h["loss"] for h in hist], dts=[h["dt"] for h in hist],
+        launches={k: fn.launches for k, fn in wrappers.items() if
+                  fn.launches},
+        expect={kernel: per_layer * cfg.num_layers * TRAIN_MESH_STEPS},
+        collectives=collectives.stats(), peak_gib=peak_gib(torch),
+        moment_bytes=sum(4 * t.numel() for t in iter_leaves(
+            (state.mu, state.nu))),
+        param_bytes=sum(t.numel() * t.element_size()
+                        for t in iter_leaves(res["params"])))
+
+
+def ep_config(dtype):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(EP_ARCH), dtype=dtype,
+                               **EP_DEPTH)
+
+
+def check_ep_layer(torch, dev, mesh):
+    """qwen2-moe-a2.7b's MoE layer (f32) on this rank of ``mesh``
+    through the expert-parallel path, EP_TOKENS tokens: y, the aux loss
+    and the gradients of sum(y**2) + aux gathered; on rank 0 also the
+    single-rank global path on the whole layer, which they must equal
+    within f32 sums in another order, with no assignment dropped."""
+    from repro_torch.checkpoint.manager import gather_whole
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.modules import iter_leaves
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel import sharding as shd
+    cfg = ep_config("float32")
+    rng = np.random.default_rng(14)
+    full = {"moe": moe_lib.moe_init(rng, cfg, torch.float32, dev)}
+    x = torch.from_numpy(rng.standard_normal(
+        (1, EP_TOKENS, cfg.d_model), dtype=np.float32) * 0.3).to(dev)
+    specs = shd.param_specs(full, mesh)
+    local = shd.cut_tree(full, specs, mesh, mesh.rank)
+    leaves = list(iter_leaves(local))
+    xl = x.clone()
+    for p in leaves + [xl]:
+        p.requires_grad_(True)
+    plan = shd.TrainPlan(mesh, cfg, specs, local, batch_axes=("data",))
+    if plan.moe_groups(cfg) != ("ep", mesh.shape["model"]):
+        raise AssertionError(f"EP not taken: {plan.moe_groups(cfg)}")
+    with shd.use_plan(plan):
+        y, aux, ss = moe_lib.moe_forward(local["moe"], xl, cfg)
+        (torch.sum(y * y) + aux).backward()
+    pspecs = list(shd.iter_leaves_specs(specs))
+    grads = gather_whole([p.grad for p in leaves], pspecs, mesh)
+    E, K, T = cfg.moe.num_experts, cfg.moe.top_k, EP_TOKENS
+    C = moe_lib.capacity(T, cfg)
+    kept = round((1.0 - float(ss)) * E * C)
+    expert_bytes = sum(local["moe"][k].numel() * 4
+                       for k in ("w_in", "w_gate", "w_out"))
+    out = dict(kept=kept, expert_bytes=expert_bytes,
+               local_experts=int(local["moe"]["w_in"].shape[0]))
+    if mesh.rank != 0:
+        return out
+    for p in iter_leaves(full):
+        p.requires_grad_(True)
+    xg = x.clone().requires_grad_(True)
+    yg, auxg, ssg = moe_lib._moe_forward_global(full["moe"], xg, cfg)
+    (torch.sum(yg * yg) + auxg).backward()
+    kept_g = round((1.0 - float(ssg)) * E * C)
+    if kept != T * K or kept_g != T * K:
+        raise AssertionError(f"EP layer: assignments kept {kept} (EP), "
+                             f"{kept_g} (global) of {T * K}")
+    errs = {"y": (y, yg), "x grad": (xl.grad, xg.grad)}
+    errs.update({f"grad {i}": (a, b.grad) for i, (a, b) in enumerate(
+        zip(grads, iter_leaves(full)))})
+    worst = {}
+    for name, (a, b) in errs.items():
+        a, b = a.detach(), b.detach()
+        scale = float(b.abs().max()) or 1.0
+        err = float((a - b).abs().max()) / scale
+        worst[name] = err
+        if err > 1e-4:
+            raise AssertionError(f"EP layer: {name} differs from the global "
+                                 f"path by {err:.2e} of its scale")
+    aerr = abs(float(aux) - float(auxg)) / abs(float(auxg))
+    if aerr > 1e-5:
+        raise AssertionError(f"EP layer: aux {float(aux)} vs {float(auxg)}")
+    out.update(worst=max(worst.values()), aux_err=aerr,
+               collectives=collectives.stats())
+    return out
+
+
+def run_ep_training(torch, dev, mesh):
+    """EP_TRAIN's steps of the 2-layer bf16 qwen2-moe-a2.7b on this rank
+    (every MoE layer expert-parallel): losses, ms per step, peak memory,
+    the rank's expert bytes."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, make_batch_iterator
+    from repro_torch.models.modules import iter_leaves
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.parallel import collectives
+    from repro_torch.runtime.trainer import TrainConfig, Trainer
+    cfg = ep_config("bfloat16")
+    shape = ShapeConfig("ep", EP_TRAIN["seq"], EP_TRAIN["batch"], "train")
+    tr = Trainer(cfg, shape, AdamW(lr=1e-3), TrainConfig(
+        steps=EP_TRAIN["steps"], log_every=1), mesh=mesh, device=dev)
+    collectives.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    res = tr.run(make_batch_iterator(cfg, shape, DataConfig(seed=0)))
+    torch.cuda.synchronize()
+    hist = [h for h in res["history"] if "loss" in h]
+    experts = [p for key in ("stack",) for layer in res["params"][key]
+               for k, p in layer["moe"].items() if k in ("w_in", "w_gate",
+                                                        "w_out")]
+    return dict(losses=[h["loss"] for h in hist],
+                dts=[h["dt"] for h in hist], peak_gib=peak_gib(torch),
+                expert_bytes=sum(p.numel() * p.element_size()
+                                 for p in experts),
+                param_bytes=sum(p.numel() * p.element_size()
+                                for p in iter_leaves(res["params"])),
+                collectives=collectives.stats())
+
+
+def train_mesh_rank(mesh, jobs, device):
+    """One rank of a phase 14 mesh: each job in turn, with its seconds."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    out = []
+    for job in jobs:
+        t0 = time.perf_counter()
+        if job.startswith("f32"):
+            r = mesh_step_f32(torch, dev, mesh, zero1=job.endswith("zero1"))
+        elif job == "ep":
+            r = dict(layer=check_ep_layer(torch, dev, mesh))
+            torch.cuda.empty_cache()
+            r["train"] = run_ep_training(torch, dev, mesh)
+        else:
+            r = mesh_train_run(torch, dev, mesh, job)
+        r["seconds"] = time.perf_counter() - t0
+        out.append(r)
+        torch.cuda.empty_cache()
+    return out
+
+
+def log_mesh_train(label, outs, i):
+    """Phase 14's bf16 run ``label`` on every rank: the same losses, the
+    launches exactly per layer x layers x steps, and per rank ms per
+    step, tokens/s, collectives, peak memory and bytes."""
+    r0 = outs[0][i]
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    moments = sum(o[i]["moment_bytes"] for o in outs)
+    for r, o in enumerate(outs):
+        got = o[i]
+        if not np.isfinite(got["losses"]).all() or len(got["losses"]) != (
+                TRAIN_MESH_STEPS):
+            raise AssertionError(f"{label} rank {r}: losses {got['losses']}")
+        if got["losses"] != r0["losses"]:
+            raise AssertionError(f"{label}: rank {r}'s losses "
+                                 f"{got['losses']} != rank 0's")
+        if got["launches"] != got["expect"]:
+            raise AssertionError(f"{label} rank {r}: launches "
+                                 f"{got['launches']}, expected "
+                                 f"{got['expect']}")
+        steady = float(np.mean(got["dts"][1:]))
+        c = got["collectives"]
+        secs = sum(c["seconds"].values())
+        log(f"  {label} rank {r}: step 0 {1e3 * got['dts'][0]:.1f} ms, "
+            f"steps 1-{TRAIN_MESH_STEPS - 1} {1e3 * steady:.2f} ms per "
+            f"step ({tokens / steady:.0f} tokens/s of the global batch); "
+            f"peak device memory {got['peak_gib']:.2f} GiB; params "
+            f"{got['param_bytes']} B, moments {got['moment_bytes']} B "
+            f"({got['moment_bytes'] / moments:.3f} of the ranks' "
+            f"{moments} B); launches {got['launches']} (= per layer x "
+            f"layers x "
+            f"{TRAIN_MESH_STEPS} steps) -> ok")
+        log(f"  {label} rank {r} collectives: "
+            + ", ".join(f"{k} {c['counts'][k]} calls / {c[k]} B / "
+                        f"{c['seconds'][k]:.3f}s" for k in c["counts"]
+                        if c["counts"][k])
+            + f"; {secs:.3f}s in all, "
+              f"{1e3 * secs / TRAIN_MESH_STEPS:.1f} ms per step")
+    log(f"  {label}: losses {['%.4f' % v for v in r0['losses']]} equal on "
+        f"every rank")
+
+
+def check_mesh_f32(label, single, ranks):
+    """Every rank's loss and grad norm at every step of an f32 mesh run
+    against the single rank's, at the reference's tolerances; logs the
+    largest relative error over the ranks at each step."""
+    for k in range(MESH_F32_STEPS):
+        le = ge = 0.0
+        for r, got in enumerate(ranks):
+            loss, gnorm = got["losses"][k], got["grad_norms"][k]
+            le = max(le, abs(loss - single["losses"][k])
+                     / single["losses"][k])
+            ge = max(ge, abs(gnorm - single["grad_norms"][k])
+                     / single["grad_norms"][k])
+            if le > MESH_LOSS_RTOL or ge > MESH_GNORM_RTOL:
+                raise AssertionError(
+                    f"{label} rank {r} step {k}: loss {loss} grad norm "
+                    f"{gnorm} vs single rank {single['losses'][k]} "
+                    f"{single['grad_norms'][k]}")
+        log(f"  {label} step {k}: loss {ranks[0]['losses'][k]:.6f}, grad "
+            f"norm {ranks[0]['grad_norms'][k]:.6f}; largest rel err over "
+            f"the {len(ranks)} ranks: loss {le:.2e} (limit "
+            f"{MESH_LOSS_RTOL}), grad norm {ge:.2e} (limit "
+            f"{MESH_GNORM_RTOL}); {ranks[0]['step_s'][k]:.3f}s -> ok")
+
+
+def run_train_meshes(torch, dev):
+    """Phase 14: the single-rank f32 step, then each mesh of
+    TRAIN_MESH_RUNS spawned on card 0 (gloo)."""
+    from repro_torch.launch.mesh import spawn_mesh
+    single = mesh_step_f32(torch, dev, None)
+    for k in range(MESH_F32_STEPS):
+        log(f"  f32 single rank step {k}: loss {single['losses'][k]:.6f}, "
+            f"grad norm {single['grad_norms'][k]:.6f}, "
+            f"{single['step_s'][k]:.3f}s")
+    torch.cuda.empty_cache()
+    rank_dev = str(dev) if dev.type == "cpu" else f"cuda:{dev.index or 0}"
+    for mesh, jobs in TRAIN_MESH_RUNS:
+        t0 = time.perf_counter()
+        outs = spawn_mesh(train_mesh_rank, mesh, (jobs, rank_dev),
+                          device=rank_dev, backend="gloo",
+                          timeout_s=TRAIN_MESH_TIMEOUT_S,
+                          deadline_s=TRAIN_MESH_DEADLINE_S,
+                          axes=("data", "model"))
+        log(f"  mesh {mesh}: {mesh[0] * mesh[1]} ranks on card 0 (gloo), "
+            f"spawn to exit {time.perf_counter() - t0:.1f}s; jobs "
+            + ", ".join(f"{j} {outs[0][i]['seconds']:.1f}s"
+                        for i, j in enumerate(jobs)))
+        for i, job in enumerate(jobs):
+            label = f"{job} {mesh}"
+            if job.startswith("f32"):
+                check_mesh_f32(label, single, [o[i] for o in outs])
+            elif job == "ep":
+                lay = outs[0][i]["layer"]
+                log(f"  {label} layer: {EP_TOKENS} tokens, every one of "
+                    f"{lay['kept']} assignments kept on both paths; y, aux "
+                    f"and every gradient within {lay['worst']:.2e} of their "
+                    f"scale (limit 1e-4; aux {lay['aux_err']:.2e}) of the "
+                    f"single-rank global path -> ok")
+                for r, o in enumerate(outs):
+                    tr = o[i]["train"]
+                    if not np.isfinite(tr["losses"]).all():
+                        raise AssertionError(f"{label}: {tr['losses']}")
+                    c = tr["collectives"]
+                    log(f"  {label} rank {r}: {o[i]['layer']['local_experts']}"
+                        f" experts a layer, expert bytes {tr['expert_bytes']}"
+                        f" (bf16), params {tr['param_bytes']} B; "
+                        f"{EP_TRAIN['steps']} steps of {EP_TRAIN['batch']} x "
+                        f"{EP_TRAIN['seq']} tokens: losses "
+                        f"{['%.4f' % v for v in tr['losses']]}, "
+                        + ", ".join(f"{1e3 * d:.1f}" for d in tr["dts"])
+                        + f" ms per step; peak {tr['peak_gib']:.2f} GiB; "
+                        + ", ".join(f"{k} {c['counts'][k]} / {c[k]} B / "
+                                    f"{c['seconds'][k]:.3f}s"
+                                    for k in c["counts"] if c["counts"][k]))
+            else:
+                log_mesh_train(label, outs, i)
+
+
+def phase14_rows(torch, dev):
+    """The training kernels at a mesh shard's shapes: the fused relu MLP
+    at a dp-2 shard's 2048 rows, the gated GEMM at the tp-3 shard's FP,
+    BP and WG (F 512; 30% of the gated operand's tiles zero)."""
+    from repro_torch.core import sprf
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import sparce_gemm as sg
+    from repro_torch.kernels import sparce_mlp as sm
+    rng = np.random.default_rng(9)
+    M, K, F_, N = TRAIN["batch"] * TRAIN["seq"] // 2, 576, 1536, 576
+    x = bf16_normal(torch, dev, rng, M, K)
+    wi = bf16_normal(torch, dev, rng, K, F_, scale=K ** -0.5)
+    wo = bf16_normal(torch, dev, rng, F_, N, scale=F_ ** -0.5)
+    mkw = dict(block_m=64, block_f=128, act="relu")
+    rows = [("sparce_mlp_fused training forward dp 2 shard (2048 rows)",
+             lambda: kops.sparce_mlp_fused(x, wi, wo, **mkw),
+             lambda: sm.sparce_mlp_fused_plain(x, wi, wo, **mkw),
+             lambda: torch.relu(x @ wi) @ wo, MLP_KERNELS,
+             (M * K + K * F_ + F_ * N + M * N) * 2,
+             2 * M * K * F_ + 2 * M * F_ * N, 100)]
+    a, w, gr, (bm, bk, bn) = train_gemm_operands(torch, torch.bfloat16, 10,
+                                                 F_=TP3_F)
+    a, w, gr = a.to(dev), w.to(dev), gr.to(dev)
+    abits = sprf.compute_bitmap(a, (bm, bk)).bits
+    gbits = sprf.compute_bitmap(gr, (bm, bn)).bits
+    for label, lhs, rhs, bits, (pm, pk, pn) in (
+            ("FP", a, w, abits, (bm, bk, bn)),
+            ("BP", gr, w.T.contiguous(), gbits, (bm, bn, bk)),
+            ("WG", a.T.contiguous(), gr, abits.T.contiguous(),
+             (bk, bm, bn))):
+        kw = dict(block_m=pm, block_k=pk, block_n=pn, gate="lhs")
+        live = int(bits.numel() - bits.sum())
+        Mx, Kx = lhs.shape
+        Nx = rhs.shape[1]
+        rows.append((
+            f"sparce_gemm_gated training tp 3 shard {label} "
+            f"{tuple(lhs.shape)} @ {tuple(rhs.shape)}",
+            lambda lhs=lhs, rhs=rhs, bits=bits, kw=kw:
+                sg.sparce_gemm_gated(lhs, rhs, bits, **kw),
+            lambda lhs=lhs, rhs=rhs, bits=bits, kw=kw:
+                sg.sparce_gemm_gated_plain(lhs, rhs, bits, **kw),
+            lambda lhs=lhs, rhs=rhs: lhs @ rhs, GEMM_KERNELS,
+            (live * pm * pk + Kx * Nx + Mx * Nx) * 2 + bits.numel() * 4,
+            2 * live * pm * pk * Nx, 100))
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
+    ap.add_argument("--phases",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
                     help="comma-separated subset of phases to run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -4025,6 +4438,17 @@ def main(argv=None) -> int:
             run_mesh_engines(torch, dev)
             time_rows(torch, dev, phase13_rows(torch, dev))
             phase_done(13)
+        if 14 in phases:
+            log("phase 14: training on a (data, model) mesh, every rank on "
+                f"card 0 over gloo: {MESH_F32_STEPS} f32 full-width "
+                "smollm-135m steps on (1, 3) and, with ZeRO-1, on (2, 1) "
+                "against the single rank's; the bf16 GLU "
+                "kernel run on (1, 3) and the relu fused run with ZeRO-1 on "
+                f"(2, 1), {TRAIN_MESH_STEPS} steps; qwen2-moe-a2.7b "
+                "(2 layers) expert-parallel on (1, 2)")
+            run_train_meshes(torch, dev)
+            time_rows(torch, dev, phase14_rows(torch, dev))
+            phase_done(14)
         torch.cuda.synchronize()
         log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all")
     except Exception:  # noqa: BLE001 - report and fail the run

@@ -135,9 +135,12 @@ def spawn_mesh(fn: Callable, shape: Sequence[int], args: tuple = (), *,
                device: Union[str, Sequence[str]] = "cpu",
                backend: str = "gloo",
                timeout_s: float = DEFAULT_TIMEOUT_S,
-               deadline_s: Optional[float] = None) -> List[Any]:
-    """Run ``fn(mesh, *args)`` on every rank of a fresh (data, model)
-    mesh ``shape`` and return the ranks' results, by rank.
+               deadline_s: Optional[float] = None,
+               axes: Sequence[str] = SERVE_AXES) -> List[Any]:
+    """Run ``fn(mesh, *args)`` on every rank of a fresh mesh ``shape``
+    over ``axes`` (default: serving's (data, model); training spawns
+    ``("pod", "data", "model")[-len(shape):]``) and return the ranks'
+    results, by rank.
 
     ``fn`` must be importable by its module path (a spawned rank starts
     from a fresh interpreter); ``args`` and the results are pickled.
@@ -152,6 +155,9 @@ def spawn_mesh(fn: Callable, shape: Sequence[int], args: tuple = (), *,
     import torch.multiprocessing as mp
 
     shape = tuple(int(s) for s in shape)
+    axes = tuple(axes)
+    if len(axes) != len(shape):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in rank")
     world = math.prod(shape)
     devices = ([device] * world if isinstance(device, str)
                else list(device))
@@ -163,7 +169,7 @@ def spawn_mesh(fn: Callable, shape: Sequence[int], args: tuple = (), *,
         results = ctx.Queue()
         procs = [ctx.Process(
             target=_rank_main, name=f"mesh-rank-{r}",
-            args=(r, world, shape, SERVE_AXES, os.path.join(tmp, "store"),
+            args=(r, world, shape, axes, os.path.join(tmp, "store"),
                   backend, timeout_s, devices[r], fn, args, results))
             for r in range(world)]
         for p in procs:

@@ -53,11 +53,23 @@ class PagedKVCache(NamedTuple):
 
 
 def _psum(y: torch.Tensor, axis: str) -> torch.Tensor:
-    """Sum of y over the mesh axis ``axis`` (serving tensor parallelism);
-    the collectives are imported only on a mesh."""
+    """Sum of y over the mesh axis ``axis`` (tensor parallelism: the
+    differentiable psum in training, the plain one in serving); the
+    collectives are imported only on a mesh."""
     from repro_torch.parallel import collectives  # noqa: PLC0415
 
-    return collectives.psum(y, axis)
+    return collectives.tp_close(y, axis)
+
+
+def _open(x: torch.Tensor, axis: Optional[str]) -> torch.Tensor:
+    """``x`` entering a tensor-parallel block: in training its gradient
+    is summed over ``axis`` (the shards use it for different heads); the
+    identity off a mesh and in serving."""
+    if axis is None:
+        return x
+    from repro_torch.parallel import collectives  # noqa: PLC0415
+
+    return collectives.tp_open(x, axis)
 
 
 def _slot_lengths(cache, batch: int) -> torch.Tensor:
@@ -235,6 +247,7 @@ def gqa_forward(
     """
     B, S, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    x = _open(x, cfg.tp_axis)
     q = x @ params["wq"]
     k = x @ params["wk"]
     v = x @ params["wv"]
@@ -404,12 +417,15 @@ def mla_forward(
     scale = (nope + rope_d) ** -0.5
 
     cq = rmsnorm(params["q_norm"], x @ params["wdq"], cfg.norm_eps)
-    q = (cq @ params["wuq"]).reshape(B, S, h, nope + rope_d)
-    q_nope = q[..., :nope]
-    q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
     ckv = rmsnorm(params["kv_norm"], x @ params["wdkv"], cfg.norm_eps)
     kr = apply_rope((x @ params["wkr"])[:, :, None, :], positions,
                     cfg.rope_theta)[:, :, 0, :]  # (B, S, rope), all heads
+    # Under tensor parallelism the down-projections above are whole on
+    # every shard; the per-head up-projections below are the shard's.
+    cq, ckv, kr = (_open(t, cfg.tp_axis) for t in (cq, ckv, kr))
+    q = (cq @ params["wuq"]).reshape(B, S, h, nope + rope_d)
+    q_nope = q[..., :nope]
+    q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
 
     if cache is None or S > 1:
         # Train/prefill: decompress and run the chunked attention, KV=H.

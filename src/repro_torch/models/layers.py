@@ -83,12 +83,14 @@ def mlp_fwd(params, x: torch.Tensor, act: str,
     1/tp column slice of w_in/w_gate and the matching row slice of
     w_out, so ``y`` is a partial sum closed here with one psum; the skip
     stats stay PER SHARD (each shard's bitmap gates its own stripes --
-    the paper's per-core SpRF) and the engine sums them."""
-    y, stats = _mlp_local(params, x, act, scfg)
-    if tp_axis is not None:
-        from repro_torch.parallel import collectives  # noqa: PLC0415
-        y = collectives.psum(y, tp_axis)
-    return y, stats
+    the paper's per-core SpRF) and the engine sums them. In training the
+    block opens with ``tp_open`` (the shards' gradients of ``x`` are
+    summed) and closes with the differentiable psum."""
+    if tp_axis is None:
+        return _mlp_local(params, x, act, scfg)
+    from repro_torch.parallel import collectives  # noqa: PLC0415
+    y, stats = _mlp_local(params, collectives.tp_open(x, tp_axis), act, scfg)
+    return collectives.tp_close(y, tp_axis), stats
 
 
 def _mlp_local(params, x: torch.Tensor, act: str,

@@ -39,6 +39,7 @@ from repro_torch.models.attention import (
     mla_init_paged_cache,
 )
 from repro_torch.models.layers import rmsnorm, rmsnorm_init
+from repro_torch.parallel import sharding as shd
 
 # Values of the f32 head product computed per slice of vocab columns:
 # bounds the f32 copy of a bf16 head (the whole of DeepSeek-V3's would be
@@ -195,6 +196,9 @@ def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     attention runs the fresh queries over the whole buffer anchored at
     the cache length. Bucketable families only, like ``advance``."""
     check_family(cfg)
+    plan = shd.current_plan()
+    if plan is not None:
+        params = plan.top(params)  # embed / head gathered on use
     x = _embed(params, cfg, batch["tokens"], batch.get("patch_embeds"))
     active = batch.get("active")
     if active is not None:
@@ -243,6 +247,19 @@ def loss_fn(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
     over codebooks of each stream's), weighted by ``batch["loss_mask"]``
     when given, plus the MoE router aux loss. Returns (total, {"loss",
     "aux_loss", "total_loss"})."""
+    total, metrics, _ = loss_terms(params, cfg, batch)
+    return total, metrics
+
+
+def loss_terms(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], dict]:
+    """:func:`loss_fn` plus the forward's aux record (its skip counters).
+
+    Inside a sharded training step ``batch`` holds this rank's rows: the
+    numerator and the denominator of the masked mean are summed over the
+    batch axes (never the shards' means, which differ under a mask), so
+    every rank gets the global loss; its gradient is the share that the
+    step's average of the ranks' gradients turns into the global one."""
     logits, _, aux = forward(params, cfg, batch)
     tokens = batch["tokens"].long()
     if cfg.frontend == "codes":
@@ -254,8 +271,7 @@ def loss_fn(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
                           device=ll.device)
         if "loss_mask" in batch:
             mask = mask * batch["loss_mask"][:, 1:]
-        loss = -torch.sum(ll.mean(-1) * mask) / torch.clamp_min(
-            mask.sum(), 1.0)
+        num = -torch.sum(ll.mean(-1) * mask)
     else:
         if cfg.frontend == "patches":
             logits = logits[:, batch["patch_embeds"].shape[1]:]  # text
@@ -265,10 +281,19 @@ def loss_fn(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
         mask = torch.ones_like(ll)
         if "loss_mask" in batch:
             mask = batch["loss_mask"][:, 1:].to(ll.dtype)
-        loss = -torch.sum(ll * mask) / torch.clamp_min(mask.sum(), 1.0)
+        num = -torch.sum(ll * mask)
+    den = mask.sum()
+    plan = shd.current_plan()
+    if plan is not None and plan.batch_size > 1:
+        from repro_torch.parallel import collectives  # noqa: PLC0415
+        den = collectives.psum(den.detach().clone(), plan.batch_axes)
+        loss = collectives.psum_replicas(num / torch.clamp_min(den, 1.0),
+                                         plan.batch_axes)
+    else:
+        loss = num / torch.clamp_min(den, 1.0)
     total = loss + aux["loss"]
     return total, {"loss": loss, "aux_loss": aux["loss"],
-                   "total_loss": total}
+                   "total_loss": total}, aux
 
 
 def serving_decode_step(params, cfg: ArchConfig, last_tokens, caches,

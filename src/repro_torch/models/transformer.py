@@ -41,6 +41,7 @@ from repro_torch.models.attention import (
 from repro_torch.models.layers import (
     mlp_fwd, mlp_init, rmsnorm, rmsnorm_init,
 )
+from repro_torch.parallel import sharding as shd
 
 
 def aux_zero(device) -> dict:
@@ -103,7 +104,14 @@ def block_fwd(params, x, positions, cfg: ArchConfig, kind: str, cache=None,
     gates every residual delta, so a dead slot's residual stream stays
     identically zero through the stack and its MLP gate tiles are
     all-zero (dead) tiles. ``continuation`` marks a prefix-cache suffix
-    prefill (see ``attention.gqa_forward``)."""
+    prefill (see ``attention.gqa_forward``). Inside a sharded training
+    step the ambient plan gives the block this rank's view: its
+    tensor-parallel slices, or its sharded leaves gathered."""
+    plan = shd.current_plan()
+    if plan is not None:
+        params, cfg, mlp_axis = plan.block(params, cfg, kind)
+    else:
+        mlp_axis = cfg.tp_axis
 
     def gate(h):
         if active is None:
@@ -130,7 +138,7 @@ def block_fwd(params, x, positions, cfg: ArchConfig, kind: str, cache=None,
         aux["loss"] = aux["loss"] + moe_aux
     else:
         h, skip = mlp_fwd(params["mlp"], hn, cfg.mlp_act, cfg.sparsity,
-                          tp_axis=cfg.tp_axis)
+                          tp_axis=mlp_axis)
         aux["skip"] = aux["skip"] + skip
     return x + gate(h), new_cache, aux
 

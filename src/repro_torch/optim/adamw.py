@@ -11,8 +11,13 @@ The moments are f32; the update is computed in f32 and cast back to each
 param's dtype (round to nearest even, as the reference's cast does);
 weight decay applies to matrices only. The schedule and the bias
 corrections are f32 scalars computed on the host from the step count.
-ZeRO-1 moment sharding (the reference's ``opt_state_shardings``) waits
-for the multi-device port.
+
+On a mesh (``update(..., shard=...)``) every rank holds its slices of
+the params and grads (``parallel/sharding.py:param_specs``) and of the
+moments (:func:`opt_state_shardings`, the reference's ZeRO-1 rule); the
+global norm sums the squares of each leaf once over the mesh, and a
+ZeRO-1 rank updates its slice of each moment and the matching slice of
+the param, then all-gathers the updated param slices over 'data'.
 """
 from __future__ import annotations
 
@@ -49,10 +54,70 @@ def cosine_schedule(peak_lr: float, warmup: int, total: int,
     return lr
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in iter_leaves(tree)))
+def global_norm(tree, shard: Optional["Shard"] = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in f32. With ``shard``
+    the leaves are this rank's slices: a leaf cut over 'model' has its
+    squares summed over 'model', a leaf whole on every rank of 'model'
+    is counted once."""
+    if shard is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in iter_leaves(tree)))
+    from repro_torch.parallel import collectives  # noqa: PLC0415
+    from repro_torch.parallel.sharding import spec_axes  # noqa: PLC0415
+
+    dev = next(iter(iter_leaves(tree))).device
+    cut = torch.zeros((), dtype=torch.float32, device=dev)
+    whole = torch.zeros((), dtype=torch.float32, device=dev)
+    for x, spec in zip(iter_leaves(tree), shard.param_specs):
+        sq = torch.sum(torch.square(x.float()))
+        if "model" in spec_axes(spec):
+            cut = cut + sq
+        else:
+            whole = whole + sq
+    if "model" in shard.mesh.shape:
+        cut = collectives.psum(cut.reshape(1), "model", shard.mesh)[0]
+    return torch.sqrt(cut + whole)
+
+
+def opt_state_shardings(state: "AdamState", param_specs, mesh, *,
+                        zero1: bool = False) -> "AdamState":
+    """Specs of the optimizer state (the reference's rule): each moment
+    takes its param's spec; under ZeRO-1 its largest still-replicated
+    dim that divides by the data size (and is > 1) is cut over 'data'
+    too. The step counter is replicated. ``state`` holds the full-size
+    moments (only their shapes are read)."""
+    from repro_torch.parallel.sharding import (  # noqa: PLC0415
+        iter_leaves_specs,
+    )
+
+    def one(spec, leaf):
+        ndim = len(leaf.shape)
+        spec = list(spec) + [None] * (ndim - len(spec))
+        data = mesh.shape.get("data", 0)
+        if zero1 and data:
+            cand = [(leaf.shape[i], i) for i in range(ndim)
+                    if spec[i] is None and leaf.shape[i] % data == 0
+                    and leaf.shape[i] > 1]
+            if cand:
+                spec[max(cand)[1]] = "data"
+        return tuple(spec)
+
+    specs = list(iter_leaves_specs(param_specs))
+    it = iter(specs)
+    mu = tree_map(lambda leaf: one(next(it), leaf), state.mu)
+    it = iter(specs)
+    nu = tree_map(lambda leaf: one(next(it), leaf), state.nu)
+    return AdamState(step=(), mu=mu, nu=nu)
+
+
+@dataclasses.dataclass
+class Shard:
+    """One rank's place in a sharded update: the mesh, the params'
+    specs and the moments' specs, each a list in ``iter_leaves`` order."""
+
+    mesh: Any
+    param_specs: list
+    moment_specs: list
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,18 +138,22 @@ class AdamW:
             mu=tree_map(zeros, params), nu=tree_map(zeros, params))
 
     @torch.no_grad()
-    def update(self, grads, state: AdamState, params
+    def update(self, grads, state: AdamState, params,
+               shard: Optional[Shard] = None
                ) -> Tuple[Any, AdamState, dict]:
         """One step; returns fresh params and state (the inputs are not
-        modified) and ``{"grad_norm", "lr"}``."""
+        modified) and ``{"grad_norm", "lr"}``. With ``shard`` the trees
+        hold this rank's slices (see :class:`Shard`)."""
         step = state.step + 1
         n = int(step)
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, shard)
         if self.clip_norm is not None:
             scale = torch.clamp_max(self.clip_norm / (gnorm + 1e-9), 1.0)
             grads = tree_map(lambda g: g.float() * scale, grads)
         else:
             grads = tree_map(lambda g: g.float(), grads)
+        if shard is not None:
+            grads = _slices(grads, shard)
         f32 = np.float32
         lr = f32(self.lr(n) if callable(self.lr) else self.lr)
         b1, b2 = self.b1, self.b2
@@ -99,7 +168,69 @@ class AdamW:
                 delta = delta + self.weight_decay * p.float()
             return (p.float() - float(lr) * delta).to(p.dtype)
 
-        new_params = tree_map(upd, params, mu, nu)
+        if shard is None:
+            new_params = tree_map(upd, params, mu, nu)
+        else:
+            new_params = self._zero1_params(upd, params, mu, nu, shard)
         return new_params, AdamState(step, mu, nu), {
             "grad_norm": gnorm,
             "lr": torch.tensor(lr, dtype=torch.float32)}
+
+    def _zero1_params(self, upd, params, mu, nu, shard: Shard):
+        """``upd`` on each param's slice that matches its moment's (the
+        whole param where the moment is not cut over 'data'), the updated
+        slices all-gathered over 'data': one all-gather per dtype, of
+        the rank's slices laid end to end."""
+        from repro_torch.parallel import collectives  # noqa: PLC0415
+
+        dims = _data_dims(shard)
+        i = shard.mesh.coord("data") if "data" in shard.mesh.shape else 0
+        leaves = list(zip(iter_leaves(params), iter_leaves(mu),
+                          iter_leaves(nu), dims))
+        out = [None] * len(leaves)
+        cut = {}
+        for k, (p, m, v, dim) in enumerate(leaves):
+            if dim is None:
+                out[k] = upd(p, m, v)
+                continue
+            size = m.shape[dim]
+            new = upd(p.narrow(dim, i * size, size), m, v)
+            cut.setdefault(new.dtype, []).append((k, new))
+        for dtype in sorted(cut, key=str):
+            parts = collectives.all_gather(
+                torch.cat([t.reshape(-1) for _, t in cut[dtype]])[None],
+                "data", shard.mesh)  # (n, total)
+            off = 0
+            for k, t in cut[dtype]:
+                n = t.numel()
+                out[k] = torch.cat([r[off:off + n].view(t.shape)
+                                    for r in parts], dim=dims[k])
+                off += n
+        it = iter(out)
+        return tree_map(lambda _: next(it), params)
+
+
+def _data_dims(shard: Shard) -> list:
+    """Per leaf, the dim a ZeRO-1 moment cuts over 'data' beyond its
+    param (None: the moment is the param's slice)."""
+    out = []
+    for ps, ms in zip(shard.param_specs, shard.moment_specs):
+        ps = list(ps) + [None] * (len(ms) - len(ps))
+        out.append(next((i for i, (a, b) in enumerate(zip(ps, ms))
+                         if a != b), None))
+    return out
+
+
+def _slices(grads, shard: Shard):
+    """Each grad cut to its moment's slice (ZeRO-1)."""
+    dims = iter(_data_dims(shard))
+
+    def one(g):
+        dim = next(dims)
+        if dim is None:
+            return g
+        n = shard.mesh.shape["data"]
+        size = g.shape[dim] // n
+        return g.narrow(dim, shard.mesh.coord("data") * size, size)
+
+    return tree_map(one, grads)

@@ -15,7 +15,8 @@ operand-byte convention:
     send, recv  collective-permute  operand == the tensor (each rank
                                     counts its own end)
 
-(reduce-scatter and all-to-all have no caller yet.) Beside the bytes it
+(reduce-scatter and all-to-all have no caller: the sharded training step
+needs neither.) Beside the bytes it
 counts the calls and the seconds spent in them, host clock around the
 blocking call (for a CUDA tensor that includes the wait for the work
 queued before it on the stream). A group of one rank costs nothing and
@@ -23,8 +24,32 @@ counts nothing.
 
 The process's mesh is set once per rank (:func:`set_mesh`, by
 ``launch/mesh.py``); model code reaches it through ``cfg.tp_axis``
-(:func:`psum` with an axis name). Nothing here runs on a single host:
-the model imports this module only when ``tp_axis`` is set.
+(:func:`psum` with an axis name) and the sharded training step's plan
+(``sharding.TrainPlan``). Nothing here runs on a single host: the model
+imports this module only on a mesh.
+
+Training goes through the collectives below as ``torch.autograd``
+Functions of the port's own (``torch.distributed.nn``'s all-reduce
+all-reduces again in its backward, which multiplies a replicated
+gradient by n). Every one of them counts like its plain twin, in its
+forward and in its backward:
+
+    tp_close        forward all-reduce, backward identity (closes a
+                    row-sharded product: each rank's partial gets the
+                    cotangent of the sum)
+    tp_open         forward identity, backward all-reduce (opens a
+                    tensor-parallel block: the ranks use the replicated
+                    input differently, so its gradient is summed once)
+    gather_on_use   forward all-gather along a dim, backward this rank's
+                    slice of the gradient (every rank computes the
+                    gathered layer identically)
+    psum_replicas   forward all-reduce, backward the cotangent times n
+                    (a sum over data ranks whose gradients the step then
+                    averages over the same ranks)
+
+On a single host and in serving (no gradient wanted) ``tp_open`` is the
+identity and ``tp_close`` the plain :func:`psum`, so serving's
+collectives are unchanged.
 
 Backends: with ``nccl`` every device collective takes CUDA tensors. With
 ``gloo``, ``all_reduce`` and ``broadcast`` take CUDA tensors themselves
@@ -122,9 +147,9 @@ def psum(x: torch.Tensor, axes, mesh: Optional[Mesh] = None
     return y
 
 
-def all_gather(x: torch.Tensor, axis, mesh: Optional[Mesh] = None
-               ) -> torch.Tensor:
-    """The group's ``x`` concatenated along dim 0 in the order of the
+def all_gather(x: torch.Tensor, axis, mesh: Optional[Mesh] = None,
+               dim: int = 0) -> torch.Tensor:
+    """The group's ``x`` concatenated along ``dim`` in the order of the
     ranks' coordinates on ``axis``."""
     m = _mesh(mesh)
     group, n = _group(m, axis)
@@ -135,7 +160,7 @@ def all_gather(x: torch.Tensor, axis, mesh: Optional[Mesh] = None
     work = src.cpu() if _host_staged(m, src) else src
     parts = [torch.empty_like(work) for _ in range(n)]
     dist.all_gather(parts, work, group=group)
-    out = torch.cat(parts, dim=0)
+    out = torch.cat(parts, dim=dim)
     if out.device != x.device:
         out = out.to(x.device)
     _count(m, "all-gather", src.numel() * src.element_size(),
@@ -205,3 +230,123 @@ def broadcast_object(obj: Any, src: int = 0, mesh: Optional[Mesh] = None
     dist.broadcast(payload, src=src, group=m.control)
     _count(m, "collective-permute", int(size) + 8, time.perf_counter() - t0)
     return obj if m.rank == src else pickle.loads(payload.numpy().tobytes())
+
+
+# ------------------------------------------------------------ autograd
+def _size(axes, mesh: Optional[Mesh]) -> int:
+    return _mesh(mesh).group_size(axes)
+
+
+class _Close(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        return psum(x.clone(), axes, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Open(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.axes, ctx.mesh = axes, mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g.clone(), ctx.axes, ctx.mesh), None, None
+
+
+class _GatherOnUse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim, mesh):
+        m = _mesh(mesh)
+        ctx.dim, ctx.size = dim, x.shape[dim]
+        ctx.idx = m.coord(axis)
+        return all_gather(x, axis, m, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(ctx.dim, ctx.idx * ctx.size, ctx.size).contiguous(),
+                None, None, None)
+
+
+class _Replicas(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.n = _size(axes, mesh)
+        return psum(x.clone(), axes, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.n, None, None
+
+
+def _wants_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def tp_close(y: torch.Tensor, axes, mesh: Optional[Mesh] = None
+             ) -> torch.Tensor:
+    """The sum of the ranks' partial ``y`` over ``axes``; its gradient is
+    the cotangent itself on every rank. Without a gradient to carry it
+    is :func:`psum`."""
+    if _size(axes, mesh) == 1:
+        return y
+    if not _wants_grad(y):
+        return psum(y, axes, mesh)
+    return _Close.apply(y, axes, mesh)
+
+
+def tp_open(x: torch.Tensor, axes, mesh: Optional[Mesh] = None
+            ) -> torch.Tensor:
+    """``x`` itself; its gradient is summed over ``axes``, once. The
+    identity when no gradient is carried (serving)."""
+    if _size(axes, mesh) == 1 or not _wants_grad(x):
+        return x
+    return _Open.apply(x, axes, mesh)
+
+
+def gather_on_use(x: torch.Tensor, axis: str, dim: int,
+                  mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """The whole leaf from the ranks' slices along ``dim`` over ``axis``;
+    its gradient is this rank's slice of the cotangent (every rank
+    computes the gathered layer the same way)."""
+    if _size(axis, mesh) == 1:
+        return x
+    if not _wants_grad(x):
+        return all_gather(x, axis, mesh, dim=dim)
+    return _GatherOnUse.apply(x, axis, dim, mesh)
+
+
+def psum_replicas(x: torch.Tensor, axes, mesh: Optional[Mesh] = None
+                  ) -> torch.Tensor:
+    """The sum of ``x`` over ``axes``; its backward hands each rank n
+    times the cotangent, the share that the step's average of the ranks'
+    gradients over ``axes`` turns back into one."""
+    if _size(axes, mesh) == 1:
+        return x
+    if not _wants_grad(x):
+        return psum(x.clone(), axes, mesh)
+    return _Replicas.apply(x, axes, mesh)
+
+
+def grad_scale(x: torch.Tensor, s: float) -> torch.Tensor:
+    """``x`` whose gradient is scaled by ``s``: a value every rank of an
+    axis computes alike, whose gradient a later sum over that axis would
+    otherwise count once per rank."""
+    if s == 1.0 or not _wants_grad(x):
+        return x
+    return _Scale.apply(x, s)
+
+
+class _Scale(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, s):
+        ctx.s = s
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.s, None

@@ -20,6 +20,14 @@ body runs the unchanged model code on 1/tp of the heads and FFN columns
 raises instead of replicating. :func:`shard_params` cuts a full state
 dict into one rank's slices by those rules.
 
+Training (:func:`train_shard_params`, :class:`TrainPlan`,
+:func:`use_plan`) stores each leaf cut by :func:`param_specs` and runs
+the single-host model code on this rank's slices: a block whose stored
+slices are exactly its tensor-parallel slices computes them, every other
+sharded leaf is gathered on use. The reference's ``constrain`` (a hint
+to GSPMD) has no counterpart: manual SPMD places every collective
+itself.
+
 :class:`Mesh` is the port's mesh: an axis -> size map, the row-major
 rank grid (rank 0 is every axis' index 0) and, on an initialized
 ``torch.distributed`` world (``launch/mesh.py:make_mesh``), this rank's
@@ -28,10 +36,11 @@ process group for every set of axes. Nothing here touches
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import re
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -209,20 +218,29 @@ def batch_spec(cfg: ArchConfig, shape, mesh: Mesh, batch: Any,
     """Specs for the input batch tree: shard the batch dim over (pod,
     data), or over EVERY mesh axis for profile='dp'. ``shape`` is a
     ``ShapeConfig`` (unused, as in the reference)."""
-    batch_axes = DATA_AXES + (("model",) if profile == "dp" else ())
-    dp = 1
-    for a in batch_axes:
-        dp *= _mesh_size(mesh, a)
 
     def one(path, leaf):
         dims = tuple(leaf.shape)
-        b = dims[0]
-        axes = tuple(a for a in batch_axes if a in mesh.shape)
-        if b % dp == 0 and b > 0:
-            return (axes,) + (None,) * (len(dims) - 1)
-        return (None,) * len(dims)
+        axes = batch_axes(mesh, dims[0], profile)
+        if axes is None:
+            return (None,) * len(dims)
+        return (axes,) + (None,) * (len(dims) - 1)
 
     return tree_map_with_path(one, batch)
+
+
+def batch_axes(mesh: Mesh, rows: int, profile: str = "tp"
+               ) -> Optional[Tuple[str, ...]]:
+    """The axes :func:`batch_spec` cuts a leaf of ``rows`` batch rows
+    over (the mesh's batch axes), or None where the rows do not divide
+    over them and the leaf stays replicated."""
+    names = DATA_AXES + (("model",) if profile == "dp" else ())
+    dp = 1
+    for a in names:
+        dp *= _mesh_size(mesh, a)
+    if rows % dp or rows <= 0:
+        return None
+    return tuple(a for a in names if a in mesh.shape)
 
 
 def cache_spec(cfg: ArchConfig, shape, mesh: Mesh, caches: Any) -> Any:
@@ -380,29 +398,49 @@ def serve_prefill_cache_specs(cfg: ArchConfig) -> Any:
     return {"stack": KVCache(kv, kv, ())}
 
 
+def block_index(spec: Spec, mesh: Mesh, rank: int
+                ) -> Tuple[Tuple[int, int, int], ...]:
+    """Where rank ``rank``'s block lies under ``spec``: (dim, chunk
+    index, chunks) for each dim cut over more than one rank, the chunk
+    index the rank's (row-major) coordinate over the dim's axes. Ranks
+    with the same index hold the same block."""
+    coords = mesh.coords(rank)
+    out = []
+    for d, axes in enumerate(spec):
+        if axes is None:
+            continue
+        n, idx = 1, 0
+        for a in mesh.axes_of(axes):
+            n *= mesh.shape[a]
+            idx = idx * mesh.shape[a] + coords[a]
+        if n > 1:
+            out.append((d, idx, n))
+    return tuple(out)
+
+
 def shard_of(x, spec: Spec, mesh: Mesh, rank: int):
     """Rank ``rank``'s block of tensor ``x`` under ``spec``: every dim
     named by axes is cut into equal contiguous chunks, chunk index the
     rank's (row-major) coordinate over those axes; a contiguous copy."""
-    coords = mesh.coords(rank)
     out = x
-    for d, axes in enumerate(spec):
-        if axes is None:
-            continue
-        names = mesh.axes_of(axes)
-        n, idx = 1, 0
-        for a in names:
-            n *= mesh.shape[a]
-            idx = idx * mesh.shape[a] + coords[a]
-        if n == 1:
-            continue
+    for d, idx, n in block_index(spec, mesh, rank):
         size = x.shape[d]
         if size % n:
-            raise ValueError(
-                f"dim {d} ({size}) does not divide over {n} shards {names}")
+            raise ValueError(f"dim {d} ({size}) does not divide over {n} "
+                             f"shards {mesh.axes_of(spec[d])}")
         step = size // n
         out = out.narrow(d, idx * step, step)
     return out.contiguous()
+
+
+def shard_shape(shape, spec: Spec, mesh: Mesh) -> Tuple[int, ...]:
+    """The shape of one rank's block of a tensor of ``shape`` under
+    ``spec`` (see :func:`shard_of`)."""
+    out = list(shape)
+    for d, axes in enumerate(spec):
+        if axes is not None:
+            out[d] //= mesh.group_size(axes)
+    return tuple(out)
 
 
 def shard_params(params: Any, mesh: Mesh, rank: Optional[int] = None) -> Any:
@@ -413,3 +451,201 @@ def shard_params(params: Any, mesh: Mesh, rank: Optional[int] = None) -> Any:
     return tree_map_with_path(
         lambda p, x: shard_of(x, serve_param_spec(p, x, mesh), mesh, r),
         params)
+
+
+
+# ---------------------------------------------------------------- training
+def spec_axes(spec: Spec) -> Tuple[str, ...]:
+    """Every axis name a spec shards over, in dim order."""
+    out = []
+    for a in spec:
+        if a is None:
+            continue
+        out.extend((a,) if isinstance(a, str) else a)
+    return tuple(out)
+
+
+def train_shard_params(params: Any, mesh: Mesh,
+                       rank: Optional[int] = None) -> Any:
+    """The full tree ``params`` cut to rank ``rank``'s slices by
+    :func:`param_specs` (default: the mesh's own rank): a dim that does
+    not divide stays whole, as the spec says. Returns (slices, specs)."""
+    specs = param_specs(params, mesh)
+    r = mesh.rank if rank is None else rank
+    return cut_tree(params, specs, mesh, r), specs
+
+
+def cut_tree(tree, specs, mesh: Mesh, rank: int):
+    """Every leaf of ``tree`` cut to rank ``rank``'s block under its spec
+    in ``specs`` (a spec tree of the same structure)."""
+    if isinstance(tree, dict):
+        return {k: cut_tree(tree[k], specs[k], mesh, rank) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        out = [cut_tree(v, s, mesh, rank) for v, s in zip(tree, specs)]
+        if isinstance(tree, list):
+            return out
+        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
+    return shard_of(tree, specs, mesh, rank)
+
+
+_AMBIENT: Dict[str, Any] = {"plan": None}
+
+
+@contextlib.contextmanager
+def use_plan(plan: Optional["TrainPlan"]) -> Iterator[Optional["TrainPlan"]]:
+    """The ambient mesh of a sharded training step (the reference's
+    ``with mesh:``): ``plan`` and its mesh, for the code run inside. A
+    process-wide setting, not a thread's: the backward (and a
+    recomputation under remat) may run on autograd's device thread."""
+    before = _AMBIENT["plan"]
+    _AMBIENT["plan"] = plan
+    try:
+        yield plan
+    finally:
+        _AMBIENT["plan"] = before
+
+
+def current_plan() -> Optional["TrainPlan"]:
+    """The ambient sharded-training plan (its ``mesh`` the ambient mesh,
+    the reference's ``current_mesh()``), or None."""
+    return _AMBIENT["plan"]
+
+
+class TrainPlan:
+    """How this rank runs one sharded training step.
+
+    ``specs`` is the :func:`param_specs` tree of the full params and
+    ``params`` this rank's slices of them (the same structure); the plan
+    keys each stored slice by identity for the step. ``batch_axes`` are
+    the axes the batch rows were cut over (empty when the batch stays
+    replicated). The 'model' axis is tensor- and expert-parallel.
+
+    A block is tensor-parallel where its stored slices are its TP
+    slices: GQA when the heads and KV heads divide by the model size,
+    MLA when the heads do (its down-projections are gathered), the MLP
+    when ``d_ff`` does. Every other sharded leaf is gathered on use
+    (``collectives.gather_on_use``)."""
+
+    def __init__(self, mesh: Mesh, cfg: ArchConfig, specs: Any, params: Any,
+                 batch_axes: Optional[Tuple[str, ...]] = None):
+        from repro_torch.models.modules import iter_leaves  # noqa: PLC0415
+
+        self.mesh, self.cfg = mesh, cfg
+        self.batch_cut = batch_axes is not None
+        self.batch_axes = tuple(a for a in mesh.axes
+                                if a in (batch_axes or ()))
+        self.model = _mesh_size(mesh, "model")
+        self._spec = {id(t): s for t, s in zip(iter_leaves(params),
+                                               iter_leaves_specs(specs))}
+
+    # ----------------------------------------------------------- sizes
+    @property
+    def batch_size(self) -> int:
+        """Ranks the batch rows are cut over."""
+        return math.prod(self.mesh.shape[a] for a in self.batch_axes)
+
+    def attn_tp(self, cfg: ArchConfig) -> bool:
+        M = self.model
+        if M == 1:
+            return False
+        if cfg.mla is not None:
+            return cfg.num_heads % M == 0
+        return cfg.num_heads % M == 0 and cfg.num_kv_heads % M == 0
+
+    def mlp_tp(self, cfg: ArchConfig) -> bool:
+        return self.model > 1 and cfg.d_ff % self.model == 0
+
+    def moe_groups(self, cfg: ArchConfig) -> Tuple[str, int]:
+        """("ep", M): experts split over 'model', each rank routing its
+        batch shard's tokens to its own experts (the reference's
+        ``_moe_forward_ep``, legal when M > 1 divides the experts and
+        the batch was cut over the data axes); ("local", 1): every
+        expert on every rank, tokens routed per batch shard (the experts
+        do not divide); ("global", 1): the batch is whole on every rank,
+        the global path."""
+        if not self.batch_cut:
+            return "global", 1
+        M = self.model
+        if M > 1 and cfg.moe.num_experts % M == 0:
+            return "ep", M
+        return "local", 1
+
+    # ----------------------------------------------------------- views
+    def spec(self, t) -> Spec:
+        return self._spec.get(id(t), (None,) * t.dim())
+
+    def gather(self, t):
+        """The whole leaf ``t`` (its 'model' slices gathered on use)."""
+        from repro_torch.parallel import collectives  # noqa: PLC0415
+
+        for d, a in enumerate(self.spec(t)):
+            if a is None:
+                continue
+            for axis in ((a,) if isinstance(a, str) else a):
+                if self.mesh.shape.get(axis, 1) > 1:
+                    t = collectives.gather_on_use(t, axis, d, self.mesh)
+        return t
+
+    def gather_tree(self, tree):
+        if isinstance(tree, dict):
+            return {k: self.gather_tree(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(self.gather_tree(v) for v in tree)
+        return self.gather(tree)
+
+    def top(self, params: dict) -> dict:
+        """The top-level leaves the forward reads outside the stacks
+        (embed, head, heads) gathered; the stacks as they are."""
+        out = dict(params)
+        for k in ("embed", "head", "heads"):
+            if k in out:
+                out[k] = self.gather_tree(out[k])
+        return out
+
+    def block(self, params: dict, cfg: ArchConfig, kind: str):
+        """(params, cfg, MLP tp axis) a block runs on this rank: the
+        block's config cut to its TP slice where it is tensor-parallel
+        (``tp_axis`` set), its other sharded leaves gathered."""
+        out = dict(params)
+        if kind == "ssm":
+            out["mixer"] = self.gather_tree(params["mixer"])
+            return out, cfg, None
+        if self.attn_tp(cfg):
+            M = self.model
+            if cfg.mla is not None:
+                attn = dict(params["attn"])
+                for k in ("wdq", "wdkv", "wkr"):
+                    attn[k] = self.gather(attn[k])
+                out["attn"] = attn
+                lcfg = dataclasses.replace(cfg, num_heads=cfg.num_heads // M,
+                                           tp_axis="model")
+            else:
+                lcfg = dataclasses.replace(
+                    cfg, num_heads=cfg.num_heads // M,
+                    num_kv_heads=cfg.num_kv_heads // M,
+                    head_dim=cfg.resolved_head_dim, tp_axis="model")
+        else:
+            out["attn"] = self.gather_tree(params["attn"])
+            lcfg = dataclasses.replace(cfg, tp_axis=None)
+        if kind == "moe":
+            if self.moe_groups(cfg)[0] != "ep":
+                out["moe"] = self.gather_tree(params["moe"])
+            return out, lcfg, None
+        if self.mlp_tp(cfg):
+            return out, lcfg, "model"
+        out["mlp"] = self.gather_tree(params["mlp"])
+        return out, lcfg, None
+
+
+def iter_leaves_specs(specs) -> Iterator[Spec]:
+    """The specs of a spec tree in ``iter_leaves`` order (a spec is a
+    tuple: a leaf here, not a branch)."""
+    if isinstance(specs, dict):
+        for k in sorted(specs):
+            yield from iter_leaves_specs(specs[k])
+    elif isinstance(specs, list) or (isinstance(specs, tuple)
+                                     and hasattr(specs, "_fields")):
+        for v in specs:
+            yield from iter_leaves_specs(v)
+    else:
+        yield specs

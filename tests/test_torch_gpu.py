@@ -1620,3 +1620,163 @@ def test_reduced_mesh_engine_on_gpu_matches_single_rank(cuda, mesh):
         for name in ("paged_gqa_decode_attn", "relu_bitmap",
                      "sparce_gemm_gated"):
             assert served["launches"][name] > 0, name
+
+
+# ------------------------------------------------ training on a mesh
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gated_gemm_at_a_tp3_training_shard(cuda, dtype):
+    """The gated GEMM at the tp-3 shard's FP, BP and WG of smollm-135m's
+    down-projection (F 1536 / 3 = 512): against the CPU within the chip
+    script's share of the output's largest value, and gated tiles
+    NaN-poisoned on the card never read."""
+    from chip_smoke import TP3_F
+    rel, _ = TRAIN_GEMM_REL[str(dtype)[6:]]
+    a, w, g, _ = train_gemm_operands(torch, dtype, seed=5, F_=TP3_F)
+    abits = sprf.compute_bitmap(a, (64, 128)).bits
+    gbits = sprf.compute_bitmap(g, (64, 128)).bits
+    for x, rhs, bits, (bm, bk, bn) in (
+            (a, w, abits, (64, 128, 128)), (g, w.T, gbits, (64, 128, 128)),
+            (a.T, g, abits.T.contiguous(), (128, 64, 128))):
+        plan = sasa.SkipPlan(gate="lhs", variant="gated", block_m=bm,
+                             block_k=bk, block_n=bn)
+
+        def run(lhs, dev):
+            return kops.sparce_gemm(
+                lhs.to(dev), rhs.to(dev), plan, lhs_bitmap=sprf.TileBitmap(
+                    bits.to(dev), (bm, bk), tuple(lhs.shape)))
+        got = run(x, cuda)
+        want = run(x, "cpu").float()
+        torch.testing.assert_close(got.cpu().float(), want, rtol=0.0,
+                                   atol=rel * want.abs().max().item())
+        x2 = x.to(cuda).contiguous().clone()
+        for i, j in zip(*np.nonzero(bits.numpy())):
+            x2[i * bm:(i + 1) * bm, j * bk:(j + 1) * bk] = float("nan")
+        assert torch.equal(run(x2, cuda), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_mlp_kernel_at_a_dp2_training_shard(cuda, dtype):
+    """The fused relu MLP at a dp-2 shard's 2048 rows (8 x 512 tokens
+    over 2 data ranks), 64-row tiles: bits equal the plain version's, y
+    within tolerance, NaN in the dead stripes' w_out rows never read."""
+    rng = np.random.default_rng(6)
+    M, K, F, N = 2048, 576, 1536, 576
+    x = np.abs(rng.standard_normal((M, K))).astype(np.float32)
+    x[512:576] = 0.0  # one dead row tile
+    wi = (rng.standard_normal((K, F)) / np.sqrt(K)).astype(np.float32)
+    wi[:, 256:384] = -np.abs(wi[:, 256:384])  # a stripe dead in every tile
+    wo = (rng.standard_normal((F, N)) / np.sqrt(F)).astype(np.float32)
+    x, wi, wo = (torch.from_numpy(v).to(cuda, dtype) for v in (x, wi, wo))
+    kw = dict(block_m=64, block_f=128, act="relu")
+    y, bits = sm.sparce_mlp_fused(x, wi, wo, **kw)
+    y0, bits0 = sm.sparce_mlp_fused_plain(x, wi, wo, **kw)
+    assert torch.equal(bits, bits0) and bool(bits[8].all())
+    assert bool(bits[:, 2].all())
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(y.float(), y0.float(), rtol=tol, atol=tol)
+    wo2 = wo.clone()
+    wo2[256:384] = float("nan")
+    y2, _ = sm.sparce_mlp_fused(x, wi, wo2, **kw)
+    assert torch.equal(y2, y)
+
+
+@pytest.mark.parametrize("mesh", [(2, 1), (1, 2)])
+def test_sharded_train_step_on_gpu_matches_single_rank(cuda, mesh):
+    """The reduced smollm's f32 training step (the GLU's gated GEMM in
+    FP, BP and WG) on a gloo mesh with every rank on card 0 against one
+    rank on the card: the loss, the grad norm and every gathered
+    gradient; each rank launched the gated GEMM 3 times a layer."""
+    from repro_torch.launch import mesh as mesh_lib
+    import torch_train_scenarios as ts
+    spec = dict(name="glu", arch="smollm-135m", device="cuda:0", mask_tail=8,
+                fields=dict(sparsity=dict(enabled=True, mode="kernel",
+                                          block_m=8, block_k=32,
+                                          block_n=32)))
+    want = ts.run_single(spec)
+    outs = mesh_lib.spawn_mesh(ts.train_rank, mesh, ([spec],),
+                               device="cuda:0", backend="gloo",
+                               timeout_s=30.0, deadline_s=240.0)
+    got = outs[0][0]
+    assert got["loss"] == pytest.approx(want["loss"], rel=1e-5)
+    assert got["grad_norm"] == pytest.approx(want["grad_norm"], rel=1e-5)
+    for a, b in zip(got["grads"], want["grads"]):
+        np.testing.assert_allclose(a, b, rtol=1e-3,
+                                   atol=1e-5 * float(np.abs(b).max()))
+    layers = get_config("smollm-135m").reduced().num_layers
+    for rank in outs:
+        assert rank[0]["gated_launches"] == 3 * layers
+
+
+def test_checkpoint_gather_to_root_of_cuda_slices(cuda):
+    """``gather_to_root`` of CUDA slices on (2, 1, 2) gloo ranks on card
+    0 (sends and receives staged through the host): rank 0 holds every
+    leaf whole, bit for bit."""
+    from repro_torch.launch import mesh as mesh_lib
+    import torch_train_scenarios as ts
+    outs = mesh_lib.spawn_mesh(ts.gather_rank, (2, 1, 2),
+                               ([dict(device="cuda:0")],),
+                               axes=("pod", "data", "model"),
+                               device="cuda:0", backend="gloo",
+                               timeout_s=30.0, deadline_s=120.0)
+    whole = ts.gather_leaves(None)
+    for a, b in zip(outs[0][0]["leaves"], ts._np(whole)):
+        np.testing.assert_array_equal(a, b)
+    assert all(o[0]["leaves"] is None for o in outs[1:])
+
+
+def test_compressed_psum_on_cuda_tensors(cuda):
+    """compressed_psum of CUDA tensors on 2 gloo ranks on card 0 equals
+    the same call on CPU tensors (int8 and 1-bit, two rounds)."""
+    from repro_torch.launch import mesh as mesh_lib
+    import torch_train_scenarios as ts
+    rng = np.random.default_rng(7)
+    grads = [rng.standard_normal((2, 40, 24)).astype(np.float32)
+             for _ in range(2)]
+    for method in ("int8", "1bit"):
+        res = {}
+        for dev in ("cpu", "cuda:0"):
+            outs = mesh_lib.spawn_mesh(
+                ts.compress_rank, (2,), ([dict(shape=(40, 24), grads=grads,
+                                               method=method, device=dev)],),
+                axes=("data",), device=dev, backend="gloo",
+                timeout_s=30.0, deadline_s=120.0)
+            res[dev] = outs
+        for a, b in zip(res["cuda:0"], res["cpu"]):
+            for (x, r), (y, q) in zip(a[0]["rounds"], b[0]["rounds"]):
+                # The card sums the n dequantized parts in another order.
+                np.testing.assert_allclose(x, y, rtol=1e-6, atol=1e-6)
+                np.testing.assert_allclose(r, q, rtol=1e-6, atol=1e-6)
+            assert a[0]["stats"]["all-gather"] == 2 * (40 * 24 + 4)
+
+
+@pytest.mark.parametrize("mesh", [(2, 2), (1, 4)])
+def test_sharded_train_step_over_nccl_matches_single_rank(cuda, mesh):
+    """The same step over NCCL with one card per rank (a machine with at
+    least 4 cards): the loss, the grad norm and every gathered gradient
+    equal one rank's on card 0; each rank launched the gated GEMM 3
+    times a layer."""
+    from repro_torch.launch import mesh as mesh_lib
+    import torch_train_scenarios as ts
+    n = mesh[0] * mesh[1]
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} cards (NCCL, one rank a card)")
+    spec = dict(name="glu", arch="smollm-135m", device="cuda", mask_tail=8,
+                zero1=True, steps=2,
+                fields=dict(sparsity=dict(enabled=True, mode="kernel",
+                                          block_m=8, block_k=32,
+                                          block_n=32)))
+    want = ts.run_single(dict(spec, device="cuda:0"))
+    outs = mesh_lib.spawn_mesh(ts.train_rank, mesh, ([spec],),
+                               device=[f"cuda:{r}" for r in range(n)],
+                               backend="nccl", timeout_s=60.0,
+                               deadline_s=300.0)
+    got = outs[0][0]
+    assert got["loss"] == pytest.approx(want["loss"], rel=1e-5)
+    assert got["grad_norm"] == pytest.approx(want["grad_norm"], rel=1e-5)
+    for a, b in zip(got["grads"], want["grads"]):
+        np.testing.assert_allclose(a, b, rtol=1e-3,
+                                   atol=1e-5 * float(np.abs(b).max()))
+    layers = get_config("smollm-135m").reduced().num_layers
+    for r, rank in enumerate(outs):
+        assert rank[0]["gated_launches"] == 3 * layers * 2, r
+        assert rank[0]["digest"] == outs[r % mesh[1]][0]["digest"], r

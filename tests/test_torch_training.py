@@ -550,15 +550,27 @@ def test_straggler_detection_and_resume(tmp_path, monkeypatch):
 
 
 def test_mesh_and_zero1_are_refused():
+    """Nothing is refused any more: a mesh is accepted (it trains on
+    spawned ranks, tests/test_torch_train_mesh*.py) and ``zero1`` on one
+    host trains as without it, as in the reference, whose ZeRO-1 rule
+    only shards over a mesh's 'data' axis."""
+    from repro_torch.parallel.sharding import Mesh
     _, cfg = _quickstart_cfgs()
-    with pytest.raises(NotImplementedError, match="mesh"):
-        port_trainer.Trainer(cfg, SHAPE, adamw.AdamW(),
-                             port_trainer.TrainConfig(), mesh=object(),
-                             device="cpu")
-    with pytest.raises(NotImplementedError, match="zero1"):
-        port_trainer.Trainer(cfg, SHAPE, adamw.AdamW(),
-                             port_trainer.TrainConfig(zero1=True),
-                             device="cpu")
+    tr = port_trainer.Trainer(cfg, SHAPE, adamw.AdamW(),
+                              port_trainer.TrainConfig(), device="cpu",
+                              mesh=Mesh({"data": 1, "model": 1}))
+    assert tr.mesh is not None and tr.step_fn is None
+    hist = []
+    for zero1 in (False, True):
+        tr = port_trainer.Trainer(cfg, SHAPE, adamw.AdamW(),
+                                  port_trainer.TrainConfig(steps=2,
+                                                           log_every=1,
+                                                           zero1=zero1),
+                                  device="cpu")
+        out = tr.run(pipeline.make_batch_iterator(cfg, SHAPE,
+                                                  pipeline.DataConfig()))
+        hist.append([h["loss"] for h in out["history"]])
+    assert hist[0] == hist[1]
 
 
 def test_train_launcher_matches_reference_launcher(capsys, monkeypatch):
@@ -581,5 +593,12 @@ def test_train_launcher_matches_reference_launcher(capsys, monkeypatch):
         return [float(t) for t in ln.split()[1::2]]
     for a, b in zip(lines[:-1], ref_lines[:-1]):
         np.testing.assert_allclose(nums(a), nums(b), rtol=1e-3)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        port_train.main(argv + ["--mesh", "1,1", "--device", "cpu"])
+    # --mesh no longer raises: one rank over gloo prints the lines of
+    # the port's own single host (the spawned rank draws the port's
+    # weights, not the bridged ones).
+    monkeypatch.undo()
+    want = port_train.main(argv + ["--device", "cpu"])["history"]
+    capsys.readouterr()
+    got = port_train.main(argv + ["--mesh", "1,1", "--device", "cpu"])
+    np.testing.assert_allclose([h["loss"] for h in got["history"]],
+                               [h["loss"] for h in want], rtol=1e-6)
