@@ -113,7 +113,18 @@ is printed only when all of them pass):
      (ms per step, each rank's expert bytes). Phase 2 holds the gated
      GEMM at the tp-3 shard's F 512 and the relu MLP at the dp-2 shard's
      2048 rows; after phase 14 their times are logged beside the
-     library's and their bounds.
+     library's and their bounds;
+ 15. pipeline parallelism and the dry run: ``smollm-135m``'s 30 layers
+     at full width (bf16, the GLU's gated GEMM in FP, BP and WG) as a
+     GPipe pipeline (``parallel/pipeline.py``) over a ("pod",) mesh of
+     2 gloo ranks on card 0, 15 layers a stage, 8 x 512 tokens in 4
+     micro-batches: a forward and a backward of sum(y**2) a step,
+     ms per step beside one rank's sequential run, each rank's
+     collectives and its launches exactly steps x schedule x 15 x 3;
+     then the same pipeline at 4 layers in f32, its output and every
+     gradient against one rank's sequential run; then the dry run's
+     ``smollm-135m train_4k`` on (16, 16) and ``deepseek-v3-671b
+     decode_32k`` on (2, 16, 16), traced on the meta device.
 
 Every phase prints its seconds. After phases 4-7, each of the nine kernels' time at its path's shapes
 beside its plain version, a library yardstick and its bound.
@@ -906,15 +917,17 @@ def check_gemm(torch, dev):
     return err_main
 
 
-def train_gemm_operands(torch, dtype, seed, F_=1536):
-    """A smollm-135m training step's down-projection at full width (8 x
-    512 tokens, d_model 576, d_ff ``F_``: 1536, or a tp-3 shard's 512):
-    activations a and an error g, unit normals with 30% of their (64,
-    128) tiles zero, and w_out at init scale; on the host. (A mean loss's error is M^-1/2 smaller;
-    the checks' limits are shares of the output's scale, so the scale
-    of g does not move them.)"""
+def train_gemm_operands(torch, dtype, seed, F_=1536,
+                        M=TRAIN["batch"] * TRAIN["seq"]):
+    """A smollm-135m training step's down-projection at full width (``M``
+    rows: 8 x 512 tokens, or a pipeline micro-batch's 2 x 512; d_model
+    576; d_ff ``F_``: 1536, or a tp-3 shard's 512): activations a and an
+    error g, unit normals with 30% of their (64, 128) tiles zero, and
+    w_out at init scale; on the host. (A mean loss's error is M^-1/2
+    smaller; the checks' limits are shares of the output's scale, so the
+    scale of g does not move them.)"""
     rng = np.random.default_rng(seed)
-    M, N = TRAIN["batch"] * TRAIN["seq"], 576
+    N = 576
     bm, bk, bn = 64, 128, 128
 
     def tiled_zeros(a, br, bc):
@@ -948,17 +961,21 @@ def check_train_gemm(torch, dev):
     to contiguous memory there): FP ``a @ w_out`` gated on a's (64, 128)
     tiles; BP ``g @ w_out^T`` gated on g's (64, 128) error tiles
     (block_k = block_n); WG ``a^T @ g`` gated on the transposed feature
-    bits, tiles (128, 64). Each on the card against the same call on
+    bits, tiles (128, 64). At the whole batch's rows with d_ff 1536 and
+    a tp-3 shard's F, and at a pipeline micro-batch's rows (phase 15;
+    WG reduces over them). Each on the card against the same call on
     the CPU (the plain version), within ``TRAIN_GEMM_REL`` of the
     output's largest value, then with the gated tiles NaN-poisoned on
     the card."""
     from repro_torch.core import sasa, sprf
     from repro_torch.kernels import ops as kops
-    for dtype, F_ in itertools.product((torch.float32, torch.bfloat16),
-                                       (1536, TP3_F)):
+    M = TRAIN["batch"] * TRAIN["seq"]
+    shapes = ((1536, M), (TP3_F, M), (1536, PIPE_MICRO_ROWS))
+    for dtype, (F_, M_) in itertools.product(
+            (torch.float32, torch.bfloat16), shapes):
         rel, why = TRAIN_GEMM_REL[str(dtype)[6:]]
         a, w, g, (bm, bk, bn) = train_gemm_operands(torch, dtype, seed=8,
-                                                    F_=F_)
+                                                    F_=F_, M=M_)
         abits = sprf.compute_bitmap(a, (bm, bk)).bits
         gbits = sprf.compute_bitmap(g, (bm, bn)).bits
         cases = (("FP", a, w, abits, (bm, bk, bn)),
@@ -995,8 +1012,8 @@ def check_train_gemm(torch, dev):
                 raise AssertionError(f"{name}: NaN-poisoned gated tiles "
                                      "reached the output")
     log("  sparce_gemm_gated at the training step's FP, BP and WG shapes "
-        f"(d_ff 1536, and a tp-3 shard's {TP3_F}): NaN-poisoned gated tiles "
-        "never read -> ok")
+        f"(d_ff 1536, a tp-3 shard's {TP3_F}, and a pipeline micro-batch's "
+        f"{PIPE_MICRO_ROWS} rows): NaN-poisoned gated tiles never read -> ok")
 
 
 def check_mlp(torch, dev):
@@ -4234,9 +4251,7 @@ def phase14_rows(torch, dev):
     """The training kernels at a mesh shard's shapes: the fused relu MLP
     at a dp-2 shard's 2048 rows, the gated GEMM at the tp-3 shard's FP,
     BP and WG (F 512; 30% of the gated operand's tiles zero)."""
-    from repro_torch.core import sprf
     from repro_torch.kernels import ops as kops
-    from repro_torch.kernels import sparce_gemm as sg
     from repro_torch.kernels import sparce_mlp as sm
     rng = np.random.default_rng(9)
     M, K, F_, N = TRAIN["batch"] * TRAIN["seq"] // 2, 576, 1536, 576
@@ -4250,11 +4265,21 @@ def phase14_rows(torch, dev):
              lambda: torch.relu(x @ wi) @ wo, MLP_KERNELS,
              (M * K + K * F_ + F_ * N + M * N) * 2,
              2 * M * K * F_ + 2 * M * F_ * N, 100)]
-    a, w, gr, (bm, bk, bn) = train_gemm_operands(torch, torch.bfloat16, 10,
-                                                 F_=TP3_F)
+    return rows + train_gemm_rows(torch, dev, 10, "tp 3 shard", F_=TP3_F)
+
+
+def train_gemm_rows(torch, dev, seed, where, **shape):
+    """Rows of the bf16 gated GEMM at a training step's FP, BP and WG
+    (``train_gemm_operands`` at ``shape``; 30% of the gated operand's
+    tiles zero)."""
+    from repro_torch.core import sprf
+    from repro_torch.kernels import sparce_gemm as sg
+    a, w, gr, (bm, bk, bn) = train_gemm_operands(torch, torch.bfloat16,
+                                                 seed, **shape)
     a, w, gr = a.to(dev), w.to(dev), gr.to(dev)
     abits = sprf.compute_bitmap(a, (bm, bk)).bits
     gbits = sprf.compute_bitmap(gr, (bm, bn)).bits
+    rows = []
     for label, lhs, rhs, bits, (pm, pk, pn) in (
             ("FP", a, w, abits, (bm, bk, bn)),
             ("BP", gr, w.T.contiguous(), gbits, (bm, bn, bk)),
@@ -4265,7 +4290,7 @@ def phase14_rows(torch, dev):
         Mx, Kx = lhs.shape
         Nx = rhs.shape[1]
         rows.append((
-            f"sparce_gemm_gated training tp 3 shard {label} "
+            f"sparce_gemm_gated training {where} {label} "
             f"{tuple(lhs.shape)} @ {tuple(rhs.shape)}",
             lambda lhs=lhs, rhs=rhs, bits=bits, kw=kw:
                 sg.sparce_gemm_gated(lhs, rhs, bits, **kw),
@@ -4277,10 +4302,272 @@ def phase14_rows(torch, dev):
     return rows
 
 
+# ------------------------------- phase 15: pipeline stages, the dry run
+# Phase 12's bf16 GLU kernel config (30 layers, the gated GEMM in FP, BP
+# and WG) cut into PIPE_STAGES stages of 15 layers over a ("pod",) mesh
+# of gloo ranks on card 0, phase 12's 8 x 512 tokens in PIPE["n_micro"]
+# micro-batches; PIPE["steps"] timed steps after one warm-up.
+PIPE_STAGES = 2
+PIPE = dict(n_micro=4, steps=3)
+# Rows of one micro-batch, the gated GEMM's M (FP, BP) and WG's reduction.
+PIPE_MICRO_ROWS = TRAIN["batch"] // PIPE["n_micro"] * TRAIN["seq"]
+PIPE_F32_LAYERS = 4
+# The f32 pipeline against one rank: every element of y and of each
+# gradient within this share of its tensor's largest magnitude (f32
+# products over 2-row micro-batches against the whole 8-row batch).
+PIPE_F32_REL = 1e-4
+# The bf16 30-layer pipeline's y against one rank's, in the same terms:
+# the training GEMMs' bf16 limit (the micro-batches' GEMMs sum in another
+# order, and each layer rounds to bf16).
+PIPE_BF16_REL = TRAIN_GEMM_REL["bfloat16"][0]
+PIPE_TIMEOUT_S = 120.0
+PIPE_DEADLINE_S = 300.0
+# (arch, shape, two pods): the dry run's cells.
+DRYRUN_CELLS = (("smollm-135m", "train_4k", False),
+                ("deepseek-v3-671b", "decode_32k", True))
+
+
+def stack_trees(torch, trees):
+    """One tree whose leaves stack ``trees``' leaves on a new axis 0."""
+    if isinstance(trees[0], dict):
+        return {k: stack_trees(torch, [t[k] for t in trees])
+                for k in trees[0]}
+    return torch.stack(trees)
+
+
+def index_tree(tree, i):
+    if isinstance(tree, dict):
+        return {k: index_tree(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def pipe_case(torch, dev, dtype, layers):
+    """(cfg, stage params, x, stage_fn) of the phase 15 pipeline: the GLU
+    kernel config in ``dtype`` cut to ``layers``, its layers stacked per
+    stage (leaves (PIPE_STAGES, layers / PIPE_STAGES, ...)), phase 12's
+    first batch embedded, and the stage: ``stack_fwd`` over its
+    layers."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import transformer as tfm
+    cfg = train_config("silu", dict(enabled=True, mode="kernel"),
+                       dtype=dtype, num_layers=layers)
+    params = model_lib.init_params(cfg, seed=TRAIN["seed"], device=dev)
+    per = layers // PIPE_STAGES
+    stacked = stack_trees(torch, [
+        stack_trees(torch, params["stack"][s * per:(s + 1) * per])
+        for s in range(PIPE_STAGES)])
+    tokens = torch.from_numpy(next(train_data())["tokens"]).to(dev)
+    x = params["embed"][tokens.long()].detach()
+
+    def stage_fn(p, h):
+        pos = torch.arange(h.shape[1], dtype=torch.int32,
+                           device=h.device)[None].expand(h.shape[0], -1)
+        y, _, _ = tfm.stack_fwd([index_tree(p, i) for i in range(per)], h,
+                                pos, cfg, "dense")
+        return y
+    return cfg, stacked, x, stage_fn
+
+
+def pipe_leaves(tree):
+    from repro_torch.models.modules import iter_leaves
+    return list(iter_leaves(tree))
+
+
+def pipe_steps(torch, run, leaves, steps):
+    """``steps`` steps of ``run()`` (a forward returning y) and the
+    backward of sum(y**2), after one warm-up; the kernels' launches and
+    the collectives counted from 0 over the timed steps alone. Returns
+    (ms a step, launches, the last y)."""
+    from repro_torch.parallel import collectives
+    wrappers = counters()
+
+    def step():
+        for p in leaves:
+            p.grad = None
+        y = run()
+        torch.sum(torch.square(y.float())).backward()
+        return y
+    step()
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    if collectives.get_mesh() is not None:
+        collectives.reset_stats()
+    ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        y = step()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    launches = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+    return ms, launches, y
+
+
+def pipe_sequential(torch, dev, dtype, layers, steps):
+    """One rank's run of the same layers on the whole batch: ms a step,
+    launches, y and the stacked params' gradients."""
+    _, stacked, x, stage_fn = pipe_case(torch, dev, dtype, layers)
+    leaves = pipe_leaves(stacked)
+    for p in leaves:
+        p.requires_grad_(True)
+
+    def run():
+        h = x
+        for s in range(PIPE_STAGES):
+            h = stage_fn(index_tree(stacked, s), h)
+        return h
+    ms, launches, y = pipe_steps(torch, run, leaves, steps)
+    return dict(ms=ms, launches=launches, y=y.detach(),
+                grads=[p.grad.detach() for p in leaves])
+
+
+def pipe_rank(mesh, device):
+    """One rank of phase 15's pipeline mesh: the bf16 30-layer run (ms a
+    step, launches, collectives, y on the host), then the f32 4-layer one
+    (y and the gradients of this rank's stage, on the host)."""
+    import torch
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel.pipeline import pipeline_forward
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    out = {}
+    for label, dtype, layers, steps in (
+            ("bf16", "bfloat16", arch_config().num_layers, PIPE["steps"]),
+            ("f32", "float32", PIPE_F32_LAYERS, 1)):
+        _, stacked, x, stage_fn = pipe_case(torch, dev, dtype, layers)
+        leaves = pipe_leaves(stacked)
+        for p in leaves:
+            p.requires_grad_(True)
+        ms, launches, y = pipe_steps(torch, lambda: pipeline_forward(
+            stage_fn, stacked, x, mesh, axis="pod",
+            n_micro=PIPE["n_micro"]), leaves, steps)
+        stage = mesh.coord("pod")
+        r = dict(ms=ms, launches=launches, collectives=collectives.stats(),
+                 stage=stage, peak_gib=peak_gib(torch),
+                 y=y.detach().float().cpu().numpy())
+        if label == "f32":
+            r.update(grads=[p.grad[stage].detach().cpu().numpy()
+                            for p in leaves])
+        out[label] = r
+        del stacked, leaves, x
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_pipeline(torch, dev):
+    """Phase 15 (a) and (b): one rank's sequential runs, then the
+    pipeline mesh spawned on card 0 (gloo); the launches, y and the
+    gradients held against the schedule and the single rank."""
+    from repro_torch.launch.mesh import spawn_mesh
+    L = arch_config().num_layers
+    per = L // PIPE_STAGES
+    sched = PIPE["n_micro"] + PIPE_STAGES - 1
+    single = pipe_sequential(torch, dev, "bfloat16", L, PIPE["steps"])
+    torch.cuda.empty_cache()
+    ref = pipe_sequential(torch, dev, "float32", PIPE_F32_LAYERS, 1)
+    torch.cuda.empty_cache()
+    rank_dev = str(dev) if dev.type == "cpu" else f"cuda:{dev.index or 0}"
+    t0 = time.perf_counter()
+    outs = spawn_mesh(pipe_rank, (PIPE_STAGES,), (rank_dev,),
+                      device=rank_dev, backend="gloo",
+                      timeout_s=PIPE_TIMEOUT_S, deadline_s=PIPE_DEADLINE_S,
+                      axes=("pod",))
+    log(f"  pipeline ({PIPE_STAGES},) over 'pod': {PIPE_STAGES} ranks on "
+        f"card 0 (gloo), spawn to exit {time.perf_counter() - t0:.1f}s")
+    # (a) the bf16 run: launches by the schedule, y and ms against one
+    # rank's.
+    want = {"sparce_gemm_gated": PIPE["steps"] * sched * per * 3}
+    y_one = single["y"].float().cpu().numpy()
+    y_scale = float(np.abs(y_one).max())
+    if single["launches"] != {"sparce_gemm_gated": PIPE["steps"] * L * 3}:
+        raise AssertionError(f"one rank's launches {single['launches']}")
+    one = float(np.median(single["ms"]))
+    log(f"  one rank, {L} layers, {TRAIN['batch']} x {TRAIN['seq']} tokens "
+        f"(bf16, GLU kernel): " + ", ".join(f"{m:.1f}" for m in single["ms"])
+        + f" ms a step (forward + backward of sum(y**2)); launches "
+        f"{single['launches']}")
+    for r, o in enumerate(outs):
+        got = o["bf16"]
+        if got["launches"] != want:
+            raise AssertionError(f"pipeline rank {r}: launches "
+                                 f"{got['launches']}, the schedule gives "
+                                 f"{want}")
+        y_err = float(np.abs(got["y"] - y_one).max()) / y_scale
+        if not (np.isfinite(got["y"]).all() and y_err <= PIPE_BF16_REL):
+            raise AssertionError(
+                f"bf16 pipeline rank {r}: y off by {y_err:.2e} of one "
+                f"rank's max|y| {y_scale:.4e} (limit {PIPE_BF16_REL})")
+        c = got["collectives"]
+        secs = sum(c["seconds"].values())
+        med = float(np.median(got["ms"]))
+        log(f"  pipeline rank {r} (stage {got['stage']}, {per} layers, "
+            f"{PIPE['n_micro']} micro-batches, {sched} steps of the "
+            f"schedule): " + ", ".join(f"{m:.1f}" for m in got["ms"])
+            + f" ms a step ({med / one:.2f}x one rank's {one:.1f}); y "
+              f"within {y_err:.2e} of one rank's max|y| {y_scale:.4e} "
+              f"(limit {PIPE_BF16_REL}); "
+            + ", ".join(f"{k} {c['counts'][k]} calls / {c[k]} B / "
+                        f"{c['seconds'][k]:.3f}s" for k in c["counts"]
+                        if c["counts"][k])
+            + f"; {1e3 * secs / PIPE['steps']:.1f} ms a step in "
+              f"collectives ({1e3 * secs / PIPE['steps'] / med:.2f} of "
+              f"it); peak {got['peak_gib']:.2f} GiB; launches "
+              f"{got['launches']} (= {PIPE['steps']} steps x {sched} x "
+              f"{per} layers x 3) -> ok")
+    # (b) the f32 run: y and every gradient against one rank's.
+    worst = {}
+    for r, o in enumerate(outs):
+        got = o["f32"]
+        pairs = [("y", got["y"], ref["y"])] + [
+            (f"grad {i}", g, w[got["stage"]])
+            for i, (g, w) in enumerate(zip(got["grads"], ref["grads"]))]
+        for name, a, b in pairs:
+            b = b.cpu().numpy()
+            scale = float(np.abs(b).max()) or 1.0
+            err = float(np.abs(a - b).max()) / scale
+            worst[name] = max(worst.get(name, 0.0), err)
+            if not err <= PIPE_F32_REL:
+                raise AssertionError(
+                    f"f32 pipeline rank {r}: {name} off by {err:.2e} of "
+                    f"its scale (limit {PIPE_F32_REL})")
+    log(f"  f32 pipeline, {PIPE_F32_LAYERS} layers: y and all "
+        f"{len(worst) - 1} gradients on both ranks within "
+        f"{max(worst.values()):.2e} of their scale of one rank's "
+        f"(limit {PIPE_F32_REL}; y {worst['y']:.2e}) -> ok")
+    return want
+
+
+def run_dryrun_cells():
+    """Phase 15 (c): the dry run's cells, traced on the meta device (no
+    card); each must report ok."""
+    import tempfile
+    from repro_torch.launch import dryrun
+    with tempfile.TemporaryDirectory(prefix="dryrun-") as tmp:
+        for arch, shape, two_pods in DRYRUN_CELLS:
+            argv = ["--arch", arch, "--shape", shape, "--out", tmp]
+            dryrun.main(argv + (["--multi-pod"] if two_pods else []))
+            tag = f"{arch}_{shape}_{'pod2' if two_pods else 'pod1'}"
+            with open(os.path.join(tmp, tag + ".json")) as f:
+                res = json.load(f)
+            if res["status"] != "ok":
+                raise AssertionError(f"dry run {tag}: {res}")
+            r, m = res["roofline"], res["memory"]
+            c = res["collectives_scanned"]
+            log(f"  dry run {tag}: mesh {res['mesh']}, traced in "
+                f"{res['compile_s']:.1f}s; rank 0: {res['cost_scanned']['flops']:.4g} "
+                f"FLOPs, {res['cost_scanned']['bytes accessed']:.4g} B "
+                f"accessed, collectives {c['total']} B in "
+                f"{sum(c['counts'].values())} calls; arguments "
+                f"{m['argument_size_in_bytes']} B, temp "
+                f"{m['temp_size_in_bytes']} B; roofline compute "
+                f"{r['t_compute']:.3e} s, memory {r['t_memory']:.3e} s, "
+                f"collective {r['t_collective']:.3e} s -> {r['dominant']}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
                     help="comma-separated subset of phases to run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -4449,6 +4736,18 @@ def main(argv=None) -> int:
             run_train_meshes(torch, dev)
             time_rows(torch, dev, phase14_rows(torch, dev))
             phase_done(14)
+        if 15 in phases:
+            log("phase 15: smollm-135m's 30 layers (bf16, GLU kernel) as a "
+                f"{PIPE_STAGES}-stage pipeline over 'pod', every rank on "
+                "card 0 over gloo, against one rank; the f32 pipeline at "
+                f"{PIPE_F32_LAYERS} layers against one rank; then the dry "
+                "run's cells on the meta device")
+            for name, n in run_pipeline(torch, dev).items():
+                log(f"  phase 15 launches a rank, {name}: {n}")
+            time_rows(torch, dev, train_gemm_rows(
+                torch, dev, 11, "pipeline micro-batch", M=PIPE_MICRO_ROWS))
+            run_dryrun_cells()
+            phase_done(15)
         torch.cuda.synchronize()
         log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all")
     except Exception:  # noqa: BLE001 - report and fail the run

@@ -84,6 +84,11 @@ class ArchConfig:
     def is_attention_free(self) -> bool:
         return self.family == "ssm"
 
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic decode: the ssm and hybrid families only (the
+        dry run skips ``long_500k`` for every other arch)."""
+        return self.family in ("ssm", "hybrid")
+
     def n_params(self) -> int:
         """Approximate parameter count (embedding + layers); the
         reference's formula, which the modeled tick clock is built on."""

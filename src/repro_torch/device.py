@@ -2,7 +2,9 @@
 
 Entry points run on the GPU unless the caller asks for the CPU: the
 default device is ``"cuda"``, and asking for it on a host without a
-usable CUDA device raises instead of silently running elsewhere.
+usable CUDA device raises instead of silently running elsewhere. The
+``"meta"`` device (shapes and dtypes, no data: the dry run's trace) is
+taken only when named.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ def resolve_device(device="cuda") -> torch.device:
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the "
             "CPU (where every kernel runs its plain PyTorch version)")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())

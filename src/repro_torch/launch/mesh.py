@@ -9,6 +9,9 @@ with the ``spawn`` start method), joins them into a world through a
 with another job on the host), builds the mesh in each, and runs a
 function there.
 
+:func:`trace_mesh` builds a mesh with no world for the dry run's trace
+of one rank's program.
+
 Every process group gets a timeout (``timeout_s``, 60 s or less by
 default): a rank that takes another branch, dies or stops answering
 makes its peers' collectives raise instead of waiting forever.
@@ -87,12 +90,34 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
     return mesh
 
 
+def production_mesh_shape(*, multi_pod: bool = False
+                          ) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """(shape, axes) of the production mesh: 16x16 (one pod, 256 ranks)
+    or 2x16x16 (two pods, 512 ranks)."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False,
                          timeout_s: float = DEFAULT_TIMEOUT_S) -> Mesh:
-    """16x16 (one pod, 256 ranks) or 2x16x16 (two pods, 512 ranks)."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    """The production mesh (:func:`production_mesh_shape`) on an
+    initialized world of its size."""
+    shape, axes = production_mesh_shape(multi_pod=multi_pod)
     return make_mesh(shape, axes, timeout_s=timeout_s)
+
+
+def trace_mesh(shape: Sequence[int], axes: Sequence[str], *,
+               rank: int = 0) -> Mesh:
+    """A mesh for tracing rank ``rank``'s program (the dry run): no
+    world, no process groups, ``trace`` set, so every collective counts
+    and returns its result's shape without moving data
+    (``parallel/collectives.py``)."""
+    shape = tuple(int(s) for s in shape)
+    axes = tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in rank")
+    return Mesh(dict(zip(axes, shape)), rank=rank, trace=True)
 
 
 # ------------------------------------------------------------ spawning

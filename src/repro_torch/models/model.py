@@ -77,7 +77,9 @@ def check_family(cfg: ArchConfig) -> None:
 def init_params(cfg: ArchConfig, seed: int = 0,
                 device="cuda") -> Dict[str, Any]:
     """Seeded random weights with the reference's tree, shapes, dtypes
-    and scales (numpy normals, so not the reference's numbers)."""
+    and scales (numpy normals, so not the reference's numbers). With
+    ``device="meta"`` every leaf has its shape and dtype and nothing is
+    drawn (the dry run's shape-only init, at any size)."""
     check_family(cfg)
     dev = resolve_device(device)
     dtype = nn.torch_dtype(cfg.dtype)

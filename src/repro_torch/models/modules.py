@@ -40,11 +40,14 @@ def normal_init(rng: np.random.Generator, shape, scale: float, dtype,
                 device) -> torch.Tensor:
     """Normals * scale. The leaf takes one seed from ``rng``; chunk ``c``
     of its values (C order) is ``default_rng([seed, c])``'s f32 normals,
-    scaled, then cast."""
+    scaled, then cast. On the meta device the leaf has its shape and
+    dtype and nothing is drawn."""
     shape = tuple(shape)
     n = int(np.prod(shape, dtype=np.int64))
     seed = int(rng.integers(1 << 63))
     out = torch.empty(shape, dtype=dtype, device=device)
+    if out.device.type == "meta":
+        return out
     flat = out.view(-1)
     slab = max(1, SLAB_VALUES // CHUNK_VALUES) * CHUNK_VALUES
     buf = np.empty((min(slab, n),), np.float32)

@@ -32,9 +32,18 @@ from repro_torch.models.modules import iter_leaves, tree_map
 
 
 class AdamState(NamedTuple):
-    step: torch.Tensor  # int32, 0-d
+    step: torch.Tensor  # int32, 0-d, on the host (see host_step)
     mu: Any  # first moment (f32), the params' tree
     nu: Any  # second moment (f32)
+
+
+def host_step(step: int = 0) -> torch.Tensor:
+    """The step counter: an int32 0-d tensor on the host, whatever device
+    the params are on. The update reads it on the host for the schedule
+    and the bias corrections, so a step on the card waits for no device
+    work to read it, and a step traced on the meta device (the dry run)
+    can read it at all."""
+    return torch.tensor(step, dtype=torch.int32)
 
 
 def cosine_schedule(peak_lr: float, warmup: int, total: int,
@@ -132,10 +141,8 @@ class AdamW:
     def init(self, params) -> AdamState:
         zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
                                       device=p.device)
-        some = next(iter(iter_leaves(params)))
-        return AdamState(
-            step=torch.zeros((), dtype=torch.int32, device=some.device),
-            mu=tree_map(zeros, params), nu=tree_map(zeros, params))
+        return AdamState(step=host_step(), mu=tree_map(zeros, params),
+                         nu=tree_map(zeros, params))
 
     @torch.no_grad()
     def update(self, grads, state: AdamState, params,
@@ -144,8 +151,8 @@ class AdamW:
         """One step; returns fresh params and state (the inputs are not
         modified) and ``{"grad_norm", "lr"}``. With ``shard`` the trees
         hold this rank's slices (see :class:`Shard`)."""
-        step = state.step + 1
-        n = int(step)
+        n = int(state.step) + 1
+        step = host_step(n)
         gnorm = global_norm(grads, shard)
         if self.clip_norm is not None:
             scale = torch.clamp_max(self.clip_norm / (gnorm + 1e-9), 1.0)

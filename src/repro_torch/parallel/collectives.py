@@ -14,13 +14,28 @@ operand-byte convention:
                                     others' receives)
     send, recv  collective-permute  operand == the tensor (each rank
                                     counts its own end)
+    ppermute    collective-permute  operand == the tensor (once a call
+                                    per rank, whatever it sends or
+                                    receives)
 
 (reduce-scatter and all-to-all have no caller: the sharded training step
-needs neither.) Beside the bytes it
+needs neither.) The reference's ``parse_collective_bytes`` is not
+ported, by design: there is no HLO to parse, and :func:`stats` gives the
+same dict (per-kind bytes, ``total``, ``counts``) from the calls
+themselves. Beside the bytes it
 counts the calls and the seconds spent in them, host clock around the
 blocking call (for a CUDA tensor that includes the wait for the work
 queued before it on the stream). A group of one rank costs nothing and
 counts nothing.
+
+On a trace mesh (``Mesh.trace``, built by ``launch/mesh.py:trace_mesh``
+for the dry run) every collective counts its bytes and calls exactly as
+on a real mesh, with 0 seconds, returns a tensor of its result's shape
+and dtype and moves no data. A mesh with neither groups nor the flag
+raises, as it always did.
+
+:func:`roofline_terms` is the reference's three-term roofline on the
+H100's constants.
 
 The process's mesh is set once per rank (:func:`set_mesh`, by
 ``launch/mesh.py``); model code reaches it through ``cfg.tp_axis``
@@ -62,7 +77,7 @@ from __future__ import annotations
 
 import pickle
 import time
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 import torch
 import torch.distributed as dist
@@ -115,7 +130,10 @@ def stats(mesh: Optional[Mesh] = None) -> dict:
     return out
 
 
-def _count(m: Mesh, kind: str, nbytes: int, seconds: float) -> None:
+def _count(m: Mesh, kind: str, nbytes: int, t0: float) -> None:
+    """One call of ``kind`` moving ``nbytes`` of operand, begun at
+    ``t0`` (host clock); a trace mesh's calls take 0 seconds."""
+    seconds = 0.0 if m.trace else time.perf_counter() - t0
     for key, val in (("bytes", nbytes), ("counts", 1), ("seconds", seconds)):
         d = m.stats.setdefault(key, {})
         d[kind] = d.get(kind, 0) + val
@@ -123,11 +141,15 @@ def _count(m: Mesh, kind: str, nbytes: int, seconds: float) -> None:
 
 def _group(m: Mesh, axes):
     names = m.axes_of(axes)
-    return m.groups[names], m.group_size(names)
+    return (None if m.trace else m.groups[names]), m.group_size(names)
 
 
 def _host_staged(m: Mesh, x: torch.Tensor) -> bool:
     return x.is_cuda and m.backend == "gloo"
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
 
 
 def psum(x: torch.Tensor, axes, mesh: Optional[Mesh] = None
@@ -141,9 +163,9 @@ def psum(x: torch.Tensor, axes, mesh: Optional[Mesh] = None
         return x
     y = x.contiguous()
     t0 = time.perf_counter()
-    dist.all_reduce(y, group=group)
-    _count(m, "all-reduce", y.numel() * y.element_size(),
-           time.perf_counter() - t0)
+    if not m.trace:
+        dist.all_reduce(y, group=group)
+    _count(m, "all-reduce", _nbytes(y), t0)
     return y
 
 
@@ -156,15 +178,19 @@ def all_gather(x: torch.Tensor, axis, mesh: Optional[Mesh] = None,
     if n == 1:
         return x
     t0 = time.perf_counter()
-    src = x.contiguous()
-    work = src.cpu() if _host_staged(m, src) else src
-    parts = [torch.empty_like(work) for _ in range(n)]
-    dist.all_gather(parts, work, group=group)
-    out = torch.cat(parts, dim=dim)
-    if out.device != x.device:
-        out = out.to(x.device)
-    _count(m, "all-gather", src.numel() * src.element_size(),
-           time.perf_counter() - t0)
+    if m.trace:
+        shape = list(x.shape)
+        shape[dim] *= n
+        out = x.new_empty(shape)
+    else:
+        src = x.contiguous()
+        work = src.cpu() if _host_staged(m, src) else src
+        parts = [torch.empty_like(work) for _ in range(n)]
+        dist.all_gather(parts, work, group=group)
+        out = torch.cat(parts, dim=dim)
+        if out.device != x.device:
+            out = out.to(x.device)
+    _count(m, "all-gather", _nbytes(x), t0)
     return out
 
 
@@ -177,11 +203,11 @@ def broadcast(x: torch.Tensor, src: int = 0, axes=None,
     if n == 1:
         return x
     t0 = time.perf_counter()
-    # Bytes, whatever the dtype: a broadcast needs no arithmetic.
-    buf = x.view(torch.uint8) if x.is_contiguous() and x.dim() else x
-    dist.broadcast(buf, src=src, group=group)
-    _count(m, "collective-permute", x.numel() * x.element_size(),
-           time.perf_counter() - t0)
+    if not m.trace:
+        # Bytes, whatever the dtype: a broadcast needs no arithmetic.
+        buf = x.view(torch.uint8) if x.is_contiguous() and x.dim() else x
+        dist.broadcast(buf, src=src, group=group)
+    _count(m, "collective-permute", _nbytes(x), t0)
     return x
 
 
@@ -189,10 +215,10 @@ def send(x: torch.Tensor, dst: int, mesh: Optional[Mesh] = None) -> None:
     """Send ``x`` to global rank ``dst`` (blocking)."""
     m = _mesh(mesh)
     t0 = time.perf_counter()
-    src = x.contiguous()
-    dist.send(src.cpu() if _host_staged(m, src) else src, dst=dst)
-    _count(m, "collective-permute", src.numel() * src.element_size(),
-           time.perf_counter() - t0)
+    if not m.trace:
+        src = x.contiguous()
+        dist.send(src.cpu() if _host_staged(m, src) else src, dst=dst)
+    _count(m, "collective-permute", _nbytes(x), t0)
 
 
 def recv(x: torch.Tensor, src: int, mesh: Optional[Mesh] = None
@@ -200,14 +226,15 @@ def recv(x: torch.Tensor, src: int, mesh: Optional[Mesh] = None
     """Receive into ``x`` from global rank ``src`` (blocking); returns x."""
     m = _mesh(mesh)
     t0 = time.perf_counter()
-    if _host_staged(m, x):
+    if m.trace:
+        pass
+    elif _host_staged(m, x):
         buf = torch.empty(x.shape, dtype=x.dtype)
         dist.recv(buf, src=src)
         x.copy_(buf)
     else:
         dist.recv(x, src=src)
-    _count(m, "collective-permute", x.numel() * x.element_size(),
-           time.perf_counter() - t0)
+    _count(m, "collective-permute", _nbytes(x), t0)
     return x
 
 
@@ -218,18 +245,81 @@ def broadcast_object(obj: Any, src: int = 0, mesh: Optional[Mesh] = None
     bytes. Only objects this program's ranks sent are unpickled."""
     m = _mesh(mesh)
     t0 = time.perf_counter()
-    if m.rank == src:
+    if m.trace or m.rank == src:
         payload = torch.frombuffer(bytearray(pickle.dumps(obj)),
                                    dtype=torch.uint8)
         size = torch.tensor([payload.numel()], dtype=torch.int64)
     else:
         size = torch.zeros(1, dtype=torch.int64)
-    dist.broadcast(size, src=src, group=m.control)
-    if m.rank != src:
-        payload = torch.empty(int(size), dtype=torch.uint8)
-    dist.broadcast(payload, src=src, group=m.control)
-    _count(m, "collective-permute", int(size) + 8, time.perf_counter() - t0)
-    return obj if m.rank == src else pickle.loads(payload.numpy().tobytes())
+    if not m.trace:
+        dist.broadcast(size, src=src, group=m.control)
+        if m.rank != src:
+            payload = torch.empty(int(size), dtype=torch.uint8)
+        dist.broadcast(payload, src=src, group=m.control)
+    _count(m, "collective-permute", int(size) + 8, t0)
+    if m.trace or m.rank == src:
+        return obj
+    return pickle.loads(payload.numpy().tobytes())
+
+
+def _permute(x: torch.Tensor, axis: str, perm, m: Mesh) -> torch.Tensor:
+    """:func:`ppermute`'s exchange, no gradient."""
+    (name,) = m.axes_of(axis)
+    n = m.shape[name]
+    me = m.coord(name)
+    dst = next((d for s, d in perm if s == me), None)
+    src = next((s for s, d in perm if d == me), None)
+    if n == 1:
+        return x if src is not None else torch.zeros_like(x)
+    y = x.contiguous()
+    t0 = time.perf_counter()
+    out = torch.empty_like(y)
+    if m.trace:
+        pass
+    elif src == me:
+        out.copy_(y)
+    elif src is not None or dst is not None:
+        def peer(c):
+            return m.rank_at(**{**m.coords(), name: c})
+
+        staged = _host_staged(m, y)
+        buf = torch.empty(y.shape, dtype=y.dtype) if staged else out
+        ops = []
+        if dst is not None:
+            ops.append(dist.P2POp(dist.isend, y.cpu() if staged else y,
+                                  peer(dst)))
+        if src is not None:
+            ops.append(dist.P2POp(dist.irecv, buf, peer(src)))
+        # Every rank posts its send and its receive at once: a ring in
+        # which each rank first blocks in a send would deadlock.
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        if staged and src is not None:
+            out.copy_(buf)
+    if src is None:
+        out.zero_()
+    _count(m, "collective-permute", _nbytes(y), t0)
+    return out
+
+
+def ppermute(x: torch.Tensor, axis: str, perm, mesh: Optional[Mesh] = None
+             ) -> torch.Tensor:
+    """``x`` moved along ``perm``, a list of (source, destination)
+    coordinates on ``axis``, within each rank's coordinates on the other
+    axes (``jax.lax.ppermute``): the rank at coordinate d gets the x of
+    the rank at s for every pair (s, d), zeros where no pair ends at it.
+    Its gradient is the cotangent moved along the inverse permutation."""
+    m = _mesh(mesh)
+    perm = tuple((int(s), int(d)) for s, d in perm)
+    (name,) = m.axes_of(axis)
+    n = m.shape[name]
+    for ends in (tuple(s for s, _ in perm), tuple(d for _, d in perm)):
+        if len(set(ends)) != len(ends) or not all(0 <= c < n for c in ends):
+            raise ValueError(f"ppermute: {perm} is not a permutation of "
+                             f"coordinates on axis {name!r} of size {n}")
+    if not _wants_grad(x):
+        return _permute(x, name, perm, m)
+    return _Permute.apply(x, name, perm, m)
 
 
 # ------------------------------------------------------------ autograd
@@ -270,6 +360,18 @@ class _GatherOnUse(torch.autograd.Function):
     def backward(ctx, g):
         return (g.narrow(ctx.dim, ctx.idx * ctx.size, ctx.size).contiguous(),
                 None, None, None)
+
+
+class _Permute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, perm, mesh):
+        ctx.axis, ctx.perm, ctx.mesh = axis, perm, mesh
+        return _permute(x, axis, perm, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        inverse = tuple((d, s) for s, d in ctx.perm)
+        return _permute(g, ctx.axis, inverse, ctx.mesh), None, None, None
 
 
 class _Replicas(torch.autograd.Function):
@@ -350,3 +452,36 @@ class _Scale(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g * ctx.s, None
+
+
+# ------------------------------------------------------------ roofline
+# One NVIDIA H100 80GB HBM3 (SXM5) at its 700.00 W power limit, as
+# `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` names
+# the card these numbers are for; rates from NVIDIA's H100 Tensor Core
+# GPU datasheet (dense, without structured sparsity). A card set below
+# 700 W runs slower under load than these.
+PEAK_FLOPS = 989.4e12  # dense bf16 FLOP/s per card
+HBM_BW = 3.35e12  # HBM3 B/s per card
+NVLINK_BW = 25e9  # B/s per NVLink-4 link per direction (18 links a card)
+
+
+def roofline_terms(
+    *, flops: float, hbm_bytes: float, collective_bytes: float,
+    chips: int, links_per_chip: int = 1, duplicate_flop_factor: float = 1.0,
+) -> Dict[str, float]:
+    """Three-term roofline (seconds) of one step, the reference's formula
+    on the H100's constants. ``flops``, ``hbm_bytes`` and
+    ``collective_bytes`` are one rank's (the dry run traces one rank's
+    program); ``chips`` is recorded for reporting only."""
+    t_compute = flops / PEAK_FLOPS / duplicate_flop_factor
+    t_memory = hbm_bytes / HBM_BW
+    t_collective = collective_bytes / (links_per_chip * NVLINK_BW)
+    dominant = max(
+        ("compute", t_compute), ("memory", t_memory),
+        ("collective", t_collective), key=lambda kv: kv[1],
+    )[0]
+    return dict(
+        t_compute=t_compute, t_memory=t_memory, t_collective=t_collective,
+        dominant=dominant,
+        t_bound=max(t_compute, t_memory, t_collective),
+    )

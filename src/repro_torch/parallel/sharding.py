@@ -66,7 +66,11 @@ class Mesh:
     ``timeout_s`` is every group's timeout. ``stats`` holds the
     collectives' per-kind counters (``parallel/collectives.py``);
     ``controller`` rank 0's end of a serving mesh's command channel
-    (``parallel/worker.py``)."""
+    (``parallel/worker.py``). ``trace`` marks a mesh built for the dry
+    run's trace of one rank's program (``launch/mesh.py:trace_mesh``):
+    it has no groups, and every collective on it counts its bytes and
+    calls as on a real mesh, returns a tensor of its result's shape and
+    moves no data."""
 
     shape: Dict[str, int]
     rank: int = 0
@@ -78,6 +82,7 @@ class Mesh:
     controller: Any = None
     stats: Dict[str, Dict[str, float]] = dataclasses.field(
         default_factory=dict)
+    trace: bool = False
 
     def __post_init__(self) -> None:
         self.shape = {str(a): int(n) for a, n in dict(self.shape).items()}
@@ -534,9 +539,12 @@ class TrainPlan:
         self.batch_cut = batch_axes is not None
         self.batch_axes = tuple(a for a in mesh.axes
                                 if a in (batch_axes or ()))
-        self.model = _mesh_size(mesh, "model")
         self._spec = {id(t): s for t, s in zip(iter_leaves(params),
                                                iter_leaves_specs(specs))}
+        # No leaf cut over 'model' (the 'dp' profile): every param is
+        # whole and no block is tensor-parallel.
+        cut = any("model" in spec_axes(s) for s in self._spec.values())
+        self.model = _mesh_size(mesh, "model") if cut else 1
 
     # ----------------------------------------------------------- sizes
     @property

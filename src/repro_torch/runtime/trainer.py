@@ -42,7 +42,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import model as model_lib
 from repro_torch.models.modules import iter_leaves, tree_map
 from repro_torch.optim.adamw import (
-    AdamState, AdamW, Shard, opt_state_shardings,
+    AdamState, AdamW, Shard, host_step, opt_state_shardings,
 )
 from repro_torch.parallel import sharding as shd
 
@@ -138,9 +138,7 @@ def init_moments(params, moment_specs: list, mesh) -> AdamState:
         it = iter(shapes)
         return tree_map(lambda p: torch.zeros(
             next(it), dtype=torch.float32, device=p.device), params)
-    step = torch.zeros((), dtype=torch.int32,
-                       device=next(iter(iter_leaves(params))).device)
-    return AdamState(step, zeros(), zeros())
+    return AdamState(host_step(), zeros(), zeros())
 
 
 def average_grads(grads: List[torch.Tensor], axes, mesh
@@ -235,6 +233,8 @@ class Trainer:
             (params, opt_state), start, _ = ckpt.restore(
                 self.tc.ckpt_dir, (params, opt_state), device=self.device,
                 shard=shard)
+            opt_state = opt_state._replace(
+                step=host_step(int(opt_state.step)))
         return params, opt_state, start
 
     def _barrier(self) -> None:

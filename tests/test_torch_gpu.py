@@ -1780,3 +1780,38 @@ def test_sharded_train_step_over_nccl_matches_single_rank(cuda, mesh):
     for r, rank in enumerate(outs):
         assert rank[0]["gated_launches"] == 3 * layers * 2, r
         assert rank[0]["digest"] == outs[r % mesh[1]][0]["digest"], r
+
+
+@pytest.mark.parametrize("n_micro", [2, 4])
+def test_pipeline_forward_of_cuda_tensors_under_gloo(cuda, n_micro):
+    """``pipeline_forward`` on a ("pod",) gloo mesh of 2 ranks on card 0
+    (each hand-off staged through the host): y and the gradients of
+    sum(y * cot) with respect to x (stage 0) and each stage's weights
+    against the sequential composition on the card (f32, rtol 1e-5,
+    atol 1e-6)."""
+    from repro_torch.launch import mesh as mesh_lib
+    import torch_pipeline_scenarios as ps
+    W, x, cot = ps.numpy_case(2)
+    spec = dict(W=W, x=x, cot=cot, n_micro=n_micro, device="cuda:0")
+    outs = mesh_lib.spawn_mesh(ps.pipeline_rank, (2,), ([spec],),
+                               axes=("pod",), device="cuda:0",
+                               backend="gloo", timeout_s=30.0,
+                               deadline_s=120.0)
+    Wg = torch.from_numpy(W).to(cuda).requires_grad_(True)
+    xg = torch.from_numpy(x).to(cuda).requires_grad_(True)
+    h = xg
+    for s in range(2):
+        h = torch.tanh(h @ Wg[s])
+    torch.sum(h * torch.from_numpy(cot).to(cuda)).backward()
+    for rank in outs:
+        got = rank[0]
+        assert got["device"].startswith("cuda")
+        np.testing.assert_allclose(got["y"], h.detach().cpu().numpy(),
+                                   rtol=1e-5, atol=1e-6)
+        s = got["stage"]
+        np.testing.assert_allclose(got["w_grad"], Wg.grad[s].cpu().numpy(),
+                                   rtol=1e-5, atol=1e-6)
+        if s == 0:
+            np.testing.assert_allclose(got["x_grad"], xg.grad.cpu().numpy(),
+                                       rtol=1e-5, atol=1e-6)
+        assert got["stats"]["counts"]["collective-permute"] == n_micro + 1

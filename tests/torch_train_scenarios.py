@@ -370,3 +370,31 @@ def compress_rank(mesh, specs) -> list:
             res.append((avg["w"].cpu().numpy(), r.cpu().numpy()))
         out.append({"rounds": res, "stats": collectives.stats(mesh)})
     return out
+
+
+# ---------------------------------------------------- the dry run's counts
+def count_rank(mesh, spec) -> dict:
+    """One sharded training step of the scenario on this rank, built as
+    the dry run builds its program (AdamW(lr=3e-4), the moments by
+    ``opt_state_shardings``, the batch cut by ``batch_spec``): the
+    step's collectives alone."""
+    cfg = scenario_config(spec)
+    full = scenario_params(cfg, spec)
+    opt = AdamW(lr=3e-4)
+    params, specs = shd.train_shard_params(full, mesh)
+    mspecs = list(shd.iter_leaves_specs(opt_state_shardings(
+        opt.init(full), specs, mesh, zero1=spec.get("zero1", False)).mu))
+    state = trainer_lib.init_moments(full, mspecs, mesh)
+    B, S = spec.get("B", 4), spec.get("S", 16)
+    shape = ShapeConfig("t", S, B, "train")
+    whole = _on(scenario_batch(cfg, spec), spec)
+    bspecs = shd.batch_spec(cfg, shape, mesh, whole)
+    batch = {k: shd.shard_of(v, bspecs[k], mesh, mesh.rank)
+             for k, v in whole.items()}
+    step = trainer_lib.make_train_step(cfg, opt, mesh, specs, mspecs,
+                                       batch_axes=shd.batch_axes(mesh, B))
+    collectives.reset_stats(mesh)
+    step(params, state, batch)
+    out = collectives.stats(mesh)
+    del out["seconds"]
+    return out
