@@ -103,8 +103,8 @@ is printed only when all of them pass):
      0: one f32 full-width step of smollm-135m on (1, 3) and on (2, 1)
      against a single-rank step (the reference's tolerances: loss rtol
      1e-4, grad norm 1e-3); phase 12's bf16 GLU kernel run on (1, 3)
-     and relu fused run with ZeRO-1 on (2, 1), 3 steps each (every
-     rank's losses equal, its launches exactly per layer x 30 x 3, its
+     and relu fused run with ZeRO-1 on (2, 1), 2 steps each (every
+     rank's losses equal, its launches exactly per layer x 30 x 2, its
      ms per step, collectives, peak memory and moment bytes);
      qwen2-moe-a2.7b at its published widths cut to 2 layers on (1, 2),
      30 experts a rank: one MoE layer's forward and gradient for 16
@@ -124,7 +124,21 @@ is printed only when all of them pass):
      then the same pipeline at 4 layers in f32, its output and every
      gradient against one rank's sequential run; then the dry run's
      ``smollm-135m train_4k`` on (16, 16) and ``deepseek-v3-671b
-     decode_32k`` on (2, 16, 16), traced on the meta device.
+     decode_32k`` on (2, 16, 16), traced on the meta device;
+ 16. sequence parallelism (``seq_shard``: the residual stream cut along
+     the sequence over 'model' between blocks), every rank a gloo
+     process on card 0: phase 14's bf16 GLU kernel run on (1, 3) with
+     and without it (every rank's losses equal and falling, launches
+     exactly 3 x 30 x 2, ms per step, peak memory, and its collectives:
+     every row-parallel close a reduce-scatter, every column-parallel
+     open an all-gather, counted exactly against plain TP's
+     all-reduces); one f32 step with it at 4 layers (GLU kernel, relu
+     fused) against one rank's, loss and every gradient within 1e-4 of
+     their scale; ``zamba2-7b`` at its published widths (f32, 2 layers)
+     decoding at batch 1 over caches whose rows are cut over 2 data
+     ranks (the long-context layout) against the whole cache, each new
+     row written by its owner alone; then the dry run's ``train_4k``
+     with ``--seq-shard``, its temp below the cell's without it.
 
 Every phase prints its seconds. After phases 4-7, each of the nine kernels' time at its path's shapes
 beside its plain version, a library yardstick and its bound.
@@ -136,6 +150,7 @@ rest of the repository beside it, the script exits non-zero first.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -962,15 +977,17 @@ def check_train_gemm(torch, dev):
     tiles; BP ``g @ w_out^T`` gated on g's (64, 128) error tiles
     (block_k = block_n); WG ``a^T @ g`` gated on the transposed feature
     bits, tiles (128, 64). At the whole batch's rows with d_ff 1536 and
-    a tp-3 shard's F, and at a pipeline micro-batch's rows (phase 15;
-    WG reduces over them). Each on the card against the same call on
+    a tp-3 shard's F, at a pipeline micro-batch's rows (phase 15; WG
+    reduces over them), and at phase 16's 8 x SP_SEQ rows with the tp-3
+    shard's F. Each on the card against the same call on
     the CPU (the plain version), within ``TRAIN_GEMM_REL`` of the
     output's largest value, then with the gated tiles NaN-poisoned on
     the card."""
     from repro_torch.core import sasa, sprf
     from repro_torch.kernels import ops as kops
     M = TRAIN["batch"] * TRAIN["seq"]
-    shapes = ((1536, M), (TP3_F, M), (1536, PIPE_MICRO_ROWS))
+    shapes = ((1536, M), (TP3_F, M), (1536, PIPE_MICRO_ROWS),
+              (TP3_F, TRAIN["batch"] * SP_SEQ))
     for dtype, (F_, M_) in itertools.product(
             (torch.float32, torch.bfloat16), shapes):
         rel, why = TRAIN_GEMM_REL[str(dtype)[6:]]
@@ -1012,8 +1029,9 @@ def check_train_gemm(torch, dev):
                 raise AssertionError(f"{name}: NaN-poisoned gated tiles "
                                      "reached the output")
     log("  sparce_gemm_gated at the training step's FP, BP and WG shapes "
-        f"(d_ff 1536, a tp-3 shard's {TP3_F}, and a pipeline micro-batch's "
-        f"{PIPE_MICRO_ROWS} rows): NaN-poisoned gated tiles never read -> ok")
+        f"(d_ff 1536, a tp-3 shard's {TP3_F}, a pipeline micro-batch's "
+        f"{PIPE_MICRO_ROWS} rows, and phase 16's {TRAIN['batch'] * SP_SEQ} "
+        f"rows at F {TP3_F}): NaN-poisoned gated tiles never read -> ok")
 
 
 def check_mlp(torch, dev):
@@ -1028,12 +1046,14 @@ def check_mlp(torch, dev):
     bf = 128
     err_main = None
     # (M, F, block_m): the relu cases at F 1536, then ragged M and F, then
-    # a training step's forward (8 x 512 tokens, the default 64-row tiles)
-    # and a dp-2 shard's (2048 rows).
+    # a training step's forward (8 x 512 tokens, the default 64-row tiles),
+    # a dp-2 shard's (2048 rows) and phase 16's tp-3 shard (8 x SP_SEQ
+    # rows, F 512).
     cases = [(M, 1536, bm) for M, bm in RELU_CASES] + [
         (37, 1000, 1), (37, 1000, 64), (100, 1000, 64)] + [
         (TRAIN["batch"] * TRAIN["seq"], 1536, 64),
-        (TRAIN["batch"] * TRAIN["seq"] // 2, 1536, 64)]
+        (TRAIN["batch"] * TRAIN["seq"] // 2, 1536, 64),
+        (TRAIN["batch"] * SP_SEQ, TP3_F, 64)]
     for dtype in (torch.float32, torch.bfloat16):
         atol, rtol, why = RELU_TOLS[str(dtype)[6:]]
         for M, F_, bm in cases:
@@ -1525,10 +1545,46 @@ def run_engine(torch, dev, cfg, params, sparsity, label, expect, *,
     return m, launches
 
 
+@contextlib.contextmanager
+def drawn_on_card(torch):
+    """``modules.normal_init`` draws on the leaf's device while the block
+    runs: each leaf still takes its seed from the init's numpy generator,
+    and its values are ``torch.randn`` on a generator seeded with it,
+    scaled, then cast. The numbers differ from the host init's; a
+    full-width init then spends no host time (DeepSeek-V3's 4 layers
+    are 15.1 G normals). The draws depend only on the seeds, so ranks
+    drawing on one card draw the same values."""
+    from repro_torch.models import modules
+    host = modules.normal_init
+
+    def normal_init(rng, shape, scale, dtype, device):
+        seed = int(rng.integers(1 << 63))
+        out = torch.empty(tuple(shape), dtype=dtype, device=device)
+        flat = out.view(-1)
+        g = torch.Generator(device=out.device).manual_seed(seed)
+        for s0 in range(0, flat.numel(), CARD_DRAW_VALUES):
+            m = min(CARD_DRAW_VALUES, flat.numel() - s0)
+            flat[s0:s0 + m] = torch.randn(
+                m, generator=g, device=out.device).mul_(scale)
+        return out
+
+    modules.normal_init = normal_init
+    try:
+        yield
+    finally:
+        modules.normal_init = host
+
+
+# f32 normals a ``drawn_on_card`` draw stages on the card (1 GiB).
+CARD_DRAW_VALUES = 1 << 28
+
+
 def full_width_params(torch, cfg, dev):
+    """Seeded full-width weights of ``cfg``, drawn on the card."""
     from repro_torch.models import model as model_lib
     t0 = time.perf_counter()
-    params = model_lib.init_params(cfg, seed=ENGINE["seed"], device=dev)
+    with drawn_on_card(torch):
+        params = model_lib.init_params(cfg, seed=ENGINE["seed"], device=dev)
     torch.cuda.synchronize()
     log(f"  full-width bf16 {cfg.mlp_act} params "
         f"({sum(p.numel() for p in _leaves(params))} values) in "
@@ -2414,17 +2470,18 @@ def run_frontends(torch, dev):
 # ------------------------------------- timing a slice's new kernel shapes
 # A row: (label, kernel call, plain version, library call, the kernel's
 # device names, bytes the call must move, its operations, iterations).
-def time_rows(torch, dev, rows):
+def time_rows(torch, dev, rows, path="bfloat16"):
     """Each row's kernel beside its plain version (CUDA events), the
-    library call's device time by both witnesses, and its bound, logged.
-    Returns {label: device ms over the library's}."""
+    library call's device time by both witnesses, and its bound at
+    ``path``'s peak rate, logged. Returns {label: device ms over the
+    library's}."""
     out = {}
     for label, run, plain, library, names, nbytes, ops, iters in rows:
         plain_ms = cuda_time_ms(plain, 10)
         dev_ms, _, lib_dev_ms, _ = log_device_witnesses(
             label, cuda_time_ms(run, iters), run,
             cuda_time_ms(library, iters), library, names)
-        bound_ms, by = bound(nbytes, ops, "bfloat16")
+        bound_ms, by = bound(nbytes, ops, path)
         log(f"  {label}: plain {plain_ms:.4f} ms (events); bound "
             f"{bound_ms:.5f} ms ({by}); device over the library's "
             f"{dev_ms / lib_dev_ms:.2f}x")
@@ -2632,12 +2689,14 @@ def mesh_driver(names, mesh, device):
     from repro_torch.runtime.server import ServeConfig, Server
     cfg, sp, _ = mesh_engine(names[0])
     dev = torch.device(device)
-    Server(cfg, model_lib.init_params(cfg, seed=1, device=dev), ServeConfig(
-        batch_slots=ENGINE["slots"], max_len=ENGINE["max_len"],
-        kv_block_size=ENGINE["block_size"], attn_kernel="paged",
-        sparsity=sp, mesh=mesh), device=dev).generate(
-            engine_requests(cfg, 2, seed=99))
-    return [serve_mesh_engine(n, mesh, device) for n in names]
+    with drawn_on_card(torch):  # the workers take rank 0's params
+        Server(cfg, model_lib.init_params(cfg, seed=1, device=dev),
+               ServeConfig(batch_slots=ENGINE["slots"],
+                           max_len=ENGINE["max_len"],
+                           kv_block_size=ENGINE["block_size"],
+                           attn_kernel="paged", sparsity=sp, mesh=mesh),
+               device=dev).generate(engine_requests(cfg, 2, seed=99))
+        return [serve_mesh_engine(n, mesh, device) for n in names]
 
 
 def log_collectives(label, who, c, ticks):
@@ -2800,15 +2859,17 @@ TRAIN_RUNS = (
 )
 
 
-def train_data(seed=0, vocab=None):
-    """Step-keyed batches of ``TRAIN``'s shape from the synthetic corpus
-    over ``vocab`` token ids (``TRAIN["vocab"]`` by default)."""
+def train_data(seed=0, vocab=None, seq=None):
+    """Step-keyed batches of ``TRAIN``'s shape (``seq`` tokens a row, if
+    given) from the synthetic corpus over ``vocab`` token ids
+    (``TRAIN["vocab"]`` by default)."""
     from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
     corpus = SyntheticCorpus(vocab or TRAIN["vocab"],
                              DataConfig(seed=seed, noise=0.05))
     step = 0
     while True:
-        yield {"tokens": corpus.batch(step, TRAIN["batch"], TRAIN["seq"])}
+        yield {"tokens": corpus.batch(step, TRAIN["batch"],
+                                      seq or TRAIN["seq"])}
         step += 1
 
 
@@ -3118,17 +3179,17 @@ def upcast_in_place(torch, tree):
 
 
 def profile_engine(torch, cfg, params, sc, dev, label, trace=ENGINE):
-    """Device time by kernel over a short engine run under the profiler
-    (its own overhead lengthens the wall time, so the busy share printed
-    is a lower bound)."""
+    """Device time by kernel over a short engine run under the profiler,
+    device activity only (the host's ops too took many times the run to
+    read back; the profiler's overhead still lengthens the wall time, so
+    the busy share printed is a lower bound)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.runtime.server import Server
     srv = Server(cfg, params, sc, device=dev)
     reqs = engine_requests(cfg, trace["slots"], seed=7, trace=trace)
     for r in reqs:
         r.max_new = 8
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         srv.generate(reqs)
         torch.cuda.synchronize()
@@ -3919,7 +3980,9 @@ def run_phase7(torch, dev, errs):
 # MoE layer and two training steps, 30 of its 60 experts a rank.
 TRAIN_MESH_TIMEOUT_S = 120.0
 TRAIN_MESH_DEADLINE_S = 600.0
-TRAIN_MESH_STEPS = 3
+# 2 steps (3 before phase 16 took its share of the script's time): the
+# second is the steady one.
+TRAIN_MESH_STEPS = 2
 MESH_F32_STEPS = 2
 TRAIN_MESH_RUNS = (
     ((1, 3), ("f32", "glu kernel")),
@@ -3962,30 +4025,33 @@ def mesh_step_f32(torch, dev, mesh, zero1=False):
     return out
 
 
-def mesh_train_run(torch, dev, mesh, job):
-    """Phase 12's bf16 run ``job`` ("glu kernel", "relu fused zero1")
-    for TRAIN_MESH_STEPS steps on this rank: losses, ms per step, the
-    collectives, peak memory, the moments' and params' bytes and the
-    kernels' launches."""
+def mesh_train_run(torch, dev, mesh, job, seq=None):
+    """Phase 12's bf16 run ``job`` ("glu kernel", "relu fused zero1";
+    "glu kernel sp" with ``seq_shard``) for TRAIN_MESH_STEPS steps on
+    this rank, ``seq`` tokens a row (``TRAIN["seq"]`` by default):
+    losses, ms per step, the collectives, peak memory, the moments' and
+    params' bytes and the kernels' launches."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.models.modules import iter_leaves
     from repro_torch.optim.adamw import AdamW
     from repro_torch.parallel import collectives
     from repro_torch.runtime.trainer import TrainConfig, Trainer
-    label = job.replace(" zero1", "")
+    label = job.replace(" zero1", "").replace(" sp", "")
     _, act, sp, kernel, per_layer = next(r for r in TRAIN_RUNS
                                          if r[0] == label)
-    cfg = train_config(act, sp)
-    shape = ShapeConfig("chip_smoke", TRAIN["seq"], TRAIN["batch"], "train")
-    tr = Trainer(cfg, shape, AdamW(lr=1e-3), TrainConfig(
-        steps=TRAIN_MESH_STEPS, log_every=1, seed=TRAIN["seed"],
-        zero1=job.endswith("zero1")), mesh=mesh, device=dev)
-    wrappers = counters()
-    for fn in wrappers.values():
-        fn.launches = 0
-    collectives.reset_stats()
-    torch.cuda.reset_peak_memory_stats()
-    res = tr.run(train_data())
+    cfg = train_config(act, sp, seq_shard=job.endswith(" sp"))
+    seq = seq or TRAIN["seq"]
+    shape = ShapeConfig("chip_smoke", seq, TRAIN["batch"], "train")
+    with drawn_on_card(torch):  # every rank draws the same whole params
+        tr = Trainer(cfg, shape, AdamW(lr=1e-3), TrainConfig(
+            steps=TRAIN_MESH_STEPS, log_every=1, seed=TRAIN["seed"],
+            zero1=job.endswith("zero1")), mesh=mesh, device=dev)
+        wrappers = counters()
+        for fn in wrappers.values():
+            fn.launches = 0
+        collectives.reset_stats()
+        torch.cuda.reset_peak_memory_stats()
+        res = tr.run(train_data(seq=seq))
     torch.cuda.synchronize()
     hist = [h for h in res["history"] if "loss" in h]
     state = res["opt_state"]
@@ -3994,6 +4060,7 @@ def mesh_train_run(torch, dev, mesh, job):
         launches={k: fn.launches for k, fn in wrappers.items() if
                   fn.launches},
         expect={kernel: per_layer * cfg.num_layers * TRAIN_MESH_STEPS},
+        tokens=TRAIN["batch"] * seq,
         collectives=collectives.stats(), peak_gib=peak_gib(torch),
         moment_bytes=sum(4 * t.numel() for t in iter_leaves(
             (state.mu, state.nu))),
@@ -4087,11 +4154,12 @@ def run_ep_training(torch, dev, mesh):
     from repro_torch.runtime.trainer import TrainConfig, Trainer
     cfg = ep_config("bfloat16")
     shape = ShapeConfig("ep", EP_TRAIN["seq"], EP_TRAIN["batch"], "train")
-    tr = Trainer(cfg, shape, AdamW(lr=1e-3), TrainConfig(
-        steps=EP_TRAIN["steps"], log_every=1), mesh=mesh, device=dev)
-    collectives.reset_stats()
-    torch.cuda.reset_peak_memory_stats()
-    res = tr.run(make_batch_iterator(cfg, shape, DataConfig(seed=0)))
+    with drawn_on_card(torch):  # every rank draws the same whole params
+        tr = Trainer(cfg, shape, AdamW(lr=1e-3), TrainConfig(
+            steps=EP_TRAIN["steps"], log_every=1), mesh=mesh, device=dev)
+        collectives.reset_stats()
+        torch.cuda.reset_peak_memory_stats()
+        res = tr.run(make_batch_iterator(cfg, shape, DataConfig(seed=0)))
     torch.cuda.synchronize()
     hist = [h for h in res["history"] if "loss" in h]
     experts = [p for key in ("stack",) for layer in res["params"][key]
@@ -4134,7 +4202,7 @@ def log_mesh_train(label, outs, i):
     launches exactly per layer x layers x steps, and per rank ms per
     step, tokens/s, collectives, peak memory and bytes."""
     r0 = outs[0][i]
-    tokens = TRAIN["batch"] * TRAIN["seq"]
+    tokens = r0["tokens"]
     moments = sum(o[i]["moment_bytes"] for o in outs)
     for r, o in enumerate(outs):
         got = o[i]
@@ -4266,6 +4334,29 @@ def phase14_rows(torch, dev):
              (M * K + K * F_ + F_ * N + M * N) * 2,
              2 * M * K * F_ + 2 * M * F_ * N, 100)]
     return rows + train_gemm_rows(torch, dev, 10, "tp 3 shard", F_=TP3_F)
+
+
+def phase16_rows(torch, dev):
+    """The fused relu MLP at phase 16 (b)'s shapes: the tp-3 shard's F
+    512 over 8 x SP_SEQ gathered rows, f32 (split-TF32) as (b) runs it."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import sparce_mlp as sm
+    rng = np.random.default_rng(12)
+    M, K, F_, N = TRAIN["batch"] * SP_SEQ, 576, TP3_F, 576
+
+    def normal(*shape, scale=1.0):
+        a = rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+        return torch.from_numpy(a).to(dev)
+    x = normal(M, K)
+    wi, wo = normal(K, F_, scale=K ** -0.5), normal(F_, N, scale=F_ ** -0.5)
+    mkw = dict(block_m=64, block_f=128, act="relu")
+    return [(f"sparce_mlp_fused f32 training forward sp tp 3 shard ({M} "
+             f"rows, F {F_})",
+             lambda: kops.sparce_mlp_fused(x, wi, wo, **mkw),
+             lambda: sm.sparce_mlp_fused_plain(x, wi, wo, **mkw),
+             lambda: torch.relu(x @ wi) @ wo, MLP_KERNELS,
+             (M * K + K * F_ + F_ * N + M * N) * 4,
+             2 * M * K * F_ + 2 * M * F_ * N, 100)]
 
 
 def train_gemm_rows(torch, dev, seed, where, **shape):
@@ -4537,14 +4628,17 @@ def run_pipeline(torch, dev):
     return want
 
 
-def run_dryrun_cells():
+def run_dryrun_cells(cells=DRYRUN_CELLS, seq_shard=False):
     """Phase 15 (c): the dry run's cells, traced on the meta device (no
-    card); each must report ok."""
+    card); each must report ok. Returns {(arch, shape, two pods):
+    result}."""
     import tempfile
     from repro_torch.launch import dryrun
+    out = {}
     with tempfile.TemporaryDirectory(prefix="dryrun-") as tmp:
-        for arch, shape, two_pods in DRYRUN_CELLS:
+        for arch, shape, two_pods in cells:
             argv = ["--arch", arch, "--shape", shape, "--out", tmp]
+            argv += ["--seq-shard"] if seq_shard else []
             dryrun.main(argv + (["--multi-pod"] if two_pods else []))
             tag = f"{arch}_{shape}_{'pod2' if two_pods else 'pod1'}"
             with open(os.path.join(tmp, tag + ".json")) as f:
@@ -4553,7 +4647,9 @@ def run_dryrun_cells():
                 raise AssertionError(f"dry run {tag}: {res}")
             r, m = res["roofline"], res["memory"]
             c = res["collectives_scanned"]
-            log(f"  dry run {tag}: mesh {res['mesh']}, traced in "
+            out[(arch, shape, two_pods)] = res
+            log(f"  dry run {tag}{' --seq-shard' if seq_shard else ''}: "
+                f"mesh {res['mesh']}, traced in "
                 f"{res['compile_s']:.1f}s; rank 0: {res['cost_scanned']['flops']:.4g} "
                 f"FLOPs, {res['cost_scanned']['bytes accessed']:.4g} B "
                 f"accessed, collectives {c['total']} B in "
@@ -4562,12 +4658,477 @@ def run_dryrun_cells():
                 f"{m['temp_size_in_bytes']} B; roofline compute "
                 f"{r['t_compute']:.3e} s, memory {r['t_memory']:.3e} s, "
                 f"collective {r['t_collective']:.3e} s -> {r['dominant']}")
+    return out
+
+
+# ----------------------- phase 16: sequence parallelism, row-cut decode
+# (a) phase 14's bf16 GLU kernel run (30 layers, 8 x SP_SEQ tokens,
+# TRAIN_MESH_STEPS steps) on (1, 3) with and without ``seq_shard``: 9
+# heads, 3 KV heads and d_ff 1536 divide by 3, so attention and the MLP
+# are both tensor-parallel; (b) one f32 step with ``seq_shard`` at
+# SP_F32_LAYERS layers (GLU kernel, relu fused; 8 x SP_SEQ tokens) and
+# one without, each against one rank's, loss and every gradient; (c)
+# zamba2-7b at its published widths (f32, 2
+# mamba2 layers, ``attn_every`` 1: two applications of the shared block)
+# decoding at batch 1 over caches whose rows are cut over 2 data ranks,
+# as cache_spec cuts long_500k's, against the whole cache on one rank;
+# (d) the dry run's smollm-135m train_4k (16, 16) with --seq-shard
+# beside phase 15's cell without it.
+SP_MESH = (1, 3)
+# Tokens a row: phase 14's 512 do not divide over 3 ranks (seq_parallel
+# raises), so both (a) runs and (b) take 576 (8 x 576 = 36 x 128 rows).
+SP_SEQ = 576
+SP_JOBS = ("f32 sp glu kernel", "f32 sp relu fused", "glu kernel",
+           "glu kernel sp")
+SP_F32_LAYERS = 4
+# The f32 step against one rank's: relative errors of the loss and the
+# grad norm, and per gradient its largest elementwise error (elem) and
+# its error's norm (frob), over its largest magnitude / its norm, held
+# at phase 15's 1e-4 (f32 sums over the shards in another order; the
+# loss at 1e-5). A relu's derivative jumps at h = 0: where the mesh's
+# sums and one rank's round an h within a few ulps of 0 to opposite
+# sides, the backward's mask 1[h > 0] differs there and one token's
+# term of w_in's and x's gradients with it (a CPU run of the same steps
+# on gloo ranks, tools/relu_tp_witness.py, finds 0-1 such elements a
+# layer, under plain TP as under SP, and moves the worst gradient by
+# 2.7e-3 of its scale; in f64 plain TP is within 2.1e-13). So the relu
+# step is held against one rank's step whose backward takes the mesh
+# run's masks, and every element where the masks differ must have |h|
+# within SP_FLIP_REL of its layer's largest |h|.
+SP_F32_REL = 1e-4
+SP_F32_TOL = dict(loss=1e-5, gnorm=SP_F32_REL, elem=SP_F32_REL,
+                  frob=SP_F32_REL)
+SP_FLIP_REL = 1e-5
+SP_DECODE_MESH = (2, 1)
+# 8192 cache rows, 4096 a rank; 4 steps from length 4094 write rows
+# 4094-4097, across the ranks' edge.
+SP_DECODE = dict(rows=8192, length=4094, steps=4, seed=16)
+
+
+def relu_mlp_probe(torch, masks=None):
+    """A stand-in for ``sparse_ops._SparceMlp`` (the relu MLP under
+    ``mode="fused"``): the same forward and backward, and each call's
+    h = x @ w_in kept in call order (``.hs``), in f32 as the backward
+    recomputes it; with ``masks``, call i's backward takes its relu
+    mask from ``masks[i]`` in place of h > 0."""
+    from repro_torch.core import sparse_ops
+    base = sparse_ops._SparceMlp
+
+    class Probe(torch.autograd.Function):
+        hs = []
+
+        @staticmethod
+        def forward(ctx, x, w_in, w_out, plan, act):
+            ctx.call = len(Probe.hs)
+            Probe.hs.append(x.detach().float() @ w_in.detach().float())
+            return base.forward(ctx, x, w_in, w_out, plan, act)
+
+        @staticmethod
+        def backward(ctx, g, bits_grad):
+            if masks is None:
+                return base.backward(ctx, g, bits_grad)
+            x, w_in, w_out = ctx.saved_tensors
+            h = x.float() @ w_in.float()
+            gf = g.float()
+            dh = (gf @ w_out.float().T) * masks[ctx.call].to(h.dtype)
+            return ((dh @ w_in.float().T).to(x.dtype),
+                    (x.float().T @ dh).to(w_in.dtype),
+                    (torch.clamp_min(h, 0.0).T @ gf).to(w_out.dtype),
+                    None, None)
+    return Probe
+
+
+@contextlib.contextmanager
+def probing(torch, masks=None):
+    """:func:`relu_mlp_probe` in place of ``_SparceMlp`` for the block."""
+    from repro_torch.core import sparse_ops
+    saved = sparse_ops._SparceMlp
+    sparse_ops._SparceMlp = probe = relu_mlp_probe(torch, masks)
+    try:
+        yield probe
+    finally:
+        sparse_ops._SparceMlp = saved
+
+
+def step_errors(torch, got_loss, grads, loss, want):
+    """Relative errors of a step against one rank's: the loss, the grad
+    norm, and the worst gradient's largest elementwise error over its
+    largest magnitude (elem; ``worst``: that gradient's index, dtype and
+    shape) and its error's norm over its norm (frob)."""
+    def norm(gs):
+        return math.sqrt(sum(float(torch.sum(g.double() ** 2)) for g in gs))
+
+    elem = [float((a - b).abs().max()) / (float(b.abs().max()) or 1.0)
+            for a, b in zip(grads, want)]
+    i = int(np.argmax(elem))
+    return dict(
+        loss=abs(got_loss - float(loss)) / abs(float(loss)),
+        gnorm=abs(norm(grads) - norm(want)) / norm(want),
+        elem=elem[i],
+        frob=max(float(torch.linalg.vector_norm((a - b).double()))
+                 / (float(torch.linalg.vector_norm(b.double())) or 1.0)
+                 for a, b in zip(grads, want)),
+        worst=[i, str(want[i].dtype)[6:], list(want[i].shape)])
+
+
+def sp_step_f32(torch, dev, mesh, label, dtype="float32", run=None):
+    """One step of phase 12's ``label`` config (or ``run``, a TRAIN_RUNS
+    row) in ``dtype``, cut to SP_F32_LAYERS layers, on this rank of
+    ``mesh`` (8 x SP_SEQ tokens of phase 12's first batch), with
+    ``seq_shard`` and without: the SP step's launches; on rank 0 also
+    each step's errors against one rank's step on the whole model
+    (:func:`step_errors`). For the relu MLP under ``mode="fused"`` each
+    call's relu mask is gathered whole over 'model', and rank 0 also
+    reports where each run's masks differ from one rank's ("flips": how
+    many, and the largest |h| there over its call's largest |h|) and
+    the errors against one rank's step whose backward takes the mesh
+    run's masks ("aligned")."""
+    from repro_torch.checkpoint.manager import gather_whole
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.modules import iter_leaves
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel import sharding as shd
+    _, act, sparsity, kernel, per_layer = run or next(
+        r for r in TRAIN_RUNS if r[0] == label)
+    probe = act == "relu" and sparsity.get("mode") == "fused"
+    batch = {"tokens": torch.from_numpy(
+        next(train_data(seq=SP_SEQ))["tokens"]).to(dev)}
+    fn = counters().get(kernel)
+    out = dict(expect=per_layer * SP_F32_LAYERS, kernel=kernel)
+    runs, masks = {}, {}
+    for seq in (False, True):
+        key = "sp" if seq else "tp"
+        cfg = train_config(act, sparsity, dtype=dtype,
+                           num_layers=SP_F32_LAYERS, seq_shard=seq)
+        full = model_lib.init_params(cfg, seed=TRAIN["seed"], device=dev)
+        params, specs = shd.train_shard_params(full, mesh)
+        leaves = list(iter_leaves(params))
+        for p in leaves:
+            p.requires_grad_(True)
+        plan = shd.TrainPlan(mesh, cfg, specs, params,
+                             shd.batch_axes(mesh, TRAIN["batch"]))
+        if plan.batch_size != 1 or plan.seq_parallel(cfg, SP_SEQ) != seq:
+            raise AssertionError(f"{label}: the step needs a (1, M) mesh")
+        if fn is not None:
+            fn.launches = 0
+        with contextlib.ExitStack() as stack:
+            hs = stack.enter_context(probing(torch)).hs if probe else []
+            stack.enter_context(shd.use_plan(plan))
+            total, _, _ = model_lib.loss_terms(params, cfg, batch)
+            total.backward()
+        if seq and fn is not None:
+            out["launches"] = fn.launches
+        masks[key] = [collectives.all_gather((h > 0).to(torch.uint8),
+                                             "model", mesh, dim=1)
+                      for h in hs]
+        runs[key] = (float(total.detach()), gather_whole(
+            [p.grad for p in leaves], list(shd.iter_leaves_specs(specs)),
+            mesh))
+    if mesh.rank != 0:
+        return out
+    with contextlib.ExitStack() as stack:
+        hs = stack.enter_context(probing(torch)).hs if probe else []
+        loss, want = value_and_grads(torch, cfg, full, batch)
+    for key, (got_loss, grads) in runs.items():
+        out[key] = step_errors(torch, got_loss, grads, loss, want)
+        if not probe:
+            continue
+        out[key + " flips"] = [
+            (int(d.sum()), float(h.abs()[d].max() / h.abs().max())
+             if d.any() else 0.0)
+            for h, d in ((h, (h > 0) != m.bool())
+                         for h, m in zip(hs, masks[key]))]
+        with probing(torch, masks[key]):
+            _, aligned = value_and_grads(torch, cfg, full, batch)
+        out[key + " aligned"] = step_errors(torch, got_loss, grads, loss,
+                                            aligned)
+    out.update(loss=float(loss), n_grads=len(want))
+    return out
+
+
+def sp_decode_case(torch, dev):
+    """(cfg, full params, whole caches, tokens) of phase 16 (c): f32
+    zamba2-7b at its published widths, 2 mamba2 layers each followed by
+    the shared block; batch-1 caches of SP_DECODE["rows"] rows, random
+    (seeded) states and rows, SP_DECODE["length"] rows in use."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+    cfg = dataclasses.replace(get_config("zamba2-7b"), num_layers=2,
+                              attn_every=1, dtype="float32")
+    params = model_lib.init_params(cfg, seed=SP_DECODE["seed"], device=dev)
+    rng = np.random.default_rng(SP_DECODE["seed"])
+    caches = model_lib.init_caches(cfg, 1, SP_DECODE["rows"], device=dev)
+    for leaf in model_lib.cache_leaves(caches):
+        if leaf.dtype == torch.int32:
+            leaf.fill_(SP_DECODE["length"])
+        else:
+            leaf.copy_(torch.from_numpy(rng.standard_normal(
+                tuple(leaf.shape), dtype=np.float32)))
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (SP_DECODE["steps"], 1, 1)).astype(np.int32))
+    return cfg, params, caches, toks
+
+
+def attn_rows(caches):
+    """The shared block's k and v caches: (applications, 1, rows, ...)."""
+    hyb = caches["hybrid"]["attn"]
+    return [hyb.k, hyb.v]
+
+
+def sp_decode_rank(torch, dev, mesh):
+    """Phase 16 (c) on this rank: the caches' rows cut over 'data' as
+    the dry run cuts long_500k's, SP_DECODE["steps"] decode steps under
+    a plan with those ``cache_rows``: each step's logits, the global
+    rows it changed in this rank's slice, the merge's collectives; on
+    rank 0 also the whole-cache decode's logits."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model as model_lib
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel import sharding as shd
+    cfg, full, caches, toks = sp_decode_case(torch, dev)
+    whole = None
+    if mesh.rank == 0:  # a copy for the whole-cache decode
+        whole = {"hybrid": {k: type(v)(*(t.clone() for t in v))
+                            for k, v in caches["hybrid"].items()}}
+    params, pspecs = shd.train_shard_params(full, mesh)
+    shape = ShapeConfig("decode", SP_DECODE["rows"], 1, "decode")
+    plan, cspecs = dryrun.cache_plan(cfg, shape, mesh, pspecs, params,
+                                     shd.batch_axes(mesh, 1), caches)
+    local = shd.cut_tree(caches, cspecs, mesh, mesh.rank)
+    del caches
+    here = attn_rows(local)[0].shape[2]
+    first = mesh.coord("data") * here
+    out = dict(cache_rows=plan.cache_rows, first=first, here=here,
+               logits=[], changed=[])
+    collectives.reset_stats()
+    for t in toks:
+        before = [a.clone() for a in attn_rows(local)]
+        with torch.no_grad(), shd.use_plan(plan):
+            logits, local = model_lib.decode_step(params, cfg, t.to(dev),
+                                                  local)
+        rows = set()
+        for a, b in zip(attn_rows(local), before):
+            diff = (a != b).reshape(a.shape[0] * a.shape[1], a.shape[2], -1)
+            rows |= {first + int(r) for r in
+                     torch.nonzero(diff.any(-1).any(0))[:, 0]}
+        out["logits"].append(logits[:, -1].float().cpu().numpy())
+        out["changed"].append(sorted(rows))
+    torch.cuda.synchronize()
+    out["collectives"] = collectives.stats()
+    if whole is not None:
+        want = []
+        for t in toks:
+            with torch.no_grad():
+                logits, whole = model_lib.decode_step(full, cfg, t.to(dev),
+                                                      whole)
+            want.append(logits[:, -1].float().cpu().numpy())
+        out["want"] = want
+    return out
+
+
+def sp_mesh_rank(mesh, jobs, device):
+    """One rank of a phase 16 mesh: each job in turn, with its
+    seconds."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    out = []
+    for job in jobs:
+        t0 = time.perf_counter()
+        if job.startswith("f32 sp "):
+            r = sp_step_f32(torch, dev, mesh, job[len("f32 sp "):])
+        elif job == "row-cut decode":
+            r = sp_decode_rank(torch, dev, mesh)
+        else:
+            r = mesh_train_run(torch, dev, mesh, job, seq=SP_SEQ)
+        r["seconds"] = time.perf_counter() - t0
+        out.append(r)
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_sp_counts(plain, sp, layers):
+    """Phase 16 (a)'s gate on one rank: per step and layer, each
+    tensor-parallel region's close (attention's wo, the MLP's w_out) is
+    a reduce-scatter in the forward and an all-gather in the backward,
+    and each open an all-gather in the forward and a reduce-scatter in
+    the backward, in place of plain TP's two all-reduces a region; each
+    of the two norms adds an all-reduce (its scale's gradient), and the
+    stack's two ends an all-gather each."""
+    a, b = plain["counts"], sp["counts"]
+    n = TRAIN_MESH_STEPS
+    want = {"reduce-scatter": 4 * layers * n,
+            "all-gather": a["all-gather"] + (4 * layers + 2) * n,
+            "all-reduce": a["all-reduce"] - 4 * layers * n + 2 * layers * n}
+    got = {k: b[k] for k in want}
+    if got != want or a["reduce-scatter"]:
+        raise AssertionError(f"SP collectives {got}, expected {want} "
+                             f"(plain TP: {a})")
+    return got
+
+
+def run_seq_parallel(torch, dev, cells):
+    """Phase 16: (a) and (b) on SP_MESH, (c) on SP_DECODE_MESH, every rank
+    a gloo process on card 0; then (d), the dry run's train_4k with
+    --seq-shard beside ``cells``' cell without it (run here when phase
+    15 did not)."""
+    from repro_torch.launch.mesh import spawn_mesh
+    rank_dev = str(dev) if dev.type == "cpu" else f"cuda:{dev.index or 0}"
+    layers = arch_config().num_layers
+    for mesh, jobs in ((SP_MESH, SP_JOBS),
+                       (SP_DECODE_MESH, ("row-cut decode",))):
+        t0 = time.perf_counter()
+        outs = spawn_mesh(sp_mesh_rank, mesh, (jobs, rank_dev),
+                          device=rank_dev, backend="gloo",
+                          timeout_s=TRAIN_MESH_TIMEOUT_S,
+                          deadline_s=TRAIN_MESH_DEADLINE_S,
+                          axes=("data", "model"))
+        log(f"  mesh {mesh}: {mesh[0] * mesh[1]} ranks on card 0 (gloo), "
+            f"spawn to exit {time.perf_counter() - t0:.1f}s; jobs "
+            + ", ".join(f"{j} {outs[0][i]['seconds']:.1f}s"
+                        for i, j in enumerate(jobs)))
+        res = {j: [o[i] for o in outs] for i, j in enumerate(jobs)}
+        if mesh == SP_MESH:
+            check_sp_f32(res)
+            check_sp_train(res, layers)
+        else:
+            check_row_cut_decode(res["row-cut decode"])
+    if ("smollm-135m", "train_4k", False) not in cells:
+        cells.update(run_dryrun_cells(DRYRUN_CELLS[:1]))
+    sp = run_dryrun_cells(DRYRUN_CELLS[:1], seq_shard=True)
+    plain = cells[("smollm-135m", "train_4k", False)]
+    got = sp[("smollm-135m", "train_4k", False)]
+    a, b = (r["memory"]["temp_size_in_bytes"] for r in (plain, got))
+    if not b < a:
+        raise AssertionError(f"dry run --seq-shard: temp {b} B, not below "
+                             f"{a} B without it")
+    c = got["collectives_scanned"]["counts"]
+    log(f"  dry run smollm-135m_train_4k_pod1 --seq-shard against phase "
+        f"15's cell: temp {b} B against {a} B ({b / a:.4f}); "
+        f"reduce-scatter {c['reduce-scatter']} calls, all-gather "
+        f"{c['all-gather']}, all-reduce {c['all-reduce']} -> ok")
+
+
+def check_sp_f32(res):
+    """Phase 16 (b): each rank's launches; the SP step's and plain TP's
+    loss, grad norm and every gradient against one rank's within
+    SP_F32_TOL. The relu step is held against one rank's step on the
+    mesh run's relu masks, every element where those differ from one
+    rank's own within SP_FLIP_REL of 0, and logged beside its errors
+    against one rank's own masks."""
+    def fmt(errs):
+        return ", ".join(f"{k} {errs[k]:.2e}" for k in SP_F32_TOL)
+
+    for label in ("glu kernel", "relu fused"):
+        ranks = res[f"f32 sp {label}"]
+        for r, got in enumerate(ranks):
+            if got["launches"] != got["expect"]:
+                raise AssertionError(
+                    f"f32 sp {label} rank {r}: {got['kernel']} launched "
+                    f"{got['launches']} times, expected {got['expect']}")
+        r0 = ranks[0]
+        relu = "sp flips" in r0
+        notes = []
+        for key, name in (("sp", "SP"), ("tp", "plain TP")):
+            errs = r0[key + " aligned"] if relu else r0[key]
+            bad = {k: v for k, v in errs.items()
+                   if k in SP_F32_TOL and not v <= SP_F32_TOL[k]}
+            if bad:
+                raise AssertionError(
+                    f"f32 {name} {label} on {SP_MESH}: {bad} against one "
+                    f"rank (limits {SP_F32_TOL})")
+            note = f"{name}: {fmt(errs)}"
+            if relu:
+                flips = r0[key + " flips"]
+                worst = max(f for _, f in flips)
+                if not worst <= SP_FLIP_REL:
+                    raise AssertionError(
+                        f"f32 {name} {label}: relu masks differ from one "
+                        f"rank's where |h| reaches {worst:.2e} of its "
+                        f"layer's largest (limit {SP_FLIP_REL}); per "
+                        f"layer {flips}")
+                note += (f" on its own relu masks, which differ from one "
+                         f"rank's at {[n for n, _ in flips]} elements a "
+                         f"layer, |h| there at most {worst:.2e} of the "
+                         f"layer's largest; on one rank's masks "
+                         f"{fmt(r0[key])}")
+            notes.append(note)
+        log(f"  f32 sp {label} {SP_MESH}, {SP_F32_LAYERS} layers, loss "
+            f"{r0['loss']:.6f}, {r0['n_grads']} gradients; against one "
+            f"rank, " + "; ".join(notes) + f" (limits {SP_F32_TOL}"
+            + (f", flips within {SP_FLIP_REL}" if relu else "")
+            + f"); {r0['kernel']} launched {r0['launches']} times a rank "
+            f"(= per layer x {SP_F32_LAYERS}) -> ok")
+
+
+def check_sp_train(res, layers):
+    """Phase 16 (a): both runs logged as phase 14 logs its runs, every
+    rank's SP collectives gated by :func:`check_sp_counts`, each run's
+    loss falling; then the SP run against plain TP per rank."""
+    plain, sp = res["glu kernel"], res["glu kernel sp"]
+    for label, ranks in (("glu kernel", plain), ("glu kernel sp", sp)):
+        log_mesh_train(f"{label} {SP_MESH}", [[o] for o in ranks], 0)
+        losses = ranks[0]["losses"]
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{label}: losses {losses} do not fall")
+    for r, (a, b) in enumerate(zip(plain, sp)):
+        check_sp_counts(a["collectives"], b["collectives"], layers)
+        ms = [1e3 * float(np.mean(o["dts"][1:])) for o in (a, b)]
+        secs = [sum(o["collectives"]["seconds"].values()) for o in (a, b)]
+        rel = max(abs(x - y) / abs(y) for x, y in
+                  zip(b["losses"], a["losses"]))
+        log(f"  glu kernel sp against plain TP, rank {r}: {ms[1]:.2f} "
+            f"against {ms[0]:.2f} ms per step ({ms[1] / ms[0]:.3f}x); "
+            f"collectives {secs[1]:.3f} against {secs[0]:.3f} s in all; "
+            f"peak {b['peak_gib']:.2f} against {a['peak_gib']:.2f} GiB; "
+            f"losses within {rel:.2e} of plain TP's; every row-parallel "
+            f"close a reduce-scatter, every column-parallel open an "
+            f"all-gather ({4 * layers} reduce-scatters a step) -> ok")
+
+
+def check_row_cut_decode(ranks):
+    """Phase 16 (c): each step's logits on every rank within SP_F32_REL
+    of their scale of the whole-cache decode's, each step's new row
+    written by the rank that owns it and by no other, one all-gather a
+    step and application of the shared block."""
+    want = ranks[0]["want"]
+    length, steps = SP_DECODE["length"], SP_DECODE["steps"]
+    worst = 0.0
+    for r, got in enumerate(ranks):
+        if got["cache_rows"] != ("data",):
+            raise AssertionError(f"row-cut decode: rows cut over "
+                                 f"{got['cache_rows']}")
+        for k, (a, b) in enumerate(zip(got["logits"], want)):
+            err = float(np.abs(a - b).max() / np.abs(b).max())
+            worst = max(worst, err)
+            if not err <= SP_F32_REL:
+                raise AssertionError(f"row-cut decode rank {r} step {k}: "
+                                     f"logits off by {err:.2e} of scale")
+            owns = got["first"] <= length + k < got["first"] + got["here"]
+            if got["changed"][k] != ([length + k] if owns else []):
+                raise AssertionError(
+                    f"row-cut decode rank {r} step {k}: rows "
+                    f"{got['changed'][k]} changed, row {length + k} is "
+                    f"{'' if owns else 'not '}this rank's")
+        c = got["collectives"]["counts"]
+        if c["all-gather"] != 2 * steps or sum(c.values()) != 2 * steps:
+            raise AssertionError(f"row-cut decode rank {r}: collectives "
+                                 f"{c}, expected {2 * steps} all-gathers")
+    log(f"  row-cut decode {SP_DECODE_MESH}: zamba2-7b (f32, 2 mamba2 "
+        f"layers, 2 applications of the shared block), {SP_DECODE['rows']} "
+        f"rows, {ranks[0]['here']} a rank, {steps} steps from length "
+        f"{length}: logits within {worst:.2e} of their scale of the "
+        f"whole-cache decode's (limit {SP_F32_REL}); each new row written "
+        f"by its owner alone; {2 * steps} all-gathers of the softmax "
+        f"states a rank -> ok")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
                     help="comma-separated subset of phases to run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -4596,6 +5157,7 @@ def main(argv=None) -> int:
             log_kernel_resources(_build, name)
         errs = {}
         glu_metrics = None
+        cells = {}  # the dry run's results, by (arch, shape, two pods)
         t_phase = time.perf_counter()
 
         def phase_done(n):
@@ -4746,8 +5308,23 @@ def main(argv=None) -> int:
                 log(f"  phase 15 launches a rank, {name}: {n}")
             time_rows(torch, dev, train_gemm_rows(
                 torch, dev, 11, "pipeline micro-batch", M=PIPE_MICRO_ROWS))
-            run_dryrun_cells()
+            cells.update(run_dryrun_cells())
             phase_done(15)
+        if 16 in phases:
+            log("phase 16: sequence parallelism, every rank on card 0 over "
+                f"gloo: phase 14's bf16 GLU kernel run on {SP_MESH} with "
+                "and without seq_shard; the f32 SP step at "
+                f"{SP_F32_LAYERS} layers (GLU kernel, relu fused) against "
+                "one rank; zamba2-7b decode over caches whose rows are cut "
+                f"over {SP_DECODE_MESH[0]} data ranks against the whole "
+                "cache; the dry run's train_4k with --seq-shard")
+            run_seq_parallel(torch, dev, cells)
+            time_rows(torch, dev, train_gemm_rows(
+                torch, dev, 12, "sp tp 3 shard", F_=TP3_F,
+                M=TRAIN["batch"] * SP_SEQ))
+            time_rows(torch, dev, phase16_rows(torch, dev),
+                      path="split-tf32")
+            phase_done(16)
         torch.cuda.synchronize()
         log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all")
     except Exception:  # noqa: BLE001 - report and fail the run

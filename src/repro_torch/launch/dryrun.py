@@ -14,7 +14,10 @@ where tensors have shapes and dtypes and no data:
     train  : runtime/trainer.py:make_train_step(cfg, AdamW, mesh, ...)
     prefill: model.forward(..., last_only=True) into contiguous caches
     decode : model.decode_step over init_caches(..., device="meta")
-             (both under sharding.use_plan(TrainPlan(...)), no autograd)
+             (both under sharding.use_plan(TrainPlan(...)), no autograd;
+             where cache_spec cuts the attention caches' rows, the
+             long-context batch of 1, the plan's ``cache_rows`` name the
+             axes the decode step merges its attention over)
 
 read off under nested dispatch modes:
 
@@ -336,6 +339,31 @@ def _plan_cache_specs(plan, cfg, caches, specs):
     return _zip_map(one, caches, specs)
 
 
+def _row_axes(caches, specs):
+    """The axes the attention caches' rows (dim 2 of the stacked
+    k/v) are cut over under ``specs``."""
+    axes = set()
+
+    def one(path, leaf, spec):
+        if path[-1] in ("k", "v") and leaf.dim() >= 3 and spec[2]:
+            axes.update((spec[2],) if isinstance(spec[2], str) else spec[2])
+    _zip_map(one, caches, specs)
+    return tuple(sorted(axes))
+
+
+def cache_plan(cfg, shape, mesh, pspecs, params, batch_axes, caches):
+    """(plan, cache specs) of a prefill or decode step of ``shape``:
+    ``cache_spec``'s layout of ``caches`` (the whole trees) with the
+    'model' cut kept where the plan runs GQA tensor-parallel, and a plan
+    whose ``cache_rows`` are the axes that layout cuts the attention
+    caches' rows over."""
+    plan = shd.TrainPlan(mesh, cfg, pspecs, params, batch_axes)
+    cspecs = _plan_cache_specs(plan, cfg, caches,
+                               shd.cache_spec(cfg, shape, mesh, caches))
+    return shd.TrainPlan(mesh, cfg, pspecs, params, batch_axes,
+                         cache_rows=_row_axes(caches, cspecs)), cspecs
+
+
 def build_program(cfg, shape, mesh, *, zero1: bool = False,
                   profile: str = "tp"):
     """(fn, args) of rank 0's step of ``cfg`` at ``shape`` on ``mesh``
@@ -362,10 +390,10 @@ def build_program(cfg, shape, mesh, *, zero1: bool = False,
             batch_axes=batch_axes)
         return step, (params, state, batch)
 
-    plan = shd.TrainPlan(mesh, cfg, pspecs, params, batch_axes)
     caches = model_lib.init_caches(cfg, B, shape.seq_len, device="meta")
-    caches = _blocks(caches, _plan_cache_specs(
-        plan, cfg, caches, shd.cache_spec(cfg, shape, mesh, caches)), mesh)
+    plan, cspecs = cache_plan(cfg, shape, mesh, pspecs, params, batch_axes,
+                              caches)
+    caches = _blocks(caches, cspecs, mesh)
     if shape.kind == "prefill":
         # model.prefill's forward, into caches laid out as the
         # reference's out_shardings lay its prefill's (cache_spec).
@@ -393,11 +421,13 @@ def build_program(cfg, shape, mesh, *, zero1: bool = False,
 
 def _cell(arch: str, shape_name: str, *, multi_pod: bool, mesh_override,
           remat, zero1: bool, print_hlo: bool, profile: str,
-          devices: int):
+          devices: int, seq_shard: bool = False):
     """Trace one cell. Returns a result dict."""
     cfg = get_config(arch)
     if remat is not None:
         cfg = dataclasses.replace(cfg, remat=remat)
+    if seq_shard:
+        cfg = dataclasses.replace(cfg, seq_shard=True)
     shape = shape_by_name(shape_name)
 
     if shape.name == "long_500k" and not cfg.supports_long_context():
@@ -464,12 +494,6 @@ def _cell(arch: str, shape_name: str, *, multi_pod: bool, mesh_override,
 
 def main(argv=None):
     args = _parse_args(argv)
-    if args.seq_shard:
-        raise NotImplementedError(
-            "--seq-shard: the reference's sequence parallelism is a GSPMD "
-            "constraint on the activations "
-            "(src/repro/models/transformer.py:167); the port's manual SPMD "
-            "has no reduce-scatter / all-gather around its blocks yet")
 
     cells = []
     archs = [args.arch] if args.arch else list(ARCH_NAMES)
@@ -493,7 +517,7 @@ def main(argv=None):
                 arch, shape, multi_pod=mp, mesh_override=args.mesh,
                 remat=args.remat, zero1=args.zero1,
                 print_hlo=args.print_hlo, profile=args.profile,
-                devices=args.devices,
+                devices=args.devices, seq_shard=args.seq_shard,
             )
         except Exception as e:  # noqa: BLE001 - one cell's failure
             res = dict(arch=arch, shape=shape, status="error",

@@ -15,6 +15,13 @@ layer's cache tensors are views into the layer-stacked buffers
 caches), and :func:`_paged_append` / :func:`_scatter_rows` write the new
 rows into them IN PLACE; the returned cache carries the same buffers and
 the new lengths.
+
+Row-cut caches: where the ambient sharded plan's ``cache_rows`` cut the
+contiguous caches' rows over ranks (``sharding.cache_spec``'s
+long-context layout, batch 1), a decode step writes the new row only on
+the rank whose slice holds it, attends over its own rows with their
+global positions in the mask, and merges the ranks' online-softmax
+states (running max, normaliser, weighted values) with one all-gather.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import modules as nn
 from repro_torch.models.layers import apply_rope, rmsnorm, rmsnorm_init
+from repro_torch.parallel import sharding as shd
 
 _NEG_INF = -1e30
 
@@ -52,13 +60,29 @@ class PagedKVCache(NamedTuple):
         return self.k.shape[1]
 
 
-def _psum(y: torch.Tensor, axis: str) -> torch.Tensor:
-    """Sum of y over the mesh axis ``axis`` (tensor parallelism: the
-    differentiable psum in training, the plain one in serving); the
-    collectives are imported only on a mesh."""
+def _close(y: torch.Tensor, cfg: ArchConfig, seq: bool) -> torch.Tensor:
+    """Sum of the shards' partial ``y`` over ``cfg.tp_axis`` (tensor
+    parallelism: the differentiable psum in training, the plain one in
+    serving; under sequence parallelism, ``seq``, this shard's slice of
+    the sum, a reduce-scatter); the collectives are imported only on a
+    mesh."""
     from repro_torch.parallel import collectives  # noqa: PLC0415
 
-    return collectives.tp_close(y, axis)
+    if seq:
+        return collectives.sp_close(y, cfg.tp_axis, 1)
+    return collectives.tp_close(y, cfg.tp_axis)
+
+
+def _seq_open(x: torch.Tensor, cfg: ArchConfig, seq: bool) -> torch.Tensor:
+    """The block's input entering its heads: under sequence
+    parallelism (``seq`` with ``cfg.tp_axis``) this shard's slice of the
+    sequence gathered, its gradient reduce-scattered back; else
+    :func:`_open`."""
+    if cfg.tp_axis is None or not seq:
+        return _open(x, cfg.tp_axis)
+    from repro_torch.parallel import collectives  # noqa: PLC0415
+
+    return collectives.sp_open(x, cfg.tp_axis, 1)
 
 
 def _open(x: torch.Tensor, axis: Optional[str]) -> torch.Tensor:
@@ -95,6 +119,64 @@ def _paged_append(cache: PagedKVCache, block_tables: torch.Tensor,
     kf[row] = upd_k.to(kf.dtype)
     vf[row] = upd_v.to(vf.dtype)
     return PagedKVCache(cache.k, cache.v, idx + 1), idx
+
+
+def _row_cut(rows: int):
+    """(first row, axes) of this rank's ``rows`` rows of a contiguous
+    cache whose rows the ambient plan cuts over ``axes`` (row-major over
+    them), or None where every rank holds every row."""
+    plan = shd.current_plan()
+    if plan is None or not plan.cache_rows:
+        return None
+    j = 0
+    for a in plan.cache_rows:
+        j = j * plan.mesh.shape[a] + plan.mesh.coord(a)
+    return j * rows, plan.cache_rows
+
+
+def _decode_append(cache: KVCache, k1: torch.Tensor, v1: torch.Tensor,
+                   idx: torch.Tensor, cut):
+    """Write each slot's new row (row ``idx[b]``; k1/v1 (B, 1, ...))
+    into the contiguous cache IN PLACE; returns (k, v). Under a row cut
+    only the rank whose slice holds row ``idx[b]`` writes it, and every
+    other rank's slice keeps its rows."""
+    if cut is None:
+        return (_scatter_rows(cache.k, k1, idx),
+                _scatter_rows(cache.v, v1, idx))
+    out = []
+    for buf, upd in ((cache.k, k1), (cache.v, v1)):
+        B, L = buf.shape[0], buf.shape[1]
+        local = idx.long() - cut[0]
+        row = torch.clamp(local, 0, L - 1)
+        b = torch.arange(B, device=buf.device)
+        own = ((local >= 0) & (local < L)).view((B,) + (1,) * (buf.dim() - 2))
+        buf[b, row] = torch.where(own, upd[:, 0].to(buf.dtype), buf[b, row])
+        out.append(buf)
+    return tuple(out)
+
+
+def _decode_attend(s: torch.Tensor, valid: torch.Tensor, vals: torch.Tensor,
+                   eq: str, cut) -> torch.Tensor:
+    """softmax(s) over its last axis (the cache rows; ``valid``
+    broadcasts to ``s``) contracted with ``vals`` by einsum ``eq``, in
+    f32. Under a row cut each rank holds the partial online-softmax state
+    of its own rows (running max m, normaliser l, weighted values acc);
+    one all-gather of the three over the cut's axes, then the max of m,
+    rescaled sums of l and acc."""
+    s = torch.where(valid, s, torch.full_like(s, _NEG_INF))
+    if cut is None:
+        p = torch.softmax(s, dim=-1)
+        return torch.einsum(eq, p.to(vals.dtype).float(), vals.float())
+    from repro_torch.parallel import collectives  # noqa: PLC0415
+
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
+    acc = torch.einsum(eq, p.to(vals.dtype).float(), vals.float())
+    state = torch.cat([m, p.sum(dim=-1, keepdim=True), acc], dim=-1)
+    every = collectives.all_gather(state[None], cut[1], dim=0)
+    w = torch.exp(every[..., :1] - every[..., :1].amax(dim=0))
+    return ((every[..., 2:] * w).sum(dim=0)
+            / (every[..., 1:2] * w).sum(dim=0))
 
 
 def _paged_view(cache: PagedKVCache, block_tables: torch.Tensor
@@ -228,8 +310,12 @@ def gqa_forward(
     continuation: bool = False,
     chunk_q: Optional[int] = None,
     chunk_k: Optional[int] = None,
+    seq: bool = False,
 ):
-    """x: (B, S, d). With a cache and S == 1 -> decode step.
+    """x: (B, S, d). With a cache and S == 1 -> decode step. ``seq``:
+    ``x`` is this tensor-parallel shard's slice of the sequence
+    (sequence parallelism), gathered here and reduce-scattered at the
+    close.
 
     ``cache`` is a contiguous :class:`KVCache` (prefill, or contiguous
     decode) or a :class:`PagedKVCache` (decode only; prefill targets a
@@ -245,9 +331,9 @@ def gqa_forward(
     the full per-slot pool view, 'paged' runs the paged decode kernel,
     which reads only live blocks of live slots (``active`` marks them).
     """
+    x = _seq_open(x, cfg, seq)
     B, S, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    x = _open(x, cfg.tp_axis)
     q = x @ params["wq"]
     k = x @ params["wk"]
     v = x @ params["wv"]
@@ -269,7 +355,7 @@ def gqa_forward(
         # slot's live prefix.
         g = h // kv
         qd = q.reshape(B, kv, g, hd)
-        ck = cv = None
+        ck = cv = cut = None
         if isinstance(cache, PagedKVCache):
             if block_tables is None:
                 raise ValueError("paged decode needs block_tables")
@@ -279,8 +365,8 @@ def gqa_forward(
                 ck, cv = _paged_view(new_cache, block_tables)
         else:
             idx = _slot_lengths(cache, B)
-            ck = _scatter_rows(cache.k, k, idx)
-            cv = _scatter_rows(cache.v, v, idx)
+            cut = _row_cut(cache.k.shape[1])
+            ck, cv = _decode_append(cache, k, v, idx, cut)
             new_cache = KVCache(ck, cv, idx + 1)
         if ck is None:
             o = kops.paged_decode_attn(
@@ -290,13 +376,11 @@ def gqa_forward(
             L = ck.shape[1]
             s = torch.einsum("bkgd,blkd->bkgl", qd.float(),
                              ck.float()) * (hd ** -0.5)
-            valid = (torch.arange(L, device=x.device)[None, :]
+            first = 0 if cut is None else cut[0]
+            valid = (first + torch.arange(L, device=x.device)[None, :]
                      <= idx[:, None])  # (B, L)
-            s = torch.where(valid[:, None, None, :], s,
-                            torch.full_like(s, _NEG_INF))
-            p = torch.softmax(s, dim=-1)
-            o = torch.einsum("bkgl,blkd->bkgd", p.to(cv.dtype).float(),
-                             cv.float())
+            o = _decode_attend(s, valid[:, None, None, :], cv,
+                               "bkgl,blkd->bkgd", cut)
         out = o.reshape(B, 1, h, hd).to(x.dtype)
     else:
         if isinstance(cache, PagedKVCache):
@@ -329,7 +413,7 @@ def gqa_forward(
         # Serving TP: the heads above are this shard's 1/tp slice and wo
         # is row-sharded to match, so y is a partial sum -- the single
         # Megatron-style psum per attention block.
-        y = _psum(y, cfg.tp_axis)
+        y = _close(y, cfg, seq)
     return y, new_cache
 
 
@@ -393,6 +477,7 @@ def mla_forward(
     continuation: bool = False,
     chunk_q: Optional[int] = None,
     chunk_k: Optional[int] = None,
+    seq: bool = False,
 ):
     """x: (B, S, d). Prefill (or no cache) decompresses the latents
     through ``wuk``/``wuv`` and runs the chunked attention with KV = H;
@@ -408,6 +493,13 @@ def mla_forward(
         # batch-shape dependent).
         raise NotImplementedError(
             "continuation prefill is not supported for MLA attention")
+    if cfg.tp_axis is not None and seq:
+        # Sequence parallelism: the down-projections below run on the
+        # gathered sequence, alike on every shard, as without it; the
+        # latents then open the heads with tp_open.
+        from repro_torch.parallel import collectives  # noqa: PLC0415
+
+        x = collectives.seq_gather(x, cfg.tp_axis, 1)
     B, S, _ = x.shape
     dq_, dk_ = _default_chunks(S)
     chunk_q = chunk_q or dq_
@@ -455,7 +547,7 @@ def mla_forward(
         # dtype before every use; a product in the model dtype rounds
         # the f32 sum once, to the same dtype.
         wuk = params["wuk"].reshape(m.kv_lora_rank, h, nope)
-        cc = cr = None
+        cc = cr = cut = None
         if isinstance(cache, PagedKVCache):
             if block_tables is None:
                 raise ValueError("paged decode needs block_tables")
@@ -465,8 +557,8 @@ def mla_forward(
                 cc, cr = _paged_view(new_cache, block_tables)
         else:
             idx = _slot_lengths(cache, B)
-            cc = _scatter_rows(cache.k, ckv, idx)
-            cr = _scatter_rows(cache.v, kr, idx)
+            cut = _row_cut(cache.k.shape[1])
+            cc, cr = _decode_append(cache, ckv, kr, idx, cut)
             new_cache = KVCache(cc, cr, idx + 1)
         q_lat = torch.einsum("bhn,rhn->bhr", q_nope[:, 0], wuk).to(
             new_cache.k.dtype)
@@ -482,20 +574,18 @@ def mla_forward(
             s = (torch.einsum("bhr,blr->bhl", q_lat.float(), cc.float())
                  + torch.einsum("bhr,blr->bhl", q_rope[:, 0].float(),
                                 cr.float())) * scale
-            valid = (torch.arange(L, device=x.device)[None, :]
+            first = 0 if cut is None else cut[0]
+            valid = (first + torch.arange(L, device=x.device)[None, :]
                      <= idx[:, None])  # (B, L)
-            s = torch.where(valid[:, None, :], s,
-                            torch.full_like(s, _NEG_INF))
-            p = torch.softmax(s, dim=-1)
-            ctx_lat = torch.einsum("bhl,blr->bhr", p.to(cc.dtype).float(),
-                                   cc.float())
+            ctx_lat = _decode_attend(s, valid[:, None, :], cc,
+                                     "bhl,blr->bhr", cut)
         wuv = params["wuv"].reshape(m.kv_lora_rank, h, vd)
         out = torch.einsum("bhr,rhv->bhv", ctx_lat.to(wuv.dtype), wuv)
         out = out[:, None].to(x.dtype)  # (B, 1, h, vd)
 
     y = out.reshape(B, S, h * vd).to(x.dtype) @ params["wo"]
     if cfg.tp_axis is not None:
-        y = _psum(y, cfg.tp_axis)  # as in gqa_forward
+        y = _close(y, cfg, seq)  # as in gqa_forward
     return y, new_cache
 
 

@@ -73,7 +73,7 @@ def _activate(h: torch.Tensor, act: str, scfg: sparse_ops.SparsityConfig
 
 def mlp_fwd(params, x: torch.Tensor, act: str,
             scfg: sparse_ops.SparsityConfig,
-            tp_axis: Optional[str] = None,
+            tp_axis: Optional[str] = None, seq: bool = False,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (..., d). Returns (y, skip_stats) with skip_stats f32[2] =
     [skipped_tile_dots, total_tile_dots] of the down-projection (zeros
@@ -85,10 +85,18 @@ def mlp_fwd(params, x: torch.Tensor, act: str,
     stats stay PER SHARD (each shard's bitmap gates its own stripes --
     the paper's per-core SpRF) and the engine sums them. In training the
     block opens with ``tp_open`` (the shards' gradients of ``x`` are
-    summed) and closes with the differentiable psum."""
+    summed) and closes with the differentiable psum. With ``seq`` (and
+    ``tp_axis``) ``x`` is (B, S / tp, d), this shard's slice of the
+    sequence: the block opens with an all-gather of the sequence and
+    closes with a reduce-scatter (``sp_open`` / ``sp_close``), and runs
+    on the gathered rows, as without it."""
     if tp_axis is None:
         return _mlp_local(params, x, act, scfg)
     from repro_torch.parallel import collectives  # noqa: PLC0415
+    if seq:
+        y, stats = _mlp_local(params, collectives.sp_open(x, tp_axis, 1),
+                              act, scfg)
+        return collectives.sp_close(y, tp_axis, 1), stats
     y, stats = _mlp_local(params, collectives.tp_open(x, tp_axis), act, scfg)
     return collectives.tp_close(y, tp_axis), stats
 

@@ -196,7 +196,12 @@ def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     ``continuation=True`` marks a prefix-cache SUFFIX prefill: the
     caches already hold a prefix (see :func:`paged_prefix_caches`) and
     attention runs the fresh queries over the whole buffer anchored at
-    the cache length. Bucketable families only, like ``advance``."""
+    the cache length. Bucketable families only, like ``advance``.
+
+    Under a plan with sequence parallelism (``TrainPlan.seq_parallel``)
+    the stacks run on this rank's slice of the sequence: it is cut
+    before the first block and gathered after the last, so the final
+    norm and the head run on the whole sequence on every model rank."""
     check_family(cfg)
     plan = shd.current_plan()
     if plan is not None:
@@ -227,10 +232,16 @@ def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
         raise ValueError(
             f"batch['advance'] (bucketed prefill) is not supported for "
             f"family {cfg.family!r}; prefill at exact length instead")
+    sp = plan is not None and plan.seq_parallel(cfg, S)
+    if sp:
+        from repro_torch.parallel import collectives  # noqa: PLC0415
+        x = collectives.seq_split(x, shd.SEQ_AXIS, 1)
     x, new_caches, aux = _backbone(
         params, cfg, x, positions, caches, active=active,
         block_tables=batch.get("block_tables"), advance=advance,
         attn_kernel=attn_kernel, continuation=continuation)
+    if sp:
+        x = collectives.seq_gather(x, shd.SEQ_AXIS, 1)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if last_only:
         if advance is not None:

@@ -101,19 +101,21 @@ def dispatch(idx: torch.Tensor, C: int, E: int):
     return order, st, keep, slot
 
 
-def moe_forward(params, x: torch.Tensor, cfg: ArchConfig
+def moe_forward(params, x: torch.Tensor, cfg: ArchConfig, seq: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (y, aux_loss, slot_sparsity).
 
     Inside a sharded training step (an ambient plan) whose batch is cut
     over the data axes: the expert-parallel path when the model axis
     (> 1) divides the experts, else the same body with every expert on
-    every rank (routing per batch shard). Otherwise the global path."""
+    every rank (routing per batch shard). Otherwise the global path.
+    ``seq``: ``x`` is this rank's slice of the sequence over 'model'
+    (sequence parallelism; the expert-parallel path only)."""
     plan = shd.current_plan()
     if plan is not None:
         kind, M = plan.moe_groups(cfg)
         if kind != "global":
-            return _moe_forward_ep(params, x, cfg, plan, M)
+            return _moe_forward_ep(params, x, cfg, plan, M, seq)
     return _moe_forward_global(params, x, cfg)
 
 
@@ -192,7 +194,8 @@ def _combine(ye, keep_tk, slot_tk, gates, idx, T: int, d: int, dtype):
     return y
 
 
-def _moe_forward_ep(params, x: torch.Tensor, cfg: ArchConfig, plan, M: int
+def _moe_forward_ep(params, x: torch.Tensor, cfg: ArchConfig, plan, M: int,
+                    seq: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The reference's shard_map body on this rank. ``x`` is the rank's
     batch shard, whole over 'model'; the rank's expert slice is
@@ -210,10 +213,19 @@ def _moe_forward_ep(params, x: torch.Tensor, cfg: ArchConfig, plan, M: int
     1/M of its cotangent. A shared expert whose hidden width divides by
     M is this rank's TP slice; otherwise it is whole on every rank,
     scaled by 1/M for the closing psum, and its weights' gradients are
-    summed over 'model'."""
+    summed over 'model'.
+
+    Under sequence parallelism (``seq``, M > 1) ``x`` is this
+    rank's slice of the sequence: the tokens open with an all-gather
+    (``sp_open``) in place of ``tp_open`` and ``y`` closes with a
+    reduce-scatter (``sp_close``) in place of the psum, so routing,
+    capacity and drops see the same tokens."""
     from repro_torch.parallel import collectives as col  # noqa: PLC0415
 
     m = cfg.moe
+    sp = M > 1 and seq
+    if sp:
+        x = col.sp_open(x, "model", 1)
     B, S, d = x.shape
     E, K = m.num_experts, m.top_k
     E_loc = E // M
@@ -227,7 +239,8 @@ def _moe_forward_ep(params, x: torch.Tensor, cfg: ArchConfig, plan, M: int
     xf = x.reshape(T, d)
     router = params["router"]
     if M > 1:
-        xf = col.tp_open(xf, "model")
+        if not sp:
+            xf = col.tp_open(xf, "model")
         router = col.tp_open(router, "model")
     probs, gates, idx = route(xf, router, K)
 
@@ -281,7 +294,10 @@ def _moe_forward_ep(params, x: torch.Tensor, cfg: ArchConfig, plan, M: int
             ys = ys * (1.0 / M)  # the psum sums M copies to one
         y = y + ys
 
-    if M > 1:
+    y = y.reshape(B, S, d)
+    if sp:
+        y = col.sp_close(y, "model", 1)
+    elif M > 1:
         y = col.tp_close(y, "model")
 
     with torch.no_grad():
@@ -290,4 +306,4 @@ def _moe_forward_ep(params, x: torch.Tensor, cfg: ArchConfig, plan, M: int
             occ = col.psum(occ.reshape(1), "model")[0] / M
         if n_b > 1:
             occ = col.psum(occ.reshape(1).clone(), axes)[0] / n_b
-    return y.reshape(B, S, d), aux, 1.0 - occ
+    return y, aux, 1.0 - occ

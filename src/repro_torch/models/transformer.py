@@ -18,6 +18,21 @@ attention updates in place; an ssm layer's new conv window and state
 are copied into ``conv[l]`` / ``h[l]``), and the stack returns the same
 buffers with the new per-layer lengths.
 
+Sequence parallelism (``cfg.seq_shard`` inside a sharded training step
+or prefill whose plan has a model axis, sequences longer than one
+token): between blocks the residual stream is this rank's slice of the
+sequence over 'model', as the reference's ``constrain(h, P(("pod",
+"data"), "model", None))`` lays it out; ``model.forward`` cuts it
+before the first block and gathers it after the last. A block runs its
+norms and residual adds on the slice. Its tensor-parallel regions
+(GQA/MLA heads, the MLP's ``d_ff`` cut, the expert-parallel MoE) open
+with an all-gather of the sequence and close with a reduce-scatter
+(``collectives.sp_open`` / ``sp_close``); a region every model rank
+computes alike (gathered attention, the ssm mixer, a gathered MLP or
+MoE) opens with ``seq_gather`` and closes with ``seq_split``. Each rank's
+gradient of a norm's scale then covers its own tokens only, so it is
+summed over 'model' once. No value changes.
+
 Activation checkpointing (``cfg.remat``, training only: no caches, grad
 enabled): ``"full"`` recomputes each block's forward in the backward,
 ``"dots"`` keeps only its 2-D matmul outputs (the reference's
@@ -96,6 +111,36 @@ def block_init(rng, cfg: ArchConfig, kind: str, dtype, device):
     return p
 
 
+def _shard_scale(scale: torch.Tensor) -> torch.Tensor:
+    """A norm's scale applied to this rank's sequence shard: its
+    gradient is summed over 'model' once (each rank's covers its own
+    tokens)."""
+    from repro_torch.parallel import collectives  # noqa: PLC0415
+
+    return collectives.tp_open(scale, shd.SEQ_AXIS)
+
+
+def _region_open(x: torch.Tensor) -> torch.Tensor:
+    """The sequence shard gathered for a region every model rank
+    computes alike."""
+    from repro_torch.parallel import collectives  # noqa: PLC0415
+
+    return collectives.seq_gather(x, shd.SEQ_AXIS, 1)
+
+
+def _region_close(y: torch.Tensor) -> torch.Tensor:
+    """This rank's sequence shard of such a region's output."""
+    from repro_torch.parallel import collectives  # noqa: PLC0415
+
+    return collectives.seq_split(y, shd.SEQ_AXIS, 1)
+
+
+def _norm(params, x, cfg: ArchConfig, sp: bool) -> torch.Tensor:
+    if sp:
+        params = {"scale": _shard_scale(params["scale"])}
+    return rmsnorm(params, x, cfg.norm_eps)
+
+
 def block_fwd(params, x, positions, cfg: ArchConfig, kind: str, cache=None,
               active: Optional[torch.Tensor] = None, block_tables=None,
               advance=None, attn_kernel: str = "gather",
@@ -106,12 +151,24 @@ def block_fwd(params, x, positions, cfg: ArchConfig, kind: str, cache=None,
     all-zero (dead) tiles. ``continuation`` marks a prefix-cache suffix
     prefill (see ``attention.gqa_forward``). Inside a sharded training
     step the ambient plan gives the block this rank's view: its
-    tensor-parallel slices, or its sharded leaves gathered."""
+    tensor-parallel slices, or its sharded leaves gathered; under
+    sequence parallelism ``x`` is this rank's slice of the sequence."""
     plan = shd.current_plan()
+    moe_ep = False
     if plan is not None:
+        sp = plan.seq_parallel(cfg, positions.shape[-1])
+        moe_ep = kind == "moe" and plan.moe_groups(cfg)[0] == "ep"
         params, cfg, mlp_axis = plan.block(params, cfg, kind)
     else:
-        mlp_axis = cfg.tp_axis
+        sp, mlp_axis = False, cfg.tp_axis
+
+    def alike(fn, h):
+        # A region every model rank computes alike: on the gathered
+        # sequence under sequence parallelism.
+        if not sp:
+            return fn(h)
+        out, *rest = fn(_region_open(h))
+        return (_region_close(out), *rest)
 
     def gate(h):
         if active is None:
@@ -120,25 +177,31 @@ def block_fwd(params, x, positions, cfg: ArchConfig, kind: str, cache=None,
 
     aux = aux_zero(x.device)
     if kind == "ssm":
-        h, new_cache = ssm_lib.mamba2_forward(
-            params["mixer"], rmsnorm(params["norm"], x, cfg.norm_eps), cfg,
-            cache=cache)
+        h, new_cache = alike(
+            lambda h: ssm_lib.mamba2_forward(params["mixer"], h, cfg,
+                                             cache=cache),
+            _norm(params["norm"], x, cfg, sp))
         return x + gate(h), new_cache, aux
     attn_fn = mla_forward if cfg.mla is not None else gqa_forward
-    h, new_cache = attn_fn(
-        params["attn"], rmsnorm(params["attn_norm"], x, cfg.norm_eps),
-        positions, cfg, cache=cache, block_tables=block_tables,
-        advance=advance, attn_kernel=attn_kernel, active=active,
-        continuation=continuation,
-    )
+    attn = functools.partial(
+        attn_fn, params["attn"], positions=positions, cfg=cfg, cache=cache,
+        block_tables=block_tables, advance=advance, attn_kernel=attn_kernel,
+        active=active, continuation=continuation)
+    hn = _norm(params["attn_norm"], x, cfg, sp)
+    # A tensor-parallel attention (tp_axis set) opens and closes itself.
+    h, new_cache = (attn(hn, seq=sp) if cfg.tp_axis is not None
+                    else alike(attn, hn))
     x = x + gate(h)
-    hn = rmsnorm(params["mlp_norm"], x, cfg.norm_eps)
+    hn = _norm(params["mlp_norm"], x, cfg, sp)
     if kind == "moe":
-        h, moe_aux, _occ = moe_lib.moe_forward(params["moe"], hn, cfg)
+        moe = functools.partial(moe_lib.moe_forward, params["moe"], cfg=cfg)
+        h, moe_aux, _occ = moe(hn, seq=sp) if moe_ep else alike(moe, hn)
         aux["loss"] = aux["loss"] + moe_aux
     else:
-        h, skip = mlp_fwd(params["mlp"], hn, cfg.mlp_act, cfg.sparsity,
-                          tp_axis=mlp_axis)
+        mlp = functools.partial(mlp_fwd, params["mlp"], act=cfg.mlp_act,
+                                scfg=cfg.sparsity, tp_axis=mlp_axis,
+                                seq=sp)
+        h, skip = mlp(hn) if mlp_axis is not None else alike(mlp, hn)
         aux["skip"] = aux["skip"] + skip
     return x + gate(h), new_cache, aux
 

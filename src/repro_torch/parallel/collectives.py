@@ -7,20 +7,20 @@ no HLO, so every call here adds its OPERAND bytes to a per-kind counter
 on the mesh (``mesh.stats``), with the reference's five kinds and its
 operand-byte convention:
 
-    psum        all-reduce          operand == result
-    all_gather  all-gather          operand == result / n
-    broadcast   collective-permute  operand == the tensor (counted on
-                                    every rank: the root's sends, the
-                                    others' receives)
-    send, recv  collective-permute  operand == the tensor (each rank
-                                    counts its own end)
-    ppermute    collective-permute  operand == the tensor (once a call
-                                    per rank, whatever it sends or
-                                    receives)
+    psum            all-reduce          operand == result
+    all_gather      all-gather          operand == result / n
+    reduce_scatter  reduce-scatter      operand == result * n
+    broadcast       collective-permute  operand == the tensor (counted
+                                        on every rank: the root's
+                                        sends, the others' receives)
+    send, recv      collective-permute  operand == the tensor (each
+                                        rank counts its own end)
+    ppermute        collective-permute  operand == the tensor (once a
+                                        call per rank, whatever it
+                                        sends or receives)
 
-(reduce-scatter and all-to-all have no caller: the sharded training step
-needs neither.) The reference's ``parse_collective_bytes`` is not
-ported, by design: there is no HLO to parse, and :func:`stats` gives the
+(all-to-all has no caller: the sharded training step needs none.) The
+reference's ``parse_collective_bytes`` is not ported, by design: there is no HLO to parse, and :func:`stats` gives the
 same dict (per-kind bytes, ``total``, ``counts``) from the calls
 themselves. Beside the bytes it
 counts the calls and the seconds spent in them, host clock around the
@@ -62,6 +62,21 @@ forward and in its backward:
                     (a sum over data ranks whose gradients the step then
                     averages over the same ranks)
 
+and, for sequence parallelism (``cfg.seq_shard``: the residual stream
+lives cut along the sequence over 'model' between blocks), four more:
+
+    seq_split       forward this rank's slice along a dim, backward
+                    all-gather (the residual entering the first block)
+    seq_gather      forward all-gather, backward this rank's slice (the
+                    residual leaving the last block, and the input of a
+                    region every model rank computes alike)
+    sp_open         forward all-gather, backward reduce-scatter (the
+                    input of a tensor-parallel region: the ranks use the
+                    gathered sequence differently, so its gradient is
+                    summed once and cut back to the shard)
+    sp_close        forward reduce-scatter, backward all-gather (the
+                    output of that region, in place of tp_close)
+
 On a single host and in serving (no gradient wanted) ``tp_open`` is the
 identity and ``tp_close`` the plain :func:`psum`, so serving's
 collectives are unchanged.
@@ -69,7 +84,8 @@ collectives are unchanged.
 Backends: with ``nccl`` every device collective takes CUDA tensors. With
 ``gloo``, ``all_reduce`` and ``broadcast`` take CUDA tensors themselves
 (gloo stages them through host memory inside the call), while its
-``all_gather``, ``send`` and ``recv`` take CPU tensors only: for those
+``all_gather``, ``reduce_scatter``, ``send`` and ``recv`` take CPU
+tensors only: for those
 the wrappers here copy a CUDA tensor to the host and back, and the
 counted seconds include those copies.
 """
@@ -191,6 +207,35 @@ def all_gather(x: torch.Tensor, axis, mesh: Optional[Mesh] = None,
         if out.device != x.device:
             out = out.to(x.device)
     _count(m, "all-gather", _nbytes(x), t0)
+    return out
+
+
+def reduce_scatter(x: torch.Tensor, axis, mesh: Optional[Mesh] = None,
+                   dim: int = 0) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axis``, cut along ``dim`` into
+    as many equal chunks: this rank's chunk, the one at its coordinate on
+    ``axis`` (the inverse layout of :func:`all_gather`)."""
+    m = _mesh(mesh)
+    group, n = _group(m, axis)
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} "
+                         f"does not divide over {n} ranks of {axis!r}")
+    t0 = time.perf_counter()
+    if m.trace:
+        shape = list(x.shape)
+        shape[dim] //= n
+        out = x.new_empty(shape)
+    else:
+        # The chunks along dim 0 of a contiguous tensor are contiguous.
+        src = x.movedim(dim, 0).contiguous()
+        work = src.cpu() if _host_staged(m, src) else src
+        part = torch.empty((work.shape[0] // n,) + tuple(work.shape[1:]),
+                           dtype=work.dtype, device=work.device)
+        dist.reduce_scatter(part, list(work.chunk(n)), group=group)
+        out = part.movedim(0, dim).to(x.device)
+    _count(m, "reduce-scatter", _nbytes(x), t0)
     return out
 
 
@@ -362,6 +407,56 @@ class _GatherOnUse(torch.autograd.Function):
                 None, None, None)
 
 
+def _my_slice(x: torch.Tensor, axis: str, dim: int, m: Mesh
+              ) -> torch.Tensor:
+    """This rank's chunk of ``x`` along ``dim``: the one at its
+    coordinate on ``axis`` (a view; no communication)."""
+    n = m.group_size(axis)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide "
+                         f"over {n} ranks of {axis!r}")
+    size = x.shape[dim] // n
+    return x.narrow(dim, m.coord(axis) * size, size)
+
+
+class _SeqSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim, mesh):
+        m = _mesh(mesh)
+        ctx.axis, ctx.dim, ctx.mesh = axis, dim, m
+        return _my_slice(x, axis, dim, m).clone(
+            memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g.contiguous(), ctx.axis, ctx.mesh,
+                          dim=ctx.dim), None, None, None
+
+
+class _SpOpen(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim, mesh):
+        ctx.axis, ctx.dim, ctx.mesh = axis, dim, mesh
+        return all_gather(x, axis, mesh, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.axis, ctx.mesh, dim=ctx.dim), \
+            None, None, None
+
+
+class _SpClose(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, axis, dim, mesh):
+        ctx.axis, ctx.dim, ctx.mesh = axis, dim, mesh
+        return reduce_scatter(y, axis, mesh, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g.contiguous(), ctx.axis, ctx.mesh,
+                          dim=ctx.dim), None, None, None
+
+
 class _Permute(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis, perm, mesh):
@@ -420,6 +515,52 @@ def gather_on_use(x: torch.Tensor, axis: str, dim: int,
     if not _wants_grad(x):
         return all_gather(x, axis, mesh, dim=dim)
     return _GatherOnUse.apply(x, axis, dim, mesh)
+
+
+def seq_split(x: torch.Tensor, axis: str, dim: int,
+              mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """This rank's slice of ``x`` along ``dim`` over ``axis`` (every rank
+    holds the whole ``x`` alike); its gradient is the ranks' gradients
+    of their slices gathered, the whole cotangent on every rank."""
+    m = _mesh(mesh)
+    if m.group_size(axis) == 1:
+        return x
+    if not _wants_grad(x):
+        return _my_slice(x, axis, dim, m).contiguous()
+    return _SeqSplit.apply(x, axis, dim, m)
+
+
+def seq_gather(x: torch.Tensor, axis: str, dim: int,
+               mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """The ranks' slices of ``x`` along ``dim`` over ``axis`` gathered,
+    for work every rank then does alike; its gradient is this rank's
+    slice of the cotangent (:func:`gather_on_use` on an activation)."""
+    return gather_on_use(x, axis, dim, mesh)
+
+
+def sp_open(x: torch.Tensor, axis: str, dim: int,
+            mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """The ranks' slices of ``x`` along ``dim`` gathered, entering a
+    tensor-parallel region; its gradient is the ranks' cotangents summed
+    and cut back to this rank's slice (a reduce-scatter)."""
+    if _size(axis, mesh) == 1:
+        return x
+    if not _wants_grad(x):
+        return all_gather(x, axis, mesh, dim=dim)
+    return _SpOpen.apply(x, axis, dim, mesh)
+
+
+def sp_close(y: torch.Tensor, axis: str, dim: int,
+             mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """The sum of the ranks' partial ``y`` over ``axis``, this rank's
+    slice of it along ``dim`` (a reduce-scatter, closing a
+    tensor-parallel region in place of :func:`tp_close`); its gradient
+    is the ranks' cotangents gathered."""
+    if _size(axis, mesh) == 1:
+        return y
+    if not _wants_grad(y):
+        return reduce_scatter(y, axis, mesh, dim=dim)
+    return _SpClose.apply(y, axis, dim, mesh)
 
 
 def psum_replicas(x: torch.Tensor, axes, mesh: Optional[Mesh] = None

@@ -49,6 +49,7 @@ from repro_torch.configs.base import ArchConfig
 DATA_AXES = ("pod", "data")  # batch shards over both by default
 
 SERVE_AXES = ("data", "model")  # serving mesh: slot DP x tensor TP
+SEQ_AXIS = "model"  # sequence parallelism cuts the residual stream over it
 
 Spec = Tuple[Any, ...]
 
@@ -529,16 +530,25 @@ class TrainPlan:
     slices: GQA when the heads and KV heads divide by the model size,
     MLA when the heads do (its down-projections are gathered), the MLP
     when ``d_ff`` does. Every other sharded leaf is gathered on use
-    (``collectives.gather_on_use``)."""
+    (``collectives.gather_on_use``).
+
+    Sequence parallelism (:meth:`seq_parallel`) cuts the residual stream
+    along the sequence over 'model' between blocks. ``cache_rows`` are
+    the axes the contiguous attention caches' rows are cut over (the
+    long-context decode layout of :func:`cache_spec`; empty: every rank
+    holds every row), which a decode step then merges over."""
 
     def __init__(self, mesh: Mesh, cfg: ArchConfig, specs: Any, params: Any,
-                 batch_axes: Optional[Tuple[str, ...]] = None):
+                 batch_axes: Optional[Tuple[str, ...]] = None,
+                 cache_rows: Tuple[str, ...] = ()):
         from repro_torch.models.modules import iter_leaves  # noqa: PLC0415
 
         self.mesh, self.cfg = mesh, cfg
         self.batch_cut = batch_axes is not None
         self.batch_axes = tuple(a for a in mesh.axes
                                 if a in (batch_axes or ()))
+        self.cache_rows = tuple(a for a in mesh.axes if a in cache_rows
+                                and mesh.shape[a] > 1)
         self._spec = {id(t): s for t, s in zip(iter_leaves(params),
                                                iter_leaves_specs(specs))}
         # No leaf cut over 'model' (the 'dp' profile): every param is
@@ -562,6 +572,22 @@ class TrainPlan:
 
     def mlp_tp(self, cfg: ArchConfig) -> bool:
         return self.model > 1 and cfg.d_ff % self.model == 0
+
+    def seq_parallel(self, cfg: ArchConfig, seq: int) -> bool:
+        """Whether the residual stream of a ``seq``-long sequence lives
+        cut along the sequence over 'model' between blocks: the
+        reference's ``seq_shard`` constraint, under a plan whose model
+        axis (> 1) runs tensor-parallel, for a sequence longer than one
+        token (a decode step keeps it whole). Raises where the sequence
+        does not divide (the reference's GSPMD pads there)."""
+        M = self.model
+        if not cfg.seq_shard or M == 1 or seq <= 1:
+            return False
+        if seq % M:
+            raise ValueError(
+                f"seq_shard: a sequence of {seq} tokens does not divide "
+                f"over the {M} ranks of 'model'")
+        return True
 
     def moe_groups(self, cfg: ArchConfig) -> Tuple[str, int]:
         """("ep", M): experts split over 'model', each rank routing its

@@ -17,8 +17,13 @@ trace mesh's collective counters, against the reference.
   the reference's shard shapes of its params, opt state and batch on
   conftest's 8-device host mesh; remat "full" holds less temp than
   "none"; a (2, 4) rank does under half the FLOPs of a (1, 1) one;
-  ``long_500k`` is skipped where the reference skips it;
-  ``--seq-shard`` raises.
+  ``long_500k`` is skipped where the reference skips it.
+- ``--seq-shard`` traces the train cell to ``status: ok`` with the
+  reference's keys and less temp per rank than the cell without it;
+  zamba2-7b's ``long_500k`` decode (batch 1: the shared attention
+  block's cache rows cut over 'data') counts one all-gather of the
+  softmax states a shared-block application, the merge a whole-cache
+  decode needs.
 """
 import functools
 import json
@@ -304,7 +309,56 @@ def test_devices_must_cover_the_mesh(tmp_path):
     assert res["status"] == "error" and "256 devices" in res["error"]
 
 
-def test_seq_shard_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="seq-shard"):
-        _main(tmp_path, "--arch", "smollm-135m", "--shape", "train_4k",
-              "--devices", "8", "--mesh", "2,4", "--seq-shard")
+REF_KEYS = ("arch", "shape", "status", "mesh", "chips", "multi_pod",
+            "lower_s", "compile_s", "memory", "cost_scanned",
+            "collectives_scanned", "roofline", "roofline_source",
+            "roofline_inputs", "extrapolation", "model_flops",
+            "model_flops_per_device", "useful_flop_ratio", "params_active",
+            "params_total")
+
+
+def test_seq_shard_train_cell():
+    res = _cell("smollm-135m", "train_4k", "2,4", "--no-extrapolate",
+                "--seq-shard")
+    assert res["status"] == "ok"
+    assert tuple(res) == REF_KEYS
+    assert res["mesh"] == [2, 4] and res["chips"] == 8
+    counts = res["collectives_scanned"]["counts"]
+    assert counts["reduce-scatter"] > 0 and counts["all-gather"] > 0
+
+
+def test_seq_shard_holds_less_temp_per_rank():
+    none = _cell("smollm-135m", "train_4k", "2,4", "--no-extrapolate")
+    sp = _cell("smollm-135m", "train_4k", "2,4", "--no-extrapolate",
+               "--seq-shard")
+    assert (sp["memory"]["temp_size_in_bytes"]
+            < none["memory"]["temp_size_in_bytes"])
+    assert (sp["memory"]["argument_size_in_bytes"]
+            == none["memory"]["argument_size_in_bytes"])
+    assert sp["cost_scanned"]["flops"] == none["cost_scanned"]["flops"]
+
+
+def test_long_context_decode_counts_the_row_merge(monkeypatch):
+    """zamba2-7b ``long_500k`` on the (16, 16) production mesh: against
+    the same trace with the caches' row cut hidden from the plan (each
+    rank then attends over its own rows only), one more all-gather an
+    application of the shared block, of the (m, l, acc) state of this
+    rank's heads in f32."""
+    kw = dict(multi_pod=False, mesh_override=None, remat=None, zero1=False,
+              print_hlo=False, profile="tp", devices=512)
+    merged = dryrun._cell("zamba2-7b", "long_500k", **kw)
+    monkeypatch.setattr(dryrun, "_row_axes", lambda caches, specs: ())
+    alone = dryrun._cell("zamba2-7b", "long_500k", **kw)
+    assert merged["status"] == alone["status"] == "ok"
+    cfg = get_config("zamba2-7b")
+    n_super = cfg.num_layers // cfg.attn_every
+    M = merged["mesh"][-1]
+    kv, g = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+    if cfg.num_heads % M == 0 and kv % M == 0:
+        kv //= M  # tensor-parallel heads
+    state = kv * g * (2 + cfg.resolved_head_dim) * 4
+    a, b = merged["collectives_scanned"], alone["collectives_scanned"]
+    assert a["counts"]["all-gather"] - b["counts"]["all-gather"] == n_super
+    assert a["all-gather"] - b["all-gather"] == n_super * state
+    for kind in ("all-reduce", "reduce-scatter", "collective-permute"):
+        assert a["counts"][kind] == b["counts"][kind]

@@ -1623,15 +1623,19 @@ def test_reduced_mesh_engine_on_gpu_matches_single_rank(cuda, mesh):
 
 
 # ------------------------------------------------ training on a mesh
+@pytest.mark.parametrize("rows", [4096, 4608])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_gated_gemm_at_a_tp3_training_shard(cuda, dtype):
+def test_gated_gemm_at_a_tp3_training_shard(cuda, dtype, rows):
     """The gated GEMM at the tp-3 shard's FP, BP and WG of smollm-135m's
-    down-projection (F 1536 / 3 = 512): against the CPU within the chip
-    script's share of the output's largest value, and gated tiles
-    NaN-poisoned on the card never read."""
+    down-projection (F 1536 / 3 = 512), over 8 x 512 rows and over a
+    sequence-parallel step's gathered 8 x 576 (576 divides over 3
+    ranks, 512 does not), WG reducing over them: against the CPU within
+    the chip script's share of the output's largest value, and gated
+    tiles NaN-poisoned on the card never read."""
     from chip_smoke import TP3_F
     rel, _ = TRAIN_GEMM_REL[str(dtype)[6:]]
-    a, w, g, _ = train_gemm_operands(torch, dtype, seed=5, F_=TP3_F)
+    a, w, g, _ = train_gemm_operands(torch, dtype, seed=5, F_=TP3_F,
+                                     M=rows)
     abits = sprf.compute_bitmap(a, (64, 128)).bits
     gbits = sprf.compute_bitmap(g, (64, 128)).bits
     for x, rhs, bits, (bm, bk, bn) in (
@@ -1654,13 +1658,16 @@ def test_gated_gemm_at_a_tp3_training_shard(cuda, dtype):
         assert torch.equal(run(x2, cuda), got)
 
 
+@pytest.mark.parametrize("M,F", [(2048, 1536), (4608, 512)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_fused_mlp_kernel_at_a_dp2_training_shard(cuda, dtype):
+def test_fused_mlp_kernel_at_a_dp2_training_shard(cuda, dtype, M, F):
     """The fused relu MLP at a dp-2 shard's 2048 rows (8 x 512 tokens
-    over 2 data ranks), 64-row tiles: bits equal the plain version's, y
-    within tolerance, NaN in the dead stripes' w_out rows never read."""
+    over 2 data ranks) and at a sequence-parallel step's tp-3 shard (8 x
+    576 gathered rows, F 512), 64-row tiles: bits equal the plain
+    version's, y within tolerance, NaN in the dead stripes' w_out rows
+    never read."""
     rng = np.random.default_rng(6)
-    M, K, F, N = 2048, 576, 1536, 576
+    K, N = 576, 576
     x = np.abs(rng.standard_normal((M, K))).astype(np.float32)
     x[512:576] = 0.0  # one dead row tile
     wi = (rng.standard_normal((K, F)) / np.sqrt(K)).astype(np.float32)
@@ -1747,6 +1754,30 @@ def test_compressed_psum_on_cuda_tensors(cuda):
                 np.testing.assert_allclose(x, y, rtol=1e-6, atol=1e-6)
                 np.testing.assert_allclose(r, q, rtol=1e-6, atol=1e-6)
             assert a[0]["stats"]["all-gather"] == 2 * (40 * 24 + 4)
+
+
+def test_sequence_parallel_primitives_of_cuda_tensors_under_gloo(cuda):
+    """seq_split, seq_gather, sp_open and sp_close over 'model' on (1, 2)
+    gloo ranks on card 0 (the all-gathers and reduce-scatters staged
+    through the host): each output and the gradient of sum(out * cot)
+    equal the same calls on CPU tensors, and count the same
+    collectives."""
+    from repro_torch.launch import mesh as mesh_lib
+    import torch_sp_scenarios as sps
+    res = {}
+    for dev in ("cpu", "cuda:0"):
+        res[dev] = mesh_lib.spawn_mesh(
+            sps.prims_rank, (1, 2), ([dict(device=dev)],),
+            axes=("data", "model"), device=dev, backend="gloo",
+            timeout_s=30.0, deadline_s=120.0)
+    for a, b in zip(res["cuda:0"], res["cpu"]):
+        for name in ("seq_split", "seq_gather", "sp_open", "sp_close"):
+            (y, g, where), (y0, g0, _) = a[0][name], b[0][name]
+            assert where == "cuda", name
+            np.testing.assert_allclose(y, y0, rtol=1e-6, atol=1e-6)
+            np.testing.assert_allclose(g, g0, rtol=1e-6, atol=1e-6)
+        assert a[0]["stats"]["counts"] == b[0]["stats"]["counts"]
+        assert a[0]["stats"]["counts"]["reduce-scatter"] == 2
 
 
 @pytest.mark.parametrize("mesh", [(2, 2), (1, 4)])
