@@ -65,7 +65,8 @@ is printed only when all of them pass):
  10. the contiguous KV layout (``kv_block_size=0``; the ssm and hybrid
      families always): phase 4's engine and trace on contiguous caches
      (the gather path), its ticks, decode tokens and skip counters equal
-     to phase 4's; ``mamba2-2.7b`` whole and ``zamba2-7b`` at its
+     to phase 4's; ``mamba2-2.7b`` at its published widths cut to 32
+     of 64 layers and ``zamba2-7b`` at its
      published widths cut to 15 layers, bf16 engines on phase 5's
      mixed-budget trace (ms per tick, tokens/s, prefill s, peak memory,
      launch counts), then an f32 2-layer ``serving_decode_step`` of each
@@ -97,7 +98,8 @@ is printed only when all of them pass):
      its 4096 rows; after phases 11-12 those shapes' times are logged
      beside the library's and their bounds;
  13. serving on a (data, model) mesh, every rank a gloo process on card
-     0: the bf16 GLU engine on (1, 3), the bf16 relu engines on (2, 1),
+     0, phase 4's 16 requests on its 8 slots at 8 new tokens each: the
+     bf16 GLU engine on (1, 3), the bf16 relu engines on (2, 1),
      then f32 2-layer engines against the single rank;
  14. training on a (data, model) mesh, every rank a gloo process on card
      0: one f32 full-width step of smollm-135m on (1, 3) and on (2, 1)
@@ -138,7 +140,20 @@ is printed only when all of them pass):
      decoding at batch 1 over caches whose rows are cut over 2 data
      ranks (the long-context layout) against the whole cache, each new
      row written by its owner alone; then the dry run's ``train_4k``
-     with ``--seq-shard``, its temp below the cell's without it.
+     with ``--seq-shard``, its temp below the cell's without it;
+ 17. the tensor-parallel Mamba2 mixer (each model rank runs its own
+     heads), every rank a gloo process on card 0: ``mamba2-2.7b`` at its
+     published widths cut to 4 layers, 2 bf16 training steps on (1, 2)
+     with and without ``seq_shard`` beside one rank's (ms a step, each
+     rank's collectives and peak memory), one f32 step each way whose
+     loss, grad norm and every gradient equal one rank's at the mesh
+     tests' tolerances; ``zamba2-7b`` at its published widths (2
+     layers, ``attn_every`` 1) prefilling 4 x 256 tokens and decoding 2
+     steps with ``h`` cut over the ranks' heads, in f32 (logits and
+     ``h`` against one rank's) and in bf16 (the GLU kernel at a tp-2
+     shard's F 7168), the conv windows equal bit for bit on both ranks;
+     then the dry run's ``mamba2-2.7b train_4k`` on (2, 4), its temp and
+     FLOPs a rank below the gathered mixer's.
 
 Every phase prints its seconds. After phases 4-7, each of the nine kernels' time at its path's shapes
 beside its plain version, a library yardstick and its bound.
@@ -713,12 +728,14 @@ def glu_case(torch, dev, dtype, seed, *, M=8, K=576, F=1536, N=576,
 # MLP at decode, a ragged and a full prefill bucket; smollm-360m's and
 # zamba2-7b's shared block at decode and a 256-row prefill; musicgen-
 # large's gelu GLU at decode and a 256-row prefill; smollm-135m's at a
-# tensor-parallel shard's F (tp 3: 512 columns) at decode.
+# tensor-parallel shard's F (tp 3: 512 columns) at decode; zamba2-7b's
+# shared block at a tp 2 shard's F (7168) at phase 17's 4 decode rows.
 GLU_SHAPES = ((576, 1536, 576, (8, 100, 256), "silu"),
               (960, 2560, 960, (8, 256), "silu"),
               (3584, 14336, 3584, (8, 256), "silu"),
               (2048, 8192, 2048, (8, 256), "gelu"),
-              (576, 512, 576, (8,), "silu"))
+              (576, 512, 576, (8,), "silu"),
+              (3584, 7168, 3584, (4,), "silu"))
 
 
 def check_glu(torch, dev):
@@ -2226,10 +2243,12 @@ def run_live_async(torch, dev):
 
 
 # ------------------------------------------ phase 10: contiguous layout
-# mamba2-2.7b whole (64 layers); zamba2-7b at its published widths cut to
+# mamba2-2.7b cut to 32 of its 64 layers (whole before phase 17 took its
+# share of the script's time); zamba2-7b at its published widths cut to
 # 15 of 81 layers: 2 super-groups of 6 mamba2 layers, each followed by
 # the one shared attention+MLP block, and 3 trailing mamba2 layers.
-SSM_DEPTHS = {"mamba2-2.7b": {}, "zamba2-7b": dict(num_layers=15)}
+SSM_DEPTHS = {"mamba2-2.7b": dict(num_layers=32),
+              "zamba2-7b": dict(num_layers=15)}
 # The four configs that need no new model code, at their published
 # widths; depth (layers kept) cut to fit one card and the run's time.
 NEW_DEPTHS = {"smollm-360m": None, "mistral-nemo-12b": 4,
@@ -2339,7 +2358,7 @@ def check_contiguous_step(torch, dev, cfg, params, label):
 
 
 def run_ssm_engines(torch, dev):
-    """mamba2-2.7b whole and zamba2-7b (15 layers) as full-width bf16
+    """mamba2-2.7b (32 layers) and zamba2-7b (15 layers) as full-width bf16
     engines on the mixed-budget trace (contiguous caches), then an f32
     2-layer decode step of each, card against CPU. Returns
     {arch: launches}."""
@@ -2604,6 +2623,10 @@ def slice_rows(torch, dev):
 # any collective; a spawn at most MESH_DEADLINE_S.
 MESH_TIMEOUT_S = 60.0
 MESH_DEADLINE_S = 400.0
+# Phase 4's 16 requests on its 8 slots, so queued requests are admitted
+# into freed slots (and their KV blocks) mid-run, at 8 new tokens each
+# (32 before phase 17 took its share of the script's time).
+MESH_TRACE = dict(ENGINE, max_new=8)
 # (label, mesh, engine): the bf16 GLU engine (phase 4's) on (1, 3), the
 # bf16 --sparce relu engine (phase 5's, both modes) on (2, 1); then each
 # mesh's f32 2-layer engine, held to the single-rank one bit for bit.
@@ -2644,8 +2667,8 @@ def mesh_engine(name):
 
 
 def serve_mesh_engine(name, mesh, device):
-    """Serve phase 13's trace on engine ``name`` (phase 4's requests;
-    phase 5's mixed budgets for relu) on this process (``mesh`` None) or
+    """Serve phase 13's trace on engine ``name`` (phase 4's requests at
+    MESH_TRACE's budget; phase 5's mixed budgets for relu) on this process (``mesh`` None) or
     as rank 0 of a running mesh. Returns the tokens, metrics, this
     process's launches and (on a mesh) collectives' counters, and the
     wall time of the run."""
@@ -2661,8 +2684,8 @@ def serve_mesh_engine(name, mesh, device):
                      kv_block_size=ENGINE["block_size"], attn_kernel="paged",
                      sparsity=sp, mesh=mesh)
     srv = Server(cfg, params, sc, device=dev)
-    reqs = engine_requests(cfg, ENGINE["requests"], seed=ENGINE["seed"],
-                           mixed=mixed)
+    reqs = engine_requests(cfg, MESH_TRACE["requests"], seed=ENGINE["seed"],
+                           mixed=mixed, trace=MESH_TRACE)
     wrappers = counters()
     for fn in wrappers.values():
         fn.launches = 0
@@ -2746,8 +2769,8 @@ def run_mesh_engines(torch, dev):
 
 def check_mesh_engine(got, want, mesh, outs, i):
     """One phase 13 engine against its single-rank run: the schedule
-    (ticks, admissions, decode tokens) always; f32: every token and
-    parity counter. Every rank launched the engine's kernels, the GQA
+    (ticks, admissions, decode tokens) always, more requests admitted
+    than there are slots; f32: every token and parity counter. Every rank launched the engine's kernels, the GQA
     kernel exactly once a layer a decode tick."""
     name, m, w = got["name"], got["metrics"], want["metrics"]
     label = f"{name} {mesh}"
@@ -2762,6 +2785,10 @@ def check_mesh_engine(got, want, mesh, outs, i):
             raise AssertionError(f"{label}: streams differ for uids {bad}")
         log(f"  {label}: {len(got['tokens'])} f32 streams and "
             f"{', '.join(MESH_PARITY_KEYS)} equal the single rank's -> ok")
+    if not m["admitted"] > ENGINE["slots"]:
+        raise AssertionError(f"{label}: {int(m['admitted'])} admitted on "
+                             f"{ENGINE['slots']} slots: no request was "
+                             "admitted into a freed slot")
     if (m["mesh_data"], m["mesh_model"]) != tuple(map(float, mesh)):
         raise AssertionError(f"{label}: mesh metrics {m['mesh_data']}, "
                              f"{m['mesh_model']}")
@@ -4628,10 +4655,10 @@ def run_pipeline(torch, dev):
     return want
 
 
-def run_dryrun_cells(cells=DRYRUN_CELLS, seq_shard=False):
+def run_dryrun_cells(cells=DRYRUN_CELLS, seq_shard=False, extra=()):
     """Phase 15 (c): the dry run's cells, traced on the meta device (no
-    card); each must report ok. Returns {(arch, shape, two pods):
-    result}."""
+    card), with ``extra`` arguments; each must report ok. Returns
+    {(arch, shape, two pods): result}."""
     import tempfile
     from repro_torch.launch import dryrun
     out = {}
@@ -4639,6 +4666,7 @@ def run_dryrun_cells(cells=DRYRUN_CELLS, seq_shard=False):
         for arch, shape, two_pods in cells:
             argv = ["--arch", arch, "--shape", shape, "--out", tmp]
             argv += ["--seq-shard"] if seq_shard else []
+            argv += list(extra)
             dryrun.main(argv + (["--multi-pod"] if two_pods else []))
             tag = f"{arch}_{shape}_{'pod2' if two_pods else 'pod1'}"
             with open(os.path.join(tmp, tag + ".json")) as f:
@@ -5125,10 +5153,476 @@ def check_row_cut_decode(ranks):
         f"states a rank -> ok")
 
 
+# ------------------- phase 17: the tensor-parallel Mamba2 mixer on a mesh
+# Every rank a gloo process on card 0. (a) mamba2-2.7b at its published
+# widths cut to SSM_TP_LAYERS layers: TRAIN_MESH_STEPS bf16 Trainer steps
+# on SSM_TP_MESH with and without ``seq_shard`` beside one rank's (phase
+# 12's 8 x 512 tokens: 4096 rows a rank, at least d_model, so in_proj's
+# weight is gathered and its heads' columns taken); one f32 step each
+# way, held to one rank's (SSM_TP_TOL). (b)
+# zamba2-7b at its published widths cut as phase 16 cuts it (2 mamba2
+# layers, ``attn_every`` 1): a prefill of SSM_TP_CACHED["batch"] prompts
+# and decode steps with ``h`` cut over 'model' (4 x 256 = 1024 prefill
+# rows and 4 decode rows, fewer than d_model: in_proj's product is
+# gathered), in f32 against one rank's, then in bf16 (the shared GLU
+# through the GLU kernel at a tp-2 shard's F 7168 in decode), every
+# rank's conv windows equal bit for bit. (c) the dry run's mamba2-2.7b
+# train_4k on (2, 4) beside the gathered mixer's figures.
+SSM_TP_MESH = (1, 2)
+SSM_TP_ARCH = "mamba2-2.7b"
+SSM_TP_LAYERS = 4
+# 2 decode steps: a sharded step gathers the embedding and the head whole
+# (``TrainPlan.top``), ~0.9 GB a step through the host in f32.
+SSM_TP_CACHED = dict(batch=4, prompt=256, rows=512, steps=2, seed=17)
+SSM_TP_JOBS = ("train bf16", "train bf16 sp", "step f32", "zamba2 float32",
+               "zamba2 bfloat16")
+# The f32 runs against one rank's: the loss and the grad norm within
+# tests/test_torch_train_mesh.py's 2e-6 (relative); each gradient, and
+# (b)'s logits and whole h, within phases 14-16's full-width limit of
+# SP_F32_REL of its largest magnitude. The mesh tests' elementwise
+# allowance (2e-4 of each value plus 2e-6 of its leaf's largest; "rtol",
+# "atol") is not met at these widths by one rank's own f32 step against
+# the same step with its products in f64 (up to 3.6 times it, A_log's
+# and dt_bias's gradients the most; tools/ssm_tp_witness.py). So each
+# gradient of the mesh's f32 step is held to that f64 step instead: it
+# may use at most SSM_TP_F64 times the allowance that one rank's f32
+# step uses there (counted as at least 1: the whole allowance). A lost
+# sum over the ranks uses thousands of it.
+SSM_TP_TOL = dict(loss=2e-6, gnorm=2e-6, rtol=2e-4, atol=2e-6)
+SSM_TP_F64 = 2.0
+# The dry run's mamba2-2.7b train_4k on (2, 4) with every model rank
+# computing all 80 heads of the gathered mixer (the tree before the
+# mixer ran tensor-parallel; tests/test_torch_dryrun.py holds the same).
+SSM_TP_GATHERED = dict(temp=24994940239896, flops=9550096005857280.0)
+SSM_TP_CELL = ("mamba2-2.7b", "train_4k", False)
+SSM_TP_CELL_ARGS = ("--devices", "8", "--mesh", "2,4", "--no-extrapolate")
+
+
+def ssm_tp_config(dtype, **fields):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(SSM_TP_ARCH), dtype=dtype,
+                               num_layers=SSM_TP_LAYERS, **fields)
+
+
+def ssm_tp_train(torch, dev, mesh, seq_shard):
+    """TRAIN_MESH_STEPS bf16 Trainer steps of mamba2-2.7b (SSM_TP_LAYERS
+    layers) on phase 12's batches on this rank of ``mesh`` (or alone):
+    losses, seconds a step, the collectives and peak memory."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.parallel import collectives
+    from repro_torch.runtime.trainer import TrainConfig, Trainer
+    cfg = ssm_tp_config("bfloat16", seq_shard=seq_shard)
+    shape = ShapeConfig("chip_smoke", TRAIN["seq"], TRAIN["batch"], "train")
+    with drawn_on_card(torch):  # every rank draws the same whole params
+        tr = Trainer(cfg, shape, AdamW(lr=1e-3), TrainConfig(
+            steps=TRAIN_MESH_STEPS, log_every=1, seed=TRAIN["seed"]),
+            mesh=mesh, device=dev)
+        if mesh is not None:
+            collectives.reset_stats()
+        torch.cuda.reset_peak_memory_stats()
+        res = tr.run(train_data())
+    torch.cuda.synchronize()
+    hist = [h for h in res["history"] if "loss" in h]
+    return dict(losses=[h["loss"] for h in hist],
+                dts=[h["dt"] for h in hist], peak_gib=peak_gib(torch),
+                collectives=collectives.stats() if mesh is not None
+                else None)
+
+
+def ssm_tp_step_f32(torch, dev, mesh):
+    """One f32 step of mamba2-2.7b (SSM_TP_LAYERS layers,
+    phase 12's first batch) on this rank of ``mesh``, with
+    ``seq_shard`` and without, each against one rank's step on the whole
+    model (which every rank runs, then takes its slices of): the loss's
+    and grad norm's relative errors, and on this rank's slice of each
+    gradient its largest error over the whole leaf's largest magnitude
+    (elem) and over SSM_TP_TOL's allowance (excess); and each
+    gradient's share of the allowance against one rank's step with its
+    products in f64 (the scan, dt and the norms at the model's f32
+    dtype points) over one rank's f32 step's share there, at least 1
+    (f64: held to SSM_TP_F64)."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import modules
+    from repro_torch.models.modules import iter_leaves
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel import sharding as shd
+    batch = {"tokens": torch.from_numpy(
+        next(train_data())["tokens"]).to(dev)}
+    cfg = ssm_tp_config("float32")
+    with drawn_on_card(torch):
+        full = model_lib.init_params(cfg, seed=TRAIN["seed"], device=dev)
+    loss, want = value_and_grads(torch, cfg, full, batch)
+    scales = [float(w.abs().max()) for w in want]
+    # The port's configs name bf16 and f32; the f64 step runs the same
+    # code on the same draws in f64 (the leaves the model keeps in f32,
+    # such as A_log, stay so).
+    modules.DTYPES.setdefault("float64", torch.float64)
+    wide_cfg = ssm_tp_config("float64")
+    with drawn_on_card(torch):
+        wide = model_lib.init_params(wide_cfg, seed=TRAIN["seed"],
+                                     device=dev)
+    _, want64 = value_and_grads(torch, wide_cfg, wide, batch)
+    del wide
+    scales64 = [float(w.abs().max()) for w in want64]
+    one64 = [max(1.0, allowance_used(w, w64))
+             for w, w64 in zip(want, want64)]
+
+    def norm(gs, specs=None):
+        sq = torch.zeros((), dtype=torch.float64, device=dev)
+        for k, g in enumerate(gs):
+            s = torch.sum(g.double() ** 2)
+            if specs is not None and "model" in shd.spec_axes(specs[k]):
+                s = collectives.psum(s.reshape(1), "model", mesh)[0]
+            sq = sq + s
+        return math.sqrt(float(sq))
+    out = {}
+    for seq in (False, True):
+        cfg = ssm_tp_config("float32", seq_shard=seq)
+        params, tree = shd.train_shard_params(full, mesh)
+        specs = list(shd.iter_leaves_specs(tree))
+        leaves = list(iter_leaves(params))
+        for p in leaves:  # a replicated slice is the whole leaf itself
+            p.grad = None
+            p.requires_grad_(True)
+        plan = shd.TrainPlan(mesh, cfg, tree, params,
+                             shd.batch_axes(mesh, TRAIN["batch"]))
+        if not plan.mixer_tp(cfg) or plan.seq_parallel(
+                cfg, TRAIN["seq"]) != seq:
+            raise AssertionError("phase 17: the step needs a (1, M) mesh "
+                                 "whose M divides the heads")
+        with shd.use_plan(plan):
+            total, _, _ = model_lib.loss_terms(params, cfg, batch)
+            total.backward()
+        grads = [p.grad for p in leaves]
+        mine = [shd.shard_of(w, s, mesh, mesh.rank)
+                for w, s in zip(want, specs)]
+        excess = [allowance_used(g, w, scale=a)
+                  for g, w, a in zip(grads, mine, scales)]
+        elem = [float((g - w).abs().max()) / max(a, 1e-30)
+                for g, w, a in zip(grads, mine, scales)]
+        f64 = [allowance_used(g, shd.shard_of(w, s, mesh, mesh.rank),
+                              scale=a) / o
+               for g, w, s, a, o in zip(grads, want64, specs, scales64,
+                                        one64)]
+        out["sp" if seq else "tp"] = dict(
+            f64=max(f64), worst_f64=int(np.argmax(f64)),
+            one64=max(one64),
+            loss=abs(float(total.detach()) - float(loss)) / abs(float(loss)),
+            gnorm=abs(norm(grads, specs) - norm(want)) / norm(want),
+            elem=max(elem), worst=int(np.argmax(elem)),
+            excess=max(excess), worst_excess=int(np.argmax(excess)),
+            n=len(want), value=float(loss))
+        del params, leaves, grads
+        torch.cuda.empty_cache()
+    return out
+
+
+def ssm_tp_cached(torch, dev, mesh, dtype):
+    """zamba2-7b (SSM_TP_CACHED, 2 mamba2 layers, ``attn_every`` 1,
+    ``dtype``, phase 4's sparsity) on this rank of ``mesh``: a prefill
+    into caches cut as the dry run cuts a decode's, then decode steps,
+    under a plan; each step's logits, ms a decode step, the kernels'
+    launches, this rank's ssm states' shapes and its conv windows, and
+    ``h`` gathered whole; on rank 0 also one rank's run on the whole
+    model and caches."""
+    from repro_torch.checkpoint.manager import gather_whole
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model as model_lib
+    from repro_torch.parallel import sharding as shd
+    c = SSM_TP_CACHED
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("zamba2-7b"), num_layers=2,
+                              attn_every=1, dtype=dtype,
+                              sparsity=glu_sparsity())
+    with drawn_on_card(torch):
+        full = model_lib.init_params(cfg, seed=c["seed"], device=dev)
+    rng = np.random.default_rng(c["seed"])
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (c["batch"], c["prompt"])).astype(np.int32))
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (c["steps"], c["batch"], 1)).astype(np.int32))
+
+    def run(params, caches, plan, rows):
+        """The prefill and the decode steps: logits (the prefill's last
+        row, then each step's), ms a decode step, the launches."""
+        wrappers = counters()
+        for fn in wrappers.values():
+            fn.launches = 0
+        logits, dts = [], []
+        t1 = time.perf_counter()
+        for i, t in enumerate([prompt] + list(toks)):
+            t = shd.shard_of(t, rows, mesh, mesh.rank).to(dev) if plan \
+                else t.to(dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad(), shd.use_plan(plan):
+                lg, caches, _ = model_lib.forward(params, cfg,
+                                                  {"tokens": t}, caches)
+            torch.cuda.synchronize()
+            (dts.append if i else steps.append)(time.perf_counter() - t0)
+            logits.append(lg[:, -1].float())
+        steps.append(time.perf_counter() - t1)
+        return logits, dts, caches, {k: fn.launches for k, fn in
+                                     wrappers.items() if fn.launches}
+
+    steps = [time.perf_counter() - t0]  # init, prefill, prefill+decode
+    params, pspecs = shd.train_shard_params(full, mesh)
+    shape = ShapeConfig("decode", c["rows"], c["batch"], "decode")
+    axes = shd.batch_axes(mesh, c["batch"])
+    whole_caches = model_lib.init_caches(cfg, c["batch"], c["rows"],
+                                         device=dev)
+    plan, cspecs = dryrun.cache_plan(cfg, shape, mesh, pspecs, params, axes,
+                                     whole_caches)
+    local = shd.cut_tree(whole_caches, cspecs, mesh, mesh.rank)
+    rows = (axes, None)
+    logits, dts, local, launches = run(params, local, plan, rows)
+    logits = [g.cpu().numpy() for g in gather_whole(
+        logits, [rows] * len(logits), mesh)]
+    h, conv, hspec = [], [], []
+
+    def leaf(path, x, spec):
+        if path[-1] == "h":
+            h.append(x)
+            hspec.append(spec)
+        elif path[-1] == "conv":
+            conv.append(x.cpu().contiguous().view(torch.uint8).numpy())
+    dryrun._zip_map(leaf, local, cspecs)
+    out = dict(mixer_tp=plan.mixer_tp(cfg), ms=1e3 * float(np.mean(dts)),
+               launches=launches, h_shapes=[tuple(x.shape) for x in h],
+               h_specs=hspec, conv=conv,
+               h=[x.cpu().numpy() for x in gather_whole(h, hspec, mesh)],
+               logits=logits, peak_gib=peak_gib(torch), steps_s=steps)
+    if mesh.rank != 0:
+        out.update(h=None, logits=None)
+        return out
+    one = model_lib.init_caches(cfg, c["batch"], c["rows"], device=dev)
+    want, wdts, one, wl = run(full, one, None, None)
+    wh = []
+    dryrun._zip_map(lambda path, x, _: wh.append(x.cpu().numpy())
+                    if path[-1] == "h" else None, one, one)
+    out.update(want=[g.cpu().numpy() for g in want], want_h=wh,
+               want_ms=1e3 * float(np.mean(wdts)), want_launches=wl)
+    return out
+
+
+def ssm_tp_rank(mesh, jobs, device):
+    """One rank of phase 17's mesh: each job in turn, with its
+    seconds."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    out = []
+    for job in jobs:
+        t0 = time.perf_counter()
+        if job.startswith("train"):
+            r = ssm_tp_train(torch, dev, mesh, job.endswith(" sp"))
+        elif job == "step f32":
+            r = ssm_tp_step_f32(torch, dev, mesh)
+        else:
+            r = ssm_tp_cached(torch, dev, mesh, job.split()[1])
+        r["seconds"] = time.perf_counter() - t0
+        out.append(r)
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_ssm_tp_train(res, single):
+    """Phase 17 (a): each bf16 run's losses finite and equal on every
+    rank, logged beside one rank's ms a step with its collectives and
+    peak memory; the f32 step within SSM_TP_TOL's loss and grad norm
+    limits of one rank's, each gradient within SP_F32_REL, and against
+    the f64 step within SSM_TP_F64 times one rank's f32 step's share of
+    the allowance."""
+    for job in ("train bf16", "train bf16 sp"):
+        ranks, one = res[job], single[job]
+        label = f"{SSM_TP_ARCH} ({SSM_TP_LAYERS} layers) {job[6:]} {SSM_TP_MESH}"
+        ms1 = 1e3 * float(np.mean(one["dts"][1:]))
+        for r, got in enumerate(ranks):
+            if not (np.isfinite(got["losses"]).all()
+                    and got["losses"] == ranks[0]["losses"]):
+                raise AssertionError(f"{label} rank {r}: losses "
+                                     f"{got['losses']}")
+            c = got["collectives"]
+            ms = 1e3 * float(np.mean(got["dts"][1:]))
+            log(f"  {label} rank {r}: {ms:.1f} ms a step against one "
+                f"rank's {ms1:.1f} ({ms / ms1:.2f}x; step 0 "
+                f"{1e3 * got['dts'][0]:.1f} ms); peak {got['peak_gib']:.2f}"
+                f" GiB (one rank {one['peak_gib']:.2f}); collectives "
+                + ", ".join(f"{k} {c['counts'][k]} calls / {c[k]} B / "
+                            f"{c['seconds'][k]:.3f}s" for k in c["counts"]
+                            if c["counts"][k])
+                + f"; losses {['%.4f' % v for v in got['losses']]} (one "
+                  f"rank {['%.4f' % v for v in one['losses']]})")
+        if not ranks[0]["collectives"]["counts"]["reduce-scatter"]:
+            raise AssertionError(f"{label}: no reduce-scatter: the mixer's "
+                                 "columns were not gathered with a summed "
+                                 "gradient")
+    tol = SSM_TP_TOL
+    for key, name in (("tp", "plain TP"), ("sp", "seq_shard")):
+        e = max((r[key] for r in res["step f32"]), key=lambda e: e["elem"])
+        x = max(r[key]["excess"] for r in res["step f32"])
+        w = max((r[key] for r in res["step f32"]), key=lambda e: e["f64"])
+        if not (e["loss"] <= tol["loss"] and e["gnorm"] <= tol["gnorm"]
+                and e["elem"] <= SP_F32_REL and w["f64"] <= SSM_TP_F64):
+            raise AssertionError(f"f32 {name} step on {SSM_TP_MESH}: {e}, "
+                                 f"f64 {w['f64']} (leaf {w['worst_f64']}) "
+                                 f"against one rank (limits {tol}, elem "
+                                 f"{SP_F32_REL}, f64 {SSM_TP_F64})")
+        log(f"  f32 {name} step {SSM_TP_ARCH} ({SSM_TP_LAYERS} layers) on "
+            f"{SSM_TP_MESH}, loss {e['value']:.6f}: against one rank loss "
+            f"{e['loss']:.2e}, grad norm {e['gnorm']:.2e} (limits "
+            f"{tol['loss']}), all {e['n']} gradients within {e['elem']:.2e}"
+            f" of their largest (limit {SP_F32_REL}; worst leaf "
+            f"{e['worst']}); against the f64 step each gradient uses at "
+            f"most {w['f64']:.3f} times one rank's f32 step's share of the "
+            f"mesh tests' allowance (limit {SSM_TP_F64}; worst leaf "
+            f"{w['worst_f64']}; one rank's f32 step up to "
+            f"{w['one64']:.3f} of it); {x:.3f} of the allowance against "
+            f"one rank's f32 step (rtol {tol['rtol']}, atol "
+            f"{tol['atol']}: logged) -> ok")
+
+
+def check_ssm_tp_cached(res):
+    """Phase 17 (b): the mixer tensor-parallel, ``h`` cut over the heads,
+    the conv windows bit-equal on both ranks; f32 logits and the whole
+    ``h`` within SP_F32_REL of their largest of one rank's; bf16 logits
+    finite and the GLU kernel launched once an application a decode
+    step on every rank, as on one rank."""
+    from repro_torch.configs import get_config
+    cfg = get_config("zamba2-7b")
+    s = cfg.ssm
+    H = s.expand * cfg.d_model // s.head_dim
+    M = SSM_TP_MESH[1]
+    c = SSM_TP_CACHED
+    tol = SSM_TP_TOL
+    for job in ("zamba2 float32", "zamba2 bfloat16"):
+        ranks = res[job]
+        r0 = ranks[0]
+        for r, got in enumerate(ranks):
+            if not got["mixer_tp"] or any(sh[-3] != H // M
+                                          for sh in got["h_shapes"]):
+                raise AssertionError(f"{job} rank {r}: h {got['h_shapes']}"
+                                     f" is not cut over {M} ranks' heads")
+            for a, b in zip(got["conv"], r0["conv"]):
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"{job} rank {r}: conv window "
+                                         "differs from rank 0's")
+        if job == "zamba2 float32":
+            worst, x = 0.0, 0.0
+            for name, got, want in ([("logits", a, b) for a, b in zip(
+                    r0["logits"], r0["want"])] + [("h", a, b) for a, b in zip(
+                    r0["h"], r0["want_h"])]):
+                err = float(np.abs(got - want).max() / np.abs(want).max())
+                worst = max(worst, err)
+                x = max(x, allowance_used(got, want))
+                if not err <= SP_F32_REL:
+                    raise AssertionError(f"{job}: {name} off by {err:.2e} "
+                                         "of its largest against one rank")
+            note = (f"logits ({len(r0['logits'])} steps) and h within "
+                    f"{worst:.2e} of their largest of one rank's (limit "
+                    f"{SP_F32_REL}; {x:.3f} of the mesh tests' allowance)")
+        else:
+            expect, one = (ssm_tp_glu_launches(M), ssm_tp_glu_launches(1))
+            if not expect["sparce_glu_mlp_fused"]:
+                raise AssertionError(f"{job}: the planner runs no GLU "
+                                     "kernel on the mesh")
+            for r, got in enumerate(ranks):
+                if got["launches"] != expect:
+                    raise AssertionError(f"{job} rank {r}: launches "
+                                         f"{got['launches']}, expected "
+                                         f"{expect}")
+            if r0["want_launches"] != one or not all(
+                    np.isfinite(x).all() for x in r0["logits"]):
+                raise AssertionError(f"{job}: one rank's launches "
+                                     f"{r0['want_launches']} (expected "
+                                     f"{one}) or logits")
+            note = (f"logits finite; launches {expect} a rank, where the "
+                    f"planner picks the kernel (one rank {one})")
+        log(f"  {job} {SSM_TP_MESH}: {c['batch']} x {c['prompt']} prefill "
+            f"then {c['steps']} decode steps, {r0['ms']:.1f} ms a step "
+            f"against one rank's {r0['want_ms']:.1f}; h {r0['h_shapes'][0]}"
+            f" a rank ({H // M} of {H} heads), conv windows bit-equal on "
+            f"both ranks; {note}; peak {r0['peak_gib']:.2f} GiB; init, "
+            f"prefill, run, one rank's prefill, run "
+            f"{[round(x, 2) for x in r0['steps_s']]} s -> ok")
+
+
+def ssm_tp_glu_launches(M):
+    """The GLU kernel's launches a rank of (1, M) in phase 17 (b)'s bf16
+    run: one per application of the shared block in each forward (the
+    prefill, then each decode step) whose rows the planner runs
+    ``fused`` at the rank's F = d_ff / M."""
+    from repro_torch.configs import get_config
+    c = SSM_TP_CACHED
+    cfg = dataclasses.replace(get_config("zamba2-7b"), num_layers=2,
+                              attn_every=1, dtype="bfloat16")
+    lcfg = dataclasses.replace(cfg, d_ff=cfg.d_ff // M)
+    rows = [c["batch"] * c["prompt"]] + [c["batch"]] * c["steps"]
+    apps = cfg.num_layers // cfg.attn_every
+    return {"sparce_glu_mlp_fused": apps * sum(
+        glu_variant(lcfg, n) == "fused" for n in rows)}
+
+
+def allowance_used(got, want, tol=SSM_TP_TOL, scale=None):
+    """The largest |got - want| over its allowance, rtol |want| plus
+    atol of ``scale`` (default: want's largest magnitude;
+    ``np.testing.assert_allclose``'s rule: at most 1 passes)."""
+    import torch
+    got, want = (torch.as_tensor(t).double() for t in (got, want))
+    scale = max(float(want.abs().max()) if scale is None else scale,
+                1e-30)
+    return float(((got - want).abs() / (
+        tol["atol"] * scale + tol["rtol"] * want.abs())).max())
+
+
+def run_ssm_tp(torch, dev):
+    """Phase 17: one rank's bf16 runs here, then SSM_TP_JOBS on
+    SSM_TP_MESH spawned on card 0 (gloo); then (c), the dry run's cell.
+    Returns the time rows of the kernel at the shapes it ran."""
+    from repro_torch.launch.mesh import spawn_mesh
+    single = {}
+    for job in ("train bf16", "train bf16 sp"):
+        single[job] = ssm_tp_train(torch, dev, None, job.endswith(" sp"))
+        torch.cuda.empty_cache()
+    rank_dev = str(dev) if dev.type == "cpu" else f"cuda:{dev.index or 0}"
+    t0 = time.perf_counter()
+    outs = spawn_mesh(ssm_tp_rank, SSM_TP_MESH, (SSM_TP_JOBS, rank_dev),
+                      device=rank_dev, backend="gloo",
+                      timeout_s=TRAIN_MESH_TIMEOUT_S,
+                      deadline_s=TRAIN_MESH_DEADLINE_S,
+                      axes=("data", "model"))
+    log(f"  mesh {SSM_TP_MESH}: {SSM_TP_MESH[1]} ranks on card 0 (gloo), "
+        f"spawn to exit {time.perf_counter() - t0:.1f}s; jobs "
+        + ", ".join(f"{j} {outs[0][i]['seconds']:.1f}s"
+                    for i, j in enumerate(SSM_TP_JOBS)))
+    res = {j: [o[i] for o in outs] for i, j in enumerate(SSM_TP_JOBS)}
+    check_ssm_tp_cached(res)
+    check_ssm_tp_train(res, single)
+    got = run_dryrun_cells((SSM_TP_CELL,), extra=SSM_TP_CELL_ARGS)[
+        SSM_TP_CELL]
+    temp = got["memory"]["temp_size_in_bytes"]
+    flops = got["cost_scanned"]["flops"]
+    a, f = SSM_TP_GATHERED["temp"], SSM_TP_GATHERED["flops"]
+    if not (temp < a and flops < 0.4 * f):
+        raise AssertionError(f"dry run {SSM_TP_CELL}: temp {temp} B, FLOPs "
+                             f"{flops} against the gathered mixer's {a}, {f}")
+    log(f"  dry run mamba2-2.7b_train_4k (2, 4) against the gathered "
+        f"mixer's cell: temp {temp} B against {a} ({temp / a:.4f}); FLOPs "
+        f"a rank {flops:.6g} against {f:.6g} ({flops / f:.4f}) -> ok")
+    rng = np.random.default_rng(17)
+    return [glu_row(torch, dev, rng, "sparce_glu_mlp_fused zamba2-7b tp 2 "
+                    "shard decode", M=SSM_TP_CACHED["batch"], K=3584,
+                    F_=7168, N=3584, act="silu")]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17",
                     help="comma-separated subset of phases to run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -5244,7 +5738,8 @@ def main(argv=None) -> int:
             phase_done(9)
         if 10 in phases:
             log("phase 10: the contiguous KV layout: phase 4's GLU engine "
-                "contiguous; mamba2-2.7b and zamba2-7b (15 layers) at full "
+                "contiguous; mamba2-2.7b (32 layers) and zamba2-7b (15 "
+                "layers) at full "
                 "width, then their f32 2-layer steps card vs CPU; "
                 "smollm-360m, mistral-nemo-12b, qwen1.5-110b and "
                 "qwen2-moe-a2.7b paged engines at full width")
@@ -5325,6 +5820,16 @@ def main(argv=None) -> int:
             time_rows(torch, dev, phase16_rows(torch, dev),
                       path="split-tf32")
             phase_done(16)
+        if 17 in phases:
+            log("phase 17: the tensor-parallel Mamba2 mixer, every rank on "
+                f"card 0 over gloo: {SSM_TP_ARCH} ({SSM_TP_LAYERS} layers) "
+                f"bf16 steps on {SSM_TP_MESH} with and without seq_shard "
+                "beside one rank's, an f32 step each way against one "
+                "rank's; zamba2-7b (2 layers) prefill and decode with h cut "
+                "over 'model' (f32 against one rank's, then bf16); the dry "
+                "run's mamba2-2.7b train_4k on (2, 4)")
+            time_rows(torch, dev, run_ssm_tp(torch, dev))
+            phase_done(17)
         torch.cuda.synchronize()
         log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all")
     except Exception:  # noqa: BLE001 - report and fail the run

@@ -326,14 +326,18 @@ def _blocks(tree, specs, mesh, dtype=None):
 
 
 def _plan_cache_specs(plan, cfg, caches, specs):
-    """``cache_spec``'s specs with the 'model' cut kept only on the GQA
-    k/v caches of blocks the plan runs tensor-parallel: the port's ssm
-    mixers and its gathered attention compute every head, and its MLA
-    reads the whole latent on every model rank."""
-    keep = plan.attn_tp(cfg) and cfg.mla is None
+    """``cache_spec``'s specs with the 'model' cut kept where the plan
+    runs the block's heads tensor-parallel: on the GQA k/v caches when
+    attention is, and on the ssm states ``h`` when the Mamba2 mixer is.
+    Gathered attention computes every head, and MLA reads the whole
+    latent on every model rank, so those caches stay whole over 'model'
+    (the conv windows are never cut over it)."""
+    keep = {"k": plan.attn_tp(cfg) and cfg.mla is None,
+            "v": plan.attn_tp(cfg) and cfg.mla is None,
+            "h": plan.mixer_tp(cfg)}
 
     def one(path, leaf, spec):
-        if keep and path[-1] in ("k", "v"):
+        if keep.get(path[-1], False):
             return spec
         return tuple(None if a == "model" else a for a in spec)
     return _zip_map(one, caches, specs)
@@ -354,7 +358,8 @@ def _row_axes(caches, specs):
 def cache_plan(cfg, shape, mesh, pspecs, params, batch_axes, caches):
     """(plan, cache specs) of a prefill or decode step of ``shape``:
     ``cache_spec``'s layout of ``caches`` (the whole trees) with the
-    'model' cut kept where the plan runs GQA tensor-parallel, and a plan
+    'model' cut kept where the plan runs GQA or the Mamba2 mixer
+    tensor-parallel, and a plan
     whose ``cache_rows`` are the axes that layout cuts the attention
     caches' rows over."""
     plan = shd.TrainPlan(mesh, cfg, pspecs, params, batch_axes)

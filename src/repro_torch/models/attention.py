@@ -96,6 +96,17 @@ def _open(x: torch.Tensor, axis: Optional[str]) -> torch.Tensor:
     return collectives.tp_open(x, axis)
 
 
+def _open_latent(lat: torch.Tensor, axis: str) -> torch.Tensor:
+    """This rank's columns of an MLA latent (its stored column slice of
+    a down-projection applied) gathered whole over ``axis``; the ranks
+    use the latent for different heads, so its gradient is summed and
+    cut back to this rank's columns (``collectives.sp_open`` on the last
+    dim)."""
+    from repro_torch.parallel import collectives  # noqa: PLC0415
+
+    return collectives.sp_open(lat, axis, lat.dim() - 1)
+
+
 def _slot_lengths(cache, batch: int) -> torch.Tensor:
     """Per-slot lengths (B,), int32."""
     return torch.broadcast_to(cache.length.to(torch.int32), (batch,))
@@ -495,8 +506,7 @@ def mla_forward(
             "continuation prefill is not supported for MLA attention")
     if cfg.tp_axis is not None and seq:
         # Sequence parallelism: the down-projections below run on the
-        # gathered sequence, alike on every shard, as without it; the
-        # latents then open the heads with tp_open.
+        # gathered sequence, as without it.
         from repro_torch.parallel import collectives  # noqa: PLC0415
 
         x = collectives.seq_gather(x, cfg.tp_axis, 1)
@@ -508,13 +518,36 @@ def mla_forward(
     nope, rope_d, vd = m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim
     scale = (nope + rope_d) ** -0.5
 
-    cq = rmsnorm(params["q_norm"], x @ params["wdq"], cfg.norm_eps)
-    ckv = rmsnorm(params["kv_norm"], x @ params["wdkv"], cfg.norm_eps)
-    kr = apply_rope((x @ params["wkr"])[:, :, None, :], positions,
+    # Under tensor parallelism a down-projection stored cut on its
+    # columns (a sharded training step's) gives this rank's latent
+    # columns, gathered whole with their gradient summed; one stored
+    # whole runs alike on every shard, its latent opening the heads with
+    # tp_open after its norm. The per-head up-projections below are the
+    # shard's either way, and the latents whole on every shard.
+    widths = {"wdq": m.q_lora_rank, "wdkv": m.kv_lora_rank,
+              "wkr": m.qk_rope_dim}
+    cut = {k: cfg.tp_axis is not None and params[k].shape[-1] != n
+           for k, n in widths.items()}
+    xo = _open(x, cfg.tp_axis) if any(cut.values()) else x
+
+    def down(name, norm=None):
+        if not cut[name]:
+            lat = x @ params[name]
+        else:
+            lat = _open_latent(xo @ params[name], cfg.tp_axis)
+        if norm is None:
+            return lat
+        scale = params[norm]["scale"]
+        if cut[name]:  # every shard's heads read the normed latent
+            scale = _open(scale, cfg.tp_axis)
+        return rmsnorm({"scale": scale}, lat, cfg.norm_eps)
+
+    cq = down("wdq", "q_norm")
+    ckv = down("wdkv", "kv_norm")
+    kr = apply_rope(down("wkr")[:, :, None, :], positions,
                     cfg.rope_theta)[:, :, 0, :]  # (B, S, rope), all heads
-    # Under tensor parallelism the down-projections above are whole on
-    # every shard; the per-head up-projections below are the shard's.
-    cq, ckv, kr = (_open(t, cfg.tp_axis) for t in (cq, ckv, kr))
+    cq, ckv, kr = (t if cut[k] else _open(t, cfg.tp_axis)
+                   for k, t in zip(("wdq", "wdkv", "wkr"), (cq, ckv, kr)))
     q = (cq @ params["wuq"]).reshape(B, S, h, nope + rope_d)
     q_nope = q[..., :nope]
     q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)

@@ -56,15 +56,6 @@ def mamba2_init(rng, cfg: ArchConfig, dtype, device):
     }
 
 
-def _split_proj(zxbcdt: torch.Tensor, cfg: ArchConfig):
-    s, d_in, nheads, _ = _dims(cfg)
-    gn = s.ngroups * s.d_state
-    z = zxbcdt[..., :d_in]
-    xBC = zxbcdt[..., d_in: 2 * d_in + 2 * gn]
-    dt = zxbcdt[..., 2 * d_in + 2 * gn:]
-    return z, xBC, dt
-
-
 def _causal_conv(xBC: torch.Tensor, conv_w: torch.Tensor,
                  conv_b: torch.Tensor,
                  conv_state: Optional[torch.Tensor] = None):
@@ -152,28 +143,167 @@ def _ssd_chunked(x, dt, A_log, B, C, D, chunk: int):
     return y, h
 
 
+class _Heads(NamedTuple):
+    """The heads a mixer computes: ``nheads`` heads from head ``h0``,
+    reading ``ngroups`` B/C groups from group ``g0`` (all of them, whole,
+    off a mesh)."""
+    h0: int
+    nheads: int
+    g0: int
+    ngroups: int
+
+
+def _heads_of(cfg: ArchConfig, h0: int, H: int) -> _Heads:
+    """``H`` heads from head ``h0``, and the groups they read
+    (``TrainPlan.mixer_tp`` makes them whole groups)."""
+    s, _, nheads, _ = _dims(cfg)
+    rep = nheads // s.ngroups
+    return _Heads(h0, H, h0 // rep, max(1, H // rep))
+
+
+def _spans(cfg: ArchConfig, heads: _Heads, part: str):
+    """(start, length) of the columns ``heads`` read, in the whole
+    ``in_proj``'s ``z | x | B | C | dt`` layout (``part="in"``) or the
+    conv's ``x | B | C`` (``part="conv"``), in that order."""
+    s, d_in, nheads, _ = _dims(cfg)
+    P, N, G = s.head_dim, s.d_state, s.ngroups
+    hx = (heads.h0 * P, heads.nheads * P)
+    g = (heads.g0 * N, heads.ngroups * N)
+    xbc = [hx, (d_in + g[0], g[1]), (d_in + G * N + g[0], g[1])]
+    if part == "conv":
+        return xbc
+    return ([hx] + [(d_in + a, n) for a, n in xbc]
+            + [(2 * d_in + 2 * G * N + heads.h0, heads.nheads)])
+
+
+def _take(t: torch.Tensor, spans) -> torch.Tensor:
+    """The columns ``spans`` of ``t``'s last dim, concatenated."""
+    return torch.cat([t.narrow(-1, a, n) for a, n in spans], dim=-1)
+
+
+def _open_cols(t: torch.Tensor, axis: str) -> torch.Tensor:
+    """A leaf (or product) cut contiguously on its last dim over
+    ``axis``, gathered whole: every rank takes other columns of it (its
+    heads' z, x and dt, every head's B and C), so its gradient is summed
+    over the ranks and cut back to this rank's columns (an all-gather
+    whose backward is a reduce-scatter, ``collectives.sp_open``)."""
+    from repro_torch.parallel import collectives  # noqa: PLC0415
+
+    return collectives.sp_open(t, axis, t.dim() - 1)
+
+
+def _gate_norm(params, g: torch.Tensor, cfg: ArchConfig, heads: _Heads,
+               axis: Optional[str]) -> torch.Tensor:
+    """The gated output's RMS norm over the whole d_inner. Under tensor
+    parallelism ``g`` holds this rank's heads' channels: the sum of
+    squares is summed over ``axis`` (every rank scales its own channels
+    by the total, so its gradient is summed too: ``collectives.tp_sum``)
+    and the replicated scale is used in this rank's slice (its gradient
+    summed once)."""
+    if axis is None:
+        return rmsnorm(params, g, cfg.norm_eps)
+    from repro_torch.parallel import collectives  # noqa: PLC0415
+
+    s, d_in, _, _ = _dims(cfg)
+    scale = collectives.tp_open(params["scale"], axis).narrow(
+        0, heads.h0 * s.head_dim, heads.nheads * s.head_dim)
+    dt = g.dtype
+    gf = g.float()
+    ss = collectives.tp_sum(torch.sum(gf * gf, dim=-1, keepdim=True), axis)
+    return (gf * torch.rsqrt(ss / d_in + cfg.norm_eps) * scale).to(dt)
+
+
+def _tp_project(params, x: torch.Tensor, cfg: ArchConfig, heads: _Heads,
+                axis: str, window: bool):
+    """Under tensor parallelism: (this rank's heads' z | x | B | C | dt
+    columns of ``x @ in_proj``, and when ``window`` the whole x | B | C
+    channels of x's last d_conv - 1 rows, equal on every rank: the next
+    conv window's).
+
+    ``in_proj`` is stored cut contiguously over its concatenated
+    columns, so a rank's stored slice is not its heads' columns. Where
+    the rows multiplied are fewer than d_model, the product by the
+    stored slice is gathered (rows x columns moved); else the weight is
+    gathered (d_model x columns) and its heads' columns taken. Either
+    gather's gradient is summed before it is cut to the stored slice."""
+    s, d_in, _, conv_dim = _dims(cfg)
+    W = params["in_proj"]
+    spans = _spans(cfg, heads, "in")
+    if x.shape[0] * x.shape[1] < x.shape[-1]:
+        whole = _open_cols(x @ W, axis)
+        tail = whole[:, -(s.d_conv - 1):, d_in:d_in + conv_dim]
+        return _take(whole, spans), tail if window else None
+    W = _open_cols(W, axis)
+    tail = None
+    if window:
+        k = min(x.shape[1], s.d_conv - 1)
+        tail = x[:, -k:] @ W[:, d_in:d_in + conv_dim]
+    return x @ _take(W, spans), tail
+
+
 def mamba2_forward(params, x: torch.Tensor, cfg: ArchConfig, *,
-                   cache: Optional[SSMCache] = None
+                   cache: Optional[SSMCache] = None, seq: bool = False,
+                   heads: Optional[Tuple[int, int]] = None
                    ) -> Tuple[torch.Tensor, Optional[SSMCache]]:
     """x: (B, L, d). With a cache and L == 1 -> recurrent decode step;
     otherwise the chunked scan (from the cache's conv window when one is
     given; the scan itself always starts from a zero state, as in the
-    reference)."""
-    s, d_in, nheads, conv_dim = _dims(cfg)
-    b, L, _ = x.shape
-    G, N, P = s.ngroups, s.d_state, s.head_dim
+    reference).
 
-    zxbcdt = x @ params["in_proj"]
-    z, xBC, dt = _split_proj(zxbcdt, cfg)
-    dt = F.softplus(dt.float() + params["dt_bias"])
+    With ``cfg.tp_axis`` (a sharded training step's plan,
+    ``TrainPlan.mixer_tp``) the mixer runs ``heads``, (first head,
+    heads) of this rank (``TrainPlan.mixer_heads``), on its stored
+    slices: ``dt_bias``/``A_log``/``D`` and ``out_proj``'s rows
+    as stored, the columns of ``in_proj`` and the conv its heads read
+    gathered (:func:`_tp_project`), the gated norm's sum of squares
+    summed over the axis, and ``out_proj``'s partial sum closed like
+    tensor-parallel attention's (``seq``: on this rank's slice of the
+    sequence, opened with an all-gather and closed with a
+    reduce-scatter). The cache's ``h`` holds this rank's heads where
+    ``cache_spec`` cuts it over the axis (else the heads are gathered
+    whole after the step); its conv window stays whole, equal on every
+    rank."""
+    s, d_in, nheads, conv_dim = _dims(cfg)
+    G, N, P = s.ngroups, s.d_state, s.head_dim
+    axis = cfg.tp_axis
+    if axis is None:
+        own = _Heads(0, nheads, 0, G)
+    else:
+        from repro_torch.parallel import collectives  # noqa: PLC0415
+
+        own = _heads_of(cfg, *heads)
+        x = (collectives.sp_open(x, axis, 1) if seq
+             else collectives.tp_open(x, axis))
+    b, L, _ = x.shape
+    H, Gl = own.nheads, own.ngroups
+    dl = H * P  # the heads' channels of d_inner
+
+    if axis is None:
+        zxbcdt = x @ params["in_proj"]
+        conv_w, conv_b = params["conv_w"], params["conv_b"]
+        conv_state = None if cache is None else cache.conv
+    else:
+        zxbcdt, tail = _tp_project(params, x, cfg, own, axis,
+                                   cache is not None)
+        cspans = _spans(cfg, own, "conv")
+        conv_w = _take(_open_cols(params["conv_w"], axis), cspans)
+        conv_b = _take(_open_cols(params["conv_b"], axis), cspans)
+        conv_state = None if cache is None else _take(cache.conv, cspans)
+    state_in = None if cache is None else cache.h
+    if state_in is not None and state_in.shape[1] != H:
+        # cache_spec keeps h whole over the axis (the hybrid's grouped
+        # states at batch 1): this rank's heads of it.
+        state_in = state_in.narrow(1, own.h0, H)
+    z = zxbcdt[..., :dl]
+    xBC = zxbcdt[..., dl: 2 * dl + 2 * Gl * N]
+    dt = F.softplus(zxbcdt[..., 2 * dl + 2 * Gl * N:].float()
+                    + params["dt_bias"])
 
     if cache is None or L > 1:
-        conv_state = None if cache is None else cache.conv
-        xBC, new_conv = _causal_conv(xBC, params["conv_w"],
-                                     params["conv_b"], conv_state)
-        xs = xBC[..., :d_in].reshape(b, L, nheads, P)
-        B = xBC[..., d_in: d_in + G * N].reshape(b, L, G, N)
-        C = xBC[..., d_in + G * N:].reshape(b, L, G, N)
+        xBC, new_conv = _causal_conv(xBC, conv_w, conv_b, conv_state)
+        xs = xBC[..., :dl].reshape(b, L, H, P)
+        B = xBC[..., dl: dl + Gl * N].reshape(b, L, Gl, N)
+        C = xBC[..., dl + Gl * N:].reshape(b, L, Gl, N)
         y, h_last = _ssd_chunked(xs, dt, params["A_log"], B, C,
                                  params["D"], s.chunk)
         new_cache = None
@@ -181,29 +311,40 @@ def mamba2_forward(params, x: torch.Tensor, cfg: ArchConfig, *,
             new_cache = SSMCache(conv=new_conv, h=h_last)
     else:
         # Recurrent decode: h = exp(dt*a) h + dt B x ; y = C.h + D x
-        xp = torch.cat([cache.conv.to(xBC.dtype), xBC], dim=1)
-        conv_out = (torch.einsum("bwc,wc->bc", xp, params["conv_w"])
-                    + params["conv_b"])
-        xBC1 = F.silu(conv_out)  # (b, conv_dim)
+        xp = torch.cat([conv_state.to(xBC.dtype), xBC], dim=1)
+        conv_out = torch.einsum("bwc,wc->bc", xp, conv_w) + conv_b
+        xBC1 = F.silu(conv_out)  # (b, conv channels)
         new_conv = xp[:, 1:, :]
-        xs = xBC1[:, :d_in].reshape(b, nheads, P)
-        B = xBC1[:, d_in: d_in + G * N].reshape(b, G, N)
-        C = xBC1[:, d_in + G * N:].reshape(b, G, N)
-        rep = nheads // G
+        xs = xBC1[:, :dl].reshape(b, H, P)
+        B = xBC1[:, dl: dl + Gl * N].reshape(b, Gl, N)
+        C = xBC1[:, dl + Gl * N:].reshape(b, Gl, N)
+        rep = H // Gl
         Bh = torch.repeat_interleave(B, rep, dim=1).float()  # (b, H, N)
         Ch = torch.repeat_interleave(C, rep, dim=1).float()
         a = -torch.exp(params["A_log"])
         da = dt[:, 0] * a[None, :]  # (b, H)
-        h = cache.h * torch.exp(da)[:, :, None, None] + torch.einsum(
+        h = state_in * torch.exp(da)[:, :, None, None] + torch.einsum(
             "bhn,bhp->bhnp", Bh * dt[:, 0][..., None], xs.float())
         y = torch.einsum("bhn,bhnp->bhp", Ch, h)
         y = y + xs.float() * params["D"][None, :, None]
         y = y[:, None]  # (b, 1, H, P)
         new_cache = SSMCache(conv=new_conv, h=h)
+    if axis is not None and new_cache is not None:
+        # The whole window, from the rows every rank holds whole; a state
+        # the layout keeps whole over the axis gets every rank's heads.
+        window = torch.cat([cache.conv.to(tail.dtype), tail], dim=1)
+        h = new_cache.h
+        if cache.h.shape[1] != H:
+            h = collectives.all_gather(h.contiguous(), axis, dim=1)
+        new_cache = SSMCache(conv=window[:, -(s.d_conv - 1):], h=h)
 
-    y = y.reshape(b, L, d_in).to(x.dtype)
-    y = rmsnorm(params["gate_norm"], y * F.silu(z), cfg.norm_eps)
-    return y @ params["out_proj"], new_cache
+    y = y.reshape(b, L, dl).to(x.dtype)
+    y = _gate_norm(params["gate_norm"], y * F.silu(z), cfg, own, axis)
+    y = y @ params["out_proj"]
+    if axis is not None:
+        y = (collectives.sp_close(y, axis, 1) if seq
+             else collectives.tp_close(y, axis))
+    return y, new_cache
 
 
 def mamba2_init_cache(cfg: ArchConfig, batch: int, dtype, device,

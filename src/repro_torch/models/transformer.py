@@ -25,11 +25,12 @@ sequence over 'model', as the reference's ``constrain(h, P(("pod",
 "data"), "model", None))`` lays it out; ``model.forward`` cuts it
 before the first block and gathers it after the last. A block runs its
 norms and residual adds on the slice. Its tensor-parallel regions
-(GQA/MLA heads, the MLP's ``d_ff`` cut, the expert-parallel MoE) open
-with an all-gather of the sequence and close with a reduce-scatter
-(``collectives.sp_open`` / ``sp_close``); a region every model rank
-computes alike (gathered attention, the ssm mixer, a gathered MLP or
-MoE) opens with ``seq_gather`` and closes with ``seq_split``. Each rank's
+(GQA/MLA heads, the Mamba2 mixer's heads, the MLP's ``d_ff`` cut, the
+expert-parallel MoE) open with an all-gather of the sequence and close
+with a reduce-scatter (``collectives.sp_open`` / ``sp_close``); a
+region every model rank computes alike (gathered attention, a
+gathered mixer, MLP or MoE) opens with
+``seq_gather`` and closes with ``seq_split``. Each rank's
 gradient of a norm's scale then covers its own tokens only, so it is
 summed over 'model' once. No value changes.
 
@@ -177,10 +178,13 @@ def block_fwd(params, x, positions, cfg: ArchConfig, kind: str, cache=None,
 
     aux = aux_zero(x.device)
     if kind == "ssm":
-        h, new_cache = alike(
-            lambda h: ssm_lib.mamba2_forward(params["mixer"], h, cfg,
-                                             cache=cache),
-            _norm(params["norm"], x, cfg, sp))
+        mixer = functools.partial(ssm_lib.mamba2_forward, params["mixer"],
+                                  cfg=cfg, cache=cache)
+        hn = _norm(params["norm"], x, cfg, sp)
+        # A tensor-parallel mixer (tp_axis set) runs this rank's heads
+        # and opens and closes itself.
+        h, new_cache = (mixer(hn, seq=sp, heads=plan.mixer_heads(cfg))
+                        if cfg.tp_axis is not None else alike(mixer, hn))
         return x + gate(h), new_cache, aux
     attn_fn = mla_forward if cfg.mla is not None else gqa_forward
     attn = functools.partial(

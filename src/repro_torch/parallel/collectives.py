@@ -61,6 +61,10 @@ forward and in its backward:
     psum_replicas   forward all-reduce, backward the cotangent times n
                     (a sum over data ranks whose gradients the step then
                     averages over the same ranks)
+    tp_sum          forward all-reduce, backward all-reduce (a sum that
+                    every rank then uses differently: the gated norm's
+                    sum of squares over a tensor-parallel mixer's
+                    heads)
 
 and, for sequence parallelism (``cfg.seq_shard``: the residual stream
 lives cut along the sequence over 'model' between blocks), four more:
@@ -469,6 +473,17 @@ class _Permute(torch.autograd.Function):
         return _permute(g, ctx.axis, inverse, ctx.mesh), None, None, None
 
 
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.axes, ctx.mesh = axes, mesh
+        return psum(x.clone(), axes, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g.clone(), ctx.axes, ctx.mesh), None, None
+
+
 class _Replicas(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axes, mesh):
@@ -503,6 +518,19 @@ def tp_open(x: torch.Tensor, axes, mesh: Optional[Mesh] = None
     if _size(axes, mesh) == 1 or not _wants_grad(x):
         return x
     return _Open.apply(x, axes, mesh)
+
+
+def tp_sum(x: torch.Tensor, axes, mesh: Optional[Mesh] = None
+           ) -> torch.Tensor:
+    """The sum of the ranks' partial ``x`` over ``axes``, which every
+    rank then uses to scale its own slice of a tensor: its gradient is
+    the ranks' cotangents summed. Without a gradient to carry it is
+    :func:`psum`."""
+    if _size(axes, mesh) == 1:
+        return x
+    if not _wants_grad(x):
+        return psum(x.clone(), axes, mesh)
+    return _Sum.apply(x, axes, mesh)
 
 
 def gather_on_use(x: torch.Tensor, axis: str, dim: int,

@@ -23,10 +23,13 @@ dict into one rank's slices by those rules.
 Training (:func:`train_shard_params`, :class:`TrainPlan`,
 :func:`use_plan`) stores each leaf cut by :func:`param_specs` and runs
 the single-host model code on this rank's slices: a block whose stored
-slices are exactly its tensor-parallel slices computes them, every other
-sharded leaf is gathered on use. The reference's ``constrain`` (a hint
-to GSPMD) has no counterpart: manual SPMD places every collective
-itself.
+slices are exactly its tensor-parallel slices computes them; the Mamba2
+mixer runs this rank's heads, reaching the columns they need of its
+contiguously cut ``in_proj`` and conv through a gather whose gradient
+is summed (``models/ssm.py``); MLA's down-projections multiply by their
+stored column slices and gather the latents; every other sharded leaf
+is gathered on use. The reference's ``constrain`` (a hint to GSPMD) has
+no counterpart: manual SPMD places every collective itself.
 
 :class:`Mesh` is the port's mesh: an axis -> size map, the row-major
 rank grid (rank 0 is every axis' index 0) and, on an initialized
@@ -528,8 +531,10 @@ class TrainPlan:
 
     A block is tensor-parallel where its stored slices are its TP
     slices: GQA when the heads and KV heads divide by the model size,
-    MLA when the heads do (its down-projections are gathered), the MLP
-    when ``d_ff`` does. Every other sharded leaf is gathered on use
+    MLA when the heads do (its down-projections multiply by their stored
+    column slices, the latents then gathered whole), the MLP when
+    ``d_ff`` does, the Mamba2 mixer when its heads do
+    (:meth:`mixer_tp`). Every other sharded leaf is gathered on use
     (``collectives.gather_on_use``).
 
     Sequence parallelism (:meth:`seq_parallel`) cuts the residual stream
@@ -572,6 +577,29 @@ class TrainPlan:
 
     def mlp_tp(self, cfg: ArchConfig) -> bool:
         return self.model > 1 and cfg.d_ff % self.model == 0
+
+    def mixer_tp(self, cfg: ArchConfig) -> bool:
+        """Whether the Mamba2 mixer runs this rank's heads: the model
+        size M > 1 divides the heads, each rank's heads read whole B/C
+        groups (M divides the groups, or the groups divide M), and
+        ``in_proj`` and the conv are stored cut (M divides their
+        columns). Else the mixer is gathered whole."""
+        M = self.model
+        if M == 1 or cfg.ssm is None:
+            return False
+        s = cfg.ssm
+        d_in = s.expand * cfg.d_model
+        heads, G = d_in // s.head_dim, s.ngroups
+        conv = d_in + 2 * G * s.d_state
+        return (heads % M == 0 and (G % M == 0 or M % G == 0)
+                and (conv + d_in + heads) % M == 0 and conv % M == 0)
+
+    def mixer_heads(self, cfg: ArchConfig) -> Tuple[int, int]:
+        """(first head, heads) this rank's tensor-parallel mixer runs:
+        the r-th of M equal runs of the heads, r its 'model' index."""
+        s = cfg.ssm
+        H = s.expand * cfg.d_model // s.head_dim // self.model
+        return self.mesh.coord("model") * H, H
 
     def seq_parallel(self, cfg: ArchConfig, seq: int) -> bool:
         """Whether the residual stream of a ``seq``-long sequence lives
@@ -642,15 +670,13 @@ class TrainPlan:
         (``tp_axis`` set), its other sharded leaves gathered."""
         out = dict(params)
         if kind == "ssm":
+            if self.mixer_tp(cfg):
+                return out, dataclasses.replace(cfg, tp_axis="model"), None
             out["mixer"] = self.gather_tree(params["mixer"])
-            return out, cfg, None
+            return out, dataclasses.replace(cfg, tp_axis=None), None
         if self.attn_tp(cfg):
             M = self.model
             if cfg.mla is not None:
-                attn = dict(params["attn"])
-                for k in ("wdq", "wdkv", "wkr"):
-                    attn[k] = self.gather(attn[k])
-                out["attn"] = attn
                 lcfg = dataclasses.replace(cfg, num_heads=cfg.num_heads // M,
                                            tp_axis="model")
             else:

@@ -24,6 +24,11 @@ trace mesh's collective counters, against the reference.
   block's cache rows cut over 'data') counts one all-gather of the
   softmax states a shared-block application, the merge a whole-cache
   decode needs.
+- ``mamba2-2.7b train_4k`` on ``--mesh 2,4 --no-extrapolate`` runs the
+  mixer on each rank's heads: its argument bytes equal the reference's
+  shard shapes, its temp and FLOPs a rank fall against the gathered
+  mixer's; the decode cells of the ssm and hybrid families hold ``h``
+  cut as the reference's ``cache_spec`` cuts it.
 """
 import functools
 import json
@@ -252,16 +257,10 @@ def _shard_bytes(mesh, sds_tree, spec_tree):
     return total
 
 
-@pytest.mark.parametrize("profile", ["tp", "dp"])
-def test_train_cell_argument_bytes_equal_reference_shard_shapes(cpu_mesh,
-                                                               profile):
-    """Under 'dp' every param is whole and the batch is cut over every
-    axis: the plan then runs no block tensor-parallel."""
-    extra = ("--no-extrapolate",) if profile == "tp" else (
-        "--profile", "dp")
-    res = _cell("smollm-135m", "train_4k", "2,4", *extra)
-    assert res["status"] == "ok"
-    cfg = ref_get_config("smollm-135m")
+def _ref_train_bytes(arch, profile="tp"):
+    """The reference's shard bytes of ``arch``'s train_4k params, opt
+    state and batch on a (2, 4) mesh of conftest's 8 host devices."""
+    cfg = ref_get_config(arch)
     shape = shape_by_name("train_4k")
     mesh = ref_mesh_lib.make_mesh((2, 4), ("data", "model"))
     params = jax.eval_shape(lambda: ref_model.init_params(
@@ -271,10 +270,84 @@ def test_train_cell_argument_bytes_equal_reference_shard_shapes(cpu_mesh,
     oshard = ref_adamw.opt_state_shardings(opt, pspecs, mesh)
     batch = ref_input_specs(cfg, shape)
     bspecs = ref_shd.batch_spec(cfg, shape, mesh, batch, profile=profile)
-    want = (_shard_bytes(mesh, params, pspecs)
+    return (_shard_bytes(mesh, params, pspecs)
             + _shard_bytes(mesh, opt, oshard)
             + _shard_bytes(mesh, batch, bspecs))
+
+
+@pytest.mark.parametrize("profile", ["tp", "dp"])
+def test_train_cell_argument_bytes_equal_reference_shard_shapes(cpu_mesh,
+                                                               profile):
+    """Under 'dp' every param is whole and the batch is cut over every
+    axis: the plan then runs no block tensor-parallel."""
+    extra = ("--no-extrapolate",) if profile == "tp" else (
+        "--profile", "dp")
+    res = _cell("smollm-135m", "train_4k", "2,4", *extra)
+    assert res["status"] == "ok"
+    want = _ref_train_bytes("smollm-135m", profile)
     assert res["memory"]["argument_size_in_bytes"] == want
+
+
+# The same cell with every model rank computing all 80 heads of the
+# gathered mixer (the tree before the mixer ran tensor-parallel).
+MAMBA2_GATHERED = dict(temp=24994940239896, flops=9550096005857280.0)
+
+
+def test_mamba2_train_cell_runs_each_ranks_heads(cpu_mesh):
+    """mamba2-2.7b train_4k on (2, 4): the argument bytes equal the
+    reference's shard shapes (the stored slices are unchanged); a rank's
+    temp falls below the gathered mixer's 24994940239896 B and its FLOPs
+    under 0.4 of that mixer's 9.550096005857280e15 (a rank's heads need
+    2836 of in_proj's 10576 columns: ~0.3 reckoned)."""
+    res = _cell("mamba2-2.7b", "train_4k", "2,4", "--no-extrapolate")
+    assert res["status"] == "ok"
+    assert (res["memory"]["argument_size_in_bytes"]
+            == _ref_train_bytes("mamba2-2.7b"))
+    assert res["memory"]["temp_size_in_bytes"] < MAMBA2_GATHERED["temp"]
+    assert res["cost_scanned"]["flops"] < 0.4 * MAMBA2_GATHERED["flops"]
+    assert res["collectives_scanned"]["counts"]["reduce-scatter"] > 0
+
+
+def _port_h_bytes(caches):
+    """Bytes of the ssm state leaves ``h`` of a port cache tree."""
+    total = []
+    dryrun._zip_map(lambda path, leaf, _: total.append(
+        leaf.numel() * leaf.element_size() if path[-1] == "h" else 0),
+        caches, caches)
+    return sum(total)
+
+
+def _ref_h_bytes(mesh, caches, specs):
+    """Bytes of one rank's shards of the ``h`` leaves of a reference
+    cache tree under its spec tree."""
+    flat = jax.tree_util.tree_flatten_with_path(caches)[0]
+    sflat = jax.tree_util.tree_leaves(
+        specs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+    assert len(flat) == len(sflat)
+    return sum(math.prod(NamedSharding(mesh, spec).shard_shape(leaf.shape))
+               * leaf.dtype.itemsize for (path, leaf), spec in zip(flat, sflat)
+               if ref_shd._leaf_name(path).split("/")[-1] == "h")
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b"])
+def test_decode_cell_cuts_h_as_cache_spec(cpu_mesh, arch):
+    """decode_32k on (2, 4): the rank's ssm states, as the dry run lays
+    them out, hold the bytes of the reference's ``cache_spec`` shard
+    (batch over 'data', heads over 'model')."""
+    shape = shape_by_name("decode_32k")
+    tmesh = mesh_lib.trace_mesh((2, 4), ("data", "model"))
+    _, args = dryrun.build_program(get_config(arch), shape, tmesh)
+    got = _port_h_bytes(args[2])
+    cfg = ref_get_config(arch)
+    mesh = ref_mesh_lib.make_mesh((2, 4), ("data", "model"))
+    caches = jax.eval_shape(lambda: ref_model.init_caches(
+        cfg, shape.global_batch, shape.seq_len))
+    specs = ref_shd.cache_spec(cfg, shape, mesh, caches)
+    want = _ref_h_bytes(mesh, caches, specs)
+    s = cfg.ssm
+    whole = (cfg.num_layers * shape.global_batch * s.expand * cfg.d_model
+             // s.head_dim * s.d_state * s.head_dim * 4)
+    assert got == want == whole // 8
 
 
 def test_remat_full_holds_less_temp_than_none():

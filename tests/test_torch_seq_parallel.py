@@ -161,9 +161,9 @@ def test_sp_step_matches_single_host(shape, case):
     if case in ("glu-kernel", "relu-fused"):
         assert single["skip"][1] > 0
     counts = ranks[0]["stats"]["counts"]
-    # Every tensor-parallel region closes with a reduce-scatter, except
-    # the ssm family's, whose mixer is a region computed alike.
-    assert (counts["reduce-scatter"] > 0) == (case != "mamba2"), counts
+    # Every tensor-parallel region closes with a reduce-scatter, the ssm
+    # family's mixer among them.
+    assert counts["reduce-scatter"] > 0, counts
     for r, res in enumerate(ranks):
         assert res["digest"] == ranks[r % shape[-1]]["digest"], (case, r)
 

@@ -30,7 +30,8 @@ HELPERS = ("full_width_params", "run_engine", "profile_engine",
            "graph_time_ms", "cuda_time_ms", "time_attention", "time_glu",
            "time_mlp", "time_relu_bitmap", "time_gemm", "time_mla",
            "time_rows", "check_attention", "check_glu", "check_train_gemm",
-           "check_mlp", "check_mla")
+           "check_mlp", "check_mla", "run_mesh_engines", "mesh_driver",
+           "run_ssm_tp", "ssm_tp_train", "run_dryrun_cells")
 
 
 def wrap(acc, name):
