@@ -148,12 +148,17 @@ is printed only when all of them pass):
      rank's collectives and peak memory), one f32 step each way whose
      loss, grad norm and every gradient equal one rank's at the mesh
      tests' tolerances; ``zamba2-7b`` at its published widths (2
-     layers, ``attn_every`` 1) prefilling 4 x 256 tokens and decoding 2
+     layers, ``attn_every`` 1) prefilling 4 x 256 tokens and decoding 4
      steps with ``h`` cut over the ranks' heads, in f32 (logits and
      ``h`` against one rank's) and in bf16 (the GLU kernel at a tp-2
      shard's F 7168), the conv windows equal bit for bit on both ranks;
      then the dry run's ``mamba2-2.7b train_4k`` on (2, 4), its temp and
      FLOPs a rank below the gathered mixer's.
+
+On every mesh of phases 14, 16 and 17 whose model size divides the
+vocab (smollm-135m's on (1, 3), and every (1, 2) mesh's) the embedding,
+head and loss run on each rank's vocab slice; every mesh run logs its
+all-gather bytes a step and whether its vocab is cut.
 
 Every phase prints its seconds. After phases 4-7, each of the nine kernels' time at its path's shapes
 beside its plain version, a library yardstick and its bound.
@@ -4027,12 +4032,29 @@ EP_TRAIN = dict(batch=2, seq=256, steps=2)
 MESH_LOSS_RTOL, MESH_GNORM_RTOL = 1e-4, 1e-3
 
 
+def vocab_cut(cfg, params):
+    """Whether this rank stores the embedding cut over its vocab: the
+    plan then runs the embedding, head and loss on its vocab slice."""
+    return params["embed"].shape[-2] < cfg.vocab_size
+
+
+def gather_note(c, steps, cut):
+    """All-gather bytes and calls a step of the collectives stats ``c``
+    taken over ``steps`` steps, and whether the vocab was cut."""
+    return (f"all-gather {c['all-gather'] / steps:.0f} B / "
+            f"{c['counts']['all-gather'] / steps:g} calls / "
+            f"{c['seconds']['all-gather'] / steps:.3f}s a step, vocab "
+            + ("cut over 'model'" if cut else "whole"))
+
+
 def mesh_step_f32(torch, dev, mesh, zero1=False):
     """MESH_F32_STEPS f32 training steps of smollm-135m at full width on
     ``dev`` (on this rank of ``mesh``, or alone) on phase 12's batches:
-    each step's global loss and grad norm, and the seconds per step."""
+    each step's global loss and grad norm, and the seconds per step; on
+    a mesh also the steps' collectives and whether the vocab is cut."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.optim.adamw import AdamW
+    from repro_torch.parallel import collectives
     from repro_torch.runtime.trainer import TrainConfig, Trainer
     cfg = dataclasses.replace(arch_config(), dtype="float32")
     shape = ShapeConfig("chip_smoke", TRAIN["seq"], TRAIN["batch"], "train")
@@ -4042,6 +4064,9 @@ def mesh_step_f32(torch, dev, mesh, zero1=False):
     params, state = tr.init_state(TRAIN["seed"])
     data = train_data()
     out = dict(losses=[], grad_norms=[], step_s=[])
+    if mesh is not None:
+        out["vocab_cut"] = vocab_cut(cfg, params)
+        collectives.reset_stats()
     for _ in range(MESH_F32_STEPS):
         batch = tr.to_device(next(data))
         t0 = time.perf_counter()
@@ -4049,6 +4074,8 @@ def mesh_step_f32(torch, dev, mesh, zero1=False):
         out["losses"].append(float(m["loss"]))
         out["grad_norms"].append(float(m["grad_norm"]))
         out["step_s"].append(time.perf_counter() - t0)
+    if mesh is not None:
+        out["collectives"] = collectives.stats()
     return out
 
 
@@ -4089,6 +4116,7 @@ def mesh_train_run(torch, dev, mesh, job, seq=None):
         expect={kernel: per_layer * cfg.num_layers * TRAIN_MESH_STEPS},
         tokens=TRAIN["batch"] * seq,
         collectives=collectives.stats(), peak_gib=peak_gib(torch),
+        vocab_cut=vocab_cut(cfg, res["params"]),
         moment_bytes=sum(4 * t.numel() for t in iter_leaves(
             (state.mu, state.nu))),
         param_bytes=sum(t.numel() * t.element_size()
@@ -4198,7 +4226,8 @@ def run_ep_training(torch, dev, mesh):
                                  for p in experts),
                 param_bytes=sum(p.numel() * p.element_size()
                                 for p in iter_leaves(res["params"])),
-                collectives=collectives.stats())
+                collectives=collectives.stats(),
+                vocab_cut=vocab_cut(cfg, res["params"]))
 
 
 def train_mesh_rank(mesh, jobs, device):
@@ -4260,7 +4289,8 @@ def log_mesh_train(label, outs, i):
                         f"{c['seconds'][k]:.3f}s" for k in c["counts"]
                         if c["counts"][k])
             + f"; {secs:.3f}s in all, "
-              f"{1e3 * secs / TRAIN_MESH_STEPS:.1f} ms per step")
+              f"{1e3 * secs / TRAIN_MESH_STEPS:.1f} ms per step; "
+            + gather_note(c, TRAIN_MESH_STEPS, got["vocab_cut"]))
     log(f"  {label}: losses {['%.4f' % v for v in r0['losses']]} equal on "
         f"every rank")
 
@@ -4287,6 +4317,10 @@ def check_mesh_f32(label, single, ranks):
             f"the {len(ranks)} ranks: loss {le:.2e} (limit "
             f"{MESH_LOSS_RTOL}), grad norm {ge:.2e} (limit "
             f"{MESH_GNORM_RTOL}); {ranks[0]['step_s'][k]:.3f}s -> ok")
+    for r, got in enumerate(ranks):
+        log(f"  {label} rank {r}: "
+            + gather_note(got["collectives"], MESH_F32_STEPS,
+                          got["vocab_cut"]))
 
 
 def run_train_meshes(torch, dev):
@@ -4337,7 +4371,9 @@ def run_train_meshes(torch, dev):
                         + f" ms per step; peak {tr['peak_gib']:.2f} GiB; "
                         + ", ".join(f"{k} {c['counts'][k]} / {c[k]} B / "
                                     f"{c['seconds'][k]:.3f}s"
-                                    for k in c["counts"] if c["counts"][k]))
+                                    for k in c["counts"] if c["counts"][k])
+                        + "; " + gather_note(c, EP_TRAIN["steps"],
+                                             tr["vocab_cut"]))
             else:
                 log_mesh_train(label, outs, i)
 
@@ -4839,11 +4875,14 @@ def sp_step_f32(torch, dev, mesh, label, dtype="float32", run=None):
             raise AssertionError(f"{label}: the step needs a (1, M) mesh")
         if fn is not None:
             fn.launches = 0
+        collectives.reset_stats()
         with contextlib.ExitStack() as stack:
             hs = stack.enter_context(probing(torch)).hs if probe else []
             stack.enter_context(shd.use_plan(plan))
             total, _, _ = model_lib.loss_terms(params, cfg, batch)
             total.backward()
+        out[key + " gathers"] = gather_note(collectives.stats(), 1,
+                                            plan.vocab_tp(cfg))
         if seq and fn is not None:
             out["launches"] = fn.launches
         masks[key] = [collectives.all_gather((h > 0).to(torch.uint8),
@@ -4928,7 +4967,7 @@ def sp_decode_rank(torch, dev, mesh):
     here = attn_rows(local)[0].shape[2]
     first = mesh.coord("data") * here
     out = dict(cache_rows=plan.cache_rows, first=first, here=here,
-               logits=[], changed=[])
+               logits=[], changed=[], vocab_cut=plan.vocab_tp(cfg))
     collectives.reset_stats()
     for t in toks:
         before = [a.clone() for a in attn_rows(local)]
@@ -4984,12 +5023,16 @@ def check_sp_counts(plain, sp, layers):
     and each open an all-gather in the forward and a reduce-scatter in
     the backward, in place of plain TP's two all-reduces a region; each
     of the two norms adds an all-reduce (its scale's gradient), and the
-    stack's two ends an all-gather each."""
+    stack's two ends an all-gather each. The embedding's partial rows
+    (its vocab cut over 'model') close with a reduce-scatter in place of
+    an all-reduce, its backward the first end's all-gather."""
     a, b = plain["counts"], sp["counts"]
     n = TRAIN_MESH_STEPS
-    want = {"reduce-scatter": 4 * layers * n,
+    embed = 1 if sp["vocab_cut"] else 0
+    want = {"reduce-scatter": (4 * layers + embed) * n,
             "all-gather": a["all-gather"] + (4 * layers + 2) * n,
-            "all-reduce": a["all-reduce"] - 4 * layers * n + 2 * layers * n}
+            "all-reduce": a["all-reduce"] - (4 * layers + embed) * n
+            + 2 * layers * n}
     got = {k: b[k] for k in want}
     if got != want or a["reduce-scatter"]:
         raise AssertionError(f"SP collectives {got}, expected {want} "
@@ -5089,6 +5132,8 @@ def check_sp_f32(res):
             + (f", flips within {SP_FLIP_REL}" if relu else "")
             + f"); {r0['kernel']} launched {r0['launches']} times a rank "
             f"(= per layer x {SP_F32_LAYERS}) -> ok")
+        log(f"  f32 sp {label} {SP_MESH} rank 0: SP {r0['sp gathers']}; "
+            f"plain TP {r0['tp gathers']}")
 
 
 def check_sp_train(res, layers):
@@ -5102,7 +5147,9 @@ def check_sp_train(res, layers):
         if not losses[-1] < losses[0]:
             raise AssertionError(f"{label}: losses {losses} do not fall")
     for r, (a, b) in enumerate(zip(plain, sp)):
-        check_sp_counts(a["collectives"], b["collectives"], layers)
+        check_sp_counts(a["collectives"], dict(b["collectives"],
+                                                vocab_cut=b["vocab_cut"]),
+                        layers)
         ms = [1e3 * float(np.mean(o["dts"][1:])) for o in (a, b)]
         secs = [sum(o["collectives"]["seconds"].values()) for o in (a, b)]
         rel = max(abs(x - y) / abs(y) for x, y in
@@ -5113,7 +5160,8 @@ def check_sp_train(res, layers):
             f"peak {b['peak_gib']:.2f} against {a['peak_gib']:.2f} GiB; "
             f"losses within {rel:.2e} of plain TP's; every row-parallel "
             f"close a reduce-scatter, every column-parallel open an "
-            f"all-gather ({4 * layers} reduce-scatters a step) -> ok")
+            f"all-gather ({4 * layers} reduce-scatters a step, and the "
+            f"vocab-cut embedding's close) -> ok")
 
 
 def check_row_cut_decode(ranks):
@@ -5150,7 +5198,9 @@ def check_row_cut_decode(ranks):
         f"{length}: logits within {worst:.2e} of their scale of the "
         f"whole-cache decode's (limit {SP_F32_REL}); each new row written "
         f"by its owner alone; {2 * steps} all-gathers of the softmax "
-        f"states a rank -> ok")
+        f"states a rank; "
+        + gather_note(ranks[0]["collectives"], steps, ranks[0]["vocab_cut"])
+        + " -> ok")
 
 
 # ------------------- phase 17: the tensor-parallel Mamba2 mixer on a mesh
@@ -5171,9 +5221,11 @@ def check_row_cut_decode(ranks):
 SSM_TP_MESH = (1, 2)
 SSM_TP_ARCH = "mamba2-2.7b"
 SSM_TP_LAYERS = 4
-# 2 decode steps: a sharded step gathers the embedding and the head whole
-# (``TrainPlan.top``), ~0.9 GB a step through the host in f32.
-SSM_TP_CACHED = dict(batch=4, prompt=256, rows=512, steps=2, seed=17)
+# 4 decode steps: a sharded step computes its vocab columns of the
+# logits and gathers those (4 x 16000 f32 a rank), not the embedding and
+# head (0.9 GB in f32, which held it to 2 steps before the vocab ran
+# cut).
+SSM_TP_CACHED = dict(batch=4, prompt=256, rows=512, steps=4, seed=17)
 SSM_TP_JOBS = ("train bf16", "train bf16 sp", "step f32", "zamba2 float32",
                "zamba2 bfloat16")
 # The f32 runs against one rank's: the loss and the grad norm within
@@ -5227,7 +5279,7 @@ def ssm_tp_train(torch, dev, mesh, seq_shard):
     return dict(losses=[h["loss"] for h in hist],
                 dts=[h["dt"] for h in hist], peak_gib=peak_gib(torch),
                 collectives=collectives.stats() if mesh is not None
-                else None)
+                else None, vocab_cut=vocab_cut(cfg, res["params"]))
 
 
 def ssm_tp_step_f32(torch, dev, mesh):
@@ -5291,9 +5343,11 @@ def ssm_tp_step_f32(torch, dev, mesh):
                 cfg, TRAIN["seq"]) != seq:
             raise AssertionError("phase 17: the step needs a (1, M) mesh "
                                  "whose M divides the heads")
+        collectives.reset_stats()
         with shd.use_plan(plan):
             total, _, _ = model_lib.loss_terms(params, cfg, batch)
             total.backward()
+        gathers = gather_note(collectives.stats(), 1, plan.vocab_tp(cfg))
         grads = [p.grad for p in leaves]
         mine = [shd.shard_of(w, s, mesh, mesh.rank)
                 for w, s in zip(want, specs)]
@@ -5312,7 +5366,7 @@ def ssm_tp_step_f32(torch, dev, mesh):
             gnorm=abs(norm(grads, specs) - norm(want)) / norm(want),
             elem=max(elem), worst=int(np.argmax(elem)),
             excess=max(excess), worst_excess=int(np.argmax(excess)),
-            n=len(want), value=float(loss))
+            n=len(want), value=float(loss), gathers=gathers)
         del params, leaves, grads
         torch.cuda.empty_cache()
     return out
@@ -5331,6 +5385,7 @@ def ssm_tp_cached(torch, dev, mesh, dtype):
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
     from repro_torch.models import model as model_lib
+    from repro_torch.parallel import collectives
     from repro_torch.parallel import sharding as shd
     c = SSM_TP_CACHED
     t0 = time.perf_counter()
@@ -5357,6 +5412,8 @@ def ssm_tp_cached(torch, dev, mesh, dtype):
             t = shd.shard_of(t, rows, mesh, mesh.rank).to(dev) if plan \
                 else t.to(dev)
             torch.cuda.synchronize()
+            if plan is not None and i == 1:  # the decode steps'
+                collectives.reset_stats()
             t0 = time.perf_counter()
             with torch.no_grad(), shd.use_plan(plan):
                 lg, caches, _ = model_lib.forward(params, cfg,
@@ -5379,6 +5436,8 @@ def ssm_tp_cached(torch, dev, mesh, dtype):
     local = shd.cut_tree(whole_caches, cspecs, mesh, mesh.rank)
     rows = (axes, None)
     logits, dts, local, launches = run(params, local, plan, rows)
+    gathers = gather_note(collectives.stats(), c["steps"],
+                          plan.vocab_tp(cfg))
     logits = [g.cpu().numpy() for g in gather_whole(
         logits, [rows] * len(logits), mesh)]
     h, conv, hspec = [], [], []
@@ -5394,7 +5453,8 @@ def ssm_tp_cached(torch, dev, mesh, dtype):
                launches=launches, h_shapes=[tuple(x.shape) for x in h],
                h_specs=hspec, conv=conv,
                h=[x.cpu().numpy() for x in gather_whole(h, hspec, mesh)],
-               logits=logits, peak_gib=peak_gib(torch), steps_s=steps)
+               logits=logits, peak_gib=peak_gib(torch), steps_s=steps,
+               gathers=gathers)
     if mesh.rank != 0:
         out.update(h=None, logits=None)
         return out
@@ -5456,7 +5516,8 @@ def check_ssm_tp_train(res, single):
                             f"{c['seconds'][k]:.3f}s" for k in c["counts"]
                             if c["counts"][k])
                 + f"; losses {['%.4f' % v for v in got['losses']]} (one "
-                  f"rank {['%.4f' % v for v in one['losses']]})")
+                  f"rank {['%.4f' % v for v in one['losses']]}); "
+                + gather_note(c, TRAIN_MESH_STEPS, got["vocab_cut"]))
         if not ranks[0]["collectives"]["counts"]["reduce-scatter"]:
             raise AssertionError(f"{label}: no reduce-scatter: the mixer's "
                                  "columns were not gathered with a summed "
@@ -5484,6 +5545,8 @@ def check_ssm_tp_train(res, single):
             f"{w['one64']:.3f} of it); {x:.3f} of the allowance against "
             f"one rank's f32 step (rtol {tol['rtol']}, atol "
             f"{tol['atol']}: logged) -> ok")
+        log(f"  f32 {name} step on {SSM_TP_MESH}, every rank: "
+            + "; ".join(r[key]["gathers"] for r in res["step f32"]))
 
 
 def check_ssm_tp_cached(res):
@@ -5549,6 +5612,9 @@ def check_ssm_tp_cached(res):
             f"both ranks; {note}; peak {r0['peak_gib']:.2f} GiB; init, "
             f"prefill, run, one rank's prefill, run "
             f"{[round(x, 2) for x in r0['steps_s']]} s -> ok")
+        for r, got in enumerate(ranks):
+            log(f"  {job} {SSM_TP_MESH} rank {r} decode: {got['gathers']}; "
+                f"peak {got['peak_gib']:.2f} GiB")
 
 
 def ssm_tp_glu_launches(M):

@@ -43,7 +43,8 @@ from repro_torch.parallel import sharding as shd
 
 # Values of the f32 head product computed per slice of vocab columns:
 # bounds the f32 copy of a bf16 head (the whole of DeepSeek-V3's would be
-# 3.7 GB) to 128 MB.
+# 3.7 GB) to 128 MB, and the columns an f32 sum of the product's
+# gradient runs over.
 HEAD_SLICE_VALUES = 1 << 25
 
 
@@ -108,43 +109,102 @@ def params_device(params) -> torch.device:
 
 
 # ----------------------------------------------------------------- forward
+def _rows(table: torch.Tensor, ids: torch.Tensor, lo: Optional[int]
+          ) -> torch.Tensor:
+    """``table[ids]``; with ``lo`` the table holds the vocab rows from id
+    ``lo`` on (this rank's slice), and an id outside them gives a zero
+    row."""
+    if lo is None:
+        return table[ids.long()]
+    local = ids.long() - lo
+    mine = (local >= 0) & (local < table.shape[0])
+    rows = table[torch.where(mine, local, 0)]
+    return torch.where(mine[..., None], rows, rows.new_zeros(()))
+
+
+def _close_rows(x: torch.Tensor, sp: bool, mesh) -> torch.Tensor:
+    """The ranks' partial embedding rows summed over 'model' (each row
+    has one owner; the others add zeros); with ``sp`` the sum is cut
+    along the sequence as it closes (one reduce-scatter). The cotangent
+    reaches every rank's partial whole, so the lookup's gradient stays
+    on this rank's slice."""
+    from repro_torch.parallel import collectives  # noqa: PLC0415
+    if sp:
+        return collectives.sp_close(x, shd.SEQ_AXIS, 1, mesh)
+    return collectives.tp_close(x, "model", mesh)
+
+
 def _embed(params, cfg: ArchConfig, tokens: torch.Tensor,
-           patch_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+           patch_embeds: Optional[torch.Tensor], plan=None,
+           sp: bool = False) -> torch.Tensor:
     """(B, S, d) input rows. Audio: the K codebooks' embeddings summed in
     codebook order. Vlm: the patch embeddings prepended when given
-    (prefill and training; decode steps pass tokens only)."""
+    (prefill and training; decode steps pass tokens only).
+
+    Under a ``plan`` whose vocab is cut (:meth:`TrainPlan.vocab_tp`) each
+    rank looks up only the ids of its vocab slice (audio: summed over
+    the codebooks on the rank) and the partial rows are summed over
+    'model' (:func:`_close_rows`). With ``sp`` (sequence parallelism)
+    this rank's slice of the sequence is returned: cut as the rows close
+    where nothing is prepended, else after the patches are (the
+    reference's order)."""
+    vocab_cut = plan is not None and plan.vocab_tp(cfg)
+    lo = plan.vocab_first(cfg) if vocab_cut else None
     if cfg.frontend == "codes":
-        emb = params["embed"]  # (K, V, d)
+        emb = params["embed"]  # (K, V, d): this rank's (K, V / M, d)
         x = torch.zeros((tokens.shape[0], tokens.shape[2], cfg.d_model),
                         dtype=emb.dtype, device=emb.device)
         for k in range(cfg.num_codebooks):
-            x = x + emb[k][tokens[:, k, :].long()]
-        return x
-    x = params["embed"][tokens.long()]  # (B, S, d)
-    if cfg.frontend == "patches" and patch_embeds is not None:
+            x = x + _rows(emb[k], tokens[:, k, :], lo)
+    else:
+        x = _rows(params["embed"], tokens, lo)  # (B, S, d)
+    patches = cfg.frontend == "patches" and patch_embeds is not None
+    if lo is not None:
+        x = _close_rows(x, sp and not patches, plan.mesh)
+    if patches:
         x = torch.cat([patch_embeds.to(device=x.device, dtype=x.dtype), x],
                       dim=1)
+    if sp and (lo is None or patches):
+        from repro_torch.parallel import collectives  # noqa: PLC0415
+        x = collectives.seq_split(x, shd.SEQ_AXIS, 1, plan.mesh)
     return x
 
 
-def _logits(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+def _open_head(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The head's input, whose gradient is summed over 'model': each rank
+    scores it against its own vocab columns."""
+    from repro_torch.parallel import collectives  # noqa: PLC0415
+    return collectives.tp_open(x, "model", mesh)
+
+
+def _logits(params, cfg: ArchConfig, x: torch.Tensor, lo: int = 0
+            ) -> torch.Tensor:
     """f32 logits ``x @ head`` with the head upcast to f32, as in the
-    reference, one slice of vocab columns at a time so the f32 copy of a
-    low-precision head never exists whole. Audio: (B, S, K, V) from the
-    K heads, the reference's f32 ``bskv`` einsum."""
+    reference, one slice of vocab columns at a time. Audio: (B, S, K, V)
+    from the K heads, the reference's f32 ``bskv`` einsum.
+
+    The slices lie on one grid of HEAD_SLICE_VALUES // d columns from id
+    0, whatever part of the vocab the head holds (a head cut over its
+    vocab holds the ids from ``lo`` on). So the f32 copy of a
+    low-precision head never exists whole, the gradient of ``x`` sums
+    each slice's product on its own, and a rank of a vocab-parallel step
+    computes one rank's slice products, a slice cut by its edges
+    aside."""
     if cfg.frontend == "codes":
         return torch.einsum("bsd,kdv->bskv", x.float(),
                             params["heads"].float())
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
     xf = x.float()
-    if head.dtype == torch.float32:
-        return xf @ head
     d, V = head.shape
     step = max(1, HEAD_SLICE_VALUES // d)
+    edges = [0] + [c - lo for c in range((lo // step + 1) * step, lo + V,
+                                         step)] + [V]
+    if len(edges) == 2:
+        return xf @ head.float()
     out = torch.empty(x.shape[:-1] + (V,), dtype=torch.float32,
                       device=x.device)
-    for c in range(0, V, step):
-        out[..., c:c + step] = xf @ head[:, c:c + step].float()
+    for c0, c1 in zip(edges, edges[1:]):
+        out[..., c0:c1] = xf @ head[:, c0:c1].float()
     return out
 
 
@@ -201,16 +261,39 @@ def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     Under a plan with sequence parallelism (``TrainPlan.seq_parallel``)
     the stacks run on this rank's slice of the sequence: it is cut
     before the first block and gathered after the last, so the final
-    norm and the head run on the whole sequence on every model rank."""
+    norm and the head run on the whole sequence on every model rank.
+    Under a plan whose vocab is cut (``TrainPlan.vocab_tp``) each rank
+    computes its own vocab columns of the logits, which are then
+    gathered whole along the vocab (the weights never are)."""
+    logits, new_caches, aux, cut = _forward(
+        params, cfg, batch, caches, last_only=last_only,
+        attn_kernel=attn_kernel, continuation=continuation)
+    if cut is not None:
+        from repro_torch.parallel import collectives  # noqa: PLC0415
+        logits = collectives.gather_on_use(logits, "model", logits.dim() - 1,
+                                           cut.mesh)
+    return logits, new_caches, aux
+
+
+def _forward(params, cfg: ArchConfig, batch, caches=None, *,
+             last_only=False, attn_kernel="gather", continuation=False):
+    """:func:`forward` with the logits as this rank computes them: its
+    vocab columns under a plan whose vocab is cut. Returns (logits,
+    new_caches, aux, that plan or None)."""
     check_family(cfg)
     plan = shd.current_plan()
     if plan is not None:
-        params = plan.top(params)  # embed / head gathered on use
-    x = _embed(params, cfg, batch["tokens"], batch.get("patch_embeds"))
+        params = plan.top(params, cfg)  # embed / head gathered unless cut
+    cut = plan if plan is not None and plan.vocab_tp(cfg) else None
+    tokens, patch_embeds = batch["tokens"], batch.get("patch_embeds")
+    B, S = tokens.shape[0], tokens.shape[-1]
+    if cfg.frontend == "patches" and patch_embeds is not None:
+        S += patch_embeds.shape[1]
+    sp = plan is not None and plan.seq_parallel(cfg, S)
+    x = _embed(params, cfg, tokens, patch_embeds, plan, sp)
     active = batch.get("active")
     if active is not None:
         x = x * active.to(x.dtype)[:, None, None]
-    B, S = x.shape[0], x.shape[1]
     if caches is not None:
         offset = torch.broadcast_to(
             _cache_length(cfg, caches, B, x.device), (B,))
@@ -232,15 +315,12 @@ def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
         raise ValueError(
             f"batch['advance'] (bucketed prefill) is not supported for "
             f"family {cfg.family!r}; prefill at exact length instead")
-    sp = plan is not None and plan.seq_parallel(cfg, S)
-    if sp:
-        from repro_torch.parallel import collectives  # noqa: PLC0415
-        x = collectives.seq_split(x, shd.SEQ_AXIS, 1)
     x, new_caches, aux = _backbone(
         params, cfg, x, positions, caches, active=active,
         block_tables=batch.get("block_tables"), advance=advance,
         attn_kernel=attn_kernel, continuation=continuation)
     if sp:
+        from repro_torch.parallel import collectives  # noqa: PLC0415
         x = collectives.seq_gather(x, shd.SEQ_AXIS, 1)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if last_only:
@@ -250,8 +330,11 @@ def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
                 x, 1, li[:, None, None].expand(B, 1, x.shape[-1]))
         else:
             x = x[:, -1:]
-    logits = _logits(params, cfg, x)
-    return logits, new_caches, aux
+    lo = 0
+    if cut is not None:  # f32, as the product is: its gradient sums in f32
+        x = _open_head(x.float(), cut.mesh)
+        lo = cut.vocab_first(cfg)
+    return _logits(params, cfg, x, lo), new_caches, aux, cut
 
 
 def loss_fn(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
@@ -264,6 +347,45 @@ def loss_fn(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
     return total, metrics
 
 
+def _sum_exp(lg: torch.Tensor, m: torch.Tensor, mesh) -> torch.Tensor:
+    """sum(exp(lg - m)) over the last dim and over the ranks' vocab
+    columns on 'model'."""
+    from repro_torch.parallel import collectives  # noqa: PLC0415
+    return collectives.tp_close(torch.exp(lg - m[..., None]).sum(-1),
+                                "model", mesh)
+
+
+def _target_logit(lg: torch.Tensor, targets: torch.Tensor, lo: int, mesh
+                  ) -> torch.Tensor:
+    """``lg[..., targets]`` where ``lg`` holds the vocab columns from id
+    ``lo`` on: the rank that holds a target gives its logit, the others
+    zero, summed over 'model'."""
+    from repro_torch.parallel import collectives  # noqa: PLC0415
+    local = targets - lo
+    mine = (local >= 0) & (local < lg.shape[-1])
+    t = torch.gather(lg, -1, torch.where(mine, local, 0)[..., None])[..., 0]
+    return collectives.tp_close(torch.where(mine, t, t.new_zeros(())),
+                                "model", mesh)
+
+
+def _log_prob_at(lg: torch.Tensor, targets: torch.Tensor, cut, cfg
+                 ) -> torch.Tensor:
+    """log_softmax(lg)[..., targets] over the last dim. Under a plan
+    ``cut`` whose vocab is cut, ``lg`` holds this rank's columns and the
+    softmax runs over the ranks': the row max over 'model' (no gradient),
+    the sum of exps and the target's logit each summed over 'model' with
+    the cotangent passed to every rank's partial, so this rank's logits
+    get ``softmax - onehot`` on its own columns."""
+    if cut is None:
+        lse = torch.log_softmax(lg, dim=-1)
+        return torch.gather(lse, -1, targets[..., None])[..., 0]
+    from repro_torch.parallel import collectives  # noqa: PLC0415
+    m = collectives.pmax(lg.detach().amax(-1), "model", cut.mesh)
+    se = _sum_exp(lg, m, cut.mesh)
+    t = _target_logit(lg, targets, cut.vocab_first(cfg), cut.mesh)
+    return (t - m) - torch.log(se)
+
+
 def loss_terms(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], dict]:
     """:func:`loss_fn` plus the forward's aux record (its skip counters).
@@ -272,14 +394,15 @@ def loss_terms(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
     numerator and the denominator of the masked mean are summed over the
     batch axes (never the shards' means, which differ under a mask), so
     every rank gets the global loss; its gradient is the share that the
-    step's average of the ranks' gradients turns into the global one."""
-    logits, _, aux = forward(params, cfg, batch)
+    step's average of the ranks' gradients turns into the global one.
+    Where the plan cuts the vocab, the cross-entropy runs on this rank's
+    vocab columns (:func:`_log_prob_at`)."""
+    logits, _, aux, cut = _forward(params, cfg, batch)
     tokens = batch["tokens"].long()
     if cfg.frontend == "codes":
         targets = tokens[:, :, 1:]  # (B, K, S-1)
-        lse = torch.log_softmax(logits[:, :-1], dim=-1)  # (B, S-1, K, V)
-        ll = torch.gather(lse, -1, targets.permute(0, 2, 1)[..., None]
-                          )[..., 0]  # (B, S-1, K)
+        ll = _log_prob_at(logits[:, :-1], targets.permute(0, 2, 1), cut,
+                          cfg)  # (B, S-1, K)
         mask = torch.ones(ll.shape[:2], dtype=torch.float32,
                           device=ll.device)
         if "loss_mask" in batch:
@@ -288,9 +411,7 @@ def loss_terms(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
     else:
         if cfg.frontend == "patches":
             logits = logits[:, batch["patch_embeds"].shape[1]:]  # text
-        targets = tokens[:, 1:]
-        lse = torch.log_softmax(logits[:, :-1], dim=-1)
-        ll = torch.gather(lse, -1, targets[..., None])[..., 0]
+        ll = _log_prob_at(logits[:, :-1], tokens[:, 1:], cut, cfg)
         mask = torch.ones_like(ll)
         if "loss_mask" in batch:
             mask = batch["loss_mask"][:, 1:].to(ll.dtype)

@@ -8,6 +8,7 @@ on the mesh (``mesh.stats``), with the reference's five kinds and its
 operand-byte convention:
 
     psum            all-reduce          operand == result
+    pmax            all-reduce          operand == result
     all_gather      all-gather          operand == result / n
     reduce_scatter  reduce-scatter      operand == result * n
     broadcast       collective-permute  operand == the tensor (counted
@@ -50,11 +51,13 @@ gradient by n). Every one of them counts like its plain twin, in its
 forward and in its backward:
 
     tp_close        forward all-reduce, backward identity (closes a
-                    row-sharded product: each rank's partial gets the
-                    cotangent of the sum)
+                    row-sharded product, the vocab-cut embedding's
+                    partial rows and the vocab-parallel loss's sums:
+                    each rank's partial gets the cotangent of the sum)
     tp_open         forward identity, backward all-reduce (opens a
-                    tensor-parallel block: the ranks use the replicated
-                    input differently, so its gradient is summed once)
+                    tensor-parallel block or the vocab-cut head: the
+                    ranks use the replicated input differently, so its
+                    gradient is summed once)
     gather_on_use   forward all-gather along a dim, backward this rank's
                     slice of the gradient (every rank computes the
                     gathered layer identically)
@@ -185,6 +188,23 @@ def psum(x: torch.Tensor, axes, mesh: Optional[Mesh] = None
     t0 = time.perf_counter()
     if not m.trace:
         dist.all_reduce(y, group=group)
+    _count(m, "all-reduce", _nbytes(y), t0)
+    return y
+
+
+def pmax(x: torch.Tensor, axes, mesh: Optional[Mesh] = None
+         ) -> torch.Tensor:
+    """The elementwise max of ``x`` over the ranks of ``axes``, IN PLACE
+    where x is contiguous; no gradient (a caller detaches it first).
+    Every rank of the group gets the same bits."""
+    m = _mesh(mesh)
+    group, n = _group(m, axes)
+    if n == 1:
+        return x
+    y = x.contiguous()
+    t0 = time.perf_counter()
+    if not m.trace:
+        dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
     _count(m, "all-reduce", _nbytes(y), t0)
     return y
 

@@ -27,9 +27,12 @@ slices are exactly its tensor-parallel slices computes them; the Mamba2
 mixer runs this rank's heads, reaching the columns they need of its
 contiguously cut ``in_proj`` and conv through a gather whose gradient
 is summed (``models/ssm.py``); MLA's down-projections multiply by their
-stored column slices and gather the latents; every other sharded leaf
-is gathered on use. The reference's ``constrain`` (a hint to GSPMD) has
-no counterpart: manual SPMD places every collective itself.
+stored column slices and gather the latents; the embedding, the head
+and the audio heads, stored cut over their vocab, run vocab-parallel
+(``models/model.py``: each rank looks up, scores and normalizes over its
+own vocab slice, and the loss sums over 'model'); every other sharded
+leaf is gathered on use. The reference's ``constrain`` (a hint to
+GSPMD) has no counterpart: manual SPMD places every collective itself.
 
 :class:`Mesh` is the port's mesh: an axis -> size map, the row-major
 rank grid (rank 0 is every axis' index 0) and, on an initialized
@@ -534,8 +537,9 @@ class TrainPlan:
     MLA when the heads do (its down-projections multiply by their stored
     column slices, the latents then gathered whole), the MLP when
     ``d_ff`` does, the Mamba2 mixer when its heads do
-    (:meth:`mixer_tp`). Every other sharded leaf is gathered on use
-    (``collectives.gather_on_use``).
+    (:meth:`mixer_tp`), and the embedding, head and audio heads when
+    the vocab does (:meth:`vocab_tp`). Every other sharded leaf is
+    gathered on use (``collectives.gather_on_use``).
 
     Sequence parallelism (:meth:`seq_parallel`) cuts the residual stream
     along the sequence over 'model' between blocks. ``cache_rows`` are
@@ -601,6 +605,19 @@ class TrainPlan:
         H = s.expand * cfg.d_model // s.head_dim // self.model
         return self.mesh.coord("model") * H, H
 
+    def vocab_tp(self, cfg: ArchConfig) -> bool:
+        """Whether the embedding, the head and the audio heads run on
+        this rank's vocab slice: the model size M > 1 divides the vocab,
+        the rule by which :func:`param_spec` stores them cut. Else they
+        are stored whole and read whole."""
+        return self.model > 1 and cfg.vocab_size % self.model == 0
+
+    def vocab_first(self, cfg: ArchConfig) -> int:
+        """The first id of this rank's vocab slice under :meth:`vocab_tp`:
+        the slice is the r-th of M equal runs of the vocab, r this rank's
+        'model' index."""
+        return self.mesh.coord("model") * (cfg.vocab_size // self.model)
+
     def seq_parallel(self, cfg: ArchConfig, seq: int) -> bool:
         """Whether the residual stream of a ``seq``-long sequence lives
         cut along the sequence over 'model' between blocks: the
@@ -655,10 +672,14 @@ class TrainPlan:
             return type(tree)(self.gather_tree(v) for v in tree)
         return self.gather(tree)
 
-    def top(self, params: dict) -> dict:
+    def top(self, params: dict, cfg: ArchConfig) -> dict:
         """The top-level leaves the forward reads outside the stacks
-        (embed, head, heads) gathered; the stacks as they are."""
+        (embed, head, heads): this rank's vocab slices as stored where
+        they run vocab-parallel (:meth:`vocab_tp`), else gathered (a
+        leaf stored whole passes unchanged); the stacks as they are."""
         out = dict(params)
+        if self.vocab_tp(cfg):
+            return out
         for k in ("embed", "head", "heads"):
             if k in out:
                 out[k] = self.gather_tree(out[k])

@@ -24,6 +24,11 @@ trace mesh's collective counters, against the reference.
   block's cache rows cut over 'data') counts one all-gather of the
   softmax states a shared-block application, the merge a whole-cache
   decode needs.
+- ``smollm-135m train_4k`` on ``--mesh 2,4 --no-extrapolate`` runs its
+  tied embedding and head on each rank's vocab slice: its argument
+  bytes equal the reference's shard shapes, its temp and FLOPs a rank
+  fall against the gathered embedding's, and the embedding's all-gather
+  is gone from its collectives.
 - ``mamba2-2.7b train_4k`` on ``--mesh 2,4 --no-extrapolate`` runs the
   mixer on each rank's heads: its argument bytes equal the reference's
   shard shapes, its temp and FLOPs a rank fall against the gathered
@@ -306,6 +311,32 @@ def test_mamba2_train_cell_runs_each_ranks_heads(cpu_mesh):
     assert res["memory"]["temp_size_in_bytes"] < MAMBA2_GATHERED["temp"]
     assert res["cost_scanned"]["flops"] < 0.4 * MAMBA2_GATHERED["flops"]
     assert res["collectives_scanned"]["counts"]["reduce-scatter"] > 0
+
+
+# The same cell with every model rank reading the embedding whole (the
+# tree before the vocab ran cut): its temp and FLOPs a rank, and its
+# all-gathers (each layer's 4 attention leaves, 2 KV heads over 4 ranks,
+# and the embedding's bf16 slice of 12288 x 576).
+SMOLLM_GATHERED = dict(temp=8068820237848, flops=680477438509056.0,
+                       all_gather=27426816, all_gather_calls=121)
+
+
+def test_smollm_train_cell_runs_the_vocab_cut(cpu_mesh):
+    """smollm-135m train_4k on (2, 4): the argument bytes equal the
+    reference's shard shapes (the stored slices are unchanged); a rank's
+    temp and FLOPs fall below those of the cell that gathered the tied
+    embedding whole, and its all-gathers lose exactly that gather."""
+    res = _cell("smollm-135m", "train_4k", "2,4", "--no-extrapolate")
+    assert res["status"] == "ok"
+    assert (res["memory"]["argument_size_in_bytes"]
+            == _ref_train_bytes("smollm-135m"))
+    assert res["memory"]["temp_size_in_bytes"] < SMOLLM_GATHERED["temp"]
+    assert res["cost_scanned"]["flops"] < SMOLLM_GATHERED["flops"]
+    cfg = get_config("smollm-135m")
+    c = res["collectives_scanned"]
+    assert c["counts"]["all-gather"] == SMOLLM_GATHERED["all_gather_calls"] - 1
+    assert c["all-gather"] == (SMOLLM_GATHERED["all_gather"]
+                               - cfg.vocab_size // 4 * cfg.d_model * 2)
 
 
 def _port_h_bytes(caches):

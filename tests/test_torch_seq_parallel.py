@@ -272,7 +272,10 @@ def test_trace_mesh_swaps_all_reduces_for_reduce_scatter_and_all_gather():
     forward, the open's backward) for a reduce-scatter, and add an
     all-gather (the open's forward, the close's backward); the gathered
     attention adds an all-gather each way, each norm's scale an
-    all-reduce, and the stack's two ends an all-gather each."""
+    all-reduce, and the stack's two ends an all-gather each. The vocab
+    of 256 is cut over the 4 model ranks, so the embedding's partial
+    rows close with a reduce-scatter in place of an all-reduce (its
+    backward the first end's all-gather)."""
     cfg = ts.scenario_config(dict(arch="smollm-135m"))
     shape = ShapeConfig("t", 16, 4, "train")
     mesh = mesh_lib.trace_mesh((2, 4), ("data", "model"))
@@ -281,9 +284,11 @@ def test_trace_mesh_swaps_all_reduces_for_reduce_scatter_and_all_gather():
     sp = _trace_counts(dataclasses.replace(cfg, **SP), shape, mesh)
     L = cfg.num_layers
     closes = opens = L  # the MLP's, one of each a layer
-    assert sp["reduce-scatter"] == closes + opens
+    embed = 1  # the vocab-cut embedding's close
+    assert sp["reduce-scatter"] == closes + opens + embed
     assert plain["reduce-scatter"] == 0
-    assert sp["all-reduce"] == plain["all-reduce"] - (closes + opens) + 2 * L
+    assert sp["all-reduce"] == (plain["all-reduce"] - (closes + opens)
+                                + 2 * L - embed)
     assert sp["all-gather"] == (plain["all-gather"] + opens + closes
                                 + 2 * L + 2)
 

@@ -114,17 +114,19 @@ def _whole(caches, cspecs, mesh):
 
 def decode_tokens(cfg, spec: dict) -> list:
     rng = np.random.default_rng(spec.get("batch_seed", 0) + 1)
+    lead = (cfg.num_codebooks,) if cfg.frontend == "codes" else ()
     return [torch.from_numpy(t) for t in rng.integers(
-        0, cfg.vocab_size, (spec["steps"], spec.get("B", 4), 1)
+        0, cfg.vocab_size, (spec["steps"], spec.get("B", 4)) + lead + (1,)
     ).astype(np.int32)]
 
 
 # ------------------------------------------------- prefill and decode
 def run_cached(spec: dict, mesh=None) -> dict:
-    """The prefill (``kind`` "prefill") or the decode steps after a
-    one-host prefill (``kind`` "decode") of ``spec``, whole on one host
-    (``mesh`` None) or on this rank under its plan, the caches cut by
-    the dry run's layout for the shape."""
+    """The prefill (``kind`` "prefill"; its last position's logits only
+    with ``last_only``) or the decode steps after a one-host prefill
+    (``kind`` "decode") of ``spec``, whole on one host (``mesh`` None)
+    or on this rank under its plan, the caches cut by the dry run's
+    layout for the shape."""
     cfg = ts.scenario_config(spec)
     full = ts.scenario_params(cfg, spec)
     B, R = spec.get("B", 4), spec["rows"]
@@ -137,12 +139,13 @@ def run_cached(spec: dict, mesh=None) -> dict:
         caches = model_lib.init_caches(cfg, B, R, device="cpu")
     steps = ([{"tokens": t} for t in decode_tokens(cfg, spec)] if decode
              else [prompt])
+    last = dict(last_only=spec.get("last_only", False))
     out = {"logits": []}
     if mesh is None:
         for batch in steps:
             with torch.no_grad():
                 logits, caches, _ = model_lib.forward(full, cfg, batch,
-                                                      caches)
+                                                      caches, **last)
             out["logits"].append(ts._np([logits])[0])
         out["caches"] = ts._np([leaf for _, leaf, _ in
                                 _pairs(caches, caches)])
@@ -160,7 +163,8 @@ def run_cached(spec: dict, mesh=None) -> dict:
         batch = {k: shd.shard_of(v, bspecs[k], mesh, mesh.rank)
                  for k, v in whole.items()}
         with torch.no_grad(), shd.use_plan(plan):
-            logits, caches, _ = model_lib.forward(params, cfg, batch, caches)
+            logits, caches, _ = model_lib.forward(params, cfg, batch, caches,
+                                                  **last)
         lspec = ((axes,) if axes else (None,)) + (None,) * (logits.dim() - 1)
         out["logits"].append(ts._np(ckpt.gather_whole(
             [logits], [lspec], mesh))[0])
