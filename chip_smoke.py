@@ -5234,14 +5234,21 @@ SSM_TP_JOBS = ("train bf16", "train bf16 sp", "step f32", "zamba2 float32",
 # SP_F32_REL of its largest magnitude. The mesh tests' elementwise
 # allowance (2e-4 of each value plus 2e-6 of its leaf's largest; "rtol",
 # "atol") is not met at these widths by one rank's own f32 step against
-# the same step with its products in f64 (up to 3.6 times it, A_log's
-# and dt_bias's gradients the most; tools/ssm_tp_witness.py). So each
-# gradient of the mesh's f32 step is held to that f64 step instead: it
-# may use at most SSM_TP_F64 times the allowance that one rank's f32
-# step uses there (counted as at least 1: the whole allowance). A lost
-# sum over the ranks uses thousands of it.
+# the same step with its products in f64 (up to 3.6 times it at one
+# element of A_log's and dt_bias's gradients, whose SSD scan runs in f32
+# in both; tools/ssm_tp_witness.py). The largest share at one element
+# is a ratio of two rounding errors where a gradient is near 0, and
+# moves by 2x between equivalent sound steps; and the mesh's f64 step
+# differs from one rank's by as much, its f32 scan cut otherwise. So
+# each f32 step is held to the f64 step of its own layout, by its whole
+# rounding error (the 2-norm over a gradient leaf): the mesh's at most
+# SSM_TP_F64 times one rank's. The two f64 steps are held to each other:
+# the mesh's within SSM_TP_FLOOR of the 2-norm of the allowance over the
+# leaf of one rank's. A lost sum over the ranks misses the second by
+# thousands, a loss of precision the first.
 SSM_TP_TOL = dict(loss=2e-6, gnorm=2e-6, rtol=2e-4, atol=2e-6)
 SSM_TP_F64 = 2.0
+SSM_TP_FLOOR = 1.0
 # The dry run's mamba2-2.7b train_4k on (2, 4) with every model rank
 # computing all 80 heads of the gathered mixer (the tree before the
 # mixer ran tensor-parallel; tests/test_torch_dryrun.py holds the same).
@@ -5289,11 +5296,13 @@ def ssm_tp_step_f32(torch, dev, mesh):
     model (which every rank runs, then takes its slices of): the loss's
     and grad norm's relative errors, and on this rank's slice of each
     gradient its largest error over the whole leaf's largest magnitude
-    (elem) and over SSM_TP_TOL's allowance (excess); and each
-    gradient's share of the allowance against one rank's step with its
-    products in f64 (the scan, dt and the norms at the model's f32
-    dtype points) over one rank's f32 step's share there, at least 1
-    (f64: held to SSM_TP_F64)."""
+    (elem) and over SSM_TP_TOL's allowance (excess); and, against one
+    rank's step with its products in f64 (the scan, dt and the norms at
+    the model's f32 dtype points) and the mesh's, each gradient's f32
+    rounding error on the mesh over one rank's (f64: held to
+    SSM_TP_F64), and the mesh's f64 step's distance from one rank's
+    over the allowance (floor: held to SSM_TP_FLOOR); all 2-norms over
+    the whole leaf (:func:`rounding_ratios`)."""
     from repro_torch.models import model as model_lib
     from repro_torch.models import modules
     from repro_torch.models.modules import iter_leaves
@@ -5315,10 +5324,7 @@ def ssm_tp_step_f32(torch, dev, mesh):
         wide = model_lib.init_params(wide_cfg, seed=TRAIN["seed"],
                                      device=dev)
     _, want64 = value_and_grads(torch, wide_cfg, wide, batch)
-    del wide
     scales64 = [float(w.abs().max()) for w in want64]
-    one64 = [max(1.0, allowance_used(w, w64))
-             for w, w64 in zip(want, want64)]
 
     def norm(gs, specs=None):
         sq = torch.zeros((), dtype=torch.float64, device=dev)
@@ -5328,46 +5334,58 @@ def ssm_tp_step_f32(torch, dev, mesh):
                 s = collectives.psum(s.reshape(1), "model", mesh)[0]
             sq = sq + s
         return math.sqrt(float(sq))
-    out = {}
-    for seq in (False, True):
-        cfg = ssm_tp_config("float32", seq_shard=seq)
-        params, tree = shd.train_shard_params(full, mesh)
-        specs = list(shd.iter_leaves_specs(tree))
+    def mesh_step(cfg, whole):
+        """This rank's loss, gradient slices, leaf specs and plan of one
+        step on ``mesh``."""
+        params, tree = shd.train_shard_params(whole, mesh)
         leaves = list(iter_leaves(params))
         for p in leaves:  # a replicated slice is the whole leaf itself
             p.grad = None
             p.requires_grad_(True)
         plan = shd.TrainPlan(mesh, cfg, tree, params,
                              shd.batch_axes(mesh, TRAIN["batch"]))
+        with shd.use_plan(plan):
+            total, _, _ = model_lib.loss_terms(params, cfg, batch)
+            total.backward()
+        return (total.detach(), [p.grad for p in leaves],
+                list(shd.iter_leaves_specs(tree)), plan)
+    out = {}
+    for seq in (False, True):
+        cfg = ssm_tp_config("float32", seq_shard=seq)
+        collectives.reset_stats()
+        total, grads, specs, plan = mesh_step(cfg, full)
         if not plan.mixer_tp(cfg) or plan.seq_parallel(
                 cfg, TRAIN["seq"]) != seq:
             raise AssertionError("phase 17: the step needs a (1, M) mesh "
                                  "whose M divides the heads")
-        collectives.reset_stats()
-        with shd.use_plan(plan):
-            total, _, _ = model_lib.loss_terms(params, cfg, batch)
-            total.backward()
         gathers = gather_note(collectives.stats(), 1, plan.vocab_tp(cfg))
-        grads = [p.grad for p in leaves]
+        _, grads64, _, _ = mesh_step(
+            ssm_tp_config("float64", seq_shard=seq), wide)
         mine = [shd.shard_of(w, s, mesh, mesh.rank)
                 for w, s in zip(want, specs)]
         excess = [allowance_used(g, w, scale=a)
                   for g, w, a in zip(grads, mine, scales)]
         elem = [float((g - w).abs().max()) / max(a, 1e-30)
                 for g, w, a in zip(grads, mine, scales)]
-        f64 = [allowance_used(g, shd.shard_of(w, s, mesh, mesh.rank),
-                              scale=a) / o
-               for g, w, s, a, o in zip(grads, want64, specs, scales64,
-                                        one64)]
+        read = []
+        for g, g64, w, w64, s, a in zip(grads, grads64, mine, want64,
+                                        specs, scales64):
+            sq = rounding_reading(g, g64, w, shd.shard_of(
+                w64, s, mesh, mesh.rank), a)
+            if "model" in shd.spec_axes(s):  # the whole leaf's
+                sq = collectives.psum(sq, "model", mesh)
+            read.append(rounding_ratios(sq))
+        f64 = [r[0] for r in read]
+        floor = [r[1] for r in read]
         out["sp" if seq else "tp"] = dict(
             f64=max(f64), worst_f64=int(np.argmax(f64)),
-            one64=max(one64),
-            loss=abs(float(total.detach()) - float(loss)) / abs(float(loss)),
+            floor=max(floor), worst_floor=int(np.argmax(floor)),
+            loss=abs(float(total) - float(loss)) / abs(float(loss)),
             gnorm=abs(norm(grads, specs) - norm(want)) / norm(want),
             elem=max(elem), worst=int(np.argmax(elem)),
             excess=max(excess), worst_excess=int(np.argmax(excess)),
             n=len(want), value=float(loss), gathers=gathers)
-        del params, leaves, grads
+        del grads, grads64
         torch.cuda.empty_cache()
     return out
 
@@ -5495,8 +5513,8 @@ def check_ssm_tp_train(res, single):
     rank, logged beside one rank's ms a step with its collectives and
     peak memory; the f32 step within SSM_TP_TOL's loss and grad norm
     limits of one rank's, each gradient within SP_F32_REL, and against
-    the f64 step within SSM_TP_F64 times one rank's f32 step's share of
-    the allowance."""
+    the f64 step within SSM_TP_F64 and SSM_TP_FLOOR
+    (:func:`rounding_ratios`)."""
     for job in ("train bf16", "train bf16 sp"):
         ranks, one = res[job], single[job]
         label = f"{SSM_TP_ARCH} ({SSM_TP_LAYERS} layers) {job[6:]} {SSM_TP_MESH}"
@@ -5527,24 +5545,29 @@ def check_ssm_tp_train(res, single):
         e = max((r[key] for r in res["step f32"]), key=lambda e: e["elem"])
         x = max(r[key]["excess"] for r in res["step f32"])
         w = max((r[key] for r in res["step f32"]), key=lambda e: e["f64"])
+        f = max((r[key] for r in res["step f32"]), key=lambda e: e["floor"])
         if not (e["loss"] <= tol["loss"] and e["gnorm"] <= tol["gnorm"]
-                and e["elem"] <= SP_F32_REL and w["f64"] <= SSM_TP_F64):
+                and e["elem"] <= SP_F32_REL and w["f64"] <= SSM_TP_F64
+                and f["floor"] <= SSM_TP_FLOOR):
             raise AssertionError(f"f32 {name} step on {SSM_TP_MESH}: {e}, "
-                                 f"f64 {w['f64']} (leaf {w['worst_f64']}) "
-                                 f"against one rank (limits {tol}, elem "
-                                 f"{SP_F32_REL}, f64 {SSM_TP_F64})")
+                                 f"f64 {w['f64']} (leaf {w['worst_f64']}), "
+                                 f"floor {f['floor']} (leaf "
+                                 f"{f['worst_floor']}) against one rank "
+                                 f"(limits {tol}, elem {SP_F32_REL}, f64 "
+                                 f"{SSM_TP_F64}, floor {SSM_TP_FLOOR})")
         log(f"  f32 {name} step {SSM_TP_ARCH} ({SSM_TP_LAYERS} layers) on "
             f"{SSM_TP_MESH}, loss {e['value']:.6f}: against one rank loss "
             f"{e['loss']:.2e}, grad norm {e['gnorm']:.2e} (limits "
             f"{tol['loss']}), all {e['n']} gradients within {e['elem']:.2e}"
             f" of their largest (limit {SP_F32_REL}; worst leaf "
-            f"{e['worst']}); against the f64 step each gradient uses at "
-            f"most {w['f64']:.3f} times one rank's f32 step's share of the "
-            f"mesh tests' allowance (limit {SSM_TP_F64}; worst leaf "
-            f"{w['worst_f64']}; one rank's f32 step up to "
-            f"{w['one64']:.3f} of it); {x:.3f} of the allowance against "
-            f"one rank's f32 step (rtol {tol['rtol']}, atol "
-            f"{tol['atol']}: logged) -> ok")
+            f"{e['worst']}); against the f64 step of its layout each "
+            f"gradient's rounding error is at most {w['f64']:.3f} "
+            f"times one rank's (limit {SSM_TP_F64}; worst leaf "
+            f"{w['worst_f64']}), the mesh's f64 step from one rank's at "
+            f"most {f['floor']:.3f} of the allowance (limit "
+            f"{SSM_TP_FLOOR}; worst leaf {f['worst_floor']}); {x:.3f} of "
+            f"the allowance at one element against one rank's f32 step "
+            f"(rtol {tol['rtol']}, atol {tol['atol']}: logged) -> ok")
         log(f"  f32 {name} step on {SSM_TP_MESH}, every rank: "
             + "; ".join(r[key]["gathers"] for r in res["step f32"]))
 
@@ -5643,6 +5666,32 @@ def allowance_used(got, want, tol=SSM_TP_TOL, scale=None):
                 1e-30)
     return float(((got - want).abs() / (
         tol["atol"] * scale + tol["rtol"] * want.abs())).max())
+
+
+def rounding_reading(got, got64, one, one64, scale64, tol=SSM_TP_TOL):
+    """The squared 2-norms behind phase 17's f64 reading of one gradient
+    slice, f64 (4,): the mesh's f32 slice ``got`` minus its f64 slice
+    ``got64``; one rank's f32 slice ``one`` minus its f64 slice
+    ``one64``; the mesh's f64 slice minus one rank's; and SSM_TP_TOL's
+    allowance (rtol |one64| plus atol of the whole leaf's largest,
+    ``scale64``). Summed over the ranks that hold a leaf's slices,
+    :func:`rounding_ratios` reads them."""
+    import torch
+    got, got64, one, one64 = (torch.as_tensor(t).double()
+                              for t in (got, got64, one, one64))
+    allow = tol["atol"] * max(scale64, 1e-30) + tol["rtol"] * one64.abs()
+    return torch.stack([torch.sum(d ** 2) for d in (
+        got - got64, one - one64, got64 - one64, allow)])
+
+
+def rounding_ratios(sq):
+    """(ratio, floor) of a leaf's summed :func:`rounding_reading`: each
+    f32 step against the f64 step of its own layout, the mesh's rounding
+    error over one rank's (0 where the mesh's is 0); and the mesh's f64
+    step's distance from one rank's over the allowance."""
+    mesh, alone, floor, allow = (float(v) for v in sq)
+    return (math.sqrt(mesh / max(alone, 1e-300)) if mesh else 0.0,
+            math.sqrt(floor / allow))
 
 
 def run_ssm_tp(torch, dev):

@@ -43,8 +43,7 @@ from repro_torch.parallel import sharding as shd
 
 # Values of the f32 head product computed per slice of vocab columns:
 # bounds the f32 copy of a bf16 head (the whole of DeepSeek-V3's would be
-# 3.7 GB) to 128 MB, and the columns an f32 sum of the product's
-# gradient runs over.
+# 3.7 GB) to 128 MB.
 HEAD_SLICE_VALUES = 1 << 25
 
 
@@ -170,41 +169,31 @@ def _embed(params, cfg: ArchConfig, tokens: torch.Tensor,
     return x
 
 
-def _open_head(x: torch.Tensor, mesh) -> torch.Tensor:
-    """The head's input, whose gradient is summed over 'model': each rank
-    scores it against its own vocab columns."""
-    from repro_torch.parallel import collectives  # noqa: PLC0415
-    return collectives.tp_open(x, "model", mesh)
-
-
-def _logits(params, cfg: ArchConfig, x: torch.Tensor, lo: int = 0
+def _logits(params, cfg: ArchConfig, x: torch.Tensor, mesh=None
             ) -> torch.Tensor:
     """f32 logits ``x @ head`` with the head upcast to f32, as in the
-    reference, one slice of vocab columns at a time. Audio: (B, S, K, V)
-    from the K heads, the reference's f32 ``bskv`` einsum.
+    reference, one slice of vocab columns at a time so the f32 copy of a
+    low-precision head never exists whole. Audio: (B, S, K, V) from the
+    K heads, the reference's f32 ``bskv`` einsum.
 
-    The slices lie on one grid of HEAD_SLICE_VALUES // d columns from id
-    0, whatever part of the vocab the head holds (a head cut over its
-    vocab holds the ids from ``lo`` on). So the f32 copy of a
-    low-precision head never exists whole, the gradient of ``x`` sums
-    each slice's product on its own, and a rank of a vocab-parallel step
-    computes one rank's slice products, a slice cut by its edges
-    aside."""
-    if cfg.frontend == "codes":
-        return torch.einsum("bsd,kdv->bskv", x.float(),
-                            params["heads"].float())
-    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    With ``mesh`` the head holds this rank's vocab columns (a plan that
+    cuts the vocab) and ``x`` enters with ``tp_open``, so its gradient,
+    each rank's share from its own columns, is summed over 'model'."""
     xf = x.float()
+    if mesh is not None:
+        from repro_torch.parallel import collectives  # noqa: PLC0415
+        xf = collectives.tp_open(xf, "model", mesh)
+    if cfg.frontend == "codes":
+        return torch.einsum("bsd,kdv->bskv", xf, params["heads"].float())
+    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    if head.dtype == torch.float32:
+        return xf @ head
     d, V = head.shape
     step = max(1, HEAD_SLICE_VALUES // d)
-    edges = [0] + [c - lo for c in range((lo // step + 1) * step, lo + V,
-                                         step)] + [V]
-    if len(edges) == 2:
-        return xf @ head.float()
     out = torch.empty(x.shape[:-1] + (V,), dtype=torch.float32,
                       device=x.device)
-    for c0, c1 in zip(edges, edges[1:]):
-        out[..., c0:c1] = xf @ head[:, c0:c1].float()
+    for c in range(0, V, step):
+        out[..., c:c + step] = xf @ head[:, c:c + step].float()
     return out
 
 
@@ -330,11 +319,8 @@ def _forward(params, cfg: ArchConfig, batch, caches=None, *,
                 x, 1, li[:, None, None].expand(B, 1, x.shape[-1]))
         else:
             x = x[:, -1:]
-    lo = 0
-    if cut is not None:  # f32, as the product is: its gradient sums in f32
-        x = _open_head(x.float(), cut.mesh)
-        lo = cut.vocab_first(cfg)
-    return _logits(params, cfg, x, lo), new_caches, aux, cut
+    return (_logits(params, cfg, x, None if cut is None else cut.mesh),
+            new_caches, aux, cut)
 
 
 def loss_fn(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]

@@ -175,11 +175,12 @@ def _nbytes(x: torch.Tensor) -> int:
     return x.numel() * x.element_size()
 
 
-def psum(x: torch.Tensor, axes, mesh: Optional[Mesh] = None
-         ) -> torch.Tensor:
+def psum(x: torch.Tensor, axes, mesh: Optional[Mesh] = None,
+         op=dist.ReduceOp.SUM) -> torch.Tensor:
     """Sum of ``x`` over the ranks of ``axes`` (a name or a tuple of
     names), in x's dtype, IN PLACE where x is contiguous; every rank of
-    the group gets the same bits."""
+    the group gets the same bits. ``op`` reduces otherwise (one
+    all-reduce all the same)."""
     m = _mesh(mesh)
     group, n = _group(m, axes)
     if n == 1:
@@ -187,26 +188,16 @@ def psum(x: torch.Tensor, axes, mesh: Optional[Mesh] = None
     y = x.contiguous()
     t0 = time.perf_counter()
     if not m.trace:
-        dist.all_reduce(y, group=group)
+        dist.all_reduce(y, op=op, group=group)
     _count(m, "all-reduce", _nbytes(y), t0)
     return y
 
 
 def pmax(x: torch.Tensor, axes, mesh: Optional[Mesh] = None
          ) -> torch.Tensor:
-    """The elementwise max of ``x`` over the ranks of ``axes``, IN PLACE
-    where x is contiguous; no gradient (a caller detaches it first).
-    Every rank of the group gets the same bits."""
-    m = _mesh(mesh)
-    group, n = _group(m, axes)
-    if n == 1:
-        return x
-    y = x.contiguous()
-    t0 = time.perf_counter()
-    if not m.trace:
-        dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
-    _count(m, "all-reduce", _nbytes(y), t0)
-    return y
+    """The elementwise max of ``x`` over the ranks of ``axes``: ``psum``
+    with MAX; no gradient (a caller detaches it first)."""
+    return psum(x, axes, mesh, op=dist.ReduceOp.MAX)
 
 
 def all_gather(x: torch.Tensor, axis, mesh: Optional[Mesh] = None,

@@ -25,11 +25,8 @@ manual SPMD, on gloo meshes of CPU ranks.
   unsummed, the sum of exps left local, the target's logit left on the
   rank that holds it, the head input's gradient not summed over
   'model'.
-- The head's f32 products lie on one grid of vocab slices: a rank's
-  columns equal one rank's bit for bit in the slices its edges do not
-  cut; a (1, 2) step with 24-column slices (one cut by the ranks' edge),
-  with and without ``seq_shard``, equals the single host's with the
-  same slices.
+- A rank's vocab slice of the head, f32 or bf16 (upcast 24 columns at
+  a time), gives the whole head's columns of the logits.
 - ``collectives.pmax`` on a trace mesh counts one all-reduce of its
   operand's bytes.
 
@@ -89,9 +86,6 @@ WHOLE = ("smollm", "mistral", "musicgen")
 REF_MESH = (1, 2)
 REF_ARCHS = ("smollm", "musicgen", "pixtral")
 MUTANT_SPEC = dict(arch="mistral-nemo-12b", B=4, S=16)
-# 24-column head slices: the (1, 2) ranks' edge at id 128 cuts one.
-SLICE_COLS = 24
-SLICED = ("smollm", "mistral", "smollm-sp")
 
 
 def _scenarios(shape):
@@ -104,8 +98,6 @@ def _scenarios(shape):
                      mutant=m) for m in [None] + sorted(tvs.MUTANTS)]
         out.append(dict(MUTANT_SPEC, name="gathered", kind="train",
                         gathered=True))
-        out += [dict(TRAIN[n], name=f"sliced-{n}", kind="train",
-                     slice_cols=SLICE_COLS) for n in SLICED]
         out += [dict(arch=ARCHS[n]["arch"], name=f"ref-{n}", kind="train",
                      weights=_ref_weights(ARCHS[n]["arch"])[0])
                 for n in REF_ARCHS]
@@ -262,45 +254,32 @@ def test_mutants_fail_the_parity_checks(mutant):
         _check(single, run[f"mutant-{mutant}"][0], mutant)
 
 
-@pytest.mark.parametrize("case", SLICED)
-def test_sliced_head_step_matches_single_host(monkeypatch, case):
-    """The (1, 2) step with the head's products in 24-column slices
-    equals the single host's with the same slices."""
-    got = _mesh_run(REF_MESH)[f"sliced-{case}"][0]
-    cfg = ts.scenario_config(TRAIN[case])
-    monkeypatch.setattr(model_lib, "HEAD_SLICE_VALUES",
-                        cfg.d_model * SLICE_COLS)
-    _check(ts.run_single(dict(TRAIN[case], name=case)), got, case)
-    assert got["vocab_cut"] == [True] and got["vocab_gathers"] == []
-
-
+@pytest.mark.parametrize("M", [2, 4])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("arch", ["smollm-135m", "mistral-nemo-12b"])
-def test_head_slices_lie_on_one_grid(monkeypatch, arch):
-    """With 24-column slices, a rank's f32 head product over its vocab
-    slice (M = 2, 4) equals one rank's columns bit for bit in every
-    slice its edges do not cut, and to rounding in those they do."""
+def test_rank_head_slice_gives_its_columns(monkeypatch, arch, dtype, M):
+    """Each rank's vocab slice of the head (tied: of the embedding) gives
+    the whole head's columns of the f32 logits: an f32 head in one
+    product, a bf16 head upcast 24 columns at a time from the slice's
+    first (the last piece of a rank's 256 / M columns shorter)."""
     cfg = get_config(arch).reduced()
     full = ts.scenario_params(cfg, dict(arch=arch))
+    key = "embed" if cfg.tie_embeddings else "head"
+    table = full[key].to(getattr(torch, dtype))
     monkeypatch.setattr(model_lib, "HEAD_SLICE_VALUES", cfg.d_model * 24)
     x = torch.from_numpy(np.random.default_rng(5).standard_normal(
         (2, 3, cfg.d_model)).astype(np.float32))
-    whole = model_lib._logits(full, cfg, x)
-    V = cfg.vocab_size
-    for M in (2, 4):
-        n = V // M
-        for r in range(M):
-            lo = r * n
-            mine = {"embed": full["embed"][lo:lo + n].contiguous()}
-            if not cfg.tie_embeddings:
-                mine["head"] = full["head"][:, lo:lo + n].contiguous()
-            got = model_lib._logits(mine, cfg, x, lo)
-            want = whole[..., lo:lo + n]
-            torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
-            cut = {c // 24 for c in (lo, lo + n) if c % 24 and c < V}
-            same = [c for c in range(lo, lo + n) if c // 24 not in cut]
-            assert same, (M, r)
-            idx = torch.tensor(same) - lo
-            assert torch.equal(got[..., idx], want[..., idx]), (arch, M, r)
+    head = table.T if cfg.tie_embeddings else table
+    whole = x @ head.float()
+    n = cfg.vocab_size // M
+    for r in range(M):
+        lo = r * n
+        mine = (table[lo:lo + n] if cfg.tie_embeddings
+                else table[:, lo:lo + n]).contiguous()
+        got = model_lib._logits({key: mine}, cfg, x)
+        assert got.dtype == torch.float32 and got.shape == (2, 3, n)
+        torch.testing.assert_close(got, whole[..., lo:lo + n], rtol=1e-6,
+                                   atol=1e-6)
 
 
 def test_pmax_counts_one_all_reduce_on_a_trace_mesh():

@@ -9,8 +9,7 @@ runs a list of scenarios, each a dict with ``kind``:
              optionally under one of :data:`MUTANTS`, or with
              ``gathered`` (the plan told the vocab does not divide, so
              the embedding and head are gathered whole as before they
-             ran vocab-parallel), or with ``slice_cols`` (the head's
-             products in slices of that many vocab columns)
+             ran vocab-parallel)
     prefill  ``torch_ssm_tp_scenarios.run_cached``'s prefill
     decode   and its decode steps
 
@@ -48,22 +47,31 @@ def _target_unsummed(lg, targets, lo, mesh):
     return torch.where(mine, t, t.new_zeros(()))
 
 
-def _open_without_bwd(x, mesh):
-    return x
+def _logits_open_without_bwd(logits):
+    """``_logits`` with ``collectives.tp_open`` an identity while it
+    runs."""
+    def run(params, cfg, x, mesh=None):
+        tp_open = collectives.tp_open
+        collectives.tp_open = lambda x, axes, mesh=None: x
+        try:
+            return logits(params, cfg, x, mesh)
+        finally:
+            collectives.tp_open = tp_open
+    return run
 
 
-# name -> (attribute of models/model.py, replacement): each breaks one
-# rule of the vocab-parallel embedding, head or loss, and the sharded
-# step must then fail the parity checks.
+# name -> (attribute of models/model.py, replacement of its value): each
+# breaks one rule of the vocab-parallel embedding, head or loss, and the
+# sharded step must then fail the parity checks.
 MUTANTS = {
     # The lookup's partial rows left unsummed over 'model'.
-    "rows_unsummed": ("_close_rows", _rows_unsummed),
+    "rows_unsummed": ("_close_rows", lambda _: _rows_unsummed),
     # The softmax's sum of exps over this rank's columns only.
-    "sum_exp_local": ("_sum_exp", _sum_exp_local),
+    "sum_exp_local": ("_sum_exp", lambda _: _sum_exp_local),
     # The target's logit left on the rank that holds it, not summed.
-    "target_unsummed": ("_target_logit", _target_unsummed),
+    "target_unsummed": ("_target_logit", lambda _: _target_unsummed),
     # The head's input without its gradient summed over 'model'.
-    "head_open_no_bwd": ("_open_head", _open_without_bwd),
+    "head_open_no_bwd": ("_logits", _logits_open_without_bwd),
 }
 
 
@@ -107,14 +115,9 @@ def _apply(spec):
     """Break what ``spec`` asks for in this process; returns the undo."""
     saved = []
     if spec.get("mutant"):
-        attr, fn = MUTANTS[spec["mutant"]]
+        attr, make = MUTANTS[spec["mutant"]]
         saved.append((model_lib, attr, getattr(model_lib, attr)))
-        setattr(model_lib, attr, fn)
-    if spec.get("slice_cols"):
-        saved.append((model_lib, "HEAD_SLICE_VALUES",
-                      model_lib.HEAD_SLICE_VALUES))
-        model_lib.HEAD_SLICE_VALUES = (ts.scenario_config(spec).d_model
-                                       * spec["slice_cols"])
+        setattr(model_lib, attr, make(getattr(model_lib, attr)))
     if spec.get("gathered"):
         saved.append((shd.TrainPlan, "vocab_tp", shd.TrainPlan.vocab_tp))
         shd.TrainPlan.vocab_tp = lambda plan, cfg: False

@@ -16,7 +16,9 @@ each dtype, every rank's step on the mesh gathered whole, and one
 rank's step on the whole model; printed per gradient leaf as one JSON
 line: its name, its largest magnitude, and the share of
 ``SSM_TP_TOL``'s allowance (rtol |b| + atol max |b|: at most 1 passes)
-that each pair uses:
+that each pair uses at its worst element, and the 2-norm of each
+pair's difference over the whole leaf (``*_l2``; ``allow_l2``: the
+allowance's):
 
     mesh_one      the mesh's step against one rank's (phase 17's check)
     one_f64       one rank's f32 step against one rank's f64 step
@@ -27,9 +29,9 @@ A few minutes on one card (every rank on it, over gloo).
 
 ``--plant NAME`` instead runs phase 17's own f32 check
 (``chip_smoke.ssm_tp_step_f32``) with a fault planted in every rank and
-prints, per rank, what that check reads (``f64``: the largest share of
-the allowance against the f64 step over one rank's f32 step's, held to
-``SSM_TP_F64``; ``elem``; ``excess``; the loss's and grad norm's
+prints, per rank, what that check reads (``f64`` and ``floor``:
+``chip_smoke.rounding_reading``'s largest, held to ``SSM_TP_F64`` and
+``SSM_TP_FLOOR``; ``elem``; ``excess``; the loss's and grad norm's
 errors), plain TP and ``seq_shard``. The faults (:data:`PLANTS`):
 
     cols_slice_bwd   in_proj's and the conv's columns gathered with
@@ -37,6 +39,10 @@ errors), plain TP and ``seq_shard``. The faults (:data:`PLANTS`):
                      its own cotangent, unsummed)
     norm_local_sum   the gated norm's sum of squares over this rank's
                      channels only
+    head_no_sum      the vocab-cut head's input without its gradient
+                     summed over 'model' (``tp_open`` an identity)
+    tf32_mesh        the mesh's f32 steps with TF32 products (a loss of
+                     precision alone: the f64 steps are untouched)
     none             no fault (the check as phase 17 runs it)
 """
 from __future__ import annotations
@@ -114,26 +120,57 @@ def witness_rank(mesh, device):
     for k, name in enumerate(names):
         m32, m64 = mesh_g["float32"][k], mesh_g["float64"][k]
         o32, o64 = one_g["float32"][k], one_g["float64"][k]
-        out.append(dict(
-            leaf=name, scale=float(o64.abs().max()),
-            mesh_one=cs.allowance_used(m32, o32),
-            one_f64=cs.allowance_used(o32, o64),
-            mesh_f64=cs.allowance_used(m32, o64),
-            mesh_one_f64=cs.allowance_used(m64, o64)))
+        scale = float(o64.abs().max())
+        row = dict(leaf=name, scale=scale)
+        for key, a, b in (("mesh_one", m32, o32), ("one_f64", o32, o64),
+                          ("mesh_f64", m32, o64),
+                          ("mesh_one_f64", m64, o64)):
+            row[key] = cs.allowance_used(a, b)
+            row[key + "_l2"] = float(torch.linalg.vector_norm(
+                a.double() - b.double()))
+        row["allow_l2"] = float(torch.linalg.vector_norm(
+            cs.SSM_TP_TOL["atol"] * scale
+            + cs.SSM_TP_TOL["rtol"] * o64.double().abs()))
+        out.append(row)
     return out
 
 
 def _plant(name):
+    import torch
+    from repro_torch.models import model as model_lib
     from repro_torch.models import ssm
     from repro_torch.parallel import collectives
+    from repro_torch.parallel import sharding as shd
     if name == "cols_slice_bwd":
         ssm._open_cols = lambda t, axis: collectives.gather_on_use(
             t, axis, t.dim() - 1)
     elif name == "norm_local_sum":
         collectives.tp_sum = lambda x, axes, mesh=None: x
+    elif name == "head_no_sum":
+        logits = model_lib._logits
+
+        def no_sum(params, cfg, x, mesh=None):
+            tp_open = collectives.tp_open
+            collectives.tp_open = lambda x, axes, mesh=None: x
+            try:
+                return logits(params, cfg, x, mesh)
+            finally:
+                collectives.tp_open = tp_open
+        model_lib._logits = no_sum
+    elif name == "tf32_mesh":
+        # The one-rank steps run first; every step after them is the
+        # mesh's, and TF32 changes only its f32 products.
+        loss_terms = model_lib.loss_terms
+
+        def tf32(params, cfg, batch):
+            if shd.current_plan() is not None:
+                torch.backends.cuda.matmul.allow_tf32 = True
+            return loss_terms(params, cfg, batch)
+        model_lib.loss_terms = tf32
 
 
-PLANTS = ("none", "cols_slice_bwd", "norm_local_sum")
+PLANTS = ("none", "cols_slice_bwd", "norm_local_sum", "head_no_sum",
+          "tf32_mesh")
 
 
 def plant_rank(mesh, name, device):
@@ -142,7 +179,8 @@ def plant_rank(mesh, name, device):
     torch.backends.cuda.matmul.allow_tf32 = False
     _plant(name)
     got = cs.ssm_tp_step_f32(torch, torch.device(device), mesh)
-    keys = ("f64", "worst_f64", "one64", "elem", "excess", "loss", "gnorm")
+    keys = ("f64", "worst_f64", "floor", "worst_floor", "elem", "excess",
+            "loss", "gnorm")
     return [dict(plant=name, rank=mesh.rank, step=k,
                  **{x: got[k][x] for x in keys}) for k in ("tp", "sp")]
 
