@@ -154,6 +154,14 @@ is printed only when all of them pass):
      shard's F 7168), the conv windows equal bit for bit on both ranks;
      then the dry run's ``mamba2-2.7b train_4k`` on (2, 4), its temp and
      FLOPs a rank below the gathered mixer's.
+ 18. SASA's measuring autotuner (``sasa.autotune_mlp_plan``, 20 calls a
+     candidate) at the relu decode tick in bf16 and f32, a 256-row
+     prefill, a training step's 4096 rows (block sparsity 0.5 and 0) and
+     a tp-3 shard's: each candidate's launches, a memoised second call,
+     the winner the faster, both candidates' bits and y against the
+     plain version, one line a shape of the byte model's variant against
+     the measured winner (they may disagree); then the port's quickstart
+     and GEMM demo examples on the card.
 
 On every mesh of phases 14, 16 and 17 whose model size divides the
 vocab (smollm-135m's on (1, 3), and every (1, 2) mesh's) the embedding,
@@ -5734,10 +5742,165 @@ def run_ssm_tp(torch, dev):
                     F_=7168, N=3584, act="silu")]
 
 
+# Phase 18: SASA's measuring autotuner on the card. (label, M, K, F, N,
+# dtype, measured block sparsity): the relu decode tick in bf16 and
+# f32, a 256-row prefill bucket, a training step's forward (8 x 512
+# rows, row 3b's shape) at 0.5 and at 0, and a tp-3 training shard's.
+AUTOTUNE_CASES = (
+    ("relu decode tick", 8, 576, 1536, 576, "bfloat16", 0.5),
+    ("relu decode tick", 8, 576, 1536, 576, "float32", 0.5),
+    ("prefill bucket", 256, 576, 1536, 576, "bfloat16", 0.5),
+    ("training step", TRAIN["batch"] * TRAIN["seq"], 576, 1536, 576,
+     "bfloat16", 0.5),
+    ("training step", TRAIN["batch"] * TRAIN["seq"], 576, 1536, 576,
+     "bfloat16", 0.0),
+    ("tp 3 training shard", TRAIN["batch"] * TRAIN["seq"], 576, TP3_F, 576,
+     "bfloat16", 0.5),
+)
+AUTOTUNE_ITERS = 20
+# The candidates' y against each other and the plain version, relative
+# to the plain version's largest |y| (the synthetic operands are not at
+# init scale): f32 sums in another order; bf16 roundings of h (the
+# two-kernel path's library up-projection writes it in bf16) and of y.
+AUTOTUNE_TOLS = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def autotune_decode_inputs(torch, dev, dtype, shape, block_f, s, seed=18):
+    """(x, w_in, w_out) for a plan with one row tile, where the
+    autotuner's row clusters cannot realize any sparsity (round(s) of
+    one cluster): positive x and |w_in| with round(s * stripes) of its
+    block_f column stripes negated, so those stripes are dead;
+    ``w_out * 0.05`` as the autotuner draws it."""
+    M, K, F_, N = shape
+    rng = np.random.default_rng(seed)
+    x = np.abs(rng.standard_normal((M, K), dtype=np.float32))
+    wi = np.abs(rng.standard_normal((K, F_), dtype=np.float32))
+    nf = -(-F_ // block_f)
+    for f in rng.permutation(nf)[:int(round(s * nf))]:
+        wi[:, f * block_f:(f + 1) * block_f] *= -1.0
+    wo = rng.standard_normal((F_, N), dtype=np.float32) * np.float32(0.05)
+    dt = getattr(torch, dtype)
+    return tuple(torch.from_numpy(a).to(dev, dt) for a in (x, wi, wo))
+
+
+def autotune_case(torch, dev, label, M, K, F_, N, dtype, s):
+    """One shape of phase 18: ``autotune_mlp_plan`` with its launch
+    counts read around it and a second call, then both candidates at the
+    tuned plan against each other and the plain version (bits exactly),
+    and each candidate's CUDA-events time; one line of model against
+    measurement."""
+    from repro_torch.core import sasa, sparse_ops
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import relu_bitmap as rb
+    from repro_torch.kernels import sparce_gemm as sg
+    from repro_torch.kernels import sparce_mlp as sm
+    model = sasa.plan_mlp(M, K, F_, N, measured_block_sparsity=s,
+                          dtype=dtype)
+    sample = None
+    if M <= model.block_m:
+        sample = autotune_decode_inputs(torch, dev, dtype, (M, K, F_, N),
+                                        model.block_f, s)
+    kernels = (sm.sparce_mlp_fused, rb.relu_bitmap, sg.sparce_gemm_gated)
+    kw = dict(measured_block_sparsity=s, dtype=dtype, sample_inputs=sample,
+              iters=AUTOTUNE_ITERS, device=dev)
+    before = [k.launches for k in kernels]
+    t0 = time.perf_counter()
+    tuned = sasa.autotune_mlp_plan(M, K, F_, N, **kw)
+    seconds = time.perf_counter() - t0
+    moved = [k.launches - b for k, b in zip(kernels, before)]
+    name = f"autotune {label} {M}x{K}x{F_}x{N} {dtype} s={s}"
+    if moved != [AUTOTUNE_ITERS + 1] * 3:
+        raise AssertionError(f"{name}: launches {moved} (sparce_mlp_fused, "
+                             "relu_bitmap, sparce_gemm_gated), want "
+                             f"{AUTOTUNE_ITERS + 1} each")
+    if sasa.autotune_mlp_plan(M, K, F_, N, **kw) is not tuned:
+        raise AssertionError(f"{name}: a second call was not memoised")
+    plan, timings = tuned
+    if plan.variant != min(timings, key=timings.get):
+        raise AssertionError(f"{name}: winner {plan.variant} of {timings}")
+    if dataclasses.replace(plan, variant=model.variant) != model:
+        raise AssertionError(f"{name}: {plan} is not plan_mlp's {model}")
+    x, wi, wo = sample or sasa.mlp_sample_inputs(
+        M, K, F_, N, block_m=plan.block_m, measured_block_sparsity=s,
+        dtype=dtype, device=dev)
+    blocks = dict(block_m=plan.block_m, block_f=plan.block_f)
+    fused = lambda: kops.sparce_mlp_fused(x, wi, wo, **blocks)  # noqa: E731
+    two = lambda: sparse_ops.two_kernel_mlp(x, wi, wo, plan)  # noqa: E731
+    y_f, bmp = fused()
+    y_t, bits_t = two()
+    y_0, bits_0 = sm.sparce_mlp_fused_plain(x, wi, wo, **blocks)
+    torch.cuda.synchronize()
+    if not (torch.equal(bmp.bits, bits_0) and torch.equal(bits_t, bits_0)):
+        raise AssertionError(f"{name}: the candidates' bits differ")
+    tol = AUTOTUNE_TOLS[dtype]
+    atol = tol * y_0.float().abs().max().item()
+    why = f"{tol} of the largest |y|"
+    err_f = check_close(f"{name} fused", y_f, y_0, atol=atol, rtol=tol,
+                        why=why)
+    err_t = check_close(f"{name} two_kernel", y_t, y_0, atol=atol, rtol=tol,
+                        why=why)
+    check_close(f"{name} two_kernel vs fused", y_t, y_f, atol=atol,
+                rtol=tol, why=why)
+    ev = {"fused": cuda_time_ms(fused, AUTOTUNE_ITERS),
+          "two_kernel": cuda_time_ms(two, AUTOTUNE_ITERS)}
+    by = model.modeled()
+    realized = bits_0.float().mean().item()
+    agree = plan.variant == model.variant
+    log(f"  {label} {M}x{K}x{F_}x{N} {dtype} s={s}: tiles "
+        f"({plan.block_m}, {plan.block_f}), realized tile sparsity "
+        f"{realized:.4f} ({int(bits_0.sum())}/{bits_0.numel()}); model "
+        f"{model.variant} (bytes fused {by['fused']}, two_kernel "
+        f"{by['two_kernel']}); host ms a call fused "
+        f"{1e3 * timings['fused']:.4f}, two_kernel "
+        f"{1e3 * timings['two_kernel']:.4f}; events ms fused "
+        f"{ev['fused']:.4f}, two_kernel {ev['two_kernel']:.4f}; winner "
+        f"{plan.variant} agree={agree}; max_abs_err fused {err_f:.3e}, "
+        f"two_kernel {err_t:.3e}; tuned in {seconds:.1f}s")
+    return dict(label=label, shape=(M, K, F_, N), dtype=dtype, s=s,
+                realized=realized, model=model.variant, winner=plan.variant,
+                agree=agree, timings=timings, events=ev)
+
+
+def run_examples(argv_by_name):
+    """Each port example's ``main`` from ``examples/``, in this process;
+    fails unless it returns 0."""
+    import importlib.util
+    for name, argv in argv_by_name:
+        spec = importlib.util.spec_from_file_location(
+            f"example_{name}", os.path.join(ROOT, "examples", f"{name}.py"))
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        t0 = time.perf_counter()
+        rc = module.main(argv)
+        if rc != 0:
+            raise AssertionError(f"examples/{name}.py {argv}: exit {rc}")
+        log(f"  examples/{name}.py {' '.join(argv)}: exit 0 in "
+            f"{time.perf_counter() - t0:.1f}s")
+
+
+def run_autotune(torch, dev):
+    """Phase 18: AUTOTUNE_CASES, then the quickstart and the GEMM demo
+    on the card. Model and measurement disagreeing is logged, not a
+    failure."""
+    from repro_torch.core import sasa
+    sasa.plan_cache_clear()
+    res = [autotune_case(torch, dev, *case) for case in AUTOTUNE_CASES]
+    off = [f"{r['label']} {r['dtype']} s={r['s']}" for r in res
+           if not r["agree"]]
+    log(f"  the byte model's variant agreed with the measured winner at "
+        f"{len(res) - len(off)} of {len(res)} shapes"
+        + (f"; not at: {', '.join(off)}" if off else ""))
+    where = f"cuda:{dev.index or 0}"
+    run_examples((("torch_quickstart", ["--device", where]),
+                  ("torch_sparse_gemm_demo", ["--device", where])))
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,"
+                            "18",
                     help="comma-separated subset of phases to run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -5945,6 +6108,15 @@ def main(argv=None) -> int:
                 "run's mamba2-2.7b train_4k on (2, 4)")
             time_rows(torch, dev, run_ssm_tp(torch, dev))
             phase_done(17)
+        if 18 in phases:
+            log("phase 18: SASA's measuring autotuner (autotune_mlp_plan, "
+                f"{AUTOTUNE_ITERS} calls a candidate) at the relu decode "
+                "tick (bf16, f32), a 256-row prefill, a training step's "
+                "4096 rows (s 0.5 and 0) and a tp-3 shard's; then "
+                "examples/torch_quickstart.py and "
+                "torch_sparse_gemm_demo.py on the card")
+            run_autotune(torch, dev)
+            phase_done(18)
         torch.cuda.synchronize()
         log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all")
     except Exception:  # noqa: BLE001 - report and fail the run

@@ -1,10 +1,10 @@
 """Modeled accounting: the paper's GPP cycle model, the GEMM-saving
 model, the serving virtual tick clock and the byte models.
 
-This is the reference package's cost model (``repro/core/cost_model.py``)
-minus what only training and the multi-chip paths use, copied with its
-constants unchanged so that the port's figure rows, admission order,
-virtual-clock statistics and modeled byte fields equal the reference's.
+This is the reference package's cost model
+(``repro/core/cost_model.py``), copied with its constants unchanged so
+that the port's figure rows, admission order, virtual-clock statistics
+and modeled byte fields equal the reference's.
 
 Everything here is MODELED, not measured. The GPP model's cycle counts
 are the paper's simulated core's; the two rate constants below are the
@@ -238,6 +238,11 @@ def glu_mlp_hbm_bytes(
         "fused_saved_frac_vs_unfused": 1.0 - fused / unfused,
         "intermediate_bytes": int(inter_b),
     }
+
+
+def model_flops(n_params_active: int, tokens: int) -> float:
+    """MODEL_FLOPS = 6 * N_active * D (training); 2*N*D for inference."""
+    return 6.0 * n_params_active * tokens
 
 
 # ------------------------------------------------------------- KV-bytes model

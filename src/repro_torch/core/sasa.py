@@ -413,6 +413,101 @@ def plan_mlp_cached(
     return plan
 
 
+def mlp_sample_inputs(m: int, k: int, f: int, n: int, *, block_m: int,
+                      measured_block_sparsity: float,
+                      dtype: str = "float32", device="cpu"):
+    """The autotuner's synthetic (x, w_in, w_out), drawn on ``device``
+    from a generator seeded 0: ``|x|`` with zero (block_m, k) row
+    clusters at the measured sparsity, so the activated intermediate
+    realizes it whatever w_in is, ``|w_in|`` and ``w_out * 0.05`` (the
+    reference's recipe; its numbers differ, its geometry does not)."""
+    from repro_torch.core import sprf
+    dt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = sprf.random_sparse(gen, (m, k), measured_block_sparsity, dtype=dt,
+                           cluster=(block_m, k)).abs()
+    w_in = torch.randn((k, f), generator=gen, device=device).abs().to(dt)
+    w_out = torch.randn((f, n), generator=gen, device=device).to(dt) * 0.05
+    return x, w_in, w_out
+
+
+def autotune_mlp_plan(
+    m: int, k: int, f: int, n: int, *,
+    measured_block_sparsity: float, dtype: str = "float32",
+    sample_inputs=None, iters: int = 2, device="cuda",
+) -> Tuple[MlpPlan, dict]:
+    """Measuring autotuner: time the fused vs two-kernel candidates.
+
+    The model-scored :func:`plan_mlp_cached` is the hot-path default (no
+    tensors needed); this entry point additionally RUNS both variants at
+    :func:`plan_mlp`'s tiles on ``sample_inputs`` (or
+    :func:`mlp_sample_inputs` at the measured sparsity) and returns the
+    wall-clock winner and the seconds per call of each, so deployments
+    can validate the byte model against real timings. Each candidate is
+    called once outside the clock (on the card that call builds its
+    kernels), then ``iters`` times, each call ending in a device
+    synchronize. Results are cached process-wide like every other plan,
+    keyed on the device type, so a CPU timing never answers a CUDA
+    caller.
+    """
+    import time
+
+    from repro_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    key = ("mlp-tuned", m, k, f, n, dtype,
+           _bucket_sparsity(measured_block_sparsity), dev.type)
+    hit = _PLAN_CACHE.get(key)
+    if hit is not None:
+        _PLAN_CACHE_STATS["hits"] += 1
+        return hit
+
+    from repro_torch.core import sparse_ops
+    from repro_torch.kernels import ops as kops
+
+    plan = plan_mlp(
+        m, k, f, n, measured_block_sparsity=measured_block_sparsity,
+        dtype=dtype,
+    )
+    if sample_inputs is None:
+        x, w_in, w_out = mlp_sample_inputs(
+            m, k, f, n, block_m=plan.block_m,
+            measured_block_sparsity=measured_block_sparsity, dtype=dtype,
+            device=dev)
+    else:
+        x, w_in, w_out = (torch.as_tensor(t, device=dev)
+                          for t in sample_inputs)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def run_fused():
+        kops.sparce_mlp_fused(x, w_in, w_out, block_m=plan.block_m,
+                              block_f=plan.block_f)
+        sync()
+
+    def run_two_kernel():
+        # Same pipeline the fused-mode fallback serves (single impl).
+        sparse_ops.two_kernel_mlp(x, w_in, w_out, plan)
+        sync()
+
+    timings = {}
+    for name, fn in (("fused", run_fused), ("two_kernel", run_two_kernel)):
+        fn()  # build / warm
+        total = 0.0
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            fn()
+            total += time.perf_counter() - t0
+        timings[name] = total / iters
+    winner = min(timings, key=timings.get)
+    result = (dataclasses.replace(plan, variant=winner), timings)
+    _PLAN_CACHE_STATS["misses"] += 1
+    _PLAN_CACHE[key] = result
+    return result
+
+
 def _glu_fused_vmem_bytes(bm: int, bf: int, k: int, n: int,
                           itemsize: int) -> int:
     """The reference gated-GLU kernel's fast-memory working set."""

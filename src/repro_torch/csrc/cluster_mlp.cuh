@@ -7,15 +7,17 @@
 //   * One thread block cluster of C <= 8 CTAs per (row group, stripe):
 //     at the decode shape 12 stripes x 8 CTAs = 96 CTAs stream the
 //     weights; with more row groups C shrinks, so that about 8 CTAs per
-//     stripe stream x. Each CTA computes the first product for its CW
-//     columns of the stripe over the full K, so every value has one
-//     fixed summation order; the CTAs OR their live flags through
-//     distributed shared memory (or_flags), and a stripe dead in every
-//     row tile of the group exits in every CTA before a w_out (GLU: or
-//     w_in) address is formed. A live stripe: each CTA pushes its slice
-//     of a into every CTA's shared memory, and after a cluster barrier
-//     computes a @ w_out[stripe, its N slice] into the f32 partial of
-//     the stripe (down_chunk).
+//     stripe stream x, unless a CTA's columns of the row group's
+//     activation would then overflow shared memory (then C grows, and
+//     after it the chunks of rows shrink). Each CTA computes the first
+//     product for its CW columns of the stripe over the full K, so
+//     every value has one fixed summation order; the CTAs OR
+//     their live flags through distributed shared memory (or_flags),
+//     and a stripe dead in every row tile of the group exits in every
+//     CTA before a w_out (GLU: or w_in) address is formed. A live
+//     stripe: each CTA pushes its slice of a into every CTA's shared
+//     memory, and after a cluster barrier computes a @ w_out[stripe, its
+//     N slice] into the f32 partial of the stripe (down_chunk).
 //   * Tensor cores with the product transposed, as in skip_gemm.cuh:
 //     weight columns are the MMA's M dimension, x's rows its N dimension
 //     (8 per n-tile), so 8 decode rows are not padded to block_m. bf16
@@ -37,8 +39,8 @@
 //     slice, found by an arrival counter, was tried: its serial tail
 //     cost more than the second launch, at decode and more at prefill.
 // A row group is 64 rows of whole row tiles (block_m <= 64) or one row
-// tile (block_m > 64, walked in chunks of 64 rows). Rows past M and
-// columns past F are activations of 0, which can only vote "dead".
+// tile (block_m > 64, walked in chunks of at most 64 rows). Rows past M
+// and columns past F are activations of 0, which can only vote "dead".
 #pragma once
 
 #include <cooperative_groups.h>
@@ -95,23 +97,20 @@ size_t smem_rest(const Geo& g) {
          4 * (RED_SETS * 16 * (size_t)g.RB + MAX_TILES * (1 + MAX_C));
 }
 
+// The geometry with clusters of at most c CTAs and chunks of at most rb
+// rows.
 template <typename T>
-Geo make_geo(int M, int K, int F, int N, int bm, int bf) {
+Geo geo_at(int M, int K, int F, int N, int bm, int bf, int c, int rb) {
   Geo g{};
   g.M = M, g.K = K, g.F = F, g.N = N, g.bm = bm, g.bf = bf;
   g.nf = (F + bf - 1) / bf;
   g.TPG = bm >= ROWS ? 1 : ROWS / bm;
   g.GR = g.TPG * bm;
-  // About 8 CTAs per stripe in all: 8 for one row group (decode), fewer
-  // per cluster as row groups add up, so that each CTA's x rows are
-  // streamed by fewer CTAs.
-  const int groups = (M + g.GR - 1) / g.GR, mt_f = (bf + 15) / 16;
-  int c = MAX_C;
-  while (c > 1 && c * groups > MAX_C) c /= 2;
+  const int mt_f = (bf + 15) / 16;
   g.C = mt_f < c ? mt_f : c;
   g.CW = (mt_f + g.C - 1) / g.C * 16;
   const int rows = g.GR < M ? g.GR : M;
-  g.RB = 8 * skip::nt8_for(rows);
+  g.RB = 8 * skip::nt8_for(rows < rb ? rows : rb);
   g.NCH = (rows + g.RB - 1) / g.RB;
   g.NMT = (N + 15) / 16;
   constexpr int KB = Cfg<T>::KB, EV = 16 / sizeof(T);
@@ -132,6 +131,32 @@ Geo make_geo(int M, int K, int F, int N, int bm, int bf) {
 template <typename T>
 size_t smem_bytes(const Geo& g) {
   return sizeof(T) * (size_t)g.ring + smem_rest<T>(g);
+}
+
+template <typename T>
+Geo make_geo(int M, int K, int F, int N, int bm, int bf) {
+  // About 8 CTAs per stripe in all: 8 for one row group (decode), fewer
+  // per cluster as row groups add up, so that each CTA's x rows are
+  // streamed by fewer CTAs.
+  const int gr = bm >= ROWS ? bm : ROWS / bm * bm;
+  const int groups = (M + gr - 1) / gr;
+  int c = MAX_C;
+  while (c > 1 && c * groups > MAX_C) c /= 2;
+  int rb = ROWS;
+  Geo g = geo_at<T>(M, K, F, N, bm, bf, c, rb);
+  // A tall row tile keeps the activation of a wide stripe in shared
+  // memory (256 x 512 tiles over 16 row groups: 470 KB in one CTA);
+  // there the cluster widens, each CTA keeping fewer of its columns,
+  // and then (f32) the chunks shorten, until it fits. Geometries that
+  // fit as they are do not change.
+  while (smem_bytes<T>(g) > (size_t)SMEM_MAX && (c < MAX_C || rb > 8)) {
+    if (c < MAX_C)
+      c *= 2;
+    else
+      rb /= 2;
+    g = geo_at<T>(M, K, F, N, bm, bf, c, rb);
+  }
+  return g;
 }
 
 // One product of a CTA: columns [c0, c0 + cw) of W in blocks of 128

@@ -122,3 +122,7 @@ def tree_map(fn, tree, *rest):
 
 def param_count(params) -> int:
     return sum(p.numel() for p in iter_leaves(params))
+
+
+def param_bytes(params) -> int:
+    return sum(p.numel() * p.element_size() for p in iter_leaves(params))

@@ -9,6 +9,7 @@ only, so it runs where the reference's framework is not installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
 import os
 import sys
 
@@ -20,7 +21,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.paper_alexnet import (
     ALEXNET_GEMMS, BENCH_SPARSITY, DEEPCOMP_WEIGHT_SPARSITY,
 )
-from repro_torch.core import sasa, sprf
+from repro_torch.core import sasa, sparse_ops, sprf
 from repro_torch.core.sparse_ops import SparsityConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
@@ -34,7 +35,10 @@ from repro_torch.runtime.server import Request, ServeConfig, Server
 
 # The chip script's operands and limits for the training GEMMs.
 sys.path.append(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from chip_smoke import TRAIN_GEMM_REL, train_gemm_operands  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    AUTOTUNE_TOLS, TRAIN_GEMM_REL, autotune_decode_inputs,
+    train_gemm_operands,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -306,7 +310,10 @@ GLU_CASES = [(8, 576, 1536, 576, 64, 128), (8, 576, 1536, 576, 1, 128),
              (256, 3584, 14336, 3584, 64, 128),
              # smollm-135m's MLP on a tp 3 shard (512 of 1536 columns)
              # at a decode tick.
-             (8, 576, 512, 576, 64, 128)]
+             (8, 576, 512, 576, 64, 128),
+             # The planner's own tiles at a training step's 4096 rows,
+             # where the cluster widens to fit shared memory.
+             (4096, 576, 1536, 576, 256, 512)]
 
 
 @pytest.mark.parametrize("M,K,F,N,bm,bf", GLU_CASES)
@@ -497,7 +504,12 @@ def test_fused_mlp_kernel_matches_plain(cuda, act, M, bm, dtype, tol):
 MLP_CASES = [(8, 576, 1536, 576, 1, 128), (256, 576, 1536, 576, 1, 128),
              (4, 576, 1536, 576, 1, 128),  # a dp 2 shard's decode rows
              (37, 576, 1000, 576, 1, 128), (37, 576, 1000, 576, 64, 128),
-             (100, 200, 1000, 70, 64, 128), (300, 192, 320, 96, 256, 128)]
+             (100, 200, 1000, 70, 64, 128), (300, 192, 320, 96, 256, 128),
+             # The planner's own tiles at a 256-row prefill and at a
+             # training step's 4096 rows (there the cluster widens to fit
+             # shared memory).
+             (256, 576, 1536, 576, 256, 512),
+             (4096, 576, 1536, 576, 256, 512)]
 
 
 @pytest.mark.parametrize("M,K,F,N,bm,bf", MLP_CASES)
@@ -555,6 +567,44 @@ def test_mlp_cluster_kernel_at_unpadded_shapes(cuda, M, K, F, N, bm, bf,
         assert bool(torch.isfinite(y3[dead_rows]).all())
         assert torch.equal(y3[dead_rows], y[dead_rows])
         assert bool(torch.isnan(y3[~dead_rows]).any())
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_autotuner_times_both_candidates_on_the_card(cuda, dtype):
+    """SASA's measuring autotuner at the relu decode tick: each
+    candidate's kernels launched once to warm up and ``iters`` times,
+    the winner the faster, memoised per device type; both candidates
+    give the plain version's bits and y."""
+    shape, s, iters = (8, 576, 1536, 576), 0.5, 3
+    sasa.plan_cache_clear()
+    model = sasa.plan_mlp(*shape, measured_block_sparsity=s, dtype=dtype)
+    x, wi, wo = autotune_decode_inputs(torch, cuda, dtype, shape,
+                                       model.block_f, s)
+    kernels = (sm.sparce_mlp_fused, rb.relu_bitmap, sg.sparce_gemm_gated)
+    before = [k.launches for k in kernels]
+    kw = dict(measured_block_sparsity=s, dtype=dtype, iters=iters,
+              sample_inputs=(x, wi, wo), device=cuda)
+    tuned = sasa.autotune_mlp_plan(*shape, **kw)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [
+        iters + 1] * 3
+    plan, timings = tuned
+    assert plan.variant == min(timings, key=timings.get)
+    assert dataclasses.replace(plan, variant=model.variant) == model
+    assert sasa.autotune_mlp_plan(*shape, **kw) is tuned
+    key = ("mlp-tuned", *shape, dtype, s, "cuda")
+    assert sasa._PLAN_CACHE[key] is tuned
+    blocks = dict(block_m=plan.block_m, block_f=plan.block_f)
+    y_f, bmp = kops.sparce_mlp_fused(x, wi, wo, **blocks)
+    y_t, bits_t = sparse_ops.two_kernel_mlp(x, wi, wo, plan)
+    y0, bits0 = sm.sparce_mlp_fused_plain(x, wi, wo, **blocks)
+    assert torch.equal(bmp.bits, bits0) and torch.equal(bits_t, bits0)
+    assert 0 < int(bits0.sum()) < bits0.numel()
+    tol = AUTOTUNE_TOLS[dtype]
+    atol = tol * y0.float().abs().max().item()
+    for y in (y_f, y_t):
+        torch.testing.assert_close(y.float(), y0.float(), rtol=tol,
+                                   atol=atol)
+    sasa.plan_cache_clear()
 
 
 def test_wrappers_check_their_inputs(cuda):
