@@ -346,19 +346,23 @@ def graph_time_ms(fn, iters: int = 20, repeats: int = 5) -> float:
 
 
 # The kernels of a skipping GEMM call: the core (gated, compacted or
-# two-sided), and the chunk reduction of a split-K call; every kernel a
-# skipping plan of phase 7 runs.
+# two-sided), the tall path's kernel (bf16, lhs gate, training rows), and
+# the chunk reduction of a split-K call; every kernel a skipping plan of
+# phase 7 runs.
 GEMM_KERNELS = ("gated_gemm_kernel", "compacted_gemm_kernel",
-                "gated_both_gemm_kernel", "chunk_reduce_kernel")
+                "gated_both_gemm_kernel", "tall_gemm_kernel",
+                "chunk_reduce_kernel")
 # The kernels of a gated-GLU call: the cluster kernel and the reduction
 # over live stripes; of a fused relu MLP call, the same design's; of a
 # paged MLA call, the chunk kernel and the merge of a slot's chunks; of a
 # paged GQA call, the chunk kernel (which merges a slot's chunks in its
 # last-arriving CTA); and the single kernel of each of the other calls
 # (relu_bitmap and its backward: the instantiations of one kernel over
-# the element operation, told apart by its name).
+# the element operation, told apart by its name; the fused relu MLP's
+# tall path at training rows).
 GLU_KERNELS = ("glu_cluster_kernel", "stripe_reduce_kernel")
-MLP_KERNELS = ("mlp_cluster_kernel", "stripe_reduce_kernel")
+MLP_KERNELS = ("mlp_cluster_kernel", "mlp_tall_kernel",
+               "stripe_reduce_kernel")
 MLA_KERNELS = ("mla_chunk_kernel", "mla_combine_kernel")
 GQA_KERNELS = ("gqa_chunk_kernel",)
 RELU_KERNELS = ("ReluFwd",)
@@ -406,6 +410,14 @@ def log_kernel_resources(_build, name):
         elif "spill" in line:
             spill = line.strip()
         elif "registers" in line and entry is not None:
+            t = re.search(r"(tall_gemm_kernel)ILi(\d+)E|mlp_tall_kernel",
+                          entry)
+            if t is not None:
+                what = (f"tall_gemm_kernel<bf16, 128 x {t.group(2)} tiles>"
+                        if t.group(1) else "mlp_tall_kernel<bf16>")
+                used = line.split("Used", 1)[1].strip()
+                log(f"  {name}: {what}: {used}; {spill}")
+                continue
             k = re.search(
                 r"([a-z][a-z_]*_kernel)I(13__nv_bfloat16|f)(?:Li(\d+)E)?",
                 entry)
@@ -999,6 +1011,32 @@ TRAIN_GEMM_REL = {
 }
 
 
+# max_abs_err of each tall path at its training shape (phase 2), for the
+# kernels line: the gated GEMM at row 5b's BP, the relu MLP at row 3b.
+TALL_ERRS = {}
+# The tall GEMM's ragged check: M, K and N past whole tiles (TMA's zero
+# fill and y's masked store), (64, 128) tiles.
+TALL_RAGGED_GEMM = (1100, 600, 1000, 64, 128)
+
+
+def check_tall_gemm(torch, dev, x, w, bits, kw, got, name):
+    """What the tall path adds to a gated call's checks: it ran (one tall
+    launch), a second call equal bit for bit, and the compacted kernel,
+    taking the same tall path, equal bit for bit."""
+    from repro_torch.kernels import sparce_gemm as sg
+    n0 = (sg.sparce_gemm_gated.tall_launches,
+          sg.sparce_gemm_compacted.tall_launches)
+    again = sg.sparce_gemm_gated(x, w, bits, **kw)
+    comp = sg.sparce_gemm_compacted(x, w, bits, **kw)
+    torch.cuda.synchronize()
+    if (sg.sparce_gemm_gated.tall_launches - n0[0],
+            sg.sparce_gemm_compacted.tall_launches - n0[1]) != (1, 1):
+        raise AssertionError(f"{name}: the tall path did not run")
+    if not (same_bits(torch, again, got) and same_bits(torch, comp, got)):
+        raise AssertionError(f"{name}: a second call or the compacted "
+                             "kernel differs bit for bit")
+
+
 def check_train_gemm(torch, dev):
     """The gated GEMM at the three GEMMs of a training step's
     down-projection under ``mode="kernel"``, through ``ops.sparce_gemm``
@@ -1015,6 +1053,7 @@ def check_train_gemm(torch, dev):
     the card."""
     from repro_torch.core import sasa, sprf
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import sparce_gemm as sg
     M = TRAIN["batch"] * TRAIN["seq"]
     shapes = ((1536, M), (TP3_F, M), (1536, PIPE_MICRO_ROWS),
               (TP3_F, TRAIN["batch"] * SP_SEQ))
@@ -1040,16 +1079,33 @@ def check_train_gemm(torch, dev):
                                       tuple(x.shape))
                 return kops.sparce_gemm(x.to(where), y_rhs.to(where), plan,
                                         lhs_bitmap=bmp)
+            tall = sg.tall_path(*x.shape, y_rhs.shape[1], block_m=pm,
+                                block_k=pk, dtype=dtype)
+            if tall != (dtype == torch.bfloat16):
+                raise AssertionError(f"{name}: tall path {tall}")
+            n0 = sg.sparce_gemm_gated.tall_launches
             got = run(x, y_rhs, bits, dev)
+            moved = sg.sparce_gemm_gated.tall_launches - n0
             want = run(x, y_rhs, bits, torch.device("cpu"))
             torch.cuda.synchronize()
+            if moved != int(tall):
+                raise AssertionError(f"{name}: {moved} tall launches")
             scale = want.float().abs().max().item()
             err = check_close(f"{name} ({int(bits.sum())} of "
-                              f"{bits.numel()} tiles gated)", got.cpu(), want,
+                              f"{bits.numel()} tiles gated; "
+                              f"{'tall path, plan ' + str(sg.tall_plan(*x.shape, y_rhs.shape[1], block_m=pm, block_k=pk, dtype=dtype)) if tall else 'core'})",
+                              got.cpu(), want,
                               atol=rel * scale, rtol=0.0,
                               why=f"{rel} of max|want| {scale:.4e}: {why}")
             log(f"    max_abs_err / max|want| = {err / scale:.3e} "
                 f"(limit {rel})")
+            if tall:
+                check_tall_gemm(torch, dev, x.to(dev).contiguous(),
+                                y_rhs.to(dev).contiguous(), bits.to(dev),
+                                dict(block_m=pm, block_k=pk, block_n=pn),
+                                got, name)
+                if (label, F_, M_) == ("BP", 1536, M):
+                    TALL_ERRS["sparce_gemm_gated"] = err
             x2 = x.to(dev).contiguous().clone()
             for i, j in zip(*np.nonzero(bits.numpy())):
                 x2[i * pm:(i + 1) * pm, j * pk:(j + 1) * pk] = float("nan")
@@ -1058,10 +1114,38 @@ def check_train_gemm(torch, dev):
             if not (torch.isfinite(got2).all() and torch.equal(got2, got)):
                 raise AssertionError(f"{name}: NaN-poisoned gated tiles "
                                      "reached the output")
+    # The tall path at a ragged shape: rows, depth and columns past whole
+    # tiles and stages.
+    M_, K_, N_, pm, pk = TALL_RAGGED_GEMM
+    rng = np.random.default_rng(21)
+    x = rng.standard_normal((M_, K_), dtype=np.float32)
+    bits = (rng.random((-(-M_ // pm), -(-K_ // pk))) < 0.3).astype(np.int32)
+    w = rng.standard_normal((K_, N_), dtype=np.float32) / np.sqrt(K_)
+    x, w = (torch.from_numpy(a).to(dev, torch.bfloat16) for a in (x, w))
+    bits = torch.from_numpy(bits).to(dev)
+    kw = dict(block_m=pm, block_k=pk, block_n=128)
+    name = (f"sparce_gemm_gated bf16 tall ragged {M_}x{K_} @ {K_}x{N_} "
+            f"tiles ({pm}, {pk})")
+    got = sg.sparce_gemm_gated(x, w, bits, **kw)
+    want = sg.sparce_gemm_gated_plain(x, w, bits, **kw)
+    torch.cuda.synchronize()
+    rel, why = TRAIN_GEMM_REL["bfloat16"]
+    scale = want.float().abs().max().item()
+    check_close(name, got, want, atol=rel * scale, rtol=0.0,
+                why=f"{rel} of max|want| {scale:.4e}: {why}")
+    check_tall_gemm(torch, dev, x, w, bits, kw, got, name)
+    x2 = x.clone()
+    for i, j in zip(*np.nonzero(bits.cpu().numpy())):
+        x2[i * pm:(i + 1) * pm, j * pk:(j + 1) * pk] = float("nan")
+    if not same_bits(torch, sg.sparce_gemm_gated(x2, w, bits, **kw), got):
+        raise AssertionError(f"{name}: NaN-poisoned gated tiles reached y")
     log("  sparce_gemm_gated at the training step's FP, BP and WG shapes "
         f"(d_ff 1536, a tp-3 shard's {TP3_F}, a pipeline micro-batch's "
         f"{PIPE_MICRO_ROWS} rows, and phase 16's {TRAIN['batch'] * SP_SEQ} "
-        f"rows at F {TP3_F}): NaN-poisoned gated tiles never read -> ok")
+        f"rows at F {TP3_F}; bf16 on the tall path, f32 on the core; and "
+        f"the tall path at {M_}x{K_} @ {K_}x{N_}): NaN-poisoned gated "
+        "tiles never read, tall second calls and the compacted kernel "
+        "equal bit for bit -> ok")
 
 
 def check_mlp(torch, dev):
@@ -1079,23 +1163,36 @@ def check_mlp(torch, dev):
     # a training step's forward (8 x 512 tokens, the default 64-row tiles),
     # a dp-2 shard's (2048 rows) and phase 16's tp-3 shard (8 x SP_SEQ
     # rows, F 512).
+    # rows, F 1536, and phase 16's tp-3 shard (8 x SP_SEQ rows, F 512);
+    # those four take the tall path in bf16, as does a ragged one (M, K,
+    # F and N past whole tiles).
     cases = [(M, 1536, bm) for M, bm in RELU_CASES] + [
         (37, 1000, 1), (37, 1000, 64), (100, 1000, 64)] + [
         (TRAIN["batch"] * TRAIN["seq"], 1536, 64),
         (TRAIN["batch"] * TRAIN["seq"] // 2, 1536, 64),
-        (TRAIN["batch"] * SP_SEQ, TP3_F, 64)]
+        (TRAIN["batch"] * SP_SEQ, TP3_F, 64), (1100, 1000, 64, 568, 600)]
     for dtype in (torch.float32, torch.bfloat16):
         atol, rtol, why = RELU_TOLS[str(dtype)[6:]]
-        for M, F_, bm in cases:
+        for M, F_, bm, *kn in cases:
+            K_, N_ = kn or (576, 576)
             for act in ("relu", "relu2"):
                 x, wi, wo = mlp_case(torch, dev, dtype, seed=M + bm, M=M,
-                                     bm=bm, F=F_)
+                                     bm=bm, F=F_, K=K_, N=N_)
                 kw = dict(block_m=bm, block_f=bf, act=act)
+                tall = sm.tall_path(M, K_, F_, N_, block_m=bm, block_f=bf,
+                                    dtype=dtype)
+                n0 = sm.sparce_mlp_fused.tall_launches
                 y, bits = sm.sparce_mlp_fused(x, wi, wo, **kw)
+                moved = sm.sparce_mlp_fused.tall_launches - n0
                 y0, bits0 = sm.sparce_mlp_fused_plain(x, wi, wo, **kw)
                 torch.cuda.synchronize()
                 name = (f"sparce_mlp_fused {str(dtype)[6:]} {act} M={M} "
-                        f"F={F_} block_m={bm}")
+                        f"K={K_} F={F_} N={N_} block_m={bm}"
+                        + (" (tall path)" if tall else ""))
+                if moved != int(tall):
+                    raise AssertionError(f"{name}: tall launches differ")
+                if tall != (dtype == torch.bfloat16 and M >= 1024):
+                    raise AssertionError(f"{name}: tall path {tall}")
                 if not torch.equal(bits, bits0):
                     raise AssertionError(f"{name}: bits differ")
                 dead_t = (M // 2) // bm
@@ -1106,6 +1203,9 @@ def check_mlp(torch, dev):
                                   y, y0, atol=atol, rtol=rtol, why=why)
                 if dtype == torch.bfloat16 and M == 8 and act == "relu":
                     err_main = err
+                if tall and M == TRAIN["batch"] * TRAIN["seq"] and \
+                        act == "relu":
+                    TALL_ERRS["sparce_mlp_fused"] = err
                 y1, bits1 = sm.sparce_mlp_fused(x, wi, wo, **kw)
                 if not (same_bits(torch, y1, y)
                         and torch.equal(bits1, bits)):
@@ -2580,8 +2680,9 @@ def slice_rows(torch, dev):
     GQA kernel at musicgen-large's heads (32 KV heads of group 1,
     head_dim 64); the GLU kernel's gelu at musicgen's decode (8 rows,
     K = N = 2048, F = 8192); the fused relu MLP at a training step's
-    8 x 512 rows; the gated GEMM at the step's BP and WG shapes (30% of
-    the gated operand's tiles zero)."""
+    8 x 512 rows; the gated GEMM at the step's FP, BP and WG shapes (30%
+    of the gated operand's tiles zero; FP is the row added beside BP and
+    WG with the tall path, 600 launches in phase 12's GLU kernel run)."""
     from repro_torch.core import sprf
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import sparce_gemm as sg
@@ -2610,6 +2711,7 @@ def slice_rows(torch, dev):
     abits = sprf.compute_bitmap(a, (bm, bk)).bits
     gbits = sprf.compute_bitmap(gr, (bm, bn)).bits
     for label, lhs, rhs, bits, (pm, pk, pn) in (
+            ("FP", a, w, abits, (bm, bk, bn)),
             ("BP", gr, w.T.contiguous(), gbits, (bm, bn, bk)),
             ("WG", a.T.contiguous(), gr, abits.T.contiguous(),
              (bk, bm, bn))):
@@ -2628,6 +2730,65 @@ def slice_rows(torch, dev):
             (live * pm * pk + Kx * Nx + Mx * Nx) * 2 + bits.numel() * 4,
             2 * live * pm * pk * Nx, 100))
     return rows
+
+
+def tall_kernel_rows(torch, dev):
+    """The kernels-line rows of the two tall paths, with their launches
+    in phase 12's runs: the gated GEMM at row 5b's BP ``g @ w_out^T``
+    (4096 x 576 @ 576 x 1536, error tiles (64, 128), 30% gated) and the
+    fused relu MLP at row 3b's forward (4096 rows, tiles (64, 128)). The
+    bounds count the live tiles' operands and products only."""
+    from repro_torch.core import sprf
+    from repro_torch.kernels import sparce_gemm as sg
+    from repro_torch.kernels import sparce_mlp as sm
+    _, w, gr, (bm, bk, bn) = train_gemm_operands(torch, torch.bfloat16, 9)
+    lhs, rhs = gr.to(dev), w.T.contiguous().to(dev)
+    bits = sprf.compute_bitmap(lhs, (bm, bn)).bits
+    kw = dict(block_m=bm, block_k=bn, block_n=bk)
+    run = lambda: sg.sparce_gemm_gated(lhs, rhs, bits, **kw)  # noqa: E731
+    plain = lambda: sg.sparce_gemm_gated_plain(  # noqa: E731
+        lhs, rhs, bits, **kw)
+    M, K = lhs.shape
+    N = rhs.shape[1]
+    live = int(bits.numel() - bits.sum())
+    live_k = int((bits == 0).any(dim=0).sum())
+    row_g = kernel_row(
+        "sparce_gemm_gated (tall path)", "tall_gemm.cuh",
+        "src/repro/kernels/sparce_gemm.py:123",
+        TALL_ERRS.get("sparce_gemm_gated"), cuda_time_ms(run, 100),
+        cuda_time_ms(plain, 3, warmup=1), cuda_time_ms(lambda: lhs @ rhs,
+                                                       100),
+        2 * (live * bm * bn + live_k * bn * N + M * N) + 4 * bits.numel(),
+        2 * live * bm * bn * N,
+        f"training BP {tuple(lhs.shape)} @ {tuple(rhs.shape)}, tiles ({bm},"
+        f" {bn}), {live} live tiles, plan "
+        f"{sg.tall_plan(M, K, N, block_m=bm, block_k=bn, dtype=lhs.dtype)}"
+        " (g @ w_out^T as the library call)")
+    row_g["launches"] = TALL_LAUNCHES["glu kernel"]["sparce_gemm_gated"]
+
+    rng = np.random.default_rng(7)
+    M, K, F_, N = TRAIN["batch"] * TRAIN["seq"], 576, 1536, 576
+    x = bf16_normal(torch, dev, rng, M, K)
+    wi = bf16_normal(torch, dev, rng, K, F_, scale=K ** -0.5)
+    wo = bf16_normal(torch, dev, rng, F_, N, scale=F_ ** -0.5)
+    mkw = dict(block_m=64, block_f=128)
+    run = lambda: sm.sparce_mlp_fused(x, wi, wo, **mkw)  # noqa: E731
+    _, mbits = run()
+    live = int((mbits == 0).sum())
+    live_f = int((mbits == 0).any(dim=0).sum())
+    row_m = kernel_row(
+        "sparce_mlp_fused (tall path)", "sparce_mlp.cu",
+        "src/repro/kernels/sparce_mlp.py:111",
+        TALL_ERRS.get("sparce_mlp_fused"), cuda_time_ms(run, 100),
+        cuda_time_ms(lambda: sm.sparce_mlp_fused_plain(x, wi, wo, **mkw), 3,
+                     warmup=1),
+        cuda_time_ms(lambda: torch.relu(x @ wi) @ wo, 100),
+        2 * (M * K + K * F_ + live_f * 128 * N + M * N) + 4 * mbits.numel(),
+        2 * M * K * F_ + 2 * live * 64 * 128 * N,
+        f"training forward x=({M}, {K}) F={F_} N={N} tiles (64, 128), "
+        f"{live} live tiles (relu(x@w_in)@w_out as the library call)")
+    row_m["launches"] = TALL_LAUNCHES["relu fused"]["sparce_mlp_fused"]
+    return [row_g, row_m]
 
 
 # ------------------------------------------ phase 13: serving on a mesh
@@ -2943,13 +3104,18 @@ def run_training(torch, dev):
         wrappers = counters()
         for fn in wrappers.values():
             fn.launches = 0
+            if hasattr(fn, "tall_launches"):
+                fn.tall_launches = 0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res = tr.run(data)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {name: fn.launches for name, fn in wrappers.items()}
+        tall = {name: fn.tall_launches for name, fn in wrappers.items()
+                if getattr(fn, "tall_launches", 0)}
         out[label] = launches
+        TALL_LAUNCHES[label] = tall
         hist = [h for h in res["history"] if "loss" in h]
         losses = np.array([h["loss"] for h in hist])
         dts = np.array([h["dt"] for h in hist])
@@ -2960,6 +3126,10 @@ def run_training(torch, dev):
         got = {k: v for k, v in launches.items() if v}
         if got != want:
             raise AssertionError(f"{label}: launches {got}, expected {want}")
+        # At 8 x 512 rows in bf16 every launch takes the tall path.
+        if tall != got:
+            raise AssertionError(f"{label}: tall-path launches {tall}, "
+                                 f"expected {got}")
         first, last = losses[:5].mean(), losses[-5:].mean()
         if not last < first:
             raise AssertionError(f"{label}: mean loss of the last 5 steps "
@@ -2985,19 +3155,29 @@ def run_training(torch, dev):
         log(f"  train {label}: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
             f"(mean of the first 5 {first:.4f}, of the last 5 {last:.4f}; "
             f"ln V {floor:.4f}); every one of {n_mats} weight "
-            f"matrices moved; launches {got} -> ok")
+            f"matrices moved; launches {got}, on the tall path {tall} -> ok")
         if kernel == "sparce_gemm_gated":  # the slice's kernel path
-            profile_train(torch, tr, res, label)
+            profile_train(torch, tr, res, label, steady)
         del tr, res
         torch.cuda.empty_cache()
     return out
 
 
-def profile_train(torch, tr, res, label, steps=2):
+# The GLU kernel run's figures before the tall path (PERF.md section 5,
+# PRs 22-29): the gated GEMM's device ms a step and the step's ms.
+TRAIN_GEMM_MS_BEFORE = 22.0
+TRAIN_STEP_MS_BEFORE = (240, 419)
+# Tall-path launches of each phase-12 run, by kernel (the kernels line).
+TALL_LAUNCHES = {}
+
+
+def profile_train(torch, tr, res, label, steady, steps=2):
     """Two more steps of a finished run under the profiler, device
     activity only (tracing the host's ops too took ~20 s a window; the
     profiler's overhead still lengthens the wall time, so the busy share
-    printed is a lower bound)."""
+    printed is a lower bound); the gated GEMM's device ms a step
+    (``GEMM_KERNELS``) and the run's ms a step beside the figures before
+    the tall path."""
     from torch.profiler import ProfilerActivity, profile
     params, state = res["params"], res["opt_state"]
     data = train_data(seed=1)
@@ -3011,6 +3191,15 @@ def profile_train(torch, tr, res, label, steps=2):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     log_busy(torch, prof, wall, f"train {label} profiler ({steps} steps)")
+    gemm_us = sum(_dev_us(e) for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and any(n in e.key for n in GEMM_KERNELS))
+    lo, hi = TRAIN_STEP_MS_BEFORE
+    log(f"  train {label}: the gated GEMM's device time "
+        f"{gemm_us / 1e3 / steps:.3f} ms a step (before the tall path "
+        f"{TRAIN_GEMM_MS_BEFORE}); the run's steps 1-{TRAIN['steps'] - 1} "
+        f"{1e3 * steady:.2f} ms a step (before {lo}-{hi}; the step is "
+        "host-bound, so the GEMM's gain moves it by at most its share)")
 
 
 def train_batch(torch, cfg, where, seed):
@@ -5846,6 +6035,9 @@ def autotune_case(torch, dev, label, M, K, F_, N, dtype, s):
     by = model.modeled()
     realized = bits_0.float().mean().item()
     agree = plan.variant == model.variant
+    tall = (sm.tall_path(M, K, F_, N, dtype=x.dtype, **blocks),
+            sg.tall_path(M, F_, N, block_m=plan.block_m,
+                         block_k=plan.block_f, dtype=x.dtype))
     log(f"  {label} {M}x{K}x{F_}x{N} {dtype} s={s}: tiles "
         f"({plan.block_m}, {plan.block_f}), realized tile sparsity "
         f"{realized:.4f} ({int(bits_0.sum())}/{bits_0.numel()}); model "
@@ -5855,7 +6047,8 @@ def autotune_case(torch, dev, label, M, K, F_, N, dtype, s):
         f"{1e3 * timings['two_kernel']:.4f}; events ms fused "
         f"{ev['fused']:.4f}, two_kernel {ev['two_kernel']:.4f}; winner "
         f"{plan.variant} agree={agree}; max_abs_err fused {err_f:.3e}, "
-        f"two_kernel {err_t:.3e}; tuned in {seconds:.1f}s")
+        f"two_kernel {err_t:.3e}; tuned in {seconds:.1f}s; tall path: "
+        f"fused {tall[0]}, two_kernel's gated GEMM {tall[1]}")
     return dict(label=label, shape=(M, K, F_, N), dtype=dtype, s=s,
                 realized=realized, model=model.variant, winner=plan.variant,
                 agree=agree, timings=timings, events=ev)
@@ -6051,6 +6244,8 @@ def main(argv=None) -> int:
             phase_done(12)
         if phases & {11, 12}:
             time_rows(torch, dev, slice_rows(torch, dev))
+            if 12 in phases:
+                rows += tall_kernel_rows(torch, dev)
             phase_done("11-12 timing")
         if 13 in phases:
             log("phase 13: serving on a (data, model) mesh, every rank on "

@@ -52,7 +52,18 @@
 // exactly the products with Ra | Rb. At deepcomp fc6 (1 x 9216 @ 9216 x
 // 4096) that is 64 x 1 x 8 blocks, each walking at most 9 k tiles; bytes
 // bound it there.
+//
+// At training row counts a bf16 lhs-gated call (the gated and the
+// compacted kernel alike) takes the tall path instead, tall_gemm.cuh's
+// tall_gemm_kernel (wgmma fed by TMA, 128 x 128 or 128 x 192 output tiles,
+// one chunk but for a K of 2048 or more), when tall::gemm_ok holds
+// for its shapes and blocks (the wrapper's tall_path: M >= 512, row
+// tiles and k tiles multiples of 64, K and N multiples of 8). Both
+// kernels then run the same code on the same bits, so their outputs stay
+// equal bit for bit. f32, the rhs gate, the two-sided gate and every
+// shape outside the rule keep the core below.
 #include "skip_gemm.cuh"
+#include "tall_gemm.cuh"
 
 namespace {
 
@@ -289,4 +300,33 @@ extern "C" int sparce_gemm_gated_both(const void* x, const void* w,
 extern "C" int sparce_gemm_smem_bytes(int dtype, int nt8) {
   return (int)(dtype == 0 ? skip::smem_bytes<float>(nt8)
                           : skip::smem_bytes<__nv_bfloat16>(nt8));
+}
+
+// The tall path (lhs gate, bf16) of the gated and compacted GEMMs:
+// tall_gemm.cuh's kernel at column tile bn (128 or 192) with S k tiles a
+// chunk (the wrapper's tall_plan); partial: f32 scratch of ceil(ceil(K/
+// bk)/S) x M x N when that is more than one chunk, else unused. Refuses
+// (cudaErrorInvalidValue) shapes outside tall::gemm_ok and operands TMA
+// cannot address. Returns cudaGetLastError() after the launches.
+extern "C" int sparce_gemm_tall(const void* x, const void* w,
+                                const void* bits, void* y, void* partial,
+                                int M, int K, int N, int bm, int bk, int bn,
+                                int S, void* stream) {
+  if (!tall::gemm_ok(M, K, N, bm, bk) || S < 1 || !tall::tma_ok(x, K) ||
+      !tall::tma_ok(w, N))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bn == 128)
+    return tall::launch_gemm<128>(x, w, bits, y, partial, M, K, N, bm, bk, S,
+                                  s);
+  if (bn == 192)
+    return tall::launch_gemm<192>(x, w, bits, y, partial, M, K, N, bm, bk, S,
+                                  s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The C side of the wrapper's tall_path rule for a bf16 lhs-gated call:
+// 1 when these shapes and blocks take the tall path.
+extern "C" int sparce_gemm_tall_ok(int M, int K, int N, int bm, int bk) {
+  return tall::gemm_ok(M, K, N, bm, bk) ? 1 : 0;
 }

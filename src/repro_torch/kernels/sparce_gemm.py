@@ -34,6 +34,15 @@ added in ascending chunk order by a second launch inside the same C
 call. The chunks depend on ``(K, block_k)`` only, the same for every
 kernel, which is what keeps the gated and compacted outputs equal bit
 for bit.
+
+At training row counts a bf16 lhs-gated call, gated or compacted, takes
+the *tall path* (:func:`tall_path`, a function of the shapes, blocks,
+dtype and gate only): ``csrc/tall_gemm.cuh``'s kernel, wgmma fed by TMA
+over 128-row tiles, with the column tile and the chunks of
+:func:`tall_plan` (one chunk but for a WG's long reduction). Both
+wrappers then launch the same kernel with the same plan, so they stay
+equal bit for bit there too. Decode, f32, the rhs and two-sided gates
+keep the core above.
 """
 from __future__ import annotations
 
@@ -98,6 +107,101 @@ def partial_shape(m: int, k: int, n: int, block_k: int) -> tuple:
     itself)."""
     nc = num_chunks(k, block_k)
     return (nc, m, n) if nc > 1 else (0,)
+
+
+# ------------------------------------------------------------ tall path
+# The tall kernel's geometry (csrc/tall_gemm.cuh): 128-row tiles of two
+# 64-row warpgroups, 64-deep stages, column tiles of 128 or 192.
+TALL_MIN_ROWS = 512
+TALL_BM = 128
+TALL_STAGE_K = 64
+TALL_BN = (128, 192)
+TALL_MAX_CHUNKS = 8
+# K a chunk at least: K splits only from 2048 (a WG over 4096 tokens
+# runs 4 chunks; the FP's 1536 and BP's 576 run one).
+TALL_CHUNK_K = 1024
+
+
+def tall_path(m: int, k: int, n: int, *, block_m: int, block_k: int,
+              dtype: torch.dtype, gate: str = "lhs") -> bool:
+    """Whether a gated (or compacted) call takes the tall path: bf16 under
+    the lhs gate, at least ``TALL_MIN_ROWS`` rows (many 64-row slabs: a
+    pipeline micro-batch's 1024 and a tp-3 shard's WG over 512 rows
+    count, a 256-row prefill does not), row tiles whole 64-row
+    warpgroups, k tiles whole 64-deep stages, and K and N multiples of 8
+    (rows of whole 16-byte units, as TMA reads them). A function of the
+    shapes, blocks, dtype and gate only; ``csrc/tall_gemm.cuh:gemm_ok``
+    is its C side."""
+    return (dtype == torch.bfloat16 and gate == "lhs"
+            and m >= TALL_MIN_ROWS and k > 0 and n > 0
+            and block_m % 64 == 0 and block_k % TALL_STAGE_K == 0
+            and k % 8 == 0 and n % 8 == 0)
+
+
+def tall_plan(m: int, k: int, n: int, *, block_m: int, block_k: int,
+              dtype: torch.dtype, gate: str = "lhs"):
+    """The tall path's (column tile, k tiles a chunk) at these shapes, or
+    None off the path. A function of (K, N, block_k) only -- never of M
+    or the bits -- so a row's sum runs in the same order whatever the
+    call's row count (a pipeline micro-batch's rows equal the whole
+    batch's bit for bit, as the core's chunks of ``chunk_tiles(K,
+    block_k)`` keep them) and a gated and a compacted call at one shape
+    sum every output alike. The column tile is 192 where it divides N
+    (576 and 1536: 3 and 8 tiles, no ragged one), else 128; K splits into
+    K // ``TALL_CHUNK_K`` chunks (at most ``TALL_MAX_CHUNKS``), so only a
+    WG's reduction over a step's tokens splits, whose output tiles alone
+    leave most of the card idle."""
+    if not tall_path(m, k, n, block_m=block_m, block_k=block_k,
+                     dtype=dtype, gate=gate):
+        return None
+    gk = _ceil_div(k, block_k)
+    chunks = max(1, min(TALL_MAX_CHUNKS, gk, k // TALL_CHUNK_K))
+    return (192 if n % 192 == 0 else 128), _ceil_div(gk, chunks)
+
+
+def tall_partial_shape(m: int, k: int, n: int, *, block_k: int,
+                       chunk: int) -> tuple:
+    """The tall path's f32 scratch at ``chunk`` k tiles a chunk:
+    (chunks, M, N), or (0,) with one chunk (the kernel writes y)."""
+    chunks = _ceil_div(_ceil_div(k, block_k), chunk)
+    return (chunks, m, n) if chunks > 1 else (0,)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it on a 16-byte boundary (TMA's need; a view into
+    a larger tensor may start off one)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch_tall(x, w, bits, out_dtype, block_m, block_k, plan):
+    """Allocate y and the scratch and call ``sparce_gemm_tall``; returns
+    (y, cudaError)."""
+    _, (bits,) = _launch_checks("sparce_gemm_tall", x, w, out_dtype,
+                                bits=bits)
+    x, w = _aligned(x), _aligned(w)
+    m, k = x.shape
+    n = w.shape[1]
+    bn, s = plan
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    shape = tall_partial_shape(m, k, n, block_k=block_k, chunk=s)
+    partial = (torch.empty(shape, dtype=torch.float32, device=x.device)
+               if len(shape) == 3 else None)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = _build.function("sparce_gemm", "sparce_gemm_tall",
+                         [p] * 5 + [i] * 7 + [p])
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(x.data_ptr(), w.data_ptr(), bits.data_ptr(), y.data_ptr(),
+             None if partial is None else partial.data_ptr(), m, k, n,
+             block_m, block_k, bn, s, stream)
+    return y, err
+
+
+def tall_ok_c(m: int, k: int, n: int, *, block_m: int, block_k: int) -> bool:
+    """The C side of :func:`tall_path` for a bf16 lhs-gated call (builds
+    the library)."""
+    i = ctypes.c_int
+    fn = _build.function("sparce_gemm", "sparce_gemm_tall_ok", [i] * 5)
+    return bool(fn(m, k, n, block_m, block_k))
 
 
 def _launch_gemm(name, x, w, bits, out_dtype, block_k, *args, rbits=None):
@@ -192,9 +296,15 @@ def sparce_gemm_gated(
     if x.device.type != "cuda":
         raise ValueError(f"sparce_gemm_gated: unsupported device {x.device}")
     _check(x, w, bits, block_m, block_k, block_n, gate)
-    y, err = _launch_gemm("sparce_gemm_gated", x, w, bits, out_dtype,
-                          block_k, block_m, block_k, block_n,
-                          int(gate == "rhs"))
+    plan = tall_plan(x.shape[0], x.shape[1], w.shape[1], block_m=block_m,
+                     block_k=block_k, dtype=x.dtype, gate=gate)
+    if plan is not None:
+        y, err = _launch_tall(x, w, bits, out_dtype, block_m, block_k, plan)
+        sparce_gemm_gated.tall_launches += 1
+    else:
+        y, err = _launch_gemm("sparce_gemm_gated", x, w, bits, out_dtype,
+                              block_k, block_m, block_k, block_n,
+                              int(gate == "rhs"))
     sparce_gemm_gated.launches += 1
     if err != 0:
         raise RuntimeError(f"sparce_gemm_gated launch failed: cudaError {err}")
@@ -202,6 +312,7 @@ def sparce_gemm_gated(
 
 
 sparce_gemm_gated.launches = 0
+sparce_gemm_gated.tall_launches = 0  # of them, on the tall path
 
 
 # ------------------------------------------------------------- compacted
@@ -242,8 +353,14 @@ def sparce_gemm_compacted(
         raise ValueError(
             f"sparce_gemm_compacted: unsupported device {x.device}")
     _check(x, w, bits, block_m, block_k, block_n, "lhs")
-    y, err = _launch_gemm("sparce_gemm_compacted", x, w, bits, out_dtype,
-                          block_k, block_m, block_k)
+    plan = tall_plan(x.shape[0], x.shape[1], w.shape[1], block_m=block_m,
+                     block_k=block_k, dtype=x.dtype)
+    if plan is not None:
+        y, err = _launch_tall(x, w, bits, out_dtype, block_m, block_k, plan)
+        sparce_gemm_compacted.tall_launches += 1
+    else:
+        y, err = _launch_gemm("sparce_gemm_compacted", x, w, bits,
+                              out_dtype, block_k, block_m, block_k)
     sparce_gemm_compacted.launches += 1
     if err != 0:
         raise RuntimeError(
@@ -252,6 +369,7 @@ def sparce_gemm_compacted(
 
 
 sparce_gemm_compacted.launches = 0
+sparce_gemm_compacted.tall_launches = 0  # of them, on the tall path
 
 
 # ------------------------------------------------------ two-sided gate

@@ -22,6 +22,13 @@ for a live stripe write its partial down-projection to f32 scratch of
 :func:`partial_shape`; a second launch adds, per row, the partials of
 the stripes live in the row's tile, in a fixed order.
 
+At training row counts (:func:`tall_path`: bf16, (64, 128) tiles, at
+least 1024 rows, K at most 640) the kernel's tall path runs instead: a
+CTA per (64-row tile, 288 columns of N) computes each stripe's h with
+wgmma, sets the tile's bit, and adds the live stripes' down-projection
+into y held in registers across the stripes, written once; no scratch
+is allocated and no reduction launched.
+
 :func:`sparce_mlp_fused` is the entry point: a CUDA tensor launches the
 kernel (counted in ``launches``), a CPU tensor runs
 :func:`sparce_mlp_fused_plain`, which likewise reads only the live
@@ -34,6 +41,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.sparce_gemm import _aligned as _sg_aligned
 from repro_torch.kernels.sparce_glu_mlp import bit_grid, partial_shape
 
 ACTS = ("relu", "relu2")
@@ -52,6 +60,36 @@ def _check(x, w_in, w_out, block_m, block_f, act):
         raise ValueError(
             f"shape mismatch: x {tuple(x.shape)}, w_in {tuple(w_in.shape)}, "
             f"w_out {tuple(w_out.shape)}")
+
+
+# The tall kernel's geometry (csrc/sparce_mlp.cu, namespace tall_mlp).
+TALL_MIN_ROWS = 1024
+TALL_BLOCKS = (64, 128)  # (block_m, block_f): a CTA's rows, the stripe
+TALL_MAX_K = 640         # x's 64 rows stay in shared memory
+TALL_COLS = 288          # columns of y a CTA
+
+
+def tall_path(m: int, k: int, fdim: int, n: int, *, block_m: int,
+              block_f: int, dtype: torch.dtype) -> bool:
+    """Whether a call takes the tall path: bf16, the (64, 128) tiles of a
+    training step, at least 1024 rows (a dp-2 shard's 2048 and a whole
+    batch's 4096 do; the 256-row prefill and decode do not), K at most
+    640, and K, F and N multiples of 8 (rows of whole 16-byte units, as
+    TMA reads them). A function of the shapes, tiles and dtype only;
+    ``csrc/sparce_mlp.cu:tall_mlp::ok`` is its C side."""
+    return (dtype == torch.bfloat16
+            and (block_m, block_f) == TALL_BLOCKS and m >= TALL_MIN_ROWS
+            and 0 < k <= TALL_MAX_K and k % 8 == 0
+            and fdim > 0 and fdim % 8 == 0 and n > 0 and n % 8 == 0)
+
+
+def tall_ok_c(m: int, k: int, fdim: int, n: int, *, block_m: int,
+              block_f: int) -> bool:
+    """The C side of :func:`tall_path` for a bf16 call (builds the
+    library)."""
+    i = ctypes.c_int
+    fn = _build.function("sparce_mlp", "sparce_mlp_tall_ok", [i] * 6)
+    return bool(fn(m, k, fdim, n, block_m, block_f))
 
 
 def _activate_rounded(h: torch.Tensor, act: str, dtype) -> torch.Tensor:
@@ -125,15 +163,26 @@ def sparce_mlp_fused(
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     bits = torch.empty(bit_grid(m, fdim, block_m=block_m, block_f=block_f),
                        dtype=torch.int32, device=x.device)
-    partial = torch.empty(partial_shape(m, fdim, n, block_f=block_f),
-                          dtype=torch.float32, device=x.device)
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = _build.function("sparce_mlp", "sparce_mlp",
-                         [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p])
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), w_in.data_ptr(), w_out.data_ptr(), y.data_ptr(),
-             bits.data_ptr(), partial.data_ptr(), m, k, fdim, n, block_m,
-             block_f, int(act == "relu2"), dtype_id, stream)
+    if tall_path(m, k, fdim, n, block_m=block_m, block_f=block_f,
+                 dtype=x.dtype):
+        x, w_in, w_out = (_sg_aligned(t) for t in (x, w_in, w_out))
+        fn = _build.function("sparce_mlp", "sparce_mlp_tall",
+                             [p] * 5 + [i] * 7 + [p])
+        err = fn(x.data_ptr(), w_in.data_ptr(), w_out.data_ptr(),
+                 y.data_ptr(), bits.data_ptr(), m, k, fdim, n, block_m,
+                 block_f, int(act == "relu2"), stream)
+        sparce_mlp_fused.tall_launches += 1
+    else:
+        partial = torch.empty(partial_shape(m, fdim, n, block_f=block_f),
+                              dtype=torch.float32, device=x.device)
+        fn = _build.function("sparce_mlp", "sparce_mlp",
+                             [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p])
+        err = fn(x.data_ptr(), w_in.data_ptr(), w_out.data_ptr(),
+                 y.data_ptr(), bits.data_ptr(), partial.data_ptr(), m, k,
+                 fdim, n, block_m, block_f, int(act == "relu2"), dtype_id,
+                 stream)
     sparce_mlp_fused.launches += 1
     if err != 0:
         raise RuntimeError(
@@ -144,12 +193,15 @@ def sparce_mlp_fused(
 
 
 sparce_mlp_fused.launches = 0
+sparce_mlp_fused.tall_launches = 0  # of them, on the tall path
 
 
 def kernel_grid(m: int, k: int, fdim: int, n: int, *, block_m: int,
                 block_f: int, dtype: torch.dtype) -> dict:
-    """The CUDA kernel's launch at these shapes (builds the library):
-    CTAs, CTAs per cluster, rows per chunk and dynamic shared memory."""
+    """The cluster design's launch at these shapes (builds the library):
+    CTAs, CTAs per cluster, rows per chunk and dynamic shared memory.
+    Shapes on the tall path (:func:`tall_path`) launch the tall kernel
+    instead, a CTA per 64-row tile and 288 columns."""
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = _build.function("sparce_mlp", "sparce_mlp_grid", [i] * 7 + [p])
     out = (ctypes.c_int * 5)()

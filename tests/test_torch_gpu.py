@@ -945,6 +945,7 @@ def _bits_view(t):
     (169, 2304, 384, 168, 128, 128),  # 168-row tiles, ragged M
     (300, 1000, 250, 256, 128, 128),  # 256-row tiles, ragged M, K and N
     (37, 640, 200, 1, 128, 128),
+    (2048, 1536, 576, 64, 128, 128),  # bf16: both on the tall path
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_compacted_kernel_equals_gated_kernel_bit_for_bit(
@@ -1896,3 +1897,175 @@ def test_pipeline_forward_of_cuda_tensors_under_gloo(cuda, n_micro):
             np.testing.assert_allclose(got["x_grad"], xg.grad.cpu().numpy(),
                                        rtol=1e-5, atol=1e-6)
         assert got["stats"]["counts"]["collective-permute"] == n_micro + 1
+
+
+# ------------------------------------------- the tall paths (training rows)
+# (row, M, K, N, block_m, block_k): the gated GEMM at PERF.md's row 5b
+# (BP), 5c (WG), the FP row beside them, and a ragged shape (M, K and N
+# past whole tiles and stages).
+TALL_GEMMS = [("5b", 4096, 576, 1536, 64, 128),
+              ("5c", 1536, 4096, 576, 128, 64),
+              ("FP", 4096, 1536, 576, 64, 128),
+              ("ragged", 1100, 600, 1000, 64, 128)]
+
+
+def _tall_gemm_case(dev, M, K, N, bm, bk, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    w = (rng.standard_normal((K, N)) / np.sqrt(K)).astype(np.float32)
+    bits = (rng.random((-(-M // bm), -(-K // bk))) < 0.3).astype(np.int32)
+    bits[:, 1] = 1  # a k tile dead in every row tile: w never requested
+    xt, wt = (torch.from_numpy(a).to(dev, torch.bfloat16) for a in (x, w))
+    return xt, wt, bits, torch.from_numpy(bits).to(dev)
+
+
+@pytest.mark.parametrize("row,M,K,N,bm,bk", TALL_GEMMS)
+def test_tall_gemm_matches_plain_and_skips_what_the_bits_gate(
+        cuda, row, M, K, N, bm, bk):
+    """The tall path (bf16, lhs gate): within the training GEMMs' share
+    of max|y| of the plain version; a second call equal bit for bit; NaN
+    in every gated x tile and in w's rows of the k tile dead in every
+    row tile never reaching y; one launch counted, on the tall path."""
+    assert sg.tall_path(M, K, N, block_m=bm, block_k=bk,
+                        dtype=torch.bfloat16)
+    xt, wt, bits, bt = _tall_gemm_case(cuda, M, K, N, bm, bk, seed=M + N)
+    kw = dict(block_m=bm, block_k=bk, block_n=128)
+    before = (sg.sparce_gemm_gated.launches,
+              sg.sparce_gemm_gated.tall_launches)
+    y = sg.sparce_gemm_gated(xt, wt, bt, **kw)
+    assert (sg.sparce_gemm_gated.launches,
+            sg.sparce_gemm_gated.tall_launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    y0 = sg.sparce_gemm_gated_plain(xt, wt, bt, **kw)
+    rel, _ = TRAIN_GEMM_REL["bfloat16"]
+    torch.testing.assert_close(y.float(), y0.float(), rtol=0.0,
+                               atol=rel * y0.float().abs().max().item())
+    assert torch.equal(_bits_view(sg.sparce_gemm_gated(xt, wt, bt, **kw)),
+                       _bits_view(y))
+    x2, w2 = xt.clone(), wt.clone()
+    for i, j in zip(*np.nonzero(bits)):
+        x2[i * bm:(i + 1) * bm, j * bk:(j + 1) * bk] = float("nan")
+    w2[bk:2 * bk] = float("nan")
+    y2 = sg.sparce_gemm_gated(x2, w2, bt, **kw)
+    assert bool(torch.isfinite(y2).all()) and torch.equal(y2, y)
+
+
+def test_tall_gemm_rows_do_not_depend_on_the_row_count(cuda):
+    """A pipeline micro-batch's 1024 rows of the FP and the BP equal the
+    same rows of the whole 4096-row call bit for bit (the plan reads no
+    M), as the pipeline's check against one rank relies on."""
+    for M, K, N, bm, bk in ((4096, 1536, 576, 64, 128),
+                            (4096, 576, 1536, 64, 128)):
+        xt, wt, _, bt = _tall_gemm_case(cuda, M, K, N, bm, bk, seed=K)
+        kw = dict(block_m=bm, block_k=bk, block_n=128)
+        whole = sg.sparce_gemm_gated(xt, wt, bt, **kw)
+        part = sg.sparce_gemm_gated(xt[1024:2048].contiguous(), wt,
+                                    bt[16:32].contiguous(), **kw)
+        assert torch.equal(_bits_view(part), _bits_view(whole[1024:2048]))
+
+
+# (row, M, K, F, N): the fused relu MLP at row 3b (a training step's
+# forward) and at a ragged shape, (64, 128) tiles.
+TALL_MLPS = [("3b", 4096, 576, 1536, 576), ("ragged", 1100, 568, 1000, 600)]
+
+
+@pytest.mark.parametrize("row,M,K,F,N", TALL_MLPS)
+@pytest.mark.parametrize("act", ["relu", "relu2"])
+def test_tall_mlp_matches_plain_and_never_reads_a_dead_stripe(
+        cuda, row, M, K, F, N, act):
+    """The tall path: bits equal the plain version's, y within bf16
+    rounding, a second call equal bit for bit; NaN in the w_out rows of
+    the stripe dead in every row tile never reaches y, and NaN in a
+    stripe live in one row tile and dead in another never reaches the
+    dead tile's rows."""
+    assert sm.tall_path(M, K, F, N, block_m=64, block_f=128,
+                        dtype=torch.bfloat16)
+    rng = np.random.default_rng(M + F)
+    x = np.abs(rng.standard_normal((M, K))).astype(np.float32)
+    x[512:576] = 0.0  # row tile 8 dead
+    wi = (rng.standard_normal((K, F)) / np.sqrt(K)).astype(np.float32)
+    wi[:, 256:384] = -np.abs(wi[:, 256:384])  # stripe 2 dead everywhere
+    wo = (rng.standard_normal((F, N)) / np.sqrt(F)).astype(np.float32)
+    x, wi, wo = (torch.from_numpy(v).to(cuda, torch.bfloat16)
+                 for v in (x, wi, wo))
+    kw = dict(block_m=64, block_f=128, act=act)
+    before = sm.sparce_mlp_fused.tall_launches
+    y, bits = sm.sparce_mlp_fused(x, wi, wo, **kw)
+    assert sm.sparce_mlp_fused.tall_launches == before + 1
+    y0, bits0 = sm.sparce_mlp_fused_plain(x, wi, wo, **kw)
+    assert torch.equal(bits, bits0)
+    assert bool(bits[:, 2].all()) and bool(bits[8].all())
+    torch.testing.assert_close(y.float(), y0.float(), rtol=2e-2, atol=2e-2)
+    y1, bits1 = sm.sparce_mlp_fused(x, wi, wo, **kw)
+    assert torch.equal(_bits_view(y1), _bits_view(y))
+    assert torch.equal(bits1, bits)
+    wo2 = wo.clone()
+    wo2[256:384] = float("nan")
+    y2, bits2 = sm.sparce_mlp_fused(x, wi, wo2, **kw)
+    assert bool(torch.isfinite(y2).all()) and torch.equal(y2, y)
+    # A stripe live in some row tiles: row tile 8 is dead in all.
+    f = next(f for f in range(bits.shape[1])
+             if not bool(bits[:, f].all()))
+    wo3 = wo.clone()
+    wo3[f * 128:(f + 1) * 128] = float("nan")
+    y3, _ = sm.sparce_mlp_fused(x, wi, wo3, **kw)
+    dead = bits[torch.arange(M, device=cuda) // 64, f].bool()
+    assert torch.equal(y3[dead], y[dead])
+    assert bool(torch.isnan(y3[~dead]).any())
+
+
+def _kernel_names(run):
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def test_decode_shapes_launch_the_old_kernels_and_training_the_tall(cuda):
+    """By kernel name on the card: the decode tick (8 rows) and the
+    256-row prefill launch the core and cluster kernels, never a tall
+    one; a training step's 4096 rows launch the tall kernels and not the
+    core or the cluster kernel."""
+    def names(M, bm):
+        rng = np.random.default_rng(M)
+        K, F, N = 576, 1536, 576
+        t = lambda *s: torch.from_numpy(  # noqa: E731
+            rng.standard_normal(s).astype(np.float32)).to(
+                cuda, torch.bfloat16)
+        x, wi, wo, a = t(M, K), t(K, F), t(F, N), t(M, F)
+        bits = torch.zeros((-(-M // bm), F // 128), dtype=torch.int32,
+                           device=cuda)
+        gemm = _kernel_names(lambda: sg.sparce_gemm_gated(
+            a, wo, bits, block_m=bm, block_k=128, block_n=128))
+        mlp = _kernel_names(lambda: sm.sparce_mlp_fused(
+            x, wi, wo, block_m=bm, block_f=128))
+        return " ".join(gemm), " ".join(mlp)
+    for M, bm in ((8, 1), (256, 1), (256, 64)):
+        gemm, mlp = names(M, bm)
+        assert "gated_gemm_kernel" in gemm and "tall_gemm_kernel" not in gemm
+        assert "mlp_cluster_kernel" in mlp and "mlp_tall_kernel" not in mlp
+    gemm, mlp = names(4096, 64)
+    assert "tall_gemm_kernel" in gemm and "gated_gemm_kernel" not in gemm
+    assert "mlp_tall_kernel" in mlp and "mlp_cluster_kernel" not in mlp
+    assert "stripe_reduce_kernel" not in mlp
+
+
+@pytest.mark.parametrize("M", [8, 256, 511, 512, 1023, 1024, 4096])
+@pytest.mark.parametrize("K,N,bm,bk", [(576, 1536, 64, 128),
+                                       (4096, 576, 128, 64),
+                                       (600, 1000, 64, 128),
+                                       (570, 576, 64, 128),
+                                       (576, 576, 1, 128),
+                                       (576, 576, 64, 32)])
+def test_tall_rules_in_c_equal_the_wrappers(cuda, M, K, N, bm, bk):
+    """``csrc``'s mirrors of the path rules (tall::gemm_ok, tall_mlp::ok)
+    say what the wrappers' ``tall_path`` say, bf16."""
+    bf16 = torch.bfloat16
+    assert sg.tall_ok_c(M, K, N, block_m=bm, block_k=bk) == sg.tall_path(
+        M, K, N, block_m=bm, block_k=bk, dtype=bf16)
+    assert sm.tall_ok_c(M, K, bk * 12, N, block_m=bm, block_f=bk) == \
+        sm.tall_path(M, K, bk * 12, N, block_m=bm, block_f=bk, dtype=bf16)
